@@ -1,0 +1,14 @@
+"""Qwen1.5-32B [hf:Qwen/Qwen1.5-32B; shape per assignment].
+
+64L, d_model 5120, 40 heads with per-head KV (kv=40, i.e. MHA),
+d_ff 27392, vocab 152064, QKV bias (Qwen1.5 family trait).
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen1.5-32b", family="dense",
+    num_layers=64, d_model=5120, num_heads=40, num_kv_heads=40,
+    d_ff=27392, vocab_size=152064, head_dim=128,
+    qkv_bias=True, rope_theta=1e6,
+    source="hf:Qwen/Qwen1.5 family (bias QKV); assigned shape",
+)

@@ -1,0 +1,232 @@
+"""Serving CLI — a thin command line over the continuous-batching engine
+(``repro_torch/serving/``).  Port of ``repro/launch/serve.py``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
+        --paged --paged-kernel --slots 4 --requests 8 --prompt-len 64 \\
+        --mixed-lens --arrive-every 2 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
+        --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
+        --smoke --device cpu --naive
+
+It serves freshly initialised params (``torch.Generator`` seeded by
+``--seed`` on the serving device).  The reference's ``--algo``,
+``--replicas`` and ``--resume`` (serving a Parle state or a training
+checkpoint) wait for the port's training path; from a fresh init every
+Parle replica equals the init params, which is what is served here.
+Prompts come from a numpy generator seeded by ``--seed``.
+
+Modes:
+
+* default — the engine: ``--slots``-wide continuous batching, mixed
+  prompt lengths (``--mixed-lens``), staggered arrivals
+  (``--arrive-every``), greedy or ``--temperature``/``--top-k``.
+* ``--naive`` — the one-request-at-a-time reference loop (first token
+  from the prefill logits; measured after a warm-up pass).
+* ``--paged`` — the paged KV cache: ``--page-size`` token pages behind
+  per-slot page tables, ``--prefill-chunk``-token chunked prefill
+  interleaved with decode, hash-matched prefix sharing, and
+  page-exhaustion backpressure (``--num-pages`` bounds the pool).
+  ``--paged-kernel`` decodes through the CUDA paged-attention kernel.
+
+Runs on ``cuda`` unless ``--device cpu``; wall times end on a device
+synchronisation.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config, smoke_variant
+from repro_torch.models.model import build_model, cache_positions
+from repro_torch.obs import Obs
+from repro_torch.serving import (Engine, SamplingParams, make_naive_fns,
+                                 naive_generate)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def prompt_lengths(args):
+    if not args.mixed_lens:
+        return [args.prompt_len] * args.requests
+    # a deterministic spread around --prompt-len (at least 4 tokens)
+    base = args.prompt_len
+    return [max(4, base - 1 + (3 * i) % (base // 2 + 2))
+            for i in range(args.requests)]
+
+
+def make_requests(cfg, args):
+    """Per-request prompts drawn from ``np.random.default_rng(--seed)``."""
+    lens = prompt_lengths(args)
+    rng = np.random.default_rng(args.seed)
+    toks = rng.integers(0, cfg.vocab_size, size=(args.requests, max(lens)),
+                        dtype=np.int32)
+    return [{"tokens": toks[i, :T]} for i, T in enumerate(lens)]
+
+
+def init_params(cfg, args, device):
+    """Fresh params on ``device`` from ``torch.Generator`` seed --seed."""
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    return build_model(cfg).init(gen)
+
+
+def naive_serve(cfg, params, requests, args, obs, device):
+    """One request at a time, batch=1 — the engine's oracle.  The first
+    pass is a warm-up; the second, device-synced, is reported."""
+    fns = make_naive_fns(cfg, SamplingParams(args.temperature, args.top_k))
+    model = build_model(cfg)
+    max_len = max(r["tokens"].shape[-1] for r in requests) + args.gen
+
+    def one_pass():
+        outs, pos = [], []
+        t0 = time.perf_counter()
+        for i, r in enumerate(requests):
+            batch = {"tokens": torch.as_tensor(r["tokens"], device=device)[None]}
+            cache = model.init_cache(params, 1, max_len)
+            gen = torch.Generator(device=device).manual_seed(args.seed + 1 + i)
+            toks, cache = naive_generate(fns, params, batch, cache, args.gen,
+                                         generator=gen)
+            outs.append(toks[0].cpu().numpy())
+            pos.append(int(cache_positions(cache)))
+        _sync(device)
+        return outs, pos, time.perf_counter() - t0
+
+    _, _, cold_s = one_pass()            # warm-up
+    outs, pos, warm_s = one_pass()       # steady state
+    gen_total = sum(o.size for o in outs)
+    rep = obs.emit(
+        "serve_summary", phase="naive", requests=len(requests),
+        new_tokens=int(gen_total), warmup_s=round(cold_s, 3),
+        wall_s=round(warm_s, 3),
+        tokens_per_s=round(gen_total / max(warm_s, 1e-9), 1),
+        cache_positions=pos, sample=outs[0].reshape(-1)[:8].tolist())
+    print(json.dumps(rep), flush=True)
+    return outs, rep
+
+
+def make_engine(cfg, params, requests, args, obs, device):
+    return Engine(cfg, params, num_slots=args.slots,
+                  max_len=max(r["tokens"].shape[-1] for r in requests)
+                  + args.gen,
+                  decode_chunk=args.decode_chunk,
+                  sampling=SamplingParams(args.temperature, args.top_k),
+                  seed=args.seed, paged=args.paged,
+                  page_size=args.page_size,
+                  num_pages=args.num_pages if args.num_pages > 0 else None,
+                  prefill_chunk=args.prefill_chunk,
+                  use_paged_kernel=args.paged_kernel,
+                  registry=obs.registry, tracer=obs.tracer, device=device)
+
+
+def engine_serve(cfg, params, requests, args, obs, device):
+    """Serve ``requests`` through one engine.  Returns (results {uid:
+    tokens}, engine, the printed ``serve_summary`` record)."""
+    engine = make_engine(cfg, params, requests, args, obs, device)
+    for i, r in enumerate(requests):
+        engine.submit(r["tokens"], max_new_tokens=args.gen,
+                      eos_id=args.eos_id if args.eos_id >= 0 else None,
+                      arrival=(i // max(args.slots, 1)) * args.arrive_every)
+    t0 = time.perf_counter()
+    results = engine.run()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    gen_total = sum(int(np.asarray(t).size) for t in results.values())
+    rep = engine.throughput()
+    rep.update({
+        "phase": "engine", "requests": len(requests), "slots": args.slots,
+        "decode_chunk": args.decode_chunk, "new_tokens": gen_total,
+        "wall_s": round(wall, 3), "device": str(device),
+        "sample": np.asarray(results[0]).reshape(-1)[:8].tolist(),
+    })
+    if args.paged:
+        rep.update({"paged": True, "paged_kernel": args.paged_kernel,
+                    "page_size": args.page_size,
+                    "num_pages": engine.num_pages,
+                    "prefill_chunk": engine.prefill_chunk_len})
+    rep = obs.emit("serve_summary", **rep)
+    print(json.dumps(rep), flush=True)
+    return results, engine, rep
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where to serve (no silent fallback to the CPU)")
+    ap.add_argument("--requests", "--batch", dest="requests", type=int,
+                    default=4, help="number of requests to serve")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="decode-batch width of the engine")
+    ap.add_argument("--decode-chunk", type=int, default=8,
+                    help="decode steps per engine step")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--mixed-lens", action="store_true",
+                    help="vary prompt lengths across requests")
+    ap.add_argument("--arrive-every", type=int, default=0,
+                    help="stagger arrivals: each slot-sized wave of "
+                         "requests arrives this many engine steps apart")
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--eos-id", type=int, default=-1,
+                    help="stop a request early on this token (-1: off)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy")
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--naive", action="store_true",
+                    help="the one-request-at-a-time reference loop")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache: page-pool layout, chunked "
+                         "prefill, prefix sharing, backpressure")
+    ap.add_argument("--paged-kernel", action="store_true",
+                    help="paged decode attention through the CUDA kernel "
+                         "(needs --paged)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page (paged mode)")
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="page-pool size incl. the trash page "
+                         "(0: slots * ceil(max_len/page_size) + 1)")
+    ap.add_argument("--prefill-chunk", type=int, default=32,
+                    help="prompt tokens prefilled per engine step "
+                         "(paged mode; interleaves with decode)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--metrics-out", default="",
+                    help="write schema-versioned metrics/event JSONL here")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome-trace JSON (prefill / decode "
+                         "spans) here")
+    args = ap.parse_args(argv)
+    if args.paged_kernel and not args.paged:
+        ap.error("--paged-kernel needs --paged")
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+    params = init_params(cfg, args, device)
+    print(json.dumps({"serving": "init", "arch": cfg.name,
+                      "mode": "naive" if args.naive else "engine",
+                      "device": str(device)}), flush=True)
+
+    obs = Obs(args.metrics_out, args.trace_out, process_name="serve")
+    requests = make_requests(cfg, args)
+    if args.naive:
+        naive_serve(cfg, params, requests, args, obs, device)
+    else:
+        engine_serve(cfg, params, requests, args, obs, device)
+    obs.finalize()
+
+
+if __name__ == "__main__":
+    main()

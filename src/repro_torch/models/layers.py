@@ -1,0 +1,63 @@
+"""Shared building blocks: RMSNorm, RoPE, SwiGLU, initializers.
+
+Port of ``repro/models/layers.py``.  Weights keep the reference layout,
+``(d_in, d_out)``, so every projection is ``x @ w``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def dense_init(generator: torch.Generator, shape, in_axis=-2,
+               dtype=torch.float32):
+    """LeCun-normal fan-in init, drawn on ``generator``'s device."""
+    fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
+    w = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    w.normal_(generator=generator).div_(math.sqrt(fan_in))
+    return w.to(dtype)
+
+
+def embed_init(generator: torch.Generator, shape, dtype=torch.float32):
+    w = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    return w.normal_(generator=generator).mul_(0.02).to(dtype)
+
+
+def rms_norm(x, weight, eps=1e-5):
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * weight).to(dtype)
+
+
+def silu(x):
+    return x * torch.sigmoid(x)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    """SwiGLU MLP: down( silu(x @ gate) * (x @ up) )."""
+    return (silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+# ------------------------------------------------------------------
+# Rotary position embeddings
+# ------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., T, H, hd); positions: (..., T) int32."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, device=x.device)       # (hd/2,)
+    angles = positions[..., None].float() * freqs              # (..., T, hd/2)
+    cos = torch.cos(angles)[..., None, :]                      # (..., T, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,144 @@
+"""Family dispatch: a uniform Model API over the architecture families.
+
+Port of ``repro/models/model.py`` (dense family only so far).
+
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device).manual_seed(0))
+    logits, aux = model.apply(params, batch)          # forward
+    cache      = model.init_cache(params, batch_size, max_len)
+    logits, cache = model.prefill(params, batch, cache)
+    logits, cache = model.decode(params, batch, cache)
+
+``batch`` is a dict holding ``tokens`` (B, T) for the dense family.
+
+Cache position contract (``cache_positions`` / ``with_cache_positions``):
+every cache tuple carries one or more ``pos`` fields counting tokens
+absorbed so far.  ``prefill`` over T tokens advances pos by EXACTLY T and
+each ``decode`` call by EXACTLY 1 — so after prefill(T) + G decodes,
+``cache_positions(cache) == T + G``.  The first generated token comes
+from the PREFILL logits (``logits[:, -1]``).  ``pos`` may be a scalar or a
+(B,) vector — the serving engine uses the vector form so every batch
+row (slot) keeps its own offset.  Cache buffers are updated in place;
+the returned tuple names the same storage with the new ``pos``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.models import transformer as tfm
+from repro_torch.models.attention import _FLASH_NOT_PORTED
+
+_NOT_PORTED = ("family {fam!r} is not ported yet (ROADMAP.md queue 1, "
+               "'Other model families')")
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: Any
+    init: Callable               # (generator, dtype=f32) -> params
+    apply: Callable              # (params, batch) -> (logits, aux)
+    init_cache: Callable         # (params, batch_size, max_len) -> cache
+    prefill: Callable            # (params, batch, cache[, valid]) ->
+                                 # (logits, cache); ``valid`` marks tokens
+                                 # >= valid as bucket padding
+    decode: Callable             # (params, batch, cache) -> (logits, cache)
+    # paged serving — page-pool cache, chunked prefill, masked decode
+    init_paged_cache: Callable = None
+    # (params, num_slots, num_pages, page_size, max_pages) -> cache
+    prefill_chunk: Callable = None
+    # (params, batch, cache, slot, frontier, valid, total) -> (logits, cache):
+    # one (1, C)-token chunk of one slot's prompt; ``frontier`` its absolute
+    # start, ``valid`` the live rows, ``total`` the full prompt extent
+    decode_paged: Callable = None
+    # (params, batch, cache, active) -> (logits, cache): one decode step over
+    # the slot batch; ``active`` (B,) bool freezes inactive rows
+    paged_to_dense: Callable = None
+    # (paged_cache) -> dense cache view: page tables are constant within a
+    # decode chunk, so the engine gathers once and loops plain ``decode``
+    paged_restore: Callable = None
+    # (paged_cache, dense_cache, active, steps) -> paged_cache: scatter the
+    # chunk's view back (inactive rows -> trash page, pos frozen)
+
+
+def is_pos_entry(name) -> bool:
+    """Whether a cache field name names a position counter."""
+    return name == "pos"
+
+
+def _is_cache(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_asdict")
+
+
+def _find_pos(cache):
+    for name, leaf in cache._asdict().items():
+        if is_pos_entry(name):
+            return leaf
+        if _is_cache(leaf):
+            found = _find_pos(leaf)
+            if found is not None:
+                return found
+    return None
+
+
+def cache_positions(cache):
+    """The cache's token count: () or (B,) int32.
+
+    Every cache NamedTuple (nested or not) tags its counters as ``pos``
+    fields; they all advance in lockstep, so any one of them is *the*
+    position.  Returns the first.
+    """
+    pos = _find_pos(cache)
+    if pos is None:
+        raise ValueError("cache has no 'pos' field")
+    return pos
+
+
+def with_cache_positions(cache, pos):
+    """Return ``cache`` with EVERY ``pos`` field replaced by ``pos``.
+
+    Passing a (num_slots,) vector switches the cache to per-slot
+    offsets — the layout the serving engine decodes with.  Each field
+    gets its own buffer: several pos fields must not alias, since they
+    are updated in place.
+    """
+    pos = torch.as_tensor(pos, dtype=torch.int32)
+    repl = {}
+    for name, leaf in cache._asdict().items():
+        if is_pos_entry(name):
+            repl[name] = pos.to(leaf.device).clone()
+        elif _is_cache(leaf):
+            repl[name] = with_cache_positions(leaf, pos)
+    return cache._replace(**repl)
+
+
+def build_model(cfg, use_flash: bool = False,
+                use_paged_kernel: bool = False) -> Model:
+    """``use_paged_kernel`` sends paged decode attention through the
+    paged-attention kernel (K8); ``use_flash`` (K3) is not ported yet."""
+    if use_flash:
+        raise NotImplementedError(_FLASH_NOT_PORTED)
+    fam = cfg.family
+    if fam != "dense":
+        raise NotImplementedError(_NOT_PORTED.format(fam=fam))
+    return Model(
+        cfg=cfg,
+        init=lambda generator, dtype=torch.float32:
+            tfm.init_params(generator, cfg, dtype),
+        apply=lambda p, b: tfm.forward(p, cfg, b["tokens"]),
+        init_cache=lambda p, bs, ml, dtype=torch.float32:
+            tfm.init_cache(p, cfg, bs, ml, dtype),
+        prefill=lambda p, b, c, valid=None: tfm.prefill(p, cfg, b["tokens"], c),
+        decode=lambda p, b, c: tfm.decode_step(p, cfg, b["tokens"], c),
+        init_paged_cache=lambda p, bs, np_, ps, mp, dtype=torch.float32:
+            tfm.init_paged_cache(p, cfg, bs, np_, ps, mp, dtype),
+        prefill_chunk=lambda p, b, c, slot, frontier, valid, total:
+            tfm.prefill_chunk(p, cfg, b["tokens"], c, slot, frontier, valid),
+        decode_paged=lambda p, b, c, active:
+            tfm.decode_step_paged(p, cfg, b["tokens"], c, active,
+                                  use_kernel=use_paged_kernel),
+        paged_to_dense=tfm.paged_to_dense,
+        paged_restore=tfm.paged_restore,
+    )

@@ -13,6 +13,10 @@ def pytest_configure(config):
         "markers",
         "slow: long-running coverage, excluded from the tier-1 default "
         "run (pytest.ini addopts); select with -m slow")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card; skips (inside a fixture) where there is "
+        "none; select with -m gpu")
 
 
 @pytest.fixture(scope="session")

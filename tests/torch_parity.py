@@ -1,0 +1,67 @@
+"""Shared helpers of the PyTorch-port parity tests (not a test module).
+
+Every input is drawn with numpy from a seed and handed to both
+packages: the JAX reference (``repro``) gets ``jnp`` arrays, the port
+(``repro_torch``) gets CPU tensors through ``params_from_numpy``.
+"""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro.models.model import build_model as ref_build_model
+from repro_torch.models.convert import params_from_numpy
+
+torch.set_float32_matmul_precision("highest")
+
+# f32 logits after a few layers: different summation orders in XLA's
+# and PyTorch's CPU matmuls leave ~1e-6 relative differences
+MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
+# one attention op on small inputs, the reference kernel test's bound
+KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def numpy_params(cfg, seed: int = 0):
+    """A param tree with the reference's names and shapes, drawn with
+    numpy: fan-in scaled projections, small embeddings, norm weights
+    and QKV biases away from their trivial 1 / 0 so both are exercised."""
+    shapes = jax.eval_shape(ref_build_model(cfg).init, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, sd):
+        name = jax.tree_util.keystr(path)
+        z = rng.standard_normal(sd.shape).astype(np.float32)
+        if "embed" in name:
+            return z * np.float32(0.02)
+        if name.endswith("['bq']") or name.endswith("['bk']") \
+                or name.endswith("['bv']"):
+            return z * np.float32(0.1)
+        if "ln" in name:
+            return np.float32(1.0) + np.float32(0.1) * z
+        return z / np.float32(np.sqrt(sd.shape[-2]))
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def both_params(cfg, seed: int = 0):
+    """(reference params as jnp, port params as CPU tensors), equal."""
+    tree = numpy_params(cfg, seed)
+    return jax.tree.map(jnp.asarray, tree), params_from_numpy(tree, "cpu")
+
+
+def max_err(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a, np.float64)
+                                - np.asarray(b, np.float64))))
+
+
+def assert_close(port, ref, tol, what=""):
+    """``port`` (torch) against ``ref`` (jax or numpy); prints and
+    returns the max absolute error measured (``pytest -s`` shows it)."""
+    p = port.detach().cpu().numpy() if isinstance(port, torch.Tensor) else port
+    r = np.asarray(ref)
+    np.testing.assert_allclose(p, r, err_msg=what, **tol)
+    err = max_err(p, r)
+    print(f"[parity] {what}: max_abs_err {err:.3e}")
+    return err
