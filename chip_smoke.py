@@ -8,23 +8,39 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and
 itself and, in order:
 
 1. prints the card (``nvidia-smi`` name and power limit, and torch's name);
-2. builds every CUDA kernel from ``src/repro_torch/csrc`` and prints the
-   build time and ``nvcc -Xptxas -v``'s register / shared-memory report;
-3. holds each kernel against its plain PyTorch version on the card,
-   within atol = rtol = 2e-5, at the unit-test shapes, a shared-pages
-   case, a length-1 case and the main path's shapes;
-4. times the kernel, its plain version and one PyTorch library call at
-   the main path's shapes (CUDA events, L2 flushed before every launch)
-   beside the least time the card could take;
-5. serves the main path through the port's serve CLI functions:
-   full-width Qwen2.5-3B in float32 (random params, torch.Generator
-   seed 0), the paged engine decoding through the K8 kernel, 8 requests
-   of 63-84 prompt tokens, 32 greedy tokens each; asserts every request
-   got its tokens, that K8 launched exactly num_layers x decode steps,
-   and that the tokens equal the gather path's (no kernel) on the card;
-   then serves it once more under ``torch.profiler`` for the device's
-   busy share and the kernels that take its time;
-6. prints one JSON line of per-kernel numbers, then, last, the device
+2. builds every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
+   per source, all started together) and prints the build times and
+   ``nvcc -Xptxas -v``'s register / shared-memory report;
+3. holds each kernel against its plain PyTorch version on the card:
+   K8 (paged attention) within atol = rtol = 2e-5 at the unit-test
+   shapes, a shared-pages case, a length-1 case and the serve path's
+   shapes; K1 (Parle inner step) and K2 (sync step) bit for bit at
+   ragged lengths, 1-3 replicas, bf16 y/g (K1), with and without the
+   fused bf16 y' (K2), and with each scalar bumped (the result moves);
+4. times each kernel, its plain version and, where one exists, one
+   PyTorch library call (CUDA events, L2 flushed before every launch)
+   beside the least time the card could take: K8 at the serve path's
+   shapes, K1 and K2 at 2 replicas x 2^26 float32 elements;
+5. serves through the port's serve CLI functions: full-width
+   Qwen2.5-3B in float32 (random params, torch.Generator seed 0), the
+   paged engine decoding through K8, 8 requests of 63-84 prompt tokens,
+   32 greedy tokens each; asserts every request got its tokens, that K8
+   launched exactly num_layers x decode steps, and that the tokens equal
+   the gather path's (no kernel); then profiles that run;
+6. trains through the port's train CLI functions, under deterministic
+   algorithms: full-width Qwen2.5-3B (d_model 2048, 16 q / 2 KV heads,
+   head_dim 128, d_ff 11008, vocab 151936) with its depth cut from 36
+   to 4 layers — one float32 copy of 4 layers is 3.72 GB, the Parle
+   state holds five per replica, and 36 layers at 2 replicas would need
+   177 GB — Parle with 2 replicas, L = 4, 2 rounds (8 steps, 2 syncs),
+   batch 2 x 256 tokens per replica, ``--use-kernel --round-fused``;
+   asserts K1 launched 8 times and K2 twice, every loss is finite, and
+   the same run without ``--use-kernel`` gives the same losses and the
+   same final x bit for bit; then profiles one more round, and runs one
+   round in bf16 (``--precision bf16``) with and without the kernels
+   (bit for bit again); then holds K1 and K2 against their plain
+   versions at the training shape;
+7. prints one JSON line of per-kernel numbers, then, last, the device
    line ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: a failing phase exits non-zero and prints no device
@@ -32,13 +48,20 @@ line.  Without a CUDA card it exits 2 before doing anything.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
 
-import torch
+# cuBLAS reads its workspace setting once, at its first use: deterministic
+# float32 products for the training phase's bitwise comparison
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -46,11 +69,13 @@ from repro_torch import resolve_device  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.kernels import parle_update as pu  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.obs import Obs  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
+SOURCES = ("paged_attention.cu", "parle_update.cu")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 F32_FLOP_PER_S = 67e12           # H100 SXM float32, outside tensor cores
 L2_FLUSH_BYTES = 64 * 2 ** 20    # > the 50 MB L2
@@ -142,10 +167,15 @@ def device_phase():
 
 def build_phase():
     phase("2. kernel build")
-    lib = build.load("paged_attention.cu")
-    print(f"paged_attention.cu -> {lib.path.name}: nvcc {lib.build_s:.2f} s "
-          f"({' '.join(build.NVCC_FLAGS)})")
-    print(lib.report.strip() or "(loaded from an earlier build)", flush=True)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as ex:
+        libs = list(ex.map(build.load, SOURCES))
+    for src, lib in zip(SOURCES, libs):
+        print(f"{src} -> {lib.path.name}: nvcc {lib.build_s:.2f} s "
+              f"({' '.join(build.NVCC_FLAGS)})")
+        print(lib.report.strip() or "(loaded from an earlier build)",
+              flush=True)
+    print(f"build phase {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def check_phase(device) -> float:
@@ -227,6 +257,389 @@ def timing_phase(device) -> dict:
     return timing
 
 
+INNER_SCALARS = (0.1, 0.05, 0.9, 0.75)     # inv_gamma, lr, mu, alpha
+SYNC_SCALARS = (1.0, 2.0, 0.1, 0.9)        # gamma_scale, inv_rho, lr, mu
+PARLE_CASES = {                            # replicas, elements per replica
+    "ragged_n1": (1, 1001, torch.float32),
+    "ragged_n2": (2, 8195, torch.float32),
+    "aligned_n3": (3, 3 * 8192, torch.float32),
+    "bf16_ragged_n3": (3, 1001, torch.bfloat16),
+    "bf16_n2": (2, 4 * 8192, torch.bfloat16),
+}
+PARLE_TIMING = (2, 1 << 26)                # 2 replicas x 2^26 float32
+RANDN_CHUNK = 1 << 26                      # main-path inputs drawn in chunks
+
+
+def _randn(seed, shape, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=device)
+
+
+def _k1(y, z, v, g, x, scalars, device):
+    """(kernel outputs, plain outputs) of K1 on copies of the inputs."""
+    s = pu.pack_scalars(*scalars, device=device)
+    want = pu.parle_inner_update_plain(y, z, v, g, x, s)
+    got = pu.parle_inner_update_cuda(y.clone(), z.clone(), v.clone(), g, x, s)
+    return got, want
+
+
+def _k2(x, z, v, xbar, scalars, emit_y, device):
+    s = pu.pack_scalars(*scalars, device=device)
+    y_dtype = torch.bfloat16 if emit_y else None
+    want = pu.parle_sync_update_plain(x, z, v, xbar, s, y_dtype=y_dtype)
+    y_out = torch.empty_like(x, dtype=torch.bfloat16) if emit_y else None
+    got = pu.parle_sync_update_cuda(x.clone(), z, v.clone(), xbar, s,
+                                    y_out=y_out)
+    return got, want
+
+
+def _bump(scalars, i):
+    return tuple(s * 1.5 + 0.25 if j == i else s
+                 for j, s in enumerate(scalars))
+
+
+def parle_check_phase(device) -> dict:
+    """K1 and K2 against their plain versions, bit for bit, at every
+    case; each scalar bumped must move the result.  Returns the largest
+    absolute error seen per kernel (0.0 when every case is bitwise)."""
+    phase("3b. K1 and K2 against their plain versions (bitwise)")
+    errs = {"parle_inner_update": 0.0, "parle_sync_update": 0.0}
+    for i, (name, (n, m, dtype)) in enumerate(PARLE_CASES.items()):
+        y, z, v, g, x = (_randn(100 * i + s, (n, m), device)
+                         for s in range(5))
+        y, g = y.to(dtype), g.to(dtype)
+        got, want = _k1(y, z, v, g, x, INNER_SCALARS, device)
+        torch.cuda.synchronize(device)
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, want))
+        errs["parle_inner_update"] = max(errs["parle_inner_update"], err)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"K1 differs from its plain version on {name} ({err:.3e})")
+        for j in range(4):
+            moved, _ = _k1(y, z, v, g, x, _bump(INNER_SCALARS, j), device)
+            check(not all(torch.equal(a, b) for a, b in zip(moved, got)),
+                  f"K1 ignores scalar {j} on {name}")
+        line = [f"{name}: (n {n}, M {m}, {str(dtype)[6:]}) K1 bitwise"]
+        # any (M,) row: with one replica its own mean would cancel inv_rho
+        xbar = _randn(100 * i + 5, (m,), device)
+        for emit_y in (False, True):
+            got, want = _k2(x, z, v, xbar, SYNC_SCALARS, emit_y, device)
+            torch.cuda.synchronize(device)
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(got, want))
+            errs["parle_sync_update"] = max(errs["parle_sync_update"], err)
+            check(len(got) == len(want)
+                  and all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"K2 (y' {emit_y}) differs from its plain version on "
+                  f"{name} ({err:.3e})")
+            if emit_y:
+                check(torch.equal(got[2], got[0].to(torch.bfloat16)),
+                      "K2's fused y' is not bf16(x')")
+            for j in range(4):
+                moved, _ = _k2(x, z, v, xbar, _bump(SYNC_SCALARS, j), emit_y,
+                               device)
+                check(not all(torch.equal(a, b) for a, b in zip(moved, got)),
+                      f"K2 ignores scalar {j} on {name}")
+            line.append(f"K2{' + bf16 y' if emit_y else ''} bitwise")
+        print(", ".join(line) + "; every scalar moves both", flush=True)
+    return errs
+
+
+def parle_main_shape_phase(device, n, m) -> dict:
+    """K1 and K2 at the training path's shape, (n, m) float32, against
+    their plain versions.  The inputs are drawn column chunk by column
+    chunk from per-chunk seeds, so after the kernel has run in place
+    each chunk's inputs are drawn again and the plain version (which is
+    elementwise) is evaluated one chunk at a time: the full-size plain
+    temporaries never exist."""
+    phase(f"6c. K1 and K2 at the training path's shape ({n}, {m})")
+    chunks = [(c, min(RANDN_CHUNK, m - c)) for c in range(0, m, RANDN_CHUNK)]
+
+    def draw(stream, j, width):
+        return _randn(7919 * j + stream, (n, width), device)
+
+    def fill(streams):
+        bufs = [torch.empty((n, m), device=device) for _ in streams]
+        for j, (c, w) in enumerate(chunks):
+            for s, buf in zip(streams, bufs):
+                buf[:, c:c + w] = draw(s, j, w)
+        return bufs
+
+    errs = {}
+    y, z, v, g, x = fill(range(5))
+    pu.parle_inner_update_cuda(y, z, v, g, x,
+                               pu.pack_scalars(*INNER_SCALARS, device=device))
+    s = pu.pack_scalars(*INNER_SCALARS, device=device)
+    err, same = 0.0, True
+    for j, (c, w) in enumerate(chunks):
+        want = pu.parle_inner_update_plain(*(draw(k, j, w) for k in range(5)),
+                                           s)
+        for got, wa in zip((y, z, v), want):
+            err = max(err, (got[:, c:c + w] - wa).abs().max().item())
+            same &= torch.equal(got[:, c:c + w], wa)
+    errs["parle_inner_update"] = err
+    check(same, f"K1 differs from its plain version at ({n}, {m}) "
+          f"({err:.3e})")
+    del y, z, v, g, x
+    torch.cuda.empty_cache()
+
+    x, z, v = fill(range(10, 13))
+    xbar = torch.empty(m, device=device)
+    for j, (c, w) in enumerate(chunks):
+        xbar[c:c + w] = _randn(7919 * j + 13, (w,), device)
+    pu.parle_sync_update_cuda(x, z, v, xbar,
+                              pu.pack_scalars(*SYNC_SCALARS, device=device))
+    s = pu.pack_scalars(*SYNC_SCALARS, device=device)
+    err, same = 0.0, True
+    for j, (c, w) in enumerate(chunks):
+        want = pu.parle_sync_update_plain(
+            *(draw(k, j, w) for k in range(10, 13)),
+            _randn(7919 * j + 13, (w,), device), s)
+        for got, wa in zip((x, v), want):
+            err = max(err, (got[:, c:c + w] - wa).abs().max().item())
+            same &= torch.equal(got[:, c:c + w], wa)
+    errs["parle_sync_update"] = err
+    check(same, f"K2 differs from its plain version at ({n}, {m}) "
+          f"({err:.3e})")
+    del x, z, v, xbar
+    torch.cuda.empty_cache()
+    print(f"K1 and K2 bitwise equal to their plain versions over "
+          f"{len(chunks)} chunks", flush=True)
+    return errs
+
+
+def parle_timing_phase(device) -> dict:
+    """K1 and K2 kernel and plain times at 2 replicas x 2^26 float32,
+    beside the byte bound.  No single PyTorch call computes Eq. 8a-8b or
+    8c-8d, so there is no library column."""
+    phase("4b. K1 and K2 timing at 2 replicas x 2^26 float32")
+    n, m = PARLE_TIMING
+    y, z, v, g, x = (_randn(900 + s, (n, m), device) for s in range(5))
+    xbar = x.mean(0)
+    s1 = pu.pack_scalars(*INNER_SCALARS, device=device)
+    s2 = pu.pack_scalars(*SYNC_SCALARS, device=device)
+    # bytes: each input read once, each output written once (in place:
+    # K1 reads y, z, v, g, x and writes y, z, v; K2 reads x, z, v and
+    # the one xbar row and writes x, v); operations per element: 15 / 11
+    work = {
+        "parle_inner_update": (8 * n * m * 4, 15 * n * m,
+                               lambda: pu.parle_inner_update_cuda(
+                                   y, z, v, g, x, s1),
+                               lambda: pu.parle_inner_update_plain(
+                                   y, z, v, g, x, s1)),
+        "parle_sync_update": ((3 * n + 1) * m * 4 + 2 * n * m * 4, 11 * n * m,
+                              lambda: pu.parle_sync_update_cuda(
+                                  x, z, v, xbar, s2),
+                              lambda: pu.parle_sync_update_plain(
+                                  x, z, v, xbar, s2)),
+    }
+    out = {}
+    for name, (n_bytes, n_ops, kernel, plain) in work.items():
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = n_ops / F32_FLOP_PER_S * 1e3
+        t = {}
+        for key, fn in (("ms", kernel), ("plain_ms", plain)):
+            t[key], _ = time_ms(fn, device, iters=30, warmup=5)
+        t.update(bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                 library_ms=None)
+        print(json.dumps({"kernel": name, **t, "replicas": n,
+                          "elements_per_replica": m, "bytes": n_bytes,
+                          "flops": n_ops,
+                          "achieved_bytes_per_s": n_bytes / (t["ms"] / 1e3),
+                          "share_of_3.35TB/s": bytes_ms / t["ms"],
+                          "library_call": "none: no single PyTorch call "
+                                          "computes this update"}),
+              flush=True)
+        out[name] = t
+    return out
+
+
+TRAIN_LAYERS = 4
+
+
+def train_argv(steps=8, use_kernel=True):
+    return (["--arch", "qwen2.5-3b", "--device", "cuda", "--algo", "parle",
+             "--replicas", "2", "--L", "4", "--steps", str(steps),
+             "--batch", "2", "--seq", "256", "--round-fused",
+             "--log-every", "4", "--seed", "0"]
+            + (["--use-kernel"] if use_kernel else []))
+
+
+def train_cfg():
+    """Full-width Qwen2.5-3B with its depth cut to TRAIN_LAYERS (memory:
+    the 36-layer Parle state at 2 replicas would need 177 GB)."""
+    return dataclasses.replace(get_config("qwen2.5-3b"),
+                               num_layers=TRAIN_LAYERS)
+
+
+def _train_once(device, argv, profile=False):
+    """One run of the train CLI's run(); returns its per-step losses, the
+    wall of each round (device-synchronized), the final state, the eval
+    loss and, with ``profile``, the profiler over its first round."""
+    args = train.parse_args(argv)
+    losses, walls, marks = [], [], {}
+    prof = (torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+        if profile else None)
+
+    def pre_round(r):
+        torch.cuda.synchronize(device)
+        if prof is not None and r == 0:
+            prof.start()
+        marks[r] = time.perf_counter()
+
+    def on_round(r, gstep, metrics):
+        torch.cuda.synchronize(device)
+        walls.append(time.perf_counter() - marks[r])
+        if prof is not None and r == 0:
+            prof.stop()
+        losses.append(metrics["losses"].detach().cpu())
+
+    state, _, eval_loss = train.run(args, train_cfg(), device, Obs(),
+                                    pre_round=pre_round, on_round=on_round)
+    return torch.cat(losses), walls, state, eval_loss, prof
+
+
+def train_phase(device) -> dict:
+    """The training path through K1 and K2, then without them, on the
+    same params and batches (deterministic algorithms: the embedding and
+    CE backward then accumulate in a fixed order), then one profiled
+    round.  Returns the launch counts, the timings and the profile."""
+    phase(f"6. training path: full-width qwen2.5-3b cut to {TRAIN_LAYERS} "
+          "layers, parle n=2 L=4, 8 steps, through K1 and K2")
+    torch.use_deterministic_algorithms(True)
+    cfg = train_cfg()
+    torch.cuda.reset_peak_memory_stats(device)
+    pa.launches = pu.inner_launches = pu.sync_launches = 0
+    t0 = time.perf_counter()
+    losses_k, walls_k, state, eval_k, _ = _train_once(device, train_argv())
+    launches = {"parle_inner_update": pu.inner_launches,
+                "parle_sync_update": pu.sync_launches,
+                "paged_attention": pa.launches}
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    n, m = state.x.shape
+    x_k = state.x.cpu()
+    print(f"layout: {len(state.layout.paths)} leaves, M = {m} per replica "
+          f"({sum(state.layout.sizes)} params); launches {launches}; peak "
+          f"memory {peak / 2 ** 30:.3f} GiB; run {run_s:.1f} s", flush=True)
+    print("losses (K1/K2):", losses_k.tolist(), flush=True)
+    check(launches["parle_inner_update"] == 8,
+          f"K1 launched {launches['parle_inner_update']} times, expected 8")
+    check(launches["parle_sync_update"] == 2,
+          f"K2 launched {launches['parle_sync_update']} times, expected 2")
+    check(launches["paged_attention"] == 0, "the train path launched K8")
+    check(losses_k.shape == (8,) and bool(torch.isfinite(losses_k).all())
+          and torch.isfinite(torch.tensor(eval_k)),
+          f"losses not finite: {losses_k.tolist()}, eval {eval_k}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    losses_p, walls_p, state, eval_p, _ = _train_once(
+        device, train_argv(use_kernel=False))
+    print("losses (plain):", losses_p.tolist(), flush=True)
+    check(pu.inner_launches == 8 and pu.sync_launches == 2,
+          "the plain path launched K1 or K2")
+    check(torch.equal(losses_k, losses_p),
+          f"per-step losses differ: {losses_k.tolist()} vs "
+          f"{losses_p.tolist()}")
+    check(torch.equal(x_k, state.x.cpu()), "final x differs between the "
+          "kernel path and the plain path")
+    print(f"kernel path == plain path bit for bit: 8 losses, final x "
+          f"({n} x {m}); eval loss {eval_k} / {eval_p}", flush=True)
+    del state, x_k
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tokens_per_step = n * 2 * 256
+    step_s = walls_k[1] / 4
+    out = {"launches": launches, "replicas": n, "elements_per_replica": m,
+           "losses": losses_k.tolist(), "eval_loss": eval_k,
+           "peak_memory_gib": round(peak / 2 ** 30, 3),
+           "round_wall_s": {"kernel": walls_k, "plain": walls_p},
+           "step_wall_s": step_s, "tokens_per_s": tokens_per_step / step_s}
+    print(json.dumps({k: v for k, v in out.items() if k != "losses"}),
+          flush=True)
+    out["profile"] = train_profile_phase(device, walls_k[1])
+    out["bf16"] = train_bf16_phase(device)
+    torch.use_deterministic_algorithms(False)
+    return out
+
+
+def train_bf16_phase(device) -> dict:
+    """One round with ``--precision bf16`` (y, activations and grads in
+    bf16; K1 takes bf16 y/g, K2 writes the bf16 y'), through the kernels
+    and without them: same losses and final x and y bit for bit."""
+    phase("6d. one bf16 training round, kernel path vs plain path")
+    argv = ["--precision", "bf16"]
+    pu.inner_launches = pu.sync_launches = 0
+    losses_k, walls_k, state, _, _ = _train_once(
+        device, train_argv(steps=4) + argv)
+    check((pu.inner_launches, pu.sync_launches) == (4, 1),
+          f"bf16 round launched K1 {pu.inner_launches} and K2 "
+          f"{pu.sync_launches} times, expected 4 and 1")
+    check(state.y.dtype == torch.bfloat16 and state.x.dtype == torch.float32
+          and torch.equal(state.y, state.x.to(torch.bfloat16)),
+          "bf16 layout or the fused y' = bf16(x') does not hold")
+    x_k, y_k = state.x.cpu(), state.y.cpu()
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses_p, walls_p, state, _, _ = _train_once(
+        device, train_argv(steps=4, use_kernel=False) + argv)
+    check(bool(torch.isfinite(losses_k).all())
+          and torch.equal(losses_k, losses_p)
+          and torch.equal(x_k, state.x.cpu())
+          and torch.equal(y_k, state.y.cpu()),
+          f"bf16: kernel path {losses_k.tolist()} != plain path "
+          f"{losses_p.tolist()} (or final x / y differ)")
+    del state, x_k, y_k
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"losses": losses_k.tolist(), "round_wall_s": {
+        "kernel": walls_k[0], "plain": walls_p[0]}}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def train_profile_phase(device, round_wall_s) -> dict:
+    """One round of the kernel path under torch.profiler (CUDA activity
+    only): device busy time against the round's wall, and the kernels
+    that take it."""
+    phase("6b. one training round under torch.profiler")
+    t0 = time.perf_counter()
+    _, walls, state, _, prof = _train_once(device, train_argv(steps=4),
+                                           profile=True)
+    del state
+    rows = []
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy_s = sum(us for us, _, _ in rows) / 1e6
+    share = {k: sum(us for us, key, _ in rows if k in key) / 1e6
+             for k in ("parle_inner_kernel", "parle_sync_kernel")}
+    check(busy_s > 0 and all(v > 0 for v in share.values()),
+          "the profiler saw no device time, or no K1 / K2 launch")
+    out = {"profiled_round_wall_s": walls[0], "device_busy_s": busy_s,
+           "busy_share_of_profiled_round": busy_s / walls[0],
+           "busy_share_of_unprofiled_round": busy_s / round_wall_s,
+           "k1_device_s": share["parle_inner_kernel"],
+           "k2_device_s": share["parle_sync_kernel"],
+           "profile_phase_s": round(time.perf_counter() - t0, 1),
+           "top_kernels": [{"name": k[:90], "device_ms": us / 1e3,
+                            "calls": c} for us, k, c in rows[:10]]}
+    print(json.dumps(out), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main_path_phase(device) -> dict:
     """Serve the main path through K8, then the gather path on the same
     params; returns the K8 launch count and the two reports."""
@@ -243,10 +656,12 @@ def main_path_phase(device) -> dict:
     print("prompt lengths:", [len(r["tokens"]) for r in requests])
 
     torch.cuda.reset_peak_memory_stats(device)
-    pa.launches = 0
+    pa.launches = pu.inner_launches = pu.sync_launches = 0
     res_k, engine, rep_k = serve.engine_serve(cfg, params, requests, args_k,
                                               Obs(), device)
     k8_launches = pa.launches
+    check(pu.inner_launches == pu.sync_launches == 0,
+          "the serve path launched K1 or K2")
     peak = torch.cuda.max_memory_allocated(device)
     steps = engine.stats["decode_steps"]
     print(f"K8 launches {k8_launches} = {cfg.num_layers} layers x "
@@ -336,12 +751,18 @@ def main() -> int:
     device, kind = device_phase()
     build_phase()
     max_abs_err = check_phase(device)
+    parle_errs = parle_check_phase(device)
     timing = timing_phase(device)
+    parle_timing = parle_timing_phase(device)
     run = main_path_phase(device)
+    trained = train_phase(device)
+    main_errs = parle_main_shape_phase(device, trained["replicas"],
+                                       trained["elements_per_replica"])
 
-    phase("6. summary")
+    phase("7. summary")
     keys = ("decode_tokens_per_s", "prefill_tokens_per_s", "slot_utilization",
             "itl_ms", "ttft_ms", "wall_s")
+    prof = trained["profile"]
     print(json.dumps({
         "throughput": {mode: {k: run[mode][k] for k in keys}
                        for mode in ("paged_kernel", "gather")},
@@ -349,16 +770,34 @@ def main() -> int:
         "decode_steps": run["decode_steps"],
         "device_busy_share": round(run["profile"]["device_busy_s"]
                                    / run["paged_kernel"]["wall_s"], 4),
+        "train": {"step_wall_s": trained["step_wall_s"],
+                  "tokens_per_s": trained["tokens_per_s"],
+                  "peak_memory_gib": trained["peak_memory_gib"],
+                  "device_busy_share": prof["busy_share_of_unprofiled_round"],
+                  "k1_k2_device_share": (prof["k1_device_s"]
+                                         + prof["k2_device_s"])
+                  / prof["device_busy_s"]},
         "total_s": round(time.perf_counter() - t_start, 1)}), flush=True)
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:81",
         "launches": run["launches"], "max_abs_err": max_abs_err,
         "ms": timing["ms"], "kernel_ms": timing["ms"],
         "plain_ms": timing["plain_ms"], "library_ms": timing["library_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"]}]}), flush=True)
+        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"]}]
+    for name, line in (("parle_inner_update", 52), ("parle_sync_update", 175)):
+        t = parle_timing[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/parle_update.cu",
+            "replaces": f"src/repro/kernels/parle_update.py:{line}",
+            "launches": trained["launches"][name],
+            "max_abs_err": max(parle_errs[name], main_errs[name]),
+            "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"]})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,6 @@
 """Config registry: ``get_config(arch_id)`` / ``ARCHS``."""
-from repro_torch.configs.base import ModelConfig, replace, smoke_variant
+from repro_torch.configs.base import (ModelConfig, ParleConfig, replace,
+                                      smoke_variant)
 
 from repro_torch.configs.internvl2_1b import CONFIG as _internvl2_1b
 from repro_torch.configs.llama4_scout_17b_a16e import CONFIG as _llama4_scout

@@ -1,9 +1,9 @@
-"""Architecture configuration for the PyTorch port.
+"""Configuration for the PyTorch port.
 
-A copy of ``repro/configs/base.py``'s :class:`ModelConfig` and
-``smoke_variant`` (the port keeps its own copy and imports nothing from
-the JAX package).  ``ParleConfig`` and the run-level configs join when
-the training path is ported.
+A copy of ``repro/configs/base.py``'s :class:`ModelConfig`,
+:class:`ParleConfig` and ``smoke_variant`` (the port keeps its own copy
+and imports nothing from the JAX package).  ``ParleConfig.compute_dtype``
+returns a torch dtype.
 
 Everything is a plain frozen dataclass so configs are hashable,
 printable and serializable; ``dataclasses.replace`` is the mutation
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
 
 
 @dataclass(frozen=True)
@@ -138,6 +139,49 @@ class ModelConfig:
         d, L = self.d_model, self.num_layers
         inactive = (self.num_experts - self.top_k) * 3 * d * self.expert_d_ff * L
         return self.num_params() - inactive
+
+
+@dataclass(frozen=True)
+class ParleConfig:
+    """Hyper-parameters of Eq. (8)–(9).  Paper defaults throughout (§3.1)."""
+
+    n_replicas: int = 3
+    L: int = 25                  # inner (Entropy-SGD) steps between syncs
+    alpha: float = 0.75          # exponential-average coefficient (8b)
+    gamma0: float = 100.0        # initial local-entropy scope
+    rho0: float = 1.0            # initial elastic coupling
+    gamma_min: float = 1.0       # clip (§3.1)
+    rho_min: float = 0.1         # clip (§3.1)
+    momentum: float = 0.9        # Nesterov (Remark 2)
+    lr: float = 0.1              # eta  (outer x^a step)
+    lr_inner: float = 0.1        # eta' (inner y step; "fixed to the initial lr")
+    batches_per_epoch: int = 390 # B in Eq. (9) scoping schedule
+    scale_lr_by_gamma: bool = True   # Remark 1: eta <- eta * gamma for the z-term
+    mode: str = "parle"          # parle | entropy_sgd | elastic_sgd (baselines)
+    # §4 step-decay schedule: at each boundary step, lr AND lr_inner are
+    # multiplied by lr_drop_factor.  () disables the schedule.
+    lr_drop_steps: Tuple[int, ...] = ()
+    lr_drop_factor: float = 0.2
+    # "f32" keeps everything float32; "bf16" stores the inner iterate y
+    # (and hence activations and grads) in bfloat16 while x, z and both
+    # momenta stay f32 masters.
+    precision: str = "f32"
+    # Compression of the Eq. (8d) sync payload: "none" here; "bf16" and
+    # "int8" (kernels K4-K6) are not ported yet.
+    sync_compress: str = "none"
+    # Staleness-1 overlapped sync: not ported yet.
+    sync_overlap: bool = False
+
+    def scoping_factor(self) -> float:
+        return 1.0 - 1.0 / (2.0 * self.batches_per_epoch)
+
+    def compute_dtype(self):
+        import torch
+        if self.precision == "bf16":
+            return torch.bfloat16
+        if self.precision == "f32":
+            return torch.float32
+        raise ValueError(f"unknown precision {self.precision!r}")
 
 
 def replace(cfg, **kw):

@@ -9,12 +9,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --smoke --device cpu --naive
 
-It serves freshly initialised params (``torch.Generator`` seeded by
-``--seed`` on the serving device).  The reference's ``--algo``,
-``--replicas`` and ``--resume`` (serving a Parle state or a training
-checkpoint) wait for the port's training path; from a fresh init every
-Parle replica equals the init params, which is what is served here.
-Prompts come from a numpy generator seeded by ``--seed``.
+What gets served is the registry surface, as in the reference:
+``--algo`` resolves an Algorithm, the state is ``--resume``'d from a
+training checkpoint of either package (algo-stamp validated) or fresh
+from params drawn with a ``torch.Generator`` seeded by ``--seed``, and
+the served weights are ``algo.deployable(state)`` — for Parle, the
+replica average.  A fresh state's replicas all equal the init, so its
+average is taken over the init broadcast to ``--replicas`` rows without
+building the n-replica state.  Prompts come from a numpy generator
+seeded by ``--seed``.
 
 Modes:
 
@@ -42,11 +45,14 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config, smoke_variant
+from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.configs import ParleConfig, get_config, smoke_variant
+from repro_torch.core import parle, registry
 from repro_torch.models.model import build_model, cache_positions
 from repro_torch.obs import Obs
 from repro_torch.serving import (Engine, SamplingParams, make_naive_fns,
                                  naive_generate)
+from repro_torch.utils.pytree import FlatLayout
 
 
 def _sync(device) -> None:
@@ -76,6 +82,21 @@ def init_params(cfg, args, device):
     """Fresh params on ``device`` from ``torch.Generator`` seed --seed."""
     gen = torch.Generator(device=device).manual_seed(args.seed)
     return build_model(cfg).init(gen)
+
+
+def served_params(cfg, args, device):
+    """``algo.deployable(state)`` of the ``--resume``'d state, or of a
+    fresh one over :func:`init_params`.  Returns (params, ParleConfig)."""
+    params = init_params(cfg, args, device)
+    algo = registry.get(args.algo)
+    pcfg = algo.canonicalize_cfg(ParleConfig(n_replicas=args.replicas))
+    if args.resume:
+        state = ckpt.restore(args.resume, algo.init(params, pcfg),
+                             algo=args.algo)
+        return algo.deployable(state), pcfg
+    layout = FlatLayout(params)
+    x = layout.flatten(params).expand(pcfg.n_replicas, -1)
+    return layout.tree(parle.replica_mean(x)), pcfg
 
 
 def naive_serve(cfg, params, requests, args, obs, device):
@@ -162,6 +183,12 @@ def parse_args(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where to serve (no silent fallback to the CPU)")
+    ap.add_argument("--algo", default="parle", choices=registry.names())
+    ap.add_argument("--replicas", type=int, default=3,
+                    help="replica count of the (fresh or restored) state")
+    ap.add_argument("--resume", default="",
+                    help="training checkpoint to serve (validated "
+                         "against --algo's stamp)")
     ap.add_argument("--requests", "--batch", dest="requests", type=int,
                     default=4, help="number of requests to serve")
     ap.add_argument("--slots", type=int, default=4,
@@ -214,9 +241,11 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
-    params = init_params(cfg, args, device)
-    print(json.dumps({"serving": "init", "arch": cfg.name,
+    params, pcfg = served_params(cfg, args, device)
+    print(json.dumps({"serving": args.algo, "arch": cfg.name,
                       "mode": "naive" if args.naive else "engine",
+                      "replicas": pcfg.n_replicas,
+                      "restored": bool(args.resume),
                       "device": str(device)}), flush=True)
 
     obs = Obs(args.metrics_out, args.trace_out, process_name="serve")

@@ -1,0 +1,225 @@
+"""Training entry point.  Port of ``repro/launch/train.py``.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
+        --algo parle --use-kernel --round-fused
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
+        --smoke --device cpu --replicas 2 --L 3 --steps 6 --batch 2 \\
+        --seq 32 --use-kernel --round-fused
+
+Runs a registered algorithm (``repro_torch.core.registry``: parle,
+entropy_sgd) through one code path that talks only to the
+Algorithm protocol, on the synthetic token stream, with algo-stamped
+checkpoints and the replica diagnostics of §1.2 (overlap / spread).  It
+takes the reference's flags and prints its JSON lines
+(``train_progress``, ``train_final``), plus ``--device``: ``cuda``
+unless ``--device cpu`` (no silent fallback to the CPU).  With
+``--use-kernel`` every inner step runs the CUDA kernel K1 and every sync
+K2 (their plain versions on the CPU).
+
+Params are drawn from a ``torch.Generator`` seeded by ``--seed`` on the
+training device, and so are the batches: neither is the reference's
+threefry stream.  Not ported yet, each exiting with the ROADMAP.md item
+that ports it: ``--mesh`` / ``--host-devices`` (queue 1 item 6),
+``--sync-compress bf16|int8`` and ``--sync-overlap`` (item 4), ``--algo
+elastic_sgd|sgd`` (item 5, raises ``NotImplementedError``),
+``--sync-policy async`` (item 7).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.configs import ParleConfig, get_config, smoke_variant
+from repro_torch.core import registry
+from repro_torch.core.parle import dealias_state
+from repro_torch.data.synthetic import (TokenStream, make_round_batch_fn,
+                                        replica_batches)
+from repro_torch.models.model import build_model
+from repro_torch.obs import Obs
+from repro_torch.runtime import (CheckpointSpec, RoundRunner, emit_progress,
+                                 resolve_train_policy)
+
+
+def build_argparser():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config of the same family (CPU-runnable)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where to train (no silent fallback to the CPU)")
+    ap.add_argument("--algo", default="parle", choices=registry.names())
+    ap.add_argument("--replicas", type=int, default=0,
+                    help="replica count; 0 = 3 (the reference's default "
+                         "without --mesh)")
+    ap.add_argument("--L", type=int, default=25)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=4, help="per-replica batch")
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=0.1)
+    ap.add_argument("--lr-drop-steps", default="",
+                    help="comma-separated step boundaries where lr (and "
+                         "lr_inner) drop by --lr-drop-factor (paper §4)")
+    ap.add_argument("--lr-drop-factor", type=float, default=0.2)
+    ap.add_argument("--split-data", action="store_true",
+                    help="paper §5: each replica sees a disjoint shard")
+    ap.add_argument("--use-kernel", action="store_true",
+                    help="the Parle updates through the CUDA kernels K1 "
+                         "(inner step) and K2 (sync)")
+    ap.add_argument("--round-fused", action="store_true",
+                    help="run one whole L-step round (inner steps + sync) "
+                         "per call, staging each round's batches "
+                         "at once; --steps is rounded down to a multiple "
+                         "of L")
+    ap.add_argument("--precision", default="f32", choices=("f32", "bf16"),
+                    help="bf16: store the compute iterate (y / activations"
+                         " / grads) in bfloat16; x, z and momenta stay "
+                         "f32 masters")
+    ap.add_argument("--sync-compress", default="none",
+                    choices=("none", "bf16", "int8"),
+                    help="quantize the Eq. 8d sync payload (not ported "
+                         "yet: only 'none' runs)")
+    ap.add_argument("--sync-policy", default="",
+                    choices=("", "barrier", "overlap", "async"),
+                    help="consensus schedule; only 'barrier' (the "
+                         "default) is ported")
+    ap.add_argument("--sync-overlap", action="store_true",
+                    help="staleness-1 overlapped sync (not ported yet)")
+    ap.add_argument("--mesh", default="",
+                    help="shard replicas over a device mesh (not ported "
+                         "yet)")
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="XLA host-platform devices of the reference's "
+                         "CPU mesh (no counterpart yet)")
+    ap.add_argument("--checkpoint-dir", default="")
+    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--resume", default="",
+                    help="checkpoint file OR directory to restore (a "
+                         "directory resolves to its newest valid "
+                         "checkpoint; digests are verified; validates "
+                         "that it was written by the same --algo)")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--metrics-out", default="",
+                    help="write schema-versioned JSONL events + a final "
+                         "metrics_snapshot to this path")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome-trace JSON of the run's spans "
+                         "(rounds/steps, eval); spans end on "
+                         "torch.cuda.synchronize")
+    ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+def parse_args(argv=None):
+    args = build_argparser().parse_args(argv)
+    if args.mesh or args.host_devices:
+        raise SystemExit("--mesh / --host-devices: the replica axis across "
+                         "devices is not ported yet (ROADMAP.md queue 1, "
+                         "item 6)")
+    if args.sync_compress != "none":
+        raise SystemExit(f"--sync-compress {args.sync_compress} is not "
+                         "ported yet (ROADMAP.md queue 1, item 4: kernels "
+                         "K4-K6)")
+    return args
+
+
+def parle_config(args, algo) -> ParleConfig:
+    drops = tuple(int(s) for s in args.lr_drop_steps.split(",") if s)
+    return algo.canonicalize_cfg(ParleConfig(
+        n_replicas=args.replicas or 3, L=args.L, lr=args.lr,
+        lr_inner=args.lr, batches_per_epoch=max(args.steps // 4, 1),
+        lr_drop_steps=drops, lr_drop_factor=args.lr_drop_factor,
+        precision=args.precision))
+
+
+def run(args, cfg, device, obs, pre_round=None, on_round=None):
+    """Train ``cfg`` as ``args`` say, on ``device``.  Returns (final
+    state, progress history, the final eval loss as a float).  The hooks
+    go to ``RoundRunner.run_rounds`` (``--round-fused``)."""
+    policy = resolve_train_policy(args)
+    model = build_model(cfg)
+    algo = registry.get(args.algo)
+    pcfg = parle_config(args, algo)
+    n = pcfg.n_replicas
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                         batch_size=args.batch, seed=args.seed,
+                         device=str(device))
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    state = algo.init(model.init(gen), pcfg)
+    start = 0
+    if args.resume:
+        args.resume = ckpt.resolve(args.resume)
+        state = ckpt.restore(args.resume, state, algo=args.algo)
+        try:                    # continue the stream + checkpoint numbering
+            start = ckpt.latest_step(args.resume)
+        except FileNotFoundError:       # sidecar-less foreign checkpoint
+            start = 0
+        obs.registry.restore_counters(ckpt.saved_metrics(args.resume))
+    state = dealias_state(state)        # the updates run in place
+
+    t0 = time.time()
+    runner = RoundRunner(obs, ns="train", checkpoint=CheckpointSpec(
+        dir=args.checkpoint_dir, every=args.checkpoint_every,
+        algo=args.algo, arch=cfg.name))
+
+    def progress(step, rnd, st, metrics):
+        return emit_progress(obs, algo, st, metrics, step, rnd, t0)
+
+    if args.round_fused:
+        L = pcfg.L
+        rounds = args.steps // L
+        if args.steps % L:
+            print(json.dumps(obs.emit(
+                "note", msg=f"--round-fused runs whole L={L} rounds; "
+                f"running {rounds * L} of {args.steps} steps")), flush=True)
+        if start % L:
+            raise SystemExit(f"--round-fused resumes only from round "
+                             f"boundaries (step {start} % L={L} != 0)")
+        state, history = runner.run_rounds(
+            state, policy.make_round_fn(algo, model.loss, pcfg,
+                                        use_kernel=args.use_kernel),
+            make_round_batch_fn(stream, L, args.batch, n,
+                                split=args.split_data),
+            start=start, rounds=rounds, L=L,
+            tokens_per_round=L * args.batch * args.seq * n,
+            progress_every=max(1, args.log_every // L), progress=progress,
+            pre_round=pre_round, on_round=on_round)
+    else:
+        state, history = runner.run_steps(
+            state, policy.make_step_fn(algo, model.loss, pcfg,
+                                       use_kernel=args.use_kernel),
+            lambda i: replica_batches(stream, i, args.batch, n,
+                                      split=args.split_data),
+            start=start, steps=args.steps, L=pcfg.L,
+            tokens_per_step=args.batch * args.seq * n,
+            progress_every=args.log_every, progress=progress)
+
+    with obs.tracer.span("eval") as sp, torch.no_grad():
+        loss, _ = model.loss(algo.deployable(state),
+                             stream.batch(10_000_019))   # held-out step
+        sp.block(loss)
+    print(json.dumps(obs.emit(
+        "train_final", final_eval_loss=round(float(loss), 4),
+        algo=args.algo, arch=cfg.name,
+        total_wall_s=round(time.time() - t0, 1))), flush=True)
+    return state, history, float(loss)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+    obs = Obs(args.metrics_out, args.trace_out, process_name="train")
+    _, history, _ = run(args, cfg, device, obs)
+    obs.finalize()
+    return history
+
+
+if __name__ == "__main__":
+    main()

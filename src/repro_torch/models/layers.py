@@ -1,4 +1,5 @@
-"""Shared building blocks: RMSNorm, RoPE, SwiGLU, initializers.
+"""Shared building blocks: RMSNorm, RoPE, SwiGLU, cross-entropy,
+initializers.
 
 Port of ``repro/models/layers.py``.  Weights keep the reference layout,
 ``(d_in, d_out)``, so every projection is ``x @ w``.
@@ -49,6 +50,39 @@ def rope_frequencies(head_dim: int, theta: float, device=None):
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
     return 1.0 / (theta ** exps)
+
+
+def chunked_cross_entropy(h, head_w, labels, chunk: int = 512):
+    """Mean next-token CE computed in T-chunks so the (B, T, V) logits
+    tensor is never materialized whole (V is 151936 for Qwen2.5).
+
+    h: (B, T, d); head_w: (d, V); labels: (B, T) int.  The reference
+    rematerializes each chunk in the backward (``jax.checkpoint``); here
+    autograd keeps each chunk's logits for the backward — one chunk is
+    B x chunk x V floats (311 MB at B 2, T 256, V 151936), and the
+    single-chunk case (T not a multiple of ``chunk``) has nothing to
+    recompute anyway."""
+    B, T, d = h.shape
+    if T % chunk:
+        chunk = T                       # degenerate: single chunk
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, T, chunk):
+        logits = (h[:, i:i + chunk] @ head_w).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[:, i:i + chunk, None].long())[..., 0]
+        total = total + (lse - gold).sum()
+    return total / (B * T)
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean next-token CE.  logits: (..., V); labels: (...,) int."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
 
 
 def apply_rope(x, positions, theta: float):

@@ -5,11 +5,13 @@ Port of ``repro/models/model.py`` (dense family only so far).
     model = build_model(cfg)
     params = model.init(torch.Generator(device).manual_seed(0))
     logits, aux = model.apply(params, batch)          # forward
+    loss, aux  = model.loss(params, batch)            # training loss
     cache      = model.init_cache(params, batch_size, max_len)
     logits, cache = model.prefill(params, batch, cache)
     logits, cache = model.decode(params, batch, cache)
 
-``batch`` is a dict holding ``tokens`` (B, T) for the dense family.
+``batch`` is a dict holding ``tokens`` (B, T) for the dense family, and
+``labels`` (B, T) for the loss.
 
 Cache position contract (``cache_positions`` / ``with_cache_positions``):
 every cache tuple carries one or more ``pos`` fields counting tokens
@@ -30,6 +32,7 @@ import torch
 
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import _FLASH_NOT_PORTED
+from repro_torch.models.layers import chunked_cross_entropy
 
 _NOT_PORTED = ("family {fam!r} is not ported yet (ROADMAP.md queue 1, "
                "'Other model families')")
@@ -45,6 +48,7 @@ class Model:
                                  # (logits, cache); ``valid`` marks tokens
                                  # >= valid as bucket padding
     decode: Callable             # (params, batch, cache) -> (logits, cache)
+    loss: Callable = None        # (params, batch) -> (scalar, aux)
     # paged serving — page-pool cache, chunked prefill, masked decode
     init_paged_cache: Callable = None
     # (params, num_slots, num_pages, page_size, max_pages) -> cache
@@ -114,6 +118,17 @@ def with_cache_positions(cache, pos):
     return cache._replace(**repl)
 
 
+def _lm_loss(hidden_fn, cfg):
+    """Hidden states + T-chunked CE: the (B, T, V) logits tensor is
+    never materialized whole."""
+    def loss(params, batch):
+        h, aux = hidden_fn(params, batch)
+        head = params["embed"].T if cfg.tie_embeddings else params["head"]
+        ce = chunked_cross_entropy(h, head, batch["labels"])
+        return ce + aux, {"ce": ce, "aux": aux}
+    return loss
+
+
 def build_model(cfg, use_flash: bool = False,
                 use_paged_kernel: bool = False) -> Model:
     """``use_paged_kernel`` sends paged decode attention through the
@@ -132,6 +147,8 @@ def build_model(cfg, use_flash: bool = False,
             tfm.init_cache(p, cfg, bs, ml, dtype),
         prefill=lambda p, b, c, valid=None: tfm.prefill(p, cfg, b["tokens"], c),
         decode=lambda p, b, c: tfm.decode_step(p, cfg, b["tokens"], c),
+        loss=_lm_loss(lambda p, b: tfm.forward_hidden(p, cfg, b["tokens"]),
+                      cfg),
         init_paged_cache=lambda p, bs, np_, ps, mp, dtype=torch.float32:
             tfm.init_paged_cache(p, cfg, bs, np_, ps, mp, dtype),
         prefill_chunk=lambda p, b, c, slot, frontier, valid, total:

@@ -2,10 +2,12 @@
 
 Port of the dense branches of ``repro/models/transformer.py``.  The
 reference scans the stacked blocks with ``lax.scan``; here each scan is
-a Python loop over the layer index, and layer ``l`` reads views
-``blocks[...][l]`` of the same stacked tensors (so reference params load
-without reshaping).  Caches are written in place (see attention.py).
-The MoE MLP is not ported yet.
+a Python loop over the layer index over views of the same stacked
+tensors (so reference params load without reshaping), taken by one
+``unbind(0)`` per leaf: its backward is one ``stack``, where indexing
+each layer out would write a zero-filled copy of the whole stacked leaf
+per layer.  Caches are written in place (see attention.py).  The MoE MLP
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -56,10 +58,16 @@ def init_params(generator, cfg, dtype=torch.float32):
     return p
 
 
-def layer_params(blocks, l: int):
-    """Views of layer ``l`` of the stacked block tree."""
-    return {k: layer_params(v, l) if isinstance(v, dict) else v[l]
-            for k, v in blocks.items()}
+def layer_params(blocks, num_layers: int) -> list:
+    """The stacked block tree as one tree of views per layer, from one
+    ``unbind(0)`` per leaf."""
+    per_layer = [{} for _ in range(num_layers)]
+    for k, v in blocks.items():
+        parts = (layer_params(v, num_layers) if isinstance(v, dict)
+                 else v.unbind(0))
+        for l in range(num_layers):
+            per_layer[l][k] = parts[l]
+    return per_layer
 
 
 def _mlp(bp, cfg, u):
@@ -88,9 +96,8 @@ def block_forward(bp, cfg, x, positions, use_flash=False):
 def stack_forward(params, cfg, x, positions, use_flash=False):
     """Loop over the stacked blocks.  Returns (hidden, total_aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for l in range(cfg.num_layers):
-        x, a = block_forward(layer_params(params["blocks"], l), cfg, x,
-                             positions, use_flash=use_flash)
+    for bp in layer_params(params["blocks"], cfg.num_layers):
+        x, a = block_forward(bp, cfg, x, positions, use_flash=use_flash)
         aux = aux + a
     return x, aux
 
@@ -141,8 +148,7 @@ def prefill(params, cfg, tokens, cache, use_flash=False):
     x = params["embed"][tokens]
     positions = _positions(B, T, x.device)
     h = x
-    for l in range(cfg.num_layers):
-        bp = layer_params(params["blocks"], l)
+    for l, bp in enumerate(layer_params(params["blocks"], cfg.num_layers)):
         lc = attn.KVCache(cache.k[l], cache.v[l], cache.pos)
         h = _decoder_layer(bp, cfg, h, lambda u: attn.attn_prefill(
             bp["attn"], cfg, u, positions, lc, use_flash=use_flash)[0])
@@ -154,8 +160,7 @@ def decode_step(params, cfg, token, cache):
     """token: (B, 1) int32 -> logits (B, 1, V), updated cache."""
     x = params["embed"][token]
     h = x
-    for l in range(cfg.num_layers):
-        bp = layer_params(params["blocks"], l)
+    for l, bp in enumerate(layer_params(params["blocks"], cfg.num_layers)):
         lc = attn.KVCache(cache.k[l], cache.v[l], cache.pos)
         h = _decoder_layer(bp, cfg, h, lambda u: attn.attn_decode(
             bp["attn"], cfg, u, lc)[0])
@@ -192,8 +197,7 @@ def prefill_chunk(params, cfg, tokens, cache, slot, frontier, valid):
                                          device=x.device))[None]
     table_row = cache.table[slot]
     h = x
-    for l in range(cfg.num_layers):
-        bp = layer_params(params["blocks"], l)
+    for l, bp in enumerate(layer_params(params["blocks"], cfg.num_layers)):
         h = _decoder_layer(bp, cfg, h, lambda u: attn.attn_prefill_paged(
             bp["attn"], cfg, u, positions, cache.k[l], cache.v[l],
             table_row)[0])
@@ -206,8 +210,7 @@ def decode_step_paged(params, cfg, token, cache, active, use_kernel=False):
     keep their pos."""
     x = params["embed"][token]
     h = x
-    for l in range(cfg.num_layers):
-        bp = layer_params(params["blocks"], l)
+    for l, bp in enumerate(layer_params(params["blocks"], cfg.num_layers)):
         h = _decoder_layer(bp, cfg, h, lambda u: attn.attn_decode_paged(
             bp["attn"], cfg, u, cache.k[l], cache.v[l], cache.table,
             cache.pos, active, use_kernel=use_kernel)[0])

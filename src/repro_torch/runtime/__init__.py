@@ -1,0 +1,13 @@
+"""Execution runtime: the one step/round loop (``RoundRunner``) behind
+the trainer, and its sync policy (barrier only so far).  Port of
+``repro/runtime``."""
+from repro_torch.runtime.policies import (  # noqa: F401
+    POLICY_NAMES,
+    BarrierPolicy,
+    resolve_train_policy,
+)
+from repro_torch.runtime.runner import (  # noqa: F401
+    CheckpointSpec,
+    RoundRunner,
+    emit_progress,
+)

@@ -1,0 +1,148 @@
+"""RoundRunner: the one step/round execution loop behind the train
+entry point.  Port of ``repro/runtime/runner.py`` (the single-process loops).
+
+It owns batch staging, spans, obs counters/histograms, progress
+emission and checkpointing, namespaced per entry point (``train.*`` metric
+series); the caller injects what differs through small hooks
+(``batch_fn`` / ``stage_fn``, ``progress``, ``pre_round`` /
+``on_round``).  The reference's other hooks serve its multi-process
+pods and overlapped sync, which are not ported yet.
+
+Spans end on ``torch.cuda.synchronize`` (``Span.block``), the
+counterpart of the reference's ``block_until_ready``.  There is no AOT
+compile and no HLO to count bytes in: eager PyTorch compiles nothing,
+and the CUDA kernels are built at their first launch.
+"""
+from __future__ import annotations
+
+import json
+import time
+from typing import Any, Callable, NamedTuple, Optional
+
+from repro_torch.checkpoint import checkpoint as ckpt
+
+
+class CheckpointSpec(NamedTuple):
+    """Where/when the runner checkpoints, and how the sidecar is
+    stamped.  ``every`` <= 0 or an empty ``dir`` disables saving."""
+    dir: str = ""
+    every: int = 0
+    algo: str = ""
+    arch: str = ""
+
+
+class RoundRunner:
+    """Owns the step/round loop for one process; ``ns`` prefixes
+    every metric series."""
+
+    def __init__(self, obs, ns: str = "train",
+                 checkpoint: Optional[CheckpointSpec] = None):
+        self.obs = obs
+        self.ns = ns
+        self.checkpoint = checkpoint
+
+    # -- checkpointing --------------------------------------------
+    def _save(self, state, gstep: int):
+        ck = self.checkpoint
+        path = f"{ck.dir}/step{gstep:06d}.npz"
+        ckpt.save(path, state, step=gstep, meta={"arch": ck.arch},
+                  algo=ck.algo, metrics=self.obs.registry.counter_stamp())
+        self.obs.emit("checkpoint", step=gstep, path=path)
+
+    def _ckpt_enabled(self) -> bool:
+        ck = self.checkpoint
+        return bool(ck and ck.every and ck.dir)
+
+    # -- per-step loop --------------------------------------------
+    def run_steps(self, state, step_fn, batch_fn: Callable[[int], Any], *,
+                  start: int, steps: int, L: int, tokens_per_step: int,
+                  progress_every: int = 0, progress=None):
+        """The per-step loop.  ``progress(step, round, state, metrics)``
+        -> record is invoked every ``progress_every`` steps and on the
+        first step, printed, and collected into the returned history."""
+        obs, ns = self.obs, self.ns
+        history = []
+        for i in range(start, start + steps):
+            with obs.tracer.span("step", step=i + 1) as sp:
+                batch = batch_fn(i)
+                state, metrics = step_fn(state, batch)
+                sp.block(metrics)
+            obs.registry.counter(f"{ns}.steps").inc()
+            obs.registry.counter(f"{ns}.tokens").inc(tokens_per_step)
+            if (i + 1) % L == 0:
+                obs.registry.counter(f"{ns}.rounds").inc()
+            if obs.enabled:
+                obs.registry.histogram(f"{ns}.step_ms").observe(
+                    sp.dur_s * 1e3)
+            if progress is not None and ((i + 1) % progress_every == 0
+                                         or i == start):
+                rec = progress(i + 1, (i + 1) // L, state, metrics)
+                print(json.dumps(rec), flush=True)
+                history.append(rec)
+            if self._ckpt_enabled() and (i + 1) % self.checkpoint.every == 0:
+                self._save(state, i + 1)
+        return state, history
+
+    # -- round loop -----------------------------------------------
+    def run_rounds(self, state, round_fn, stage_fn: Callable[[int], Any], *,
+                   start: int, rounds: int, L: int, tokens_per_round: int,
+                   progress_every: int = 1, progress=None, on_round=None,
+                   pre_round=None):
+        """One ``round_fn`` call per L steps; the next round's batches
+        are staged right after the round is enqueued, before the round
+        span blocks on its results.  ``pre_round(r)`` runs before round
+        r is enqueued, ``on_round(r, gstep, metrics)`` after its span."""
+        obs, ns = self.obs, self.ns
+        history = []
+        nxt = stage_fn(start) if rounds else None
+        for r in range(rounds):
+            if pre_round is not None:
+                pre_round(r)
+            cur, nxt = nxt, None
+            gstep = start + (r + 1) * L
+            with obs.tracer.span("round", round=r + 1, step=gstep) as sp:
+                state, metrics = round_fn(state, cur)
+                if r + 1 < rounds:
+                    nxt = stage_fn(start + (r + 1) * L)
+                sp.block(metrics)
+            obs.registry.counter(f"{ns}.steps").inc(L)
+            obs.registry.counter(f"{ns}.rounds").inc()
+            obs.registry.counter(f"{ns}.tokens").inc(tokens_per_round)
+            if obs.enabled:
+                obs.registry.histogram(f"{ns}.round_ms").observe(
+                    sp.dur_s * 1e3)
+            if on_round is not None:
+                on_round(r, gstep, metrics)
+            if progress is not None and ((r + 1) % progress_every == 0
+                                         or r == 0):
+                rec = progress(gstep, r + 1, state, metrics)
+                print(json.dumps(rec), flush=True)
+                history.append(rec)
+            # a round advances L steps at once: checkpoint whenever it
+            # CROSSES a checkpoint_every boundary
+            if (self._ckpt_enabled()
+                    and gstep // self.checkpoint.every
+                    > (gstep - L) // self.checkpoint.every):
+                self._save(state, gstep)
+        return state, history
+
+
+def emit_progress(obs, algo, state, metrics, step, rnd, t0):
+    """ONE schema for every progress emit site: kind=train_progress
+    with the same key set — ``round`` is the number of completed Eq. 8
+    rounds.  Per-replica losses (when the step emits them) land as
+    labeled gauges."""
+    diag = {k: round(v, 4) for k, v in algo.diagnostics(state).items()}
+    rec = obs.emit("train_progress", step=step, round=rnd,
+                   loss=round(float(metrics["loss"]), 4),
+                   wall_s=round(time.time() - t0, 1), diag=diag)
+    if obs.enabled:
+        obs.registry.gauge("train.loss").set(rec["loss"])
+        for k, v in diag.items():
+            obs.registry.gauge(f"train.diag.{k}").set(v)
+        per = metrics.get("loss_per_replica", metrics.get("losses"))
+        if per is not None:
+            for j, lv in enumerate(per.detach().cpu().reshape(-1).tolist()):
+                obs.registry.gauge("train.replica_loss",
+                                   replica=j).set(round(lv, 6))
+    return rec

@@ -1,0 +1,272 @@
+"""The port's training path against the JAX reference: the smoke
+Qwen2.5-3B loss and grads, the per-step losses of two fused Parle rounds
+fed the reference's own batches (with and without the kernels on both
+sides), checkpoints that cross-load in both directions, and the train
+CLI (its JSON records, its refusals, and the device rule).
+
+Tolerances: loss and grads of one forward/backward at MODEL_TOL (rtol =
+atol = 1e-4: XLA and PyTorch sum in different orders); the six per-step
+losses and the final x of a two-round trajectory at rtol = atol = 1e-4
+(the same differences, carried through six updates at lr 0.1)."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.checkpoint import checkpoint as ref_ckpt
+from repro.configs import ARCHS as REF_ARCHS
+from repro.configs import smoke_variant as ref_smoke_variant
+from repro.configs.base import ParleConfig as RefParleConfig
+from repro.core import parle as ref_parle
+from repro.core import registry as ref_registry
+from repro.data.synthetic import TokenStream as RefTokenStream
+from repro.data.synthetic import make_round_batch_fn as ref_round_batches
+from repro.models.model import build_model as ref_build_model
+from repro.obs.events import KINDS as REF_KINDS
+from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.configs import ARCHS, ParleConfig, smoke_variant
+from repro_torch.core import registry
+from repro_torch.launch import train
+from repro_torch.models.convert import (params_from_numpy, state_from_numpy,
+                                        state_to_numpy)
+from repro_torch.models.model import build_model
+from torch_parity import MODEL_TOL, assert_close, numpy_params
+
+ROOT = Path(__file__).resolve().parents[1]
+RCFG = ref_smoke_variant(REF_ARCHS["qwen2.5-3b"])
+CFG = smoke_variant(ARCHS["qwen2.5-3b"])
+TRAJ_TOL = dict(rtol=1e-4, atol=1e-4)
+N, L, B, T = 2, 3, 2, 32
+
+
+@pytest.fixture(scope="module")
+def np_params():
+    return numpy_params(RCFG, seed=0)
+
+
+def _ref_batches():
+    """The reference's own two rounds of (L, n, B, T) batches, as numpy."""
+    stage = ref_round_batches(RefTokenStream(RCFG.vocab_size, T, B, seed=0),
+                              L, B, N)
+    return [jax.tree.map(np.asarray, stage(r * L)) for r in range(2)]
+
+
+def test_loss_and_grads_match_reference(np_params):
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, CFG.vocab_size, size=(B, T + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    rp = jax.tree.map(jnp.asarray, np_params)
+    (r_loss, _), r_grads = jax.jit(jax.value_and_grad(
+        ref_build_model(RCFG).loss, has_aux=True))(
+        rp, jax.tree.map(jnp.asarray, batch))
+    pp = params_from_numpy(np_params, "cpu")
+    leaves = jax.tree_util.tree_leaves_with_path(np_params)
+    p_loss, _ = build_model(CFG).loss(
+        jax.tree.map(lambda t: t.requires_grad_(True), pp),
+        {k: torch.from_numpy(v) for k, v in batch.items()})
+    p_loss.backward()
+    assert_close(p_loss, r_loss, MODEL_TOL, "smoke loss")
+    for path, _ in leaves:
+        g, r = pp, r_grads
+        for k in path:
+            g, r = g[k.key], r[k.key]
+        assert_close(g.grad, r, MODEL_TOL,
+                     f"grad{jax.tree_util.keystr(path)}")
+
+
+def test_cross_entropy_matches_reference():
+    from repro.models import layers as ref_layers
+    from repro_torch.models import layers
+    rng = np.random.default_rng(3)
+    logits = rng.standard_normal((2, 5, 40)).astype(np.float32)
+    labels = rng.integers(0, 40, size=(2, 5)).astype(np.int32)
+    mask = (rng.random((2, 5)) < 0.6).astype(np.float32)
+    for m in (None, mask):
+        assert_close(layers.cross_entropy(
+            torch.from_numpy(logits), torch.from_numpy(labels),
+            None if m is None else torch.from_numpy(m)),
+            ref_layers.cross_entropy(jnp.asarray(logits), jnp.asarray(labels),
+                                     None if m is None else jnp.asarray(m)),
+            MODEL_TOL, f"cross_entropy mask={m is not None}")
+    h = rng.standard_normal((2, 8, 6)).astype(np.float32)
+    w = rng.standard_normal((6, 40)).astype(np.float32)
+    lab = rng.integers(0, 40, size=(2, 8)).astype(np.int32)
+    for chunk in (4, 3):              # 3 does not divide T: one chunk
+        assert_close(layers.chunked_cross_entropy(
+            torch.from_numpy(h), torch.from_numpy(w), torch.from_numpy(lab),
+            chunk=chunk),
+            ref_layers.chunked_cross_entropy(jnp.asarray(h), jnp.asarray(w),
+                                             jnp.asarray(lab), chunk=chunk),
+            MODEL_TOL, f"chunked_cross_entropy chunk={chunk}")
+
+
+def test_layer_views_come_from_one_unbind():
+    """Each layer's params are views from ONE unbind(0) of each stacked
+    leaf (backward: one stack), not a per-layer select (backward: a
+    zero-filled copy of the whole stacked leaf per layer)."""
+    from repro_torch.models import transformer as tfm
+    blocks = {"ln1": torch.ones(3, 4, requires_grad=True),
+              "mlp": {"w": torch.ones(3, 4, 5, requires_grad=True)}}
+    per_layer = tfm.layer_params(blocks, 3)
+    assert len(per_layer) == 3
+    for l, bp in enumerate(per_layer):
+        assert bp["ln1"].grad_fn.name() == "UnbindBackward0"
+        assert bp["mlp"]["w"].grad_fn.name() == "UnbindBackward0"
+        assert bp["mlp"]["w"].data_ptr() == blocks["mlp"]["w"][l].data_ptr()
+    sum(bp["mlp"]["w"].sum() * (l + 1)
+        for l, bp in enumerate(per_layer)).backward()
+    assert torch.equal(blocks["mlp"]["w"].grad[:, 0, 0],
+                       torch.tensor([1.0, 2.0, 3.0]))
+
+
+def _ref_rounds(np_params, use_kernel, batches):
+    pcfg = RefParleConfig(n_replicas=N, L=L, batches_per_epoch=1)
+    algo = ref_registry.get("parle")
+    st = ref_parle.dealias_state(algo.init(
+        jax.tree.map(jnp.asarray, np_params), pcfg))
+    rnd = algo.make_round_fn(ref_build_model(RCFG).loss, pcfg,
+                             use_kernel=use_kernel)
+    losses = []
+    for b in batches:
+        st, m = rnd(st, jax.tree.map(jnp.asarray, b))
+        losses.append(np.asarray(m["losses"]))
+    return st, np.concatenate(losses)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_two_rounds_match_reference(np_params, use_kernel):
+    batches = _ref_batches()
+    ref_state, ref_losses = _ref_rounds(np_params, use_kernel, batches)
+
+    pcfg = ParleConfig(n_replicas=N, L=L, batches_per_epoch=1)
+    algo = registry.get("parle")
+    st = algo.init(params_from_numpy(np_params, "cpu"), pcfg)
+    rnd = algo.make_round_fn(build_model(CFG).loss, pcfg,
+                             use_kernel=use_kernel)
+    losses = []
+    for b in batches:
+        st, m = rnd(st, {k: torch.from_numpy(np.array(v)) for k, v in
+                         b.items()})
+        losses.append(m["losses"])
+    assert_close(torch.cat(losses), ref_losses, TRAJ_TOL,
+                 f"per-step losses use_kernel={use_kernel}")
+    got = state_to_numpy(st)
+    for path, r in jax.tree_util.tree_leaves_with_path(ref_state.x):
+        p = got["x"]
+        for k in path:
+            p = p[k.key]
+        assert_close(p, r, TRAJ_TOL, f"final x{jax.tree_util.keystr(path)}")
+    assert float(st.scopes.gamma) == float(ref_state.scopes.gamma)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_checkpoints_cross_load_both_ways(np_params, tmp_path, precision):
+    pcfg_kw = dict(n_replicas=N, L=L, precision=precision)
+    rcfg = RefParleConfig(**pcfg_kw)
+    rng = np.random.default_rng(9)
+    # a reference state with every field distinct (x != y != z ...)
+    ref = ref_registry.get("parle").init(jax.tree.map(jnp.asarray, np_params),
+                                         rcfg)
+    bump = lambda t, s: jax.tree.map(
+        lambda a: (a.astype(jnp.float32) + s * jnp.asarray(
+            rng.standard_normal(a.shape).astype(np.float32))).astype(a.dtype),
+        t)
+    ref = ref._replace(y=bump(ref.y, 0.1), z=bump(ref.z, 0.2),
+                       v_y=bump(ref.v_y, 0.3), v_x=bump(ref.v_x, 0.4),
+                       step=jnp.asarray(6, jnp.int32),
+                       scopes=ref.scopes._replace(
+                           gamma=jnp.asarray(12.5, jnp.float32)))
+
+    # reference writes, port restores
+    ref_path = str(tmp_path / "ref" / "step000006.npz")
+    ref_ckpt.save(ref_path, ref, step=6, algo="parle")
+    pcfg = ParleConfig(**pcfg_kw)
+    algo = registry.get("parle")
+    fresh = lambda: algo.init(params_from_numpy(np_params, "cpu"), pcfg)
+    port = ckpt.restore(ref_path, fresh(), algo="parle")
+    want = state_from_numpy(jax.tree.map(np.asarray, ref), "cpu")
+    for f in ("x", "y", "z", "v_y", "v_x"):
+        assert torch.equal(getattr(port, f), getattr(want, f)), f
+    assert int(port.step) == 6 and float(port.scopes.gamma) == 12.5
+    assert ckpt.latest_step(ref_path) == 6
+
+    # port writes, reference restores
+    port_path = str(tmp_path / "port" / "step000006.npz")
+    ckpt.save(port_path, port, step=6, algo="parle")
+    with open(port_path + ".json") as f:
+        assert json.load(f)["keys"] == sorted(np.load(ref_path).files)
+    like = ref_parle.dealias_state(ref_registry.get("parle").init(
+        jax.tree.map(jnp.asarray, np_params), rcfg))
+    back = ref_ckpt.restore(port_path, like, algo="parle")
+    for a, b in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(ref)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+    # the algo stamp is checked both ways
+    with pytest.raises(ValueError, match="written by algo 'parle'"):
+        ckpt.restore(ref_path, fresh(), algo="entropy_sgd")
+    with pytest.raises(ValueError, match="written by algo 'parle'"):
+        ref_ckpt.restore(port_path, like, algo="entropy_sgd")
+    # a precision mismatch names the key
+    other = ParleConfig(**dict(pcfg_kw, precision="bf16" if precision == "f32"
+                               else "f32"))
+    with pytest.raises(ValueError, match="'y/"):
+        ckpt.restore(port_path,
+                     algo.init(params_from_numpy(np_params, "cpu"), other))
+
+
+def test_train_cli_on_cpu_prints_the_reference_records(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    ck = tmp_path / "ck"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen2.5-3b", "--device", "cpu", "--smoke", "--replicas", "2",
+         "--L", "3", "--steps", "6", "--batch", "2", "--seq", "32",
+         "--use-kernel", "--round-fused", "--log-every", "3",
+         "--checkpoint-dir", str(ck), "--checkpoint-every", "3"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    recs = [json.loads(l) for l in proc.stdout.splitlines() if l.startswith("{")]
+    prog = [r for r in recs if r["kind"] == "train_progress"]
+    final = [r for r in recs if r["kind"] == "train_final"]
+    assert [r["step"] for r in prog] == [3, 6]
+    assert [r["round"] for r in prog] == [1, 2]
+    envelope = {"v", "kind", "ts"}
+    for r in prog:
+        assert set(r) == envelope | set(REF_KINDS["train_progress"])
+        assert set(r["diag"]) == {"gamma", "rho", "overlap", "spread"}
+        assert np.isfinite(r["loss"])
+    assert len(final) == 1
+    assert set(final[0]) == envelope | set(REF_KINDS["train_final"])
+    assert final[0]["algo"] == "parle"
+    assert final[0]["arch"] == "qwen2.5-3b-smoke"
+    assert sorted(os.listdir(ck)) == ["step000003.npz", "step000003.npz.json",
+                                      "step000006.npz", "step000006.npz.json"]
+    assert ref_ckpt.saved_meta(str(ck / "step000006.npz"))["algo"] == "parle"
+
+
+def test_train_wants_cuda_unless_told_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--smoke", "--steps", "1"])
+
+
+@pytest.mark.parametrize("argv,exc,match", [
+    (["--algo", "elastic_sgd"], NotImplementedError, "item 5"),
+    (["--algo", "sgd"], NotImplementedError, "item 5"),
+    (["--mesh", "replica:2"], SystemExit, "item 6"),
+    (["--sync-compress", "int8"], SystemExit, "item 4"),
+    (["--sync-overlap", "--round-fused"], SystemExit, "item 4"),
+    (["--sync-policy", "async"], SystemExit, "item 7"),
+])
+def test_train_cli_names_what_is_not_ported(argv, exc, match):
+    with pytest.raises(exc, match=match):
+        train.main(["--smoke", "--device", "cpu", "--steps", "1"] + argv)
