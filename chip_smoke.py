@@ -17,10 +17,15 @@ itself and, in order:
    shapes; K1 (Parle inner step) and K2 (sync step) bit for bit at
    ragged lengths, 1-3 replicas, bf16 y/g (K1), with and without the
    fused bf16 y' (K2), and with each scalar bumped (the result moves);
+   K4 (int8 quantize + error feedback, also in place), K5 (dequantize +
+   mean + sync) and K6 (apply + quantize) bit for bit in codes, scales,
+   residuals and state at 1-3 rows and 1-3 payloads, a half-to-even and
+   an all-zero chunk, with and without the fused bf16 y', each scalar
+   bumped; and a NaN chunk (its scale NaN in both);
 4. times each kernel, its plain version and, where one exists, one
    PyTorch library call (CUDA events, L2 flushed before every launch)
    beside the least time the card could take: K8 at the serve path's
-   shapes, K1 and K2 at 2 replicas x 2^26 float32 elements;
+   shapes, K1, K2, K4, K5 and K6 at 2 replicas x 2^26 float32 elements;
 5. serves through the port's serve CLI functions: full-width
    Qwen2.5-3B in float32 (random params, torch.Generator seed 0), the
    paged engine decoding through K8, 8 requests of 63-84 prompt tokens,
@@ -36,10 +41,16 @@ itself and, in order:
    batch 2 x 256 tokens per replica, ``--use-kernel --round-fused``;
    asserts K1 launched 8 times and K2 twice, every loss is finite, and
    the same run without ``--use-kernel`` gives the same losses and the
-   same final x bit for bit; then profiles one more round, and runs one
-   round in bf16 (``--precision bf16``) with and without the kernels
-   (bit for bit again); then holds K1 and K2 against their plain
-   versions at the training shape;
+   same final x bit for bit, and so does the ``--sync-overlap`` run after
+   its flush (K2 launched once, at the second round's head); then
+   profiles one more round, runs one round in bf16 (``--precision
+   bf16``) with and without the kernels (bit for bit again), and trains
+   with ``--sync-compress int8``: the barrier path through K4 and K5 (2
+   launches each), the overlapped path through K4 (first head) and K6
+   (second head), each equal to its run without the kernels in losses,
+   final x, residual e (and c) bit for bit, and the two equal to each
+   other; peak and free device memory after each run; then holds K1,
+   K2, K4, K5 and K6 against their plain versions at the training shape;
 7. prints one JSON line of per-kernel numbers, then, last, the device
    line ``{"ok": true, "device": {...}}``.
 
@@ -345,6 +356,142 @@ def parle_check_phase(device) -> dict:
     return errs
 
 
+COMPRESS_CASES = {                # local rows R, payloads n, elements M
+    "R1_n1": (1, 1, 8192),
+    "R2_n2": (2, 2, 16384),
+    "R3_n3": (3, 3, 24576),
+    "R2_n3": (2, 3, 16384),
+    "R3_n1": (3, 1, 8192),
+}
+HALF_EVEN = (127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -3.5, 4.5)
+
+
+def _payload_input(seed, n, m, device):
+    """c (n, m): random, except row 0's chunk 0 (amax 127, so scale 1.0
+    exactly, with +-k.5 values that pin half-to-even rounding) and
+    chunk 1 (all zeros: scale 1, codes 0)."""
+    c = _randn(seed, (n, m), device) * 5
+    c[0, :1024] = _randn(seed + 1, (1024,), device).clamp(-100, 100)
+    c[0, :len(HALF_EVEN)] = torch.tensor(HALF_EVEN, device=device)
+    c[0, 1024:2048] = 0
+    return c
+
+
+def _k4(c):
+    want = pu.quantize_ef_plain(c)
+    R, M = c.shape
+    q = torch.empty((R, M), dtype=torch.int8, device=c.device)
+    s = torch.empty((R, M // 1024), device=c.device)
+    got = pu.quantize_ef_cuda(c.clone(), q, s, torch.empty_like(c))
+    in_place = c.clone()
+    got_in_place = pu.quantize_ef_cuda(in_place, q.clone(), s.clone(),
+                                       in_place)
+    return got, got_in_place, want
+
+
+def _k5(x, z, v, q, s, scalars, emit_y, device):
+    sc = pu.pack_scalars(*scalars, device=device)
+    y_dtype = torch.bfloat16 if emit_y else None
+    want = pu.parle_sync_dequant_update_plain(x, z, v, q, s, sc,
+                                              y_dtype=y_dtype)
+    y_out = torch.empty_like(x, dtype=torch.bfloat16) if emit_y else None
+    got = pu.parle_sync_dequant_update_cuda(x.clone(), z, v.clone(), q, s, sc,
+                                            y_out=y_out)
+    return got, want
+
+
+def _k6(x, z, v, c, e, scalars, emit_y, device):
+    sc = pu.pack_scalars(*scalars, device=device)
+    y_dtype = torch.bfloat16 if emit_y else None
+    want = pu.parle_apply_quantize_plain(x, z, v, c, e, sc, y_dtype=y_dtype)
+    R, M = x.shape
+    q = torch.empty((R, M), dtype=torch.int8, device=device)
+    s = torch.empty((R, M // 1024), device=device)
+    y_out = torch.empty_like(x, dtype=torch.bfloat16) if emit_y else None
+    got = pu.parle_apply_quantize_cuda(x.clone(), z, v.clone(), c, e.clone(),
+                                       q, s, sc, y_out=y_out)
+    return got, want
+
+
+def _max_err(got, want):
+    return max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(got, want))
+
+
+def _same(got, want):
+    return len(got) == len(want) and all(torch.equal(a, b)
+                                         for a, b in zip(got, want))
+
+
+def compress_check_phase(device) -> dict:
+    """K4, K5 and K6 against their plain versions, bit for bit (codes,
+    scales, residuals and the updated state), at every case: 1-3 rows,
+    K5 with as many and with other numbers of payloads than rows, a
+    half-to-even chunk and an all-zero chunk, with and without the fused
+    bf16 y'; each scalar bumped must move K5's and K6's result.  Then a
+    chunk holding a NaN: its scale is NaN in both, all else equal."""
+    phase("3c. K4, K5 and K6 against their plain versions (bitwise)")
+    errs = {"quantize_ef": 0.0, "parle_sync_dequant": 0.0,
+            "parle_apply_quantize": 0.0}
+    for i, (name, (R, n, m)) in enumerate(COMPRESS_CASES.items()):
+        c = _payload_input(300 + 10 * i, n, m, device)
+        got, got_in_place, want = _k4(c)
+        torch.cuda.synchronize(device)
+        errs["quantize_ef"] = max(errs["quantize_ef"], _max_err(got, want))
+        check(_same(got, want) and _same(got_in_place, want),
+              f"K4 differs from its plain version on {name}")
+        check(float(want[1][0, 0]) == 1.0 and float(want[1][0, 1]) == 1.0
+              and want[0][0, :len(HALF_EVEN)].tolist()
+              == [127, 0, 2, 2, 0, -2, -2, 126, -4, 4],
+              "the half-to-even / zero chunks did not quantize as expected")
+        q, s, _ = got
+        x, z, v, e = (_randn(400 + 10 * i + k, (R, m), device)
+                      for k in range(4))
+        cbar = _randn(450 + i, (m,), device)
+        for t in (x, z, v, e):
+            t[:, 2048:3072] = 0            # K6's payload: an all-zero chunk
+        cbar[2048:3072] = 0
+        line = [f"{name}: (R {R}, n {n}, M {m}) K4 bitwise (+ in place)"]
+        for emit_y in (False, True):
+            for kernel, key, args in (
+                    (_k5, "parle_sync_dequant", (x, z, v, q, s)),
+                    (_k6, "parle_apply_quantize", (x, z, v, cbar, e))):
+                got, want = kernel(*args, SYNC_SCALARS, emit_y, device)
+                torch.cuda.synchronize(device)
+                errs[key] = max(errs[key], _max_err(got, want))
+                check(_same(got, want), f"{key} (y' {emit_y}) differs from "
+                      f"its plain version on {name}")
+                if emit_y:
+                    check(torch.equal(got[-1], got[0].to(torch.bfloat16)),
+                          f"{key}'s fused y' is not bf16(x')")
+                for j in range(4):
+                    moved, _ = kernel(*args, _bump(SYNC_SCALARS, j), emit_y,
+                                      device)
+                    check(not _same(moved, got),
+                          f"{key} ignores scalar {j} on {name}")
+            line.append(f"K5 + K6{' + bf16 y' if emit_y else ''} bitwise")
+        print(", ".join(line) + "; every scalar moves both", flush=True)
+
+    c = _payload_input(390, 2, 16384, device)
+    c[1, 3000] = float("nan")                  # row 1, chunk 2
+    got, _, want = _k4(c)
+    torch.cuda.synchronize(device)
+    nan_s = torch.isnan(want[1])
+    check(torch.equal(nan_s, torch.isnan(got[1])) and bool(nan_s[1, 2])
+          and int(nan_s.sum()) == 1, "K4's scale of a NaN chunk is not NaN "
+          "as in its plain version")
+    keep = torch.ones_like(c, dtype=torch.bool)
+    keep[1, 2048:3072] = False
+    check(torch.equal(got[0][keep], want[0][keep])
+          and torch.equal(got[1][~nan_s], want[1][~nan_s])
+          and torch.equal(got[2][keep], want[2][keep])
+          and bool(torch.isnan(got[2][~keep]).all()),
+          "K4 differs from its plain version outside a NaN chunk")
+    print("NaN chunk: scale NaN in both, residuals NaN, every other chunk "
+          "bitwise", flush=True)
+    return errs
+
+
 def parle_main_shape_phase(device, n, m) -> dict:
     """K1 and K2 at the training path's shape, (n, m) float32, against
     their plain versions.  The inputs are drawn column chunk by column
@@ -352,7 +499,8 @@ def parle_main_shape_phase(device, n, m) -> dict:
     each chunk's inputs are drawn again and the plain version (which is
     elementwise) is evaluated one chunk at a time: the full-size plain
     temporaries never exist."""
-    phase(f"6c. K1 and K2 at the training path's shape ({n}, {m})")
+    phase(f"6c. K1, K2, K4, K5 and K6 at the training path's shape "
+          f"({n}, {m})")
     chunks = [(c, min(RANDN_CHUNK, m - c)) for c in range(0, m, RANDN_CHUNK)]
 
     def draw(stream, j, width):
@@ -403,8 +551,61 @@ def parle_main_shape_phase(device, n, m) -> dict:
           f"({err:.3e})")
     del x, z, v, xbar
     torch.cuda.empty_cache()
-    print(f"K1 and K2 bitwise equal to their plain versions over "
-          f"{len(chunks)} chunks", flush=True)
+
+    # K4 in place (c = e, as the sync runs it), then K5 on its payload;
+    # the plain versions see the same column chunks (1024-aligned, so
+    # no int8 chunk is cut)
+    e, = fill([20])
+    q = torch.empty((n, m), dtype=torch.int8, device=device)
+    s = torch.empty((n, m // 1024), device=device)
+    pu.quantize_ef_cuda(e, q, s, e)
+    err, same = 0.0, True
+    for j, (c, w) in enumerate(chunks):
+        want = pu.quantize_ef_plain(draw(20, j, w))
+        got = (q[:, c:c + w], s[:, c // 1024:(c + w) // 1024],
+               e[:, c:c + w])
+        err = max(err, _max_err(got, want))
+        same &= _same(got, want)
+    errs["quantize_ef"] = err
+    check(same, f"K4 differs from its plain version at ({n}, {m})")
+    del e
+    torch.cuda.empty_cache()
+    x, z, v = fill(range(21, 24))
+    sc = pu.pack_scalars(*SYNC_SCALARS, device=device)
+    pu.parle_sync_dequant_update_cuda(x, z, v, q, s, sc)
+    err, same = 0.0, True
+    for j, (c, w) in enumerate(chunks):
+        want = pu.parle_sync_dequant_update_plain(
+            *(draw(k, j, w) for k in range(21, 24)), q[:, c:c + w],
+            s[:, c // 1024:(c + w) // 1024], sc)
+        got = (x[:, c:c + w], v[:, c:c + w])
+        err = max(err, _max_err(got, want))
+        same &= _same(got, want)
+    errs["parle_sync_dequant"] = err
+    check(same, f"K5 differs from its plain version at ({n}, {m})")
+    del x, z, v
+    torch.cuda.empty_cache()
+
+    x, z, v, e = fill(range(30, 34))
+    cbar = torch.empty(m, device=device)
+    for j, (c, w) in enumerate(chunks):
+        cbar[c:c + w] = _randn(7919 * j + 34, (w,), device)
+    pu.parle_apply_quantize_cuda(x, z, v, cbar, e, q, s, sc)
+    err, same = 0.0, True
+    for j, (c, w) in enumerate(chunks):
+        want = pu.parle_apply_quantize_plain(
+            *(draw(k, j, w) for k in range(30, 33)), cbar[c:c + w],
+            draw(33, j, w), sc)
+        got = (x[:, c:c + w], v[:, c:c + w], q[:, c:c + w],
+               s[:, c // 1024:(c + w) // 1024], e[:, c:c + w])
+        err = max(err, _max_err(got, want))
+        same &= _same(got, want)
+    errs["parle_apply_quantize"] = err
+    check(same, f"K6 differs from its plain version at ({n}, {m})")
+    del x, z, v, e, cbar, q, s
+    torch.cuda.empty_cache()
+    print(f"K1, K2, K4, K5 and K6 bitwise equal to their plain versions "
+          f"over {len(chunks)} chunks", flush=True)
     return errs
 
 
@@ -433,6 +634,13 @@ def parle_timing_phase(device) -> dict:
                               lambda: pu.parle_sync_update_plain(
                                   x, z, v, xbar, s2)),
     }
+    return _time_flat_kernels(work, device, n, m)
+
+
+def _time_flat_kernels(work, device, n, m) -> dict:
+    """``work``: name -> (bytes, operations, kernel, plain).  Times each
+    kernel and its plain version beside its bound; none has a library
+    call that computes the same function."""
     out = {}
     for name, (n_bytes, n_ops, kernel, plain) in work.items():
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -449,10 +657,76 @@ def parle_timing_phase(device) -> dict:
                           "achieved_bytes_per_s": n_bytes / (t["ms"] / 1e3),
                           "share_of_3.35TB/s": bytes_ms / t["ms"],
                           "library_call": "none: no single PyTorch call "
-                                          "computes this update"}),
+                                          "computes this function"}),
               flush=True)
         out[name] = t
     return out
+
+
+def compress_timing_phase(device) -> dict:
+    """K4, K5 and K6 kernel and plain times at 2 replicas x 2^26 float32
+    (K5 with the 2 replicas' payloads), beside the byte bound.  No single
+    PyTorch call computes any of the three, so there is no library
+    column."""
+    phase("4c. K4, K5 and K6 timing at 2 replicas x 2^26 float32")
+    n, m = PARLE_TIMING
+    x, z, v, e, c = (_randn(950 + k, (n, m), device) for k in range(5))
+    cbar = c.mean(0)
+    q = torch.empty((n, m), dtype=torch.int8, device=device)
+    s = torch.empty((n, m // 1024), device=device)
+    pu.quantize_ef_cuda(c, q, s, torch.empty_like(c))
+    q_out, s_out = q.clone(), s.clone()
+    sc = pu.pack_scalars(*SYNC_SCALARS, device=device)
+    nm, n_s = n * m, n * m // 1024            # elements, scales
+    # bytes: each input read once, each output written once.  K4 reads
+    # c, writes q (1 B), s and e; K5 reads x, z, v and the n payloads,
+    # writes x, v; K6 reads x, z, v, e and the one (m,) c, writes x, v,
+    # e, q and s.  Operations per element: K4 8 (abs, max, divide, round,
+    # 2 clamps, multiply, subtract), K5 2n + 11 (dequantize, sum, mean,
+    # then K2's 11), K6 20 (K2's 11, + e, then K4's 8)
+    work = {
+        "quantize_ef": (9 * nm + 4 * n_s, 8 * nm,
+                        lambda: pu.quantize_ef_cuda(c, q_out, s_out, e),
+                        lambda: pu.quantize_ef_plain(c)),
+        "parle_sync_dequant": (20 * nm + nm + 4 * n_s, (2 * n + 11) * nm,
+                               lambda: pu.parle_sync_dequant_update_cuda(
+                                   x, z, v, q, s, sc),
+                               lambda: pu.parle_sync_dequant_update_plain(
+                                   x, z, v, q, s, sc)),
+        "parle_apply_quantize": (29 * nm + 4 * m + 4 * n_s, 20 * nm,
+                                 lambda: pu.parle_apply_quantize_cuda(
+                                     x, z, v, cbar, e, q_out, s_out, sc),
+                                 lambda: pu.parle_apply_quantize_plain(
+                                     x, z, v, cbar, e, sc)),
+    }
+    out = _time_flat_kernels(work, device, n, m)
+    del work, x, z, v, e, c, cbar, q, s, q_out, s_out
+    torch.cuda.empty_cache()
+    return out
+
+
+# each kernel's launch counter: (module, attribute)
+COUNTERS = {"paged_attention": (pa, "launches"),
+            "parle_inner_update": (pu, "inner_launches"),
+            "parle_sync_update": (pu, "sync_launches"),
+            "quantize_ef": (pu, "quantize_launches"),
+            "parle_sync_dequant": (pu, "dequant_sync_launches"),
+            "parle_apply_quantize": (pu, "apply_quantize_launches")}
+
+
+def reset_launches() -> None:
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
+
+
+def launch_counts(**want) -> dict:
+    """Every kernel's launches since the last reset, checked: the kernels
+    named in ``want`` launched that often and every other never (with no
+    arguments: nothing launched)."""
+    got = {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
+    expected = {name: want.get(name, 0) for name in got}
+    check(got == expected, f"launches {got}, expected {expected}")
+    return got
 
 
 TRAIN_LAYERS = 4
@@ -511,12 +785,10 @@ def train_phase(device) -> dict:
     torch.use_deterministic_algorithms(True)
     cfg = train_cfg()
     torch.cuda.reset_peak_memory_stats(device)
-    pa.launches = pu.inner_launches = pu.sync_launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     losses_k, walls_k, state, eval_k, _ = _train_once(device, train_argv())
-    launches = {"parle_inner_update": pu.inner_launches,
-                "parle_sync_update": pu.sync_launches,
-                "paged_attention": pa.launches}
+    launches = launch_counts(parle_inner_update=8, parle_sync_update=2)
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device)
     n, m = state.x.shape
@@ -525,11 +797,6 @@ def train_phase(device) -> dict:
           f"({sum(state.layout.sizes)} params); launches {launches}; peak "
           f"memory {peak / 2 ** 30:.3f} GiB; run {run_s:.1f} s", flush=True)
     print("losses (K1/K2):", losses_k.tolist(), flush=True)
-    check(launches["parle_inner_update"] == 8,
-          f"K1 launched {launches['parle_inner_update']} times, expected 8")
-    check(launches["parle_sync_update"] == 2,
-          f"K2 launched {launches['parle_sync_update']} times, expected 2")
-    check(launches["paged_attention"] == 0, "the train path launched K8")
     check(losses_k.shape == (8,) and bool(torch.isfinite(losses_k).all())
           and torch.isfinite(torch.tensor(eval_k)),
           f"losses not finite: {losses_k.tolist()}, eval {eval_k}")
@@ -537,11 +804,11 @@ def train_phase(device) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
+    reset_launches()
     losses_p, walls_p, state, eval_p, _ = _train_once(
         device, train_argv(use_kernel=False))
+    launch_counts()                       # the plain path launches nothing
     print("losses (plain):", losses_p.tolist(), flush=True)
-    check(pu.inner_launches == 8 and pu.sync_launches == 2,
-          "the plain path launched K1 or K2")
     check(torch.equal(losses_k, losses_p),
           f"per-step losses differ: {losses_k.tolist()} vs "
           f"{losses_p.tolist()}")
@@ -549,6 +816,22 @@ def train_phase(device) -> dict:
           "kernel path and the plain path")
     print(f"kernel path == plain path bit for bit: 8 losses, final x "
           f"({n} x {m}); eval loss {eval_k} / {eval_p}", flush=True)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the staleness-1 overlapped sync: K2 applies the carried consensus
+    # at the second round's head (nothing is in flight at the first), the
+    # flush is the plain apply; after it, the barrier run's result
+    reset_launches()
+    losses_o, walls_o, state, _, _ = _train_once(
+        device, train_argv() + ["--sync-overlap"])
+    overlap_launches = launch_counts(parle_inner_update=8,
+                                     parle_sync_update=1)
+    check(torch.equal(losses_k, losses_o) and torch.equal(x_k, state.x.cpu()),
+          "overlap + flush differs from the barrier run (losses or final x)")
+    print(f"overlap + flush == barrier bit for bit: 8 losses, final x; "
+          f"launches {overlap_launches}", flush=True)
     del state, x_k
     gc.collect()
     torch.cuda.empty_cache()
@@ -562,8 +845,10 @@ def train_phase(device) -> dict:
            "step_wall_s": step_s, "tokens_per_s": tokens_per_step / step_s}
     print(json.dumps({k: v for k, v in out.items() if k != "losses"}),
           flush=True)
+    out["overlap_round_wall_s"] = walls_o
     out["profile"] = train_profile_phase(device, walls_k[1])
     out["bf16"] = train_bf16_phase(device)
+    out["int8"] = train_int8_phase(device)
     torch.use_deterministic_algorithms(False)
     return out
 
@@ -574,12 +859,10 @@ def train_bf16_phase(device) -> dict:
     and without them: same losses and final x and y bit for bit."""
     phase("6d. one bf16 training round, kernel path vs plain path")
     argv = ["--precision", "bf16"]
-    pu.inner_launches = pu.sync_launches = 0
+    reset_launches()
     losses_k, walls_k, state, _, _ = _train_once(
         device, train_argv(steps=4) + argv)
-    check((pu.inner_launches, pu.sync_launches) == (4, 1),
-          f"bf16 round launched K1 {pu.inner_launches} and K2 "
-          f"{pu.sync_launches} times, expected 4 and 1")
+    launch_counts(parle_inner_update=4, parle_sync_update=1)
     check(state.y.dtype == torch.bfloat16 and state.x.dtype == torch.float32
           and torch.equal(state.y, state.x.to(torch.bfloat16)),
           "bf16 layout or the fused y' = bf16(x') does not hold")
@@ -600,6 +883,83 @@ def train_bf16_phase(device) -> dict:
     torch.cuda.empty_cache()
     out = {"losses": losses_k.tolist(), "round_wall_s": {
         "kernel": walls_k[0], "plain": walls_p[0]}}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+INT8_PATHS = {   # path: (extra flags, launches of the kernel path)
+    "barrier": ([], dict(parle_inner_update=8, quantize_ef=2,
+                         parle_sync_dequant=2)),
+    "overlap": (["--sync-overlap"], dict(parle_inner_update=8,
+                                         quantize_ef=1,
+                                         parle_apply_quantize=1)),
+}
+
+
+def train_int8_phase(device) -> dict:
+    """The int8 compressed sync at the training shape: the barrier path
+    (each sync: x + e formed in place in e, K4, then K5) and the
+    overlapped path (the first head K4, the second K6, then the plain
+    flush), each through the kernels and then without them: the same
+    losses, final x, residual e (and carried c) bit for bit.  Then the
+    overlapped run against the barrier run: equal too (the head takes
+    the same payload, and the mean is one function).  Peak and free
+    device memory after every run."""
+    phase("6e. int8 sync: barrier through K4 + K5, overlap through K4 + "
+          "K6, each against its plain path")
+    out, barrier = {}, None
+    for name, (extra, want) in INT8_PATHS.items():
+        argv = ["--sync-compress", "int8"] + extra
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        losses_k, walls_k, state, eval_k, _ = _train_once(
+            device, train_argv() + argv)
+        launches = launch_counts(**want)
+        peak = torch.cuda.max_memory_allocated(device)
+        check(bool(torch.isfinite(losses_k).all())
+              and torch.isfinite(torch.tensor(eval_k)),
+              f"int8 {name}: losses not finite {losses_k.tolist()}")
+        kept = {f: getattr(state, f).cpu() for f in ("x", "e", "c")
+                if getattr(state, f) is not None}
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info(device)[0]
+        print(f"int8 {name}: launches {launches}; losses "
+              f"{losses_k.tolist()}; peak {peak / 2 ** 30:.3f} GiB, free "
+              f"after {free / 2 ** 30:.3f} GiB", flush=True)
+
+        reset_launches()
+        losses_p, walls_p, state, _, _ = _train_once(
+            device, train_argv(use_kernel=False) + argv)
+        launch_counts()
+        check(torch.equal(losses_k, losses_p)
+              and all(torch.equal(t, getattr(state, f).cpu())
+                      for f, t in kept.items()),
+              f"int8 {name}: kernel path {losses_k.tolist()} != plain path "
+              f"{losses_p.tolist()} (or final {sorted(kept)} differ)")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"int8 {name}: kernel path == plain path bit for bit "
+              f"(8 losses, final {', '.join(sorted(kept))})", flush=True)
+        if barrier is None:
+            barrier = (losses_k, kept["x"], kept["e"])
+        else:
+            check(torch.equal(barrier[0], losses_k)
+                  and torch.equal(barrier[1], kept["x"])
+                  and torch.equal(barrier[2], kept["e"]),
+                  "int8 overlap + flush differs from the int8 barrier run")
+            print("int8 overlap + flush == int8 barrier bit for bit "
+                  "(losses, x, e)", flush=True)
+        out[name] = {"launches": {k: v for k, v in launches.items() if v},
+                     "losses": losses_k.tolist(), "eval_loss": eval_k,
+                     "round_wall_s": {"kernel": walls_k, "plain": walls_p},
+                     "peak_memory_gib": round(peak / 2 ** 30, 3),
+                     "free_after_gib": round(free / 2 ** 30, 3)}
+        del kept
+        gc.collect()
+    del barrier
     print(json.dumps(out), flush=True)
     return out
 
@@ -656,14 +1016,14 @@ def main_path_phase(device) -> dict:
     print("prompt lengths:", [len(r["tokens"]) for r in requests])
 
     torch.cuda.reset_peak_memory_stats(device)
-    pa.launches = pu.inner_launches = pu.sync_launches = 0
+    reset_launches()
     res_k, engine, rep_k = serve.engine_serve(cfg, params, requests, args_k,
                                               Obs(), device)
-    k8_launches = pa.launches
-    check(pu.inner_launches == pu.sync_launches == 0,
-          "the serve path launched K1 or K2")
     peak = torch.cuda.max_memory_allocated(device)
     steps = engine.stats["decode_steps"]
+    # K8 once per layer and decode step; no training kernel
+    k8_launches = launch_counts(
+        paged_attention=cfg.num_layers * steps)["paged_attention"]
     print(f"K8 launches {k8_launches} = {cfg.num_layers} layers x "
           f"{steps} decode steps; peak memory {peak / 2 ** 30:.3f} GiB",
           flush=True)
@@ -673,9 +1033,6 @@ def main_path_phase(device) -> dict:
               f"request {uid} returned {toks.shape} tokens")
         check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
               f"request {uid} returned token ids outside the vocabulary")
-    check(k8_launches == cfg.num_layers * steps,
-          f"K8 launched {k8_launches} times, expected "
-          f"{cfg.num_layers} x {steps}")
     del engine
     torch.cuda.empty_cache()
 
@@ -752,8 +1109,10 @@ def main() -> int:
     build_phase()
     max_abs_err = check_phase(device)
     parle_errs = parle_check_phase(device)
+    parle_errs.update(compress_check_phase(device))
     timing = timing_phase(device)
     parle_timing = parle_timing_phase(device)
+    parle_timing.update(compress_timing_phase(device))
     run = main_path_phase(device)
     trained = train_phase(device)
     main_errs = parle_main_shape_phase(device, trained["replicas"],
@@ -776,7 +1135,17 @@ def main() -> int:
                   "device_busy_share": prof["busy_share_of_unprofiled_round"],
                   "k1_k2_device_share": (prof["k1_device_s"]
                                          + prof["k2_device_s"])
-                  / prof["device_busy_s"]},
+                  / prof["device_busy_s"],
+                  "round_wall_s": {
+                      "none_barrier": trained["round_wall_s"]["kernel"],
+                      "none_overlap": trained["overlap_round_wall_s"],
+                      "int8_barrier": trained["int8"]["barrier"][
+                          "round_wall_s"]["kernel"],
+                      "int8_overlap": trained["int8"]["overlap"][
+                          "round_wall_s"]["kernel"]},
+                  "int8_peak_memory_gib": {
+                      k: trained["int8"][k]["peak_memory_gib"]
+                      for k in INT8_PATHS}},
         "total_s": round(time.perf_counter() - t_start, 1)}), flush=True)
     kernels = [{
         "name": "paged_attention", "route": "cuda",
@@ -786,13 +1155,21 @@ def main() -> int:
         "ms": timing["ms"], "kernel_ms": timing["ms"],
         "plain_ms": timing["plain_ms"], "library_ms": timing["library_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"]}]
-    for name, line in (("parle_inner_update", 52), ("parle_sync_update", 175)):
+    # each kernel's launches on its own path: K1/K2 on the f32 barrier
+    # run, K4/K5 on the int8 barrier run, K6 on the int8 overlap run
+    int8 = trained["int8"]
+    for name, line, launches in (
+            ("parle_inner_update", 52, trained["launches"]),
+            ("parle_sync_update", 175, trained["launches"]),
+            ("quantize_ef", 365, int8["barrier"]["launches"]),
+            ("parle_sync_dequant", 412, int8["barrier"]["launches"]),
+            ("parle_apply_quantize", 479, int8["overlap"]["launches"])):
         t = parle_timing[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/parle_update.cu",
             "replaces": f"src/repro/kernels/parle_update.py:{line}",
-            "launches": trained["launches"][name],
+            "launches": launches[name],
             "max_abs_err": max(parle_errs[name], main_errs[name]),
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],

@@ -4,8 +4,10 @@ package restores into the other.
 
 * One npz entry per leaf, keyed by its path joined with ``/`` — for a
   Parle state ``x/blocks/attn/wq``, ..., ``step``, ``scopes/gamma``,
-  ``scopes/rho`` (``ParleState.tree()`` gives the port's state in the
-  reference's tree form, each leaf a view into the flat buffers).
+  ``scopes/rho``, and under a compressed / overlapped sync the residual
+  ``e/...`` and the in-flight consensus ``c/...`` (``ParleState.tree()``
+  gives the port's state in the reference's tree form, each leaf a view
+  into the flat buffers).
 * bf16 leaves are stored as their uint16 bit patterns (npz has no bf16).
 * A JSON sidecar ``<file>.npz.json`` holds the step, the sorted keys,
   the npz's sha1 digest, ``meta`` (with the writing algorithm's ``algo``

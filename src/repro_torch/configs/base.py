@@ -166,10 +166,11 @@ class ParleConfig:
     # (and hence activations and grads) in bfloat16 while x, z and both
     # momenta stay f32 masters.
     precision: str = "f32"
-    # Compression of the Eq. (8d) sync payload: "none" here; "bf16" and
-    # "int8" (kernels K4-K6) are not ported yet.
+    # Compression of the Eq. (8d) sync payload: "none", "bf16" or "int8"
+    # (per-1024-chunk scales + an error-feedback residual in the state).
     sync_compress: str = "none"
-    # Staleness-1 overlapped sync: not ported yet.
+    # Staleness-1 overlapped sync: each round's consensus is applied at
+    # the start of the next round (flushed after the last).
     sync_overlap: bool = False
 
     def scoping_factor(self) -> float:

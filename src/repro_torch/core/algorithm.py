@@ -10,7 +10,13 @@
   make_round_fn(loss_fn, cfg, *, weight_decay, use_kernel, lr_schedule)
                              -> round(state, batches) -> (state, metrics):
                                 the L = cfg.L inner steps and the sync in
-                                one call; batches leaves are (L, n, B, ...)
+                                one call; batches leaves are (L, n, B, ...);
+                                with cfg.sync_overlap the staleness-1
+                                round (head first, then the inner steps)
+  make_round_flush_fn(cfg, *, lr_schedule)
+                             -> flush(state) -> state, the end-of-training
+                                apply of the in-flight consensus; None
+                                unless cfg.sync_overlap
   deployable(state)          -> the single servable param tree
   diagnostics(state)         -> dict of host floats (gamma, rho, overlap,
                                 spread)
@@ -61,9 +67,18 @@ class ParleAlgorithm:
 
     def make_round_fn(self, loss_fn, cfg, *, weight_decay=0.0,
                       use_kernel=False, lr_schedule=None):
-        return parle.make_round_fn(
-            loss_fn, cfg, weight_decay=weight_decay, use_kernel=use_kernel,
-            lr_schedule=resolve_lr_schedule(cfg, lr_schedule))
+        factory = (parle.make_overlap_round_fn
+                   if getattr(cfg, "sync_overlap", False)
+                   else parle.make_round_fn)
+        return factory(loss_fn, cfg, weight_decay=weight_decay,
+                       use_kernel=use_kernel,
+                       lr_schedule=resolve_lr_schedule(cfg, lr_schedule))
+
+    def make_round_flush_fn(self, cfg, *, lr_schedule=None):
+        if not getattr(cfg, "sync_overlap", False):
+            return None
+        return parle.make_flush_fn(
+            cfg, lr_schedule=resolve_lr_schedule(cfg, lr_schedule))
 
     def deployable(self, state):
         return parle.average_model(state)
@@ -93,6 +108,9 @@ class EntropySGDAlgorithm(ParleAlgorithm):
     def make_round_fn(self, loss_fn, cfg, **kw):
         return super().make_round_fn(loss_fn, self.canonicalize_cfg(cfg),
                                      **kw)
+
+    def make_round_flush_fn(self, cfg, **kw):
+        return super().make_round_flush_fn(self.canonicalize_cfg(cfg), **kw)
 
 
 PARLE = register(ParleAlgorithm())

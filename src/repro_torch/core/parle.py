@@ -1,7 +1,8 @@
 """Parle (Chaudhari et al., 2017) — Eq. (8a)-(8d) — for PyTorch.  Port of
-``repro/core/parle.py`` (the local-replica path with ``sync_compress =
-"none"``; compression, overlap, meshes and the async half are not
-ported yet, ROADMAP.md queue 1 items 4, 6 and 7).
+``repro/core/parle.py``: the local-replica path, with the compressed
+(``sync_compress`` bf16 / int8, error feedback) and the staleness-1
+overlapped (``sync_overlap``) sync.  Meshes and the async half are not
+ported yet (ROADMAP.md queue 1 items 6 and 7).
 
 State layout: each of x, y, z, v_y, v_x is ONE ``(n, M)`` buffer, row a
 holding replica a's whole param tree in the flat layout of
@@ -30,6 +31,22 @@ With ``use_kernel`` the two updates are the CUDA kernels K1 and K2
 default path is the same arithmetic as eager torch ops, one replica row
 at a time (so its temporaries stay at one row's size).
 
+Compressed sync (cfg.sync_compress): each replica's contribution c_a =
+x_a + e_a is formed in place in the residual buffer ``e``, quantized
+(``core/compress.py``; with ``use_kernel`` and int8 the CUDA kernel K4),
+the residual e_a' = c_a - dequant(q_a) replaces it, and the Eq. (8d) mean
+is taken over the dequantized payloads (with ``use_kernel`` and int8 the
+kernel K5 fuses that mean into the update).
+
+Overlapped sync (cfg.sync_overlap): a round starts with its head — apply
+the consensus ``c`` carried from the previous round, then take this
+round's payload and carry its mean in ``c`` — and runs its L inner steps
+after it; :func:`make_flush_fn` applies the last ``c``.  x only changes
+at a consensus, so R overlapped rounds plus the flush are R barrier
+rounds with rotated boundaries (bit for bit here).  With ``use_kernel``
+and int8 the head after the first is the kernel K6 (apply + quantize in
+one pass).
+
 Per-replica grads come from a Python loop over the replicas (only one
 replica's activations are alive at a time; each replica is independent,
 as under the reference's ``jax.vmap``).  Replica a's ``y`` row is made a
@@ -38,15 +55,13 @@ so autograd hands back one row-shaped grad (``FlatLayout.split``).
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import compress
 from repro_torch.core.scoping import Scopes, init_scopes, update_scopes
 from repro_torch.utils.pytree import FlatLayout, tree_map
-
-_NOT_PORTED = ("{what} is not ported yet (ROADMAP.md queue 1, item "
-               "{item})")
 
 
 class ParleState(NamedTuple):
@@ -64,25 +79,30 @@ class ParleState(NamedTuple):
     step: torch.Tensor     # () int32, counts inner steps k
     scopes: Scopes
     layout: FlatLayout
+    e: Optional[torch.Tensor] = None   # (n, M) sync-compression residual
+    c: Optional[torch.Tensor] = None   # (M,) in-flight overlap consensus
 
     def tree(self) -> dict:
-        """The reference ParleState's pytree (sync_compress "none", no
-        overlap): each field a nested dict of ``(n, ...)`` leaf views."""
+        """The reference ParleState's pytree: each field a nested dict of
+        ``(n, ...)`` leaf views (``c``'s leaves have no replica axis);
+        ``e`` and ``c`` only when present, as in the reference."""
         out = {f: self.layout.tree(getattr(self, f))
                for f in ("x", "y", "z", "v_y", "v_x")}
         out["step"] = self.step
         out["scopes"] = {"gamma": self.scopes.gamma, "rho": self.scopes.rho}
+        for f in ("e", "c"):
+            if getattr(self, f) is not None:
+                out[f] = self.layout.tree(getattr(self, f))
         return out
 
 
-def _check_cfg(cfg):
-    if getattr(cfg, "sync_compress", "none") != "none":
-        raise NotImplementedError(_NOT_PORTED.format(
-            what=f"sync_compress={cfg.sync_compress!r} (kernels K4-K6)",
-            item=4))
-    if getattr(cfg, "sync_overlap", False):
-        raise NotImplementedError(_NOT_PORTED.format(
-            what="the staleness-1 overlapped sync", item=4))
+FIELDS = ("x", "y", "z", "v_y", "v_x", "e", "c")   # the buffers of a state
+
+
+def _sync_compress(cfg) -> str:
+    method = getattr(cfg, "sync_compress", "none")
+    compress.check_method(method)
+    return method
 
 
 def init(params, cfg) -> ParleState:
@@ -101,22 +121,28 @@ def init_from_replicas(replica_params, cfg) -> ParleState:
 
 
 def _state_from_x(x, layout, cfg) -> ParleState:
-    _check_cfg(cfg)
     return ParleState(
         x=x, y=x.to(cfg.compute_dtype(), copy=True), z=x.clone(),
         v_y=torch.zeros_like(x), v_x=torch.zeros_like(x),
         step=torch.zeros((), dtype=torch.int32),
-        scopes=init_scopes(cfg), layout=layout)
+        scopes=init_scopes(cfg), layout=layout,
+        e=torch.zeros_like(x) if _sync_compress(cfg) != "none" else None,
+        # placeholder until the first overlapped head issues a real
+        # consensus — never applied (the apply is gated on step > 0)
+        c=(x.new_zeros(x.shape[-1]) if getattr(cfg, "sync_overlap", False)
+           else None))
 
 
 def dealias_state(state: ParleState) -> ParleState:
-    """A state whose five buffers are distinct: any field that shares
-    storage with an earlier one is copied (the updates run in place, so
-    an aliased y and x would corrupt x).  A state from :func:`init` or a
+    """A state whose buffers are distinct: any field that shares storage
+    with an earlier one is copied (the updates run in place, so an
+    aliased y and x would corrupt x).  A state from :func:`init` or a
     restore is returned as it is — no model-size copy."""
     seen, repl = set(), {}
-    for f in ("x", "y", "z", "v_y", "v_x"):
+    for f in FIELDS:
         t = getattr(state, f)
+        if t is None:
+            continue
         ptr = t.untyped_storage().data_ptr()
         if ptr in seen:
             repl[f] = t.clone()
@@ -168,29 +194,52 @@ def inner_step(state: ParleState, grads, cfg, use_kernel: bool = False,
 # Sync step (8c)-(8d)
 # ------------------------------------------------------------------
 
+def _reset_inner_loop(state: ParleState, cfg) -> ParleState:
+    """y, z <- x' (paper: "we initialize y to x every L"), v_y <- 0, and
+    the Eq. (9) scope decay.  Under bf16 the update itself wrote y' =
+    bf16(x'); in f32 x' is copied into y.  Per replica row of M elements:
+    2 streams for z, 2 for an f32 y and 1 for v_y."""
+    state.z.copy_(state.x)
+    if state.y.dtype == torch.float32:
+        state.y.copy_(state.x)
+    state.v_y.zero_()
+    return state._replace(scopes=update_scopes(state.scopes, cfg))
+
+
+def _sync_scalars(state: ParleState, cfg, lr_scale) -> dict:
+    return dict(mu=cfg.momentum, lr=cfg.lr * lr_scale,
+                inv_rho=1.0 / state.scopes.rho,
+                gamma_scale=(1.0 if cfg.scale_lr_by_gamma
+                             else 1.0 / state.scopes.gamma))
+
+
 def consensus_step(state: ParleState, xbar, cfg, *,
-                   use_kernel: bool = False, lr_scale=1.0) -> ParleState:
+                   use_kernel: bool = False, lr_scale=1.0,
+                   payload=None) -> ParleState:
     """The Eq. (8c)-(8d) consensus update given the reduced ``xbar``
     ((M,), the replica mean), then the inner-loop reset y, z <- x',
-    v_y <- 0 and the Eq. (9) scope decay.
+    v_y <- 0 and the Eq. (9) scope decay.  ``payload``: instead of xbar,
+    the (q, s) int8 payloads of all replicas for the fused dequantize +
+    mean + update kernel K5 (``use_kernel`` only).  ``e`` and ``c`` pass
+    through untouched — the caller owns them.
 
     Under bf16 the compute copy y' = bf16(x') is written by the update
-    itself (K2's fused third output); in f32 the reset copies x' into y.
-    The reset moves, per replica row of M elements, 2 streams for z, 2
-    for an f32 y and 1 for v_y."""
-    mu, lr = cfg.momentum, cfg.lr * lr_scale
-    inv_rho = 1.0 / state.scopes.rho
-    gamma_scale = 1.0 if cfg.scale_lr_by_gamma else 1.0 / state.scopes.gamma
+    itself (K2's or K5's fused third output)."""
+    kw = _sync_scalars(state, cfg, lr_scale)
     fused_y = state.y.dtype != torch.float32
+    y_out = state.y if fused_y else None
 
     if use_kernel:
         from repro_torch.kernels import ops as kops
-        kops.parle_sync_update(state.x, state.z, state.v_x, xbar,
-                               gamma_scale=gamma_scale, inv_rho=inv_rho,
-                               lr=lr, mu=mu,
-                               y_out=state.y if fused_y else None)
+        if payload is not None:
+            kops.parle_sync_dequant_update(state.x, state.z, state.v_x,
+                                           *payload, y_out=y_out, **kw)
+        else:
+            kops.parle_sync_update(state.x, state.z, state.v_x, xbar,
+                                   y_out=y_out, **kw)
     else:
-        lr, gamma_scale = _f32(lr), _f32(gamma_scale)
+        mu, inv_rho = kw["mu"], kw["inv_rho"]
+        lr, gamma_scale = _f32(kw["lr"]), _f32(kw["gamma_scale"])
         for a in range(state.x.shape[0]):
             x, v = state.x[a], state.v_x[a]
             g_x = gamma_scale * (x - state.z[a]) + inv_rho * (x - xbar)  # (8c)
@@ -199,25 +248,63 @@ def consensus_step(state: ParleState, xbar, cfg, *,
             del g_x
             if fused_y:
                 state.y[a].copy_(x)
-    state.z.copy_(state.x)           # reset y, z to x^a (paper: "we
-    if not fused_y:                  # initialize y to x every L")
-        state.y.copy_(state.x)
-    state.v_y.zero_()
-    return state._replace(scopes=update_scopes(state.scopes, cfg))
+    return _reset_inner_loop(state, cfg)
 
 
-def replica_mean(x) -> torch.Tensor:
-    """(n, M) -> (M,): the Eq. (8d) mean (sum, then a true division by
-    n, as ``jnp.mean``)."""
-    return x.sum(0) / x.shape[0]
+def replica_mean(x, out=None) -> torch.Tensor:
+    """(n, M) -> (M,): the Eq. (8d) mean (sum, then a division by n).
+    ``out``: an (M,) buffer to write it into."""
+    return torch.sum(x, 0, out=out).div_(x.shape[0])
+
+
+def _compress_payload(state: ParleState, method: str, use_kernel: bool):
+    """Each replica's contribution c_a = x_a + e_a, formed in place in
+    ``e``, quantized; ``e`` becomes the residual c_a - dequant(q_a).
+    Returns the payload (q (n, M), s (n, M/1024) or None).  With
+    ``use_kernel`` and int8 this is one launch of K4; otherwise the codec
+    runs one replica row at a time (temporaries of one row)."""
+    e = state.e
+    e.add_(state.x)
+    if use_kernel and method == "int8":
+        from repro_torch.kernels import ops as kops
+        q, s, _ = kops.quantize_ef(e, in_place=True)
+        return q, s
+    n, M = e.shape
+    q = e.new_empty((n, M), dtype=torch.int8 if method == "int8"
+                    else torch.bfloat16)
+    s = e.new_empty((n, M // compress.CHUNK)) if method == "int8" else None
+    for a in range(n):
+        qa, sa, ea = compress.quantize_ef(e[a], method)
+        q[a].copy_(qa)
+        e[a].copy_(ea)
+        if s is not None:
+            s[a].copy_(sa)
+    return q, s
+
+
+def _sync_stats(state: ParleState, cfg, use_kernel: bool, out=None):
+    """The Eq. (8d) replica mean of the (optionally compressed) ``x+e``
+    payload — the reduction half of the sync, shared by the barrier sync
+    and the overlapped head; updates ``e`` in place.  Returns (xbar,
+    payload): with ``use_kernel`` and int8, (None, (q, s)) for K5;
+    otherwise (the (M,) mean, written into ``out`` when given, None)."""
+    method = _sync_compress(cfg)
+    if method == "none":
+        return replica_mean(state.x, out=out), None
+    q, s = _compress_payload(state, method, use_kernel)
+    if use_kernel and method == "int8":
+        return None, (q, s)
+    return compress.dequantize_mean(q, s, method, out=out), None
 
 
 def sync_step(state: ParleState, cfg, use_kernel: bool = False,
               lr_scale=1.0) -> ParleState:
-    # (8d) with eta'' = rho/n: the reference IS the replica mean; one
-    # (M,) buffer shared by every replica's update
-    return consensus_step(state, replica_mean(state.x), cfg,
-                          use_kernel=use_kernel, lr_scale=lr_scale)
+    """(8d) with eta'' = rho/n: the reference IS the replica mean; one
+    (M,) buffer (or, under K5, the payloads) shared by every replica's
+    update."""
+    xbar, payload = _sync_stats(state, cfg, use_kernel)
+    return consensus_step(state, xbar, cfg, use_kernel=use_kernel,
+                          lr_scale=lr_scale, payload=payload)
 
 
 def fused_step(state: ParleState, grads, cfg, use_kernel: bool = False,
@@ -229,6 +316,67 @@ def fused_step(state: ParleState, grads, cfg, use_kernel: bool = False,
         state = sync_step(state, cfg, use_kernel=use_kernel,
                           lr_scale=lr_scale)
     return state
+
+
+# ------------------------------------------------------------------
+# Staleness-1 overlapped sync (cfg.sync_overlap): the Eq. (8d) payload is
+# taken at the START of a round, before the L inner steps (which do not
+# read it), and its mean is applied at the start of the NEXT round,
+# carried in ParleState.c.  x only changes at a consensus, so the payload
+# taken right after the apply is the barrier path's end-of-round x.
+# ------------------------------------------------------------------
+
+def overlap_head(state: ParleState, cfg, use_kernel: bool = False,
+                 lr_scale=1.0) -> ParleState:
+    """The overlapped round's head: (1) apply the carried consensus
+    ``state.c`` (when step > 0 — the first round has nothing in flight),
+    (2) compress the new x+e as the next payload, update the residual,
+    and carry its mean in ``c`` (written in place).  ``lr_scale`` is the
+    apply's outer-lr multiplier — schedule(step - 1), the value the
+    barrier sync it replays would have used."""
+    if use_kernel and _sync_compress(cfg) == "int8":
+        return _overlap_head_fused(state, cfg, lr_scale)
+    if int(state.step) > 0:
+        state = consensus_step(state, state.c, cfg, use_kernel=use_kernel,
+                               lr_scale=lr_scale)
+    _sync_stats(state, cfg, use_kernel, out=state.c)
+    return state
+
+
+def _overlap_head_fused(state: ParleState, cfg, lr_scale) -> ParleState:
+    """The ``use_kernel`` int8 head: the consensus apply and the next
+    payload's int8 quantize + EF in ONE memory pass (K6); the first round
+    (nothing in flight) quantizes the initial x + e with K4."""
+    from repro_torch.kernels import ops as kops
+    if int(state.step) > 0:
+        _, _, _, q, s, _ = kops.parle_apply_consensus_quantize(
+            state.x, state.z, state.v_x, state.c, state.e,
+            y_out=state.y if state.y.dtype != torch.float32 else None,
+            **_sync_scalars(state, cfg, lr_scale))
+        state = _reset_inner_loop(state, cfg)
+    else:
+        q, s = _compress_payload(state, "int8", use_kernel=True)
+    compress.dequantize_mean(q, s, "int8", out=state.c)
+    return state
+
+
+def make_flush_fn(cfg, lr_schedule=None):
+    """flush(state) -> state: apply the still-in-flight consensus after
+    the LAST overlapped round, completing the rotation — the flushed
+    state equals the barrier trajectory's.  A never-run state (step 0)
+    flushes to itself.  Always the plain apply, as in the reference.
+
+    Call it exactly once, on the state about to be evaluated or
+    deployed; checkpoints written at round boundaries stay PRE-flush, so
+    a resumed run continues the overlapped trajectory exactly."""
+
+    def flush(state: ParleState) -> ParleState:
+        if int(state.step) == 0:
+            return state
+        return consensus_step(state, state.c, cfg,
+                              lr_scale=_scale(lr_schedule, state.step - 1))
+
+    return flush
 
 
 # ------------------------------------------------------------------
@@ -279,7 +427,7 @@ def make_train_step(loss_fn: Callable, cfg, weight_decay: float = 0.0,
     where ``batch`` leaves carry a leading replica axis of size n.
     ``lr_schedule``: step -> multiplier on BOTH cfg.lr and cfg.lr_inner.
     The step consumes ``state`` (its buffers are updated in place)."""
-    _check_cfg(cfg)
+    _sync_compress(cfg)
     gbuf = _GradBuffer()
 
     def step(state: ParleState, batch):
@@ -295,6 +443,32 @@ def make_train_step(loss_fn: Callable, cfg, weight_decay: float = 0.0,
     return step
 
 
+def _round_entry(state: ParleState, cfg):
+    if int(state.step) % cfg.L:
+        raise ValueError(f"a round starts at a multiple of L={cfg.L}, "
+                         f"not at step {int(state.step)}")
+
+
+def _inner_steps(loss_fn, state: ParleState, batches, cfg, gbuf,
+                 weight_decay, use_kernel, lr_schedule):
+    """The round's L inner steps (8a-8b); returns (state, (L,) losses)."""
+    step_losses = []
+    for i in range(cfg.L):
+        losses = _replica_grads(loss_fn, state,
+                                {k: v[i] for k, v in batches.items()},
+                                gbuf.like(state.y), weight_decay)
+        state = inner_step(state, gbuf.buf, cfg, use_kernel=use_kernel,
+                           lr_scale=_scale(lr_schedule, state.step))
+        step_losses.append(losses.mean())
+    return state, torch.stack(step_losses)
+
+
+def _round_metrics(state: ParleState, losses) -> dict:
+    return {"loss": losses.mean(), "losses": losses,
+            "gamma": state.scopes.gamma, "rho": state.scopes.rho,
+            "step": state.step}
+
+
 def make_round_fn(loss_fn: Callable, cfg, weight_decay: float = 0.0,
                   use_kernel: bool = False, lr_schedule=None):
     """One whole Parle round per call: the L = cfg.L inner steps (8a-8b)
@@ -308,27 +482,39 @@ def make_round_fn(loss_fn: Callable, cfg, weight_decay: float = 0.0,
     at the same counters, and the sync uses the lr_scale of the round's
     last inner step (schedule(step - 1)).  Metrics: the round-mean
     ``loss`` plus the per-step ``losses`` (L,)."""
-    _check_cfg(cfg)
+    _sync_compress(cfg)
     gbuf = _GradBuffer()
 
     def round_fn(state: ParleState, batches):
-        if int(state.step) % cfg.L:
-            raise ValueError(f"a round starts at a multiple of L={cfg.L}, "
-                             f"not at step {int(state.step)}")
-        step_losses = []
-        for i in range(cfg.L):
-            losses = _replica_grads(loss_fn, state,
-                                    {k: v[i] for k, v in batches.items()},
-                                    gbuf.like(state.y), weight_decay)
-            state = inner_step(state, gbuf.buf, cfg, use_kernel=use_kernel,
-                               lr_scale=_scale(lr_schedule, state.step))
-            step_losses.append(losses.mean())
+        _round_entry(state, cfg)
+        state, losses = _inner_steps(loss_fn, state, batches, cfg, gbuf,
+                                     weight_decay, use_kernel, lr_schedule)
         state = sync_step(state, cfg, use_kernel=use_kernel,
                           lr_scale=_scale(lr_schedule, state.step - 1))
-        losses = torch.stack(step_losses)
-        return state, {"loss": losses.mean(), "losses": losses,
-                       "gamma": state.scopes.gamma, "rho": state.scopes.rho,
-                       "step": state.step}
+        return state, _round_metrics(state, losses)
+
+    return round_fn
+
+
+def make_overlap_round_fn(loss_fn: Callable, cfg, weight_decay: float = 0.0,
+                          use_kernel: bool = False, lr_schedule=None):
+    """One staleness-1 overlapped round per call: :func:`overlap_head`
+    (apply the carried consensus, take this round's payload) then the L
+    inner steps.  Same entry invariants and metrics as
+    :func:`make_round_fn`; the per-step losses equal the barrier round's
+    (the inner steps start from the same post-consensus state), and the
+    state trails it by exactly the in-flight ``c`` (see
+    :func:`make_flush_fn`)."""
+    _sync_compress(cfg)
+    gbuf = _GradBuffer()
+
+    def round_fn(state: ParleState, batches):
+        _round_entry(state, cfg)
+        state = overlap_head(state, cfg, use_kernel=use_kernel,
+                             lr_scale=_scale(lr_schedule, state.step - 1))
+        state, losses = _inner_steps(loss_fn, state, batches, cfg, gbuf,
+                                     weight_decay, use_kernel, lr_schedule)
+        return state, _round_metrics(state, losses)
 
     return round_fn
 

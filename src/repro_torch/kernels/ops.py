@@ -2,14 +2,15 @@
 
 A CUDA tensor launches the hand-written kernel, or the wrapper raises —
 there is no fallback.  A CPU tensor takes the kernel's plain PyTorch
-version.  Ported so far: K1 and K2 (the Parle updates) and K8 (paged
-attention); the other TPU kernels of the reference are listed in
-ROADMAP.md queue 2.
+version.  Ported so far: K1 and K2 (the Parle updates), K4-K6 (the int8
+compressed sync) and K8 (paged attention); the other TPU kernels of the
+reference are listed in ROADMAP.md queue 2.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import compress
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import parle_update as _pu
 
@@ -22,15 +23,26 @@ def paged_attention(q, k_pool, v_pool, table, lengths):
     return _pa.paged_attention_cuda(q, k_pool, v_pool, table, lengths)
 
 
+def _check_y_out(fn, y_out):
+    if y_out is not None and y_out.dtype != torch.bfloat16:
+        raise TypeError(f"{fn}: y_out is the fused bf16 compute copy, got "
+                        f"{y_out.dtype}; with float32 compute y' is x'")
+
+
+def _copy_into(bufs, news):
+    for buf, new in zip(bufs, news):
+        if buf is not None:
+            buf.copy_(new)
+
+
 def parle_inner_update(y, z, v, g, x, *, inv_gamma, lr, mu, alpha):
     """Fused Parle inner step (Eq. 8a-8b, K1) over flat state buffers
     of one shape: y and g in the compute dtype, z, v and x float32.
     Updates y, z and v IN PLACE and returns them."""
     scalars = _pu.pack_scalars(inv_gamma, lr, mu, alpha, device=y.device)
     if y.device.type == "cpu":
-        for buf, new in zip((y, z, v), _pu.parle_inner_update_plain(
-                y, z, v, g, x, scalars)):
-            buf.copy_(new)
+        _copy_into((y, z, v), _pu.parle_inner_update_plain(y, z, v, g, x,
+                                                            scalars))
         return y, z, v
     return _pu.parle_inner_update_cuda(y, z, v, g, x, scalars)
 
@@ -42,17 +54,71 @@ def parle_sync_update(x, z, v, xbar, *, gamma_scale, inv_rho, lr, mu,
     IN PLACE.  Always returns (x', v', y'): with a bf16 ``y_out`` the
     cast y' = bf16(x') is written into it by the same pass; otherwise y'
     IS x' (the caller copies it where it needs a distinct buffer)."""
-    if y_out is not None and y_out.dtype != torch.bfloat16:
-        raise TypeError("parle_sync_update: y_out is the fused bf16 compute "
-                        f"copy, got {y_out.dtype}; with float32 compute y' "
-                        "is x'")
+    _check_y_out("parle_sync_update", y_out)
     scalars = _pu.pack_scalars(gamma_scale, inv_rho, lr, mu, device=x.device)
     if x.device.type == "cpu":
-        out = _pu.parle_sync_update_plain(
+        _copy_into((x, v, y_out), _pu.parle_sync_update_plain(
             x, z, v, xbar, scalars,
-            y_dtype=y_out.dtype if y_out is not None else None)
-        for buf, new in zip((x, v, y_out), out):
-            buf.copy_(new)
+            y_dtype=y_out.dtype if y_out is not None else None))
     else:
         _pu.parle_sync_update_cuda(x, z, v, xbar, scalars, y_out=y_out)
     return x, v, (y_out if y_out is not None else x)
+
+
+def quantize_ef(c, *, in_place: bool = False):
+    """Fused per-chunk int8 quantize + error-feedback residual (K4) on a
+    flat (R, M) f32 stream, M % 8192 == 0.  Returns (q, scales, residual);
+    with ``in_place`` the residual is written over ``c`` (the caller's
+    x + e buffer becomes the new e, no (R, M) temporary)."""
+    R, M = c.shape
+    if c.device.type == "cpu":
+        q, s, e = _pu.quantize_ef_plain(c)
+        if in_place:
+            c.copy_(e)
+            e = c
+        return q, s, e
+    q = torch.empty((R, M), dtype=torch.int8, device=c.device)
+    s = torch.empty((R, M // compress.CHUNK), device=c.device)
+    e = c if in_place else torch.empty_like(c)
+    return _pu.quantize_ef_cuda(c, q, s, e)
+
+
+def parle_sync_dequant_update(x, z, v, q, s, *, gamma_scale, inv_rho, lr,
+                              mu, y_out=None):
+    """Fused dequantize + replica mean + sync update (K5, the int8
+    compressed sync): x, z, v (R, M) f32 against the mean of the n int8
+    payloads q (n, M) with scales s (n, M/1024).  Updates x and v IN
+    PLACE; returns (x', v', y') like :func:`parle_sync_update`."""
+    _check_y_out("parle_sync_dequant_update", y_out)
+    scalars = _pu.pack_scalars(gamma_scale, inv_rho, lr, mu, device=x.device)
+    if x.device.type == "cpu":
+        _copy_into((x, v, y_out), _pu.parle_sync_dequant_update_plain(
+            x, z, v, q, s, scalars,
+            y_dtype=y_out.dtype if y_out is not None else None))
+    else:
+        _pu.parle_sync_dequant_update_cuda(x, z, v, q, s, scalars,
+                                           y_out=y_out)
+    return x, v, (y_out if y_out is not None else x)
+
+
+def parle_apply_consensus_quantize(x, z, v, c, e, *, gamma_scale, inv_rho,
+                                   lr, mu, y_out=None):
+    """Fused staleness-1 overlap head (K6, int8 compressed sync): apply
+    the CARRIED consensus ``c`` (M,) (Eq. 8c-8d with the stale mean) and
+    quantize the new x + e as the next sync's payload, one memory pass.
+    x, v and e are updated IN PLACE.  Returns (x', v', y', q, s, e') —
+    y' is x' on f32, the fused cast into ``y_out`` on bf16."""
+    _check_y_out("parle_apply_consensus_quantize", y_out)
+    scalars = _pu.pack_scalars(gamma_scale, inv_rho, lr, mu, device=x.device)
+    if x.device.type == "cpu":
+        x2, v2, q, s, e2, *y2 = _pu.parle_apply_quantize_plain(
+            x, z, v, c, e, scalars,
+            y_dtype=y_out.dtype if y_out is not None else None)
+        _copy_into((x, v, e, y_out), (x2, v2, e2, *y2))
+    else:
+        R, M = x.shape
+        q = torch.empty((R, M), dtype=torch.int8, device=x.device)
+        s = torch.empty((R, M // compress.CHUNK), device=x.device)
+        _pu.parle_apply_quantize_cuda(x, z, v, c, e, q, s, scalars,
+                                      y_out=y_out)
+    return x, v, (y_out if y_out is not None else x), q, s, e

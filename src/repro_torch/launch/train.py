@@ -4,7 +4,8 @@
         --algo parle --use-kernel --round-fused
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
         --smoke --device cpu --replicas 2 --L 3 --steps 6 --batch 2 \\
-        --seq 32 --use-kernel --round-fused
+        --seq 32 --use-kernel --round-fused --sync-compress int8 \\
+        --sync-overlap
 
 Runs a registered algorithm (``repro_torch.core.registry``: parle,
 entropy_sgd) through one code path that talks only to the
@@ -14,14 +15,17 @@ takes the reference's flags and prints its JSON lines
 (``train_progress``, ``train_final``), plus ``--device``: ``cuda``
 unless ``--device cpu`` (no silent fallback to the CPU).  With
 ``--use-kernel`` every inner step runs the CUDA kernel K1 and every sync
-K2 (their plain versions on the CPU).
+K2 (their plain versions on the CPU); under ``--sync-compress int8`` the
+sync is K4 (quantize + error feedback) and K5 (dequantize + mean +
+update), and under ``--sync-overlap`` (with ``--round-fused``) each
+round's head is K4 (the first) or K6 (apply + quantize), with a plain
+flush after the last round.
 
 Params are drawn from a ``torch.Generator`` seeded by ``--seed`` on the
 training device, and so are the batches: neither is the reference's
 threefry stream.  Not ported yet, each exiting with the ROADMAP.md item
 that ports it: ``--mesh`` / ``--host-devices`` (queue 1 item 6),
-``--sync-compress bf16|int8`` and ``--sync-overlap`` (item 4), ``--algo
-elastic_sgd|sgd`` (item 5, raises ``NotImplementedError``),
+``--algo elastic_sgd|sgd`` (item 5, raises ``NotImplementedError``),
 ``--sync-policy async`` (item 7).
 """
 from __future__ import annotations
@@ -69,7 +73,8 @@ def build_argparser():
                     help="paper §5: each replica sees a disjoint shard")
     ap.add_argument("--use-kernel", action="store_true",
                     help="the Parle updates through the CUDA kernels K1 "
-                         "(inner step) and K2 (sync)")
+                         "(inner step) and K2 (sync); K4-K6 under "
+                         "--sync-compress int8")
     ap.add_argument("--round-fused", action="store_true",
                     help="run one whole L-step round (inner steps + sync) "
                          "per call, staging each round's batches "
@@ -81,14 +86,22 @@ def build_argparser():
                          "f32 masters")
     ap.add_argument("--sync-compress", default="none",
                     choices=("none", "bf16", "int8"),
-                    help="quantize the Eq. 8d sync payload (not ported "
-                         "yet: only 'none' runs)")
+                    help="quantize the Eq. 8d sync payload (parle/"
+                         "entropy_sgd): bf16 halves, int8 (per-chunk "
+                         "scales + error-feedback residual in the state) "
+                         "quarters its bytes")
     ap.add_argument("--sync-policy", default="",
                     choices=("", "barrier", "overlap", "async"),
-                    help="consensus schedule; only 'barrier' (the "
-                         "default) is ported")
+                    help="consensus schedule: 'barrier' (the default), "
+                         "'overlap' (= --sync-overlap); 'async' is not "
+                         "ported yet")
     ap.add_argument("--sync-overlap", action="store_true",
-                    help="staleness-1 overlapped sync (not ported yet)")
+                    help="staleness-1 overlapped sync (parle/entropy_sgd "
+                         "with --round-fused): take each round's Eq. 8d "
+                         "payload BEFORE its inner steps and apply the "
+                         "consensus at the start of the next round; the "
+                         "trajectory equals the barrier path's after the "
+                         "end-of-training flush")
     ap.add_argument("--mesh", default="",
                     help="shard replicas over a device mesh (not ported "
                          "yet)")
@@ -120,10 +133,6 @@ def parse_args(argv=None):
         raise SystemExit("--mesh / --host-devices: the replica axis across "
                          "devices is not ported yet (ROADMAP.md queue 1, "
                          "item 6)")
-    if args.sync_compress != "none":
-        raise SystemExit(f"--sync-compress {args.sync_compress} is not "
-                         "ported yet (ROADMAP.md queue 1, item 4: kernels "
-                         "K4-K6)")
     return args
 
 
@@ -133,7 +142,8 @@ def parle_config(args, algo) -> ParleConfig:
         n_replicas=args.replicas or 3, L=args.L, lr=args.lr,
         lr_inner=args.lr, batches_per_epoch=max(args.steps // 4, 1),
         lr_drop_steps=drops, lr_drop_factor=args.lr_drop_factor,
-        precision=args.precision))
+        precision=args.precision, sync_compress=args.sync_compress,
+        sync_overlap=args.sync_overlap))
 
 
 def run(args, cfg, device, obs, pre_round=None, on_round=None):
@@ -187,7 +197,8 @@ def run(args, cfg, device, obs, pre_round=None, on_round=None):
             start=start, rounds=rounds, L=L,
             tokens_per_round=L * args.batch * args.seq * n,
             progress_every=max(1, args.log_every // L), progress=progress,
-            pre_round=pre_round, on_round=on_round)
+            pre_round=pre_round, on_round=on_round,
+            flush_fn=policy.make_flush_fn(algo, pcfg))
     else:
         state, history = runner.run_steps(
             state, policy.make_step_fn(algo, model.loss, pcfg,

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.checkpoint import to_numpy
-from repro_torch.core.parle import ParleState
+from repro_torch.core.parle import FIELDS, ParleState
 from repro_torch.core.scoping import Scopes
 from repro_torch.utils.pytree import (FlatLayout, tree_leaves_with_paths,
                                       tree_map)
@@ -40,16 +40,21 @@ def params_from_numpy(tree, device):
 def state_from_numpy(state, device) -> ParleState:
     """A reference ParleState as numpy (``jax.tree.map(np.asarray,
     state)``: fields x, y, z, v_y, v_x as nested dicts of ``(n, ...)``
-    leaves, ``step``, ``scopes``) as the port's flat state on
-    ``device``."""
+    leaves, ``step``, ``scopes``, and the optional ``e`` (n, ...) and
+    ``c`` (...) of the compressed / overlapped sync) as the port's flat
+    state on ``device``."""
     fields = {}
-    for f in ("x", "y", "z", "v_y", "v_x"):
-        leaves = params_from_numpy(getattr(state, f), device)
+    for f in FIELDS:
+        tree = getattr(state, f, None)
+        if tree is None:
+            continue
+        leaves = params_from_numpy(tree, device)
         first = tree_leaves_with_paths(leaves)[0][1]
         if f == "x":
             layout = FlatLayout(tree_map(lambda l: l[0], leaves))
-        fields[f] = layout.flatten(leaves, lead=(first.shape[0],),
-                                   dtype=first.dtype, device=device)
+        lead = () if f == "c" else (first.shape[0],)
+        fields[f] = layout.flatten(leaves, lead=lead, dtype=first.dtype,
+                                   device=device)
     return ParleState(
         **fields,
         step=torch.tensor(int(state.step), dtype=torch.int32),
@@ -60,6 +65,7 @@ def state_from_numpy(state, device) -> ParleState:
 
 def state_to_numpy(state: ParleState) -> dict:
     """The port's state as the reference ParleState's tree: fields x, y,
-    z, v_y, v_x as nested dicts of ``(n, ...)`` numpy leaves (bf16 as
-    uint16 bits), ``step`` int32 and ``scopes`` {gamma, rho} float32."""
+    z, v_y, v_x (and e, c when present) as nested dicts of numpy leaves
+    (bf16 as uint16 bits), ``step`` int32 and ``scopes`` {gamma, rho}
+    float32."""
     return tree_map(to_numpy, state.tree())

@@ -1,9 +1,11 @@
 """Execution runtime: the one step/round loop (``RoundRunner``) behind
-the trainer, and its sync policy (barrier only so far).  Port of
+the trainer, and its sync policies (barrier and overlap).  Port of
 ``repro/runtime``."""
 from repro_torch.runtime.policies import (  # noqa: F401
     POLICY_NAMES,
     BarrierPolicy,
+    OverlapPolicy,
+    SyncPolicy,
     resolve_train_policy,
 )
 from repro_torch.runtime.runner import (  # noqa: F401

@@ -1,18 +1,24 @@
 """SyncPolicy: how replicas reach consensus.  Port of
-``repro/runtime/policies.py`` for the ``barrier`` policy, the only one
-ported: every replica runs L inner steps, then the whole fleet takes the
-Eq. 8d sync inside the step/round.  ``overlap`` (staleness-1, ROADMAP.md
-queue 1 item 4) and ``async`` (elastic pods, item 7) exit naming the
-item that ports them.
+``repro/runtime/policies.py`` for the two single-process policies:
+
+* ``barrier`` — every replica runs L inner steps, then the whole fleet
+  takes the Eq. 8d sync inside the step/round;
+* ``overlap`` — staleness-1: round k's payload is taken at the round's
+  start and its consensus applied at the start of round k+1, and an
+  end-of-training flush applies the last one.
+
+Both delegate to the Algorithm object (``algo.make_round_fn`` keys off
+``pcfg.sync_overlap``).  ``async`` (elastic pods, ROADMAP.md queue 1
+item 7) exits naming the item that ports it.
 """
 from __future__ import annotations
 
 POLICY_NAMES = ("barrier", "overlap", "async")
 
 
-class BarrierPolicy:
-    """Consensus inside the step/round, fleet-wide block at every sync
-    point.  The program factories delegate to the Algorithm object."""
+class SyncPolicy:
+    """Step/round program factories for one consensus schedule; they
+    delegate to the registered Algorithm object."""
 
     name = "barrier"
 
@@ -27,17 +33,42 @@ class BarrierPolicy:
                                   use_kernel=use_kernel,
                                   lr_schedule=lr_schedule)
 
+    def make_flush_fn(self, algo, pcfg, lr_schedule=None):
+        """End-of-training flush, or None when nothing is in flight."""
+        return algo.make_round_flush_fn(pcfg, lr_schedule=lr_schedule)
+
+
+class BarrierPolicy(SyncPolicy):
+    """Consensus inside the step/round, fleet-wide block at every sync
+    point."""
+    name = "barrier"
+
+
+class OverlapPolicy(SyncPolicy):
+    """Staleness-1 overlapped consensus (requires ``pcfg.sync_overlap``:
+    the algorithm builds the overlapped round and a non-None flush from
+    the same flag)."""
+    name = "overlap"
+
 
 def resolve_train_policy(args):
     """Map the trainer CLI onto a policy (``--sync-policy``, or the
-    historical ``--sync-overlap`` flag)."""
+    historical ``--sync-overlap`` flag), with the reference's guards and
+    messages."""
     name = args.sync_policy or ("overlap" if args.sync_overlap
                                 else "barrier")
     if name == "async":
         raise SystemExit("--sync-policy async (elastic multi-process pods) "
                          "is not ported yet (ROADMAP.md queue 1, item 7)")
     if name == "overlap":
-        raise SystemExit("--sync-overlap / --sync-policy overlap is not "
-                         "ported yet (ROADMAP.md queue 1, item 4: the "
-                         "overlapped sync with kernels K4-K6)")
+        args.sync_overlap = True     # downstream cfg plumbing keys off it
+        if not args.round_fused:
+            raise SystemExit("--sync-overlap requires --round-fused (the "
+                             "overlapped collective is issued at fused-round "
+                             "boundaries; the per-step path always barriers)")
+        if args.algo not in ("parle", "entropy_sgd"):
+            raise SystemExit(f"--sync-overlap is a Parle Eq. 8d feature; "
+                             f"--algo {args.algo} has no round-level sync to "
+                             f"overlap")
+        return OverlapPolicy()
     return BarrierPolicy()

@@ -5,8 +5,8 @@ It owns batch staging, spans, obs counters/histograms, progress
 emission and checkpointing, namespaced per entry point (``train.*`` metric
 series); the caller injects what differs through small hooks
 (``batch_fn`` / ``stage_fn``, ``progress``, ``pre_round`` /
-``on_round``).  The reference's other hooks serve its multi-process
-pods and overlapped sync, which are not ported yet.
+``on_round``), and the overlap policy's ``flush_fn``.  The reference's
+other hooks serve its multi-process pods, which are not ported yet.
 
 Spans end on ``torch.cuda.synchronize`` (``Span.block``), the
 counterpart of the reference's ``block_until_ready``.  There is no AOT
@@ -87,11 +87,14 @@ class RoundRunner:
     def run_rounds(self, state, round_fn, stage_fn: Callable[[int], Any], *,
                    start: int, rounds: int, L: int, tokens_per_round: int,
                    progress_every: int = 1, progress=None, on_round=None,
-                   pre_round=None):
+                   pre_round=None, flush_fn=None):
         """One ``round_fn`` call per L steps; the next round's batches
         are staged right after the round is enqueued, before the round
         span blocks on its results.  ``pre_round(r)`` runs before round
-        r is enqueued, ``on_round(r, gstep, metrics)`` after its span."""
+        r is enqueued, ``on_round(r, gstep, metrics)`` after its span.
+        ``flush_fn(state) -> state`` (the overlap policy's) runs once
+        after the last round, as a ``sync_flush`` span with a
+        ``staleness_flush`` event."""
         obs, ns = self.obs, self.ns
         history = []
         nxt = stage_fn(start) if rounds else None
@@ -124,6 +127,18 @@ class RoundRunner:
                     and gstep // self.checkpoint.every
                     > (gstep - L) // self.checkpoint.every):
                 self._save(state, gstep)
+        # the overlap policy leaves the last round's consensus in
+        # flight: apply it once before eval/deploy.  Checkpoints above
+        # stay pre-flush — a resumed run re-enters the overlap loop,
+        # which applies the carried consensus itself (flushing a
+        # checkpointed state would apply it twice on resume)
+        if flush_fn is not None:
+            with obs.tracer.span("sync_flush", cat="sync") as sp:
+                state = flush_fn(state)
+                sp.block(state.x)
+            obs.registry.counter(f"{ns}.staleness_flushes").inc()
+            obs.emit("staleness_flush", step=start + rounds * L,
+                     flush_ms=round(sp.dur_s * 1e3, 3))
         return state, history
 
 

@@ -37,7 +37,8 @@ from repro_torch.launch import train
 from repro_torch.models.convert import (params_from_numpy, state_from_numpy,
                                         state_to_numpy)
 from repro_torch.models.model import build_model
-from torch_parity import MODEL_TOL, assert_close, numpy_params
+from torch_parity import (MODEL_TOL, assert_close, leaf_pairs, numpy_params,
+                          port_rounds, ref_rounds)
 
 ROOT = Path(__file__).resolve().parents[1]
 RCFG = ref_smoke_variant(REF_ARCHS["qwen2.5-3b"])
@@ -126,43 +127,17 @@ def test_layer_views_come_from_one_unbind():
                        torch.tensor([1.0, 2.0, 3.0]))
 
 
-def _ref_rounds(np_params, use_kernel, batches):
-    pcfg = RefParleConfig(n_replicas=N, L=L, batches_per_epoch=1)
-    algo = ref_registry.get("parle")
-    st = ref_parle.dealias_state(algo.init(
-        jax.tree.map(jnp.asarray, np_params), pcfg))
-    rnd = algo.make_round_fn(ref_build_model(RCFG).loss, pcfg,
-                             use_kernel=use_kernel)
-    losses = []
-    for b in batches:
-        st, m = rnd(st, jax.tree.map(jnp.asarray, b))
-        losses.append(np.asarray(m["losses"]))
-    return st, np.concatenate(losses)
-
-
 @pytest.mark.parametrize("use_kernel", [False, True])
 def test_two_rounds_match_reference(np_params, use_kernel):
     batches = _ref_batches()
-    ref_state, ref_losses = _ref_rounds(np_params, use_kernel, batches)
-
-    pcfg = ParleConfig(n_replicas=N, L=L, batches_per_epoch=1)
-    algo = registry.get("parle")
-    st = algo.init(params_from_numpy(np_params, "cpu"), pcfg)
-    rnd = algo.make_round_fn(build_model(CFG).loss, pcfg,
-                             use_kernel=use_kernel)
-    losses = []
-    for b in batches:
-        st, m = rnd(st, {k: torch.from_numpy(np.array(v)) for k, v in
-                         b.items()})
-        losses.append(m["losses"])
-    assert_close(torch.cat(losses), ref_losses, TRAJ_TOL,
+    kw = dict(n_replicas=N, L=L, batches_per_epoch=1)
+    ref_state, ref_losses = ref_rounds(RCFG, np_params, batches, use_kernel,
+                                       **kw)
+    st, losses = port_rounds(CFG, np_params, batches, use_kernel, **kw)
+    assert_close(losses, ref_losses, TRAJ_TOL,
                  f"per-step losses use_kernel={use_kernel}")
-    got = state_to_numpy(st)
-    for path, r in jax.tree_util.tree_leaves_with_path(ref_state.x):
-        p = got["x"]
-        for k in path:
-            p = p[k.key]
-        assert_close(p, r, TRAJ_TOL, f"final x{jax.tree_util.keystr(path)}")
+    for path, p, r in leaf_pairs(state_to_numpy(st)["x"], ref_state.x):
+        assert_close(p, r, TRAJ_TOL, f"final x{path}")
     assert float(st.scopes.gamma) == float(ref_state.scopes.gamma)
 
 
@@ -223,6 +198,82 @@ def test_checkpoints_cross_load_both_ways(np_params, tmp_path, precision):
                      algo.init(params_from_numpy(np_params, "cpu"), other))
 
 
+def test_compressed_overlap_checkpoints_cross_load_both_ways(np_params,
+                                                            tmp_path):
+    """An int8 + overlap state (residual ``e``, carried consensus ``c``)
+    written by either package restores into the other, bit for bit, and
+    the sidecar keys are the same."""
+    kw = dict(n_replicas=N, L=L, sync_compress="int8", sync_overlap=True)
+    rcfg, pcfg = RefParleConfig(**kw), ParleConfig(**kw)
+    rng = np.random.default_rng(10)
+    ref = ref_registry.get("parle").init(jax.tree.map(jnp.asarray, np_params),
+                                         rcfg)
+    noise = lambda t, s: jax.tree.map(lambda a: a + s * jnp.asarray(
+        rng.standard_normal(a.shape).astype(np.float32)), t)
+    ref = ref._replace(y=noise(ref.y, 0.1), e=noise(ref.e, 0.01),
+                       c=noise(ref.c, 1.0), step=jnp.asarray(6, jnp.int32))
+    ref_path = str(tmp_path / "ref" / "step000006.npz")
+    ref_ckpt.save(ref_path, ref, step=6, algo="parle")
+    algo = registry.get("parle")
+    port = ckpt.restore(ref_path, algo.init(params_from_numpy(np_params,
+                                                              "cpu"), pcfg),
+                        algo="parle")
+    want = state_from_numpy(jax.tree.map(np.asarray, ref), "cpu")
+    for f in ("x", "y", "z", "v_y", "v_x", "e", "c"):
+        assert torch.equal(getattr(port, f), getattr(want, f)), f
+    assert port.c.shape == (port.layout.numel,)
+
+    port_path = str(tmp_path / "port" / "step000006.npz")
+    ckpt.save(port_path, port, step=6, algo="parle")
+    with open(port_path + ".json") as f:
+        keys = json.load(f)["keys"]
+    assert keys == sorted(np.load(ref_path).files)
+    assert any(k.startswith("e/") for k in keys)
+    assert any(k.startswith("c/") for k in keys)
+    like = ref_parle.dealias_state(ref_registry.get("parle").init(
+        jax.tree.map(jnp.asarray, np_params), rcfg))
+    back = ref_ckpt.restore(port_path, like, algo="parle")
+    for a, b in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(ref)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    # a checkpoint without e and c does not restore into such a state
+    plain = str(tmp_path / "none.npz")
+    ckpt.save(plain, algo.init(params_from_numpy(np_params, "cpu"),
+                               ParleConfig(n_replicas=N, L=L)), step=0)
+    with pytest.raises(KeyError, match="missing key [ce]/"):
+        ckpt.restore(plain, algo.init(params_from_numpy(np_params, "cpu"),
+                                      pcfg))
+
+
+def test_train_cli_int8_overlap_on_cpu(tmp_path):
+    """The int8 + overlap smoke run: the reference's progress and final
+    records on stdout, one ``staleness_flush`` event and the flush
+    counter in the metrics file, and checkpoints that carry e and c."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    ck, metrics = tmp_path / "ck", tmp_path / "m.jsonl"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen2.5-3b", "--device", "cpu", "--smoke", "--replicas", "2",
+         "--L", "3", "--steps", "6", "--batch", "2", "--seq", "32",
+         "--use-kernel", "--round-fused", "--sync-compress", "int8",
+         "--sync-overlap", "--log-every", "3", "--checkpoint-dir", str(ck),
+         "--checkpoint-every", "3", "--metrics-out", str(metrics)],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    recs = [json.loads(l) for l in proc.stdout.splitlines() if l.startswith("{")]
+    assert [r["step"] for r in recs if r["kind"] == "train_progress"] == [3, 6]
+    final = [r for r in recs if r["kind"] == "train_final"]
+    assert len(final) == 1 and np.isfinite(final[0]["final_eval_loss"])
+    from repro.obs.events import read_events as ref_read_events
+    events = ref_read_events(str(metrics))      # the reference's schema
+    flushes = [e for e in events if e["kind"] == "staleness_flush"]
+    assert len(flushes) == 1 and flushes[0]["step"] == 6
+    snap = [e for e in events if e["kind"] == "metrics_snapshot"]
+    assert "train.staleness_flushes" in json.dumps(snap[0]["snapshot"])
+    keys = np.load(ck / "step000006.npz").files
+    assert "c/embed" in keys and "e/embed" in keys
+
+
 def test_train_cli_on_cpu_prints_the_reference_records(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     ck = tmp_path / "ck"
@@ -263,8 +314,10 @@ def test_train_wants_cuda_unless_told_cpu(monkeypatch):
     (["--algo", "elastic_sgd"], NotImplementedError, "item 5"),
     (["--algo", "sgd"], NotImplementedError, "item 5"),
     (["--mesh", "replica:2"], SystemExit, "item 6"),
-    (["--sync-compress", "int8"], SystemExit, "item 4"),
-    (["--sync-overlap", "--round-fused"], SystemExit, "item 4"),
+    # the reference's guards on the overlapped sync, with its messages
+    (["--sync-overlap"], SystemExit, "requires --round-fused"),
+    (["--sync-overlap", "--round-fused", "--algo", "elastic_sgd"],
+     SystemExit, "no round-level sync"),
     (["--sync-policy", "async"], SystemExit, "item 7"),
 ])
 def test_train_cli_names_what_is_not_ported(argv, exc, match):

@@ -65,3 +65,59 @@ def assert_close(port, ref, tol, what=""):
     err = max_err(p, r)
     print(f"[parity] {what}: max_abs_err {err:.3e}")
     return err
+
+
+def ref_rounds(model_cfg, np_params, batches, use_kernel, **pcfg_kw):
+    """The reference's Parle rounds on numpy params and round batches
+    (then its flush, under ``sync_overlap``): (final state, per-step
+    losses as one numpy vector)."""
+    from repro.configs.base import ParleConfig
+    from repro.core import parle, registry
+    pcfg = ParleConfig(**pcfg_kw)
+    algo = registry.get("parle")
+    st = parle.dealias_state(algo.init(jax.tree.map(jnp.asarray, np_params),
+                                       pcfg))
+    rnd = algo.make_round_fn(ref_build_model(model_cfg).loss, pcfg,
+                             use_kernel=use_kernel)
+    losses = []
+    for b in batches:
+        st, m = rnd(st, jax.tree.map(jnp.asarray, b))
+        losses.append(np.asarray(m["losses"]))
+    flush = algo.make_round_flush_fn(pcfg)
+    if flush is not None:
+        st = flush(st)
+    return st, np.concatenate(losses)
+
+
+def port_rounds(model_cfg, np_params, batches, use_kernel, **pcfg_kw):
+    """The port's counterpart of :func:`ref_rounds`, on the CPU: (final
+    state, per-step losses as one tensor)."""
+    from repro_torch.configs import ParleConfig
+    from repro_torch.core import registry
+    from repro_torch.models.model import build_model
+    pcfg = ParleConfig(**pcfg_kw)
+    algo = registry.get("parle")
+    st = algo.init(params_from_numpy(np_params, "cpu"), pcfg)
+    rnd = algo.make_round_fn(build_model(model_cfg).loss, pcfg,
+                             use_kernel=use_kernel)
+    losses = []
+    for b in batches:
+        st, m = rnd(st, {k: torch.from_numpy(np.array(v))
+                         for k, v in b.items()})
+        losses.append(m["losses"])
+    flush = algo.make_round_flush_fn(pcfg)
+    if flush is not None:
+        st = flush(st)
+    return st, torch.cat(losses)
+
+
+def leaf_pairs(port_tree, ref_tree):
+    """[(path string, port numpy leaf, reference leaf)] over the
+    reference tree's leaves; ``port_tree`` is ``state_to_numpy(...)[f]``."""
+    out = []
+    for path, r in jax.tree_util.tree_leaves_with_path(ref_tree):
+        p = port_tree
+        for k in path:
+            p = p[k.key]
+        out.append((jax.tree_util.keystr(path), p, r))
+    return out
