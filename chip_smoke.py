@@ -21,11 +21,15 @@ itself and, in order:
    mean + sync) and K6 (apply + quantize) bit for bit in codes, scales,
    residuals and state at 1-3 rows and 1-3 payloads, a half-to-even and
    an all-zero chunk, with and without the fused bf16 y', each scalar
-   bumped; and a NaN chunk (its scale NaN in both);
+   bumped; and a NaN chunk (its scale NaN in both); K7 (Elastic-SGD
+   worker step) bit for bit at ragged lengths, 1-3 replicas, f32 and
+   bf16 g, each scalar bumped, and once updating x and v in place (ref
+   only read);
 4. times each kernel, its plain version and, where one exists, one
    PyTorch library call (CUDA events, L2 flushed before every launch)
    beside the least time the card could take: K8 at the serve path's
-   shapes, K1, K2, K4, K5 and K6 at 2 replicas x 2^26 float32 elements;
+   shapes, K1, K2, K4, K5, K6 and K7 at 2 replicas x 2^26 float32
+   elements;
 5. serves through the port's serve CLI functions: full-width
    Qwen2.5-3B in float32 (random params, torch.Generator seed 0), the
    paged engine decoding through K8, 8 requests of 63-84 prompt tokens,
@@ -49,10 +53,17 @@ itself and, in order:
    launches each), the overlapped path through K4 (first head) and K6
    (second head), each equal to its run without the kernels in losses,
    final x, residual e (and c) bit for bit, and the two equal to each
-   other; peak and free device memory after each run; then holds K1,
-   K2, K4, K5 and K6 against their plain versions at the training shape;
-7. prints one JSON line of per-kernel numbers, then, last, the device
-   line ``{"ok": true, "device": {...}}``.
+   other; peak and free device memory after each run; trains Elastic-SGD
+   on the same cell through K7 (8 launches in 8 steps; losses and final
+   x, v and ref equal to the run without ``--use-kernel`` bit for bit)
+   and SGD (finite losses, no port kernel); then holds K1, K2, K4, K5,
+   K6 and K7 against their plain versions at the training shape;
+7. prints one JSON line of per-kernel numbers;
+8. runs the quickstart (``repro_torch.examples.quickstart``: the MLP on
+   the teacher task, SGD against Parle n=3, 400 steps) on the card and
+   fails unless Parle's test error is within 0.02 of SGD's or better;
+   then prints the card's name and power limit again and, last, the
+   device line ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: a failing phase exits non-zero and prints no device
 line.  Without a CUDA card it exits 2 before doing anything.
@@ -78,6 +89,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import parle_update as pu  # noqa: E402
@@ -173,7 +185,7 @@ def device_phase():
     kind = torch.cuda.get_device_name(0)
     print(f"torch.cuda.get_device_name: {kind}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
-    return device, kind
+    return device, kind, smi
 
 
 def build_phase():
@@ -492,14 +504,66 @@ def compress_check_phase(device) -> dict:
     return errs
 
 
+ELASTIC_SCALARS = (2.0, 0.1, 0.9)          # inv_rho, lr, mu
+
+
+def _k7(x, v, g, ref, scalars, device):
+    """(kernel outputs, plain outputs) of K7 on copies of x and v."""
+    s = pu.pack_scalars(*scalars, device=device)
+    want = pu.elastic_worker_update_plain(x, v, g, ref, s)
+    got = pu.elastic_worker_update_cuda(x.clone(), v.clone(), g, ref, s)
+    return got, want
+
+
+def elastic_check_phase(device) -> dict:
+    """K7 against its plain version, bit for bit, at the K1/K2 cases
+    (ragged lengths, 1-3 replicas) with g in float32 and in bf16; each
+    scalar bumped must move the result.  Then one launch on the inputs
+    themselves: x and v updated in place, ref only read.  Returns the
+    largest absolute error seen."""
+    phase("3d. K7 against its plain version (bitwise)")
+    err = 0.0
+    for i, (name, (n, m, _)) in enumerate(PARLE_CASES.items()):
+        x, v, g = (_randn(500 + 10 * i + s, (n, m), device) for s in range(3))
+        ref = _randn(500 + 10 * i + 3, (m,), device)
+        for dtype in (torch.float32, torch.bfloat16):
+            got, want = _k7(x, v, g.to(dtype), ref, ELASTIC_SCALARS, device)
+            torch.cuda.synchronize(device)
+            err = max(err, _max_err(got, want))
+            check(_same(got, want), f"K7 (g {dtype}) differs from its plain "
+                  f"version on {name} ({err:.3e})")
+            for j in range(3):
+                moved, _ = _k7(x, v, g.to(dtype), ref,
+                               _bump(ELASTIC_SCALARS, j), device)
+                check(not _same(moved, got),
+                      f"K7 ignores scalar {j} on {name}")
+        print(f"{name}: (n {n}, M {m}) K7 bitwise with f32 and bf16 g; "
+              f"every scalar moves it", flush=True)
+    x, v, g = (_randn(590 + s, (3, 8195), device) for s in range(3))
+    ref = _randn(593, (8195,), device)
+    ref_before = ref.clone()
+    s = pu.pack_scalars(*ELASTIC_SCALARS, device=device)
+    want = pu.elastic_worker_update_plain(x, v, g, ref, s)
+    ptrs = (x.data_ptr(), v.data_ptr())
+    out = pu.elastic_worker_update_cuda(x, v, g, ref, s)
+    torch.cuda.synchronize(device)
+    check(out[0] is x and out[1] is v and (x.data_ptr(), v.data_ptr()) == ptrs
+          and _same((x, v), want) and torch.equal(ref, ref_before),
+          "K7 in place: x, v not updated in place as the plain version, or "
+          "ref written")
+    print("in place: x and v updated where they lie, bitwise; ref untouched",
+          flush=True)
+    return {"elastic_update": err}
+
+
 def parle_main_shape_phase(device, n, m) -> dict:
-    """K1 and K2 at the training path's shape, (n, m) float32, against
+    """K1, K2, K4-K7 at the training path's shape, (n, m) float32, against
     their plain versions.  The inputs are drawn column chunk by column
     chunk from per-chunk seeds, so after the kernel has run in place
     each chunk's inputs are drawn again and the plain version (which is
     elementwise) is evaluated one chunk at a time: the full-size plain
     temporaries never exist."""
-    phase(f"6c. K1, K2, K4, K5 and K6 at the training path's shape "
+    phase(f"6c. K1, K2, K4, K5, K6 and K7 at the training path's shape "
           f"({n}, {m})")
     chunks = [(c, min(RANDN_CHUNK, m - c)) for c in range(0, m, RANDN_CHUNK)]
 
@@ -604,7 +668,25 @@ def parle_main_shape_phase(device, n, m) -> dict:
     check(same, f"K6 differs from its plain version at ({n}, {m})")
     del x, z, v, e, cbar, q, s
     torch.cuda.empty_cache()
-    print(f"K1, K2, K4, K5 and K6 bitwise equal to their plain versions "
+
+    x, v, g = fill(range(40, 43))
+    ref = torch.empty(m, device=device)
+    for j, (c, w) in enumerate(chunks):
+        ref[c:c + w] = _randn(7919 * j + 43, (w,), device)
+    sc = pu.pack_scalars(*ELASTIC_SCALARS, device=device)
+    pu.elastic_worker_update_cuda(x, v, g, ref, sc)
+    err, same = 0.0, True
+    for j, (c, w) in enumerate(chunks):
+        want = pu.elastic_worker_update_plain(
+            *(draw(k, j, w) for k in range(40, 43)), ref[c:c + w], sc)
+        got = (x[:, c:c + w], v[:, c:c + w])
+        err = max(err, _max_err(got, want))
+        same &= _same(got, want)
+    errs["elastic_update"] = err
+    check(same, f"K7 differs from its plain version at ({n}, {m})")
+    del x, v, g, ref
+    torch.cuda.empty_cache()
+    print(f"K1, K2, K4, K5, K6 and K7 bitwise equal to their plain versions "
           f"over {len(chunks)} chunks", flush=True)
     return errs
 
@@ -705,10 +787,34 @@ def compress_timing_phase(device) -> dict:
     return out
 
 
+def elastic_timing_phase(device) -> dict:
+    """K7 kernel and plain times at 2 replicas x 2^26 float32, beside the
+    byte bound.  No single PyTorch call computes Eq. 7a, so there is no
+    library column."""
+    phase("4d. K7 timing at 2 replicas x 2^26 float32")
+    n, m = PARLE_TIMING
+    x, v, g = (_randn(980 + k, (n, m), device) for k in range(3))
+    ref = x.mean(0)
+    sc = pu.pack_scalars(*ELASTIC_SCALARS, device=device)
+    # bytes: K7 reads x, v, g and the one ref row and writes x, v (in
+    # place); operations per element: 9 (x - ref, * inv_rho, + g, mu v,
+    # + g_e, mu v', + g_e, * lr, x -)
+    work = {"elastic_update": ((3 * n + 1) * m * 4 + 2 * n * m * 4, 9 * n * m,
+                               lambda: pu.elastic_worker_update_cuda(
+                                   x, v, g, ref, sc),
+                               lambda: pu.elastic_worker_update_plain(
+                                   x, v, g, ref, sc))}
+    out = _time_flat_kernels(work, device, n, m)
+    del work, x, v, g, ref
+    torch.cuda.empty_cache()
+    return out
+
+
 # each kernel's launch counter: (module, attribute)
 COUNTERS = {"paged_attention": (pa, "launches"),
             "parle_inner_update": (pu, "inner_launches"),
             "parle_sync_update": (pu, "sync_launches"),
+            "elastic_update": (pu, "elastic_launches"),
             "quantize_ef": (pu, "quantize_launches"),
             "parle_sync_dequant": (pu, "dequant_sync_launches"),
             "parle_apply_quantize": (pu, "apply_quantize_launches")}
@@ -732,8 +838,8 @@ def launch_counts(**want) -> dict:
 TRAIN_LAYERS = 4
 
 
-def train_argv(steps=8, use_kernel=True):
-    return (["--arch", "qwen2.5-3b", "--device", "cuda", "--algo", "parle",
+def train_argv(steps=8, use_kernel=True, algo="parle"):
+    return (["--arch", "qwen2.5-3b", "--device", "cuda", "--algo", algo,
              "--replicas", "2", "--L", "4", "--steps", str(steps),
              "--batch", "2", "--seq", "256", "--round-fused",
              "--log-every", "4", "--seed", "0"]
@@ -849,6 +955,7 @@ def train_phase(device) -> dict:
     out["profile"] = train_profile_phase(device, walls_k[1])
     out["bf16"] = train_bf16_phase(device)
     out["int8"] = train_int8_phase(device)
+    out.update(train_baselines_phase(device))
     torch.use_deterministic_algorithms(False)
     return out
 
@@ -960,6 +1067,75 @@ def train_int8_phase(device) -> dict:
         del kept
         gc.collect()
     del barrier
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def _train_measured(device, argv):
+    """One run of the train CLI's run() from zeroed launch counters and
+    peak-memory stats: (losses, round walls, final state, eval loss,
+    peak GiB)."""
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    losses, walls, state, eval_loss, _ = _train_once(device, argv)
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    check(bool(torch.isfinite(losses).all())
+          and torch.isfinite(torch.tensor(eval_loss)),
+          f"{argv}: losses not finite {losses.tolist()}, eval {eval_loss}")
+    return losses, walls, state, eval_loss, peak
+
+
+def _release():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_baselines_phase(device) -> dict:
+    """The paper's baselines on the same cell: Elastic-SGD through K7
+    (one launch a step, so 8; no other kernel), then without
+    ``--use-kernel`` (the same 8 losses and final x, v and ref bit for
+    bit); then SGD (``--use-kernel`` is ignored: no port kernel; every
+    loss finite).  Round walls and peak memory of each run."""
+    phase("6f. Elastic-SGD through K7 and SGD: full-width qwen2.5-3b cut "
+          f"to {TRAIN_LAYERS} layers, n=2, L=4, 8 steps")
+    out = {}
+    losses_k, walls_k, state, eval_k, peak = _train_measured(
+        device, train_argv(algo="elastic_sgd"))
+    launches = launch_counts(elastic_update=8)
+    kept = {f: getattr(state, f).cpu() for f in ("x", "v", "ref")}
+    del state
+    _release()
+    print(f"elastic_sgd: launches {launches}; losses {losses_k.tolist()}; "
+          f"round walls {walls_k}; peak {peak:.3f} GiB", flush=True)
+    losses_p, walls_p, state, _, peak_p = _train_measured(
+        device, train_argv(use_kernel=False, algo="elastic_sgd"))
+    launch_counts()
+    check(torch.equal(losses_k, losses_p)
+          and all(torch.equal(t, getattr(state, f).cpu())
+                  for f, t in kept.items()),
+          f"elastic_sgd: kernel path {losses_k.tolist()} != plain path "
+          f"{losses_p.tolist()} (or final x / v / ref differ)")
+    del state, kept
+    _release()
+    print(f"elastic_sgd: kernel path == plain path bit for bit (8 losses, "
+          f"final x, v, ref); plain round walls {walls_p}", flush=True)
+    out["elastic_sgd"] = {
+        "launches": {k: v for k, v in launches.items() if v},
+        "losses": losses_k.tolist(), "eval_loss": eval_k,
+        "round_wall_s": {"kernel": walls_k, "plain": walls_p},
+        "peak_memory_gib": round(peak, 3),
+        "plain_peak_memory_gib": round(peak_p, 3)}
+
+    losses_s, walls_s, state, eval_s, peak_s = _train_measured(
+        device, train_argv(algo="sgd"))
+    launch_counts()                       # SGD has no kernel
+    del state
+    _release()
+    print(f"sgd: losses {losses_s.tolist()}; round walls {walls_s}; peak "
+          f"{peak_s:.3f} GiB; no port kernel launched", flush=True)
+    out["sgd"] = {"losses": losses_s.tolist(), "eval_loss": eval_s,
+                  "round_wall_s": walls_s,
+                  "peak_memory_gib": round(peak_s, 3)}
     print(json.dumps(out), flush=True)
     return out
 
@@ -1105,14 +1281,16 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     t_start = time.perf_counter()
 
-    device, kind = device_phase()
+    device, kind, smi = device_phase()
     build_phase()
     max_abs_err = check_phase(device)
     parle_errs = parle_check_phase(device)
     parle_errs.update(compress_check_phase(device))
+    parle_errs.update(elastic_check_phase(device))
     timing = timing_phase(device)
     parle_timing = parle_timing_phase(device)
     parle_timing.update(compress_timing_phase(device))
+    parle_timing.update(elastic_timing_phase(device))
     run = main_path_phase(device)
     trained = train_phase(device)
     main_errs = parle_main_shape_phase(device, trained["replicas"],
@@ -1145,7 +1323,14 @@ def main() -> int:
                           "round_wall_s"]["kernel"]},
                   "int8_peak_memory_gib": {
                       k: trained["int8"][k]["peak_memory_gib"]
-                      for k in INT8_PATHS}},
+                      for k in INT8_PATHS},
+                  "elastic_sgd": {
+                      "round_wall_s": trained["elastic_sgd"]["round_wall_s"],
+                      "peak_memory_gib": trained["elastic_sgd"][
+                          "peak_memory_gib"]},
+                  "sgd": {"round_wall_s": trained["sgd"]["round_wall_s"],
+                          "peak_memory_gib": trained["sgd"][
+                              "peak_memory_gib"]}},
         "total_s": round(time.perf_counter() - t_start, 1)}), flush=True)
     kernels = [{
         "name": "paged_attention", "route": "cuda",
@@ -1156,11 +1341,13 @@ def main() -> int:
         "plain_ms": timing["plain_ms"], "library_ms": timing["library_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"]}]
     # each kernel's launches on its own path: K1/K2 on the f32 barrier
-    # run, K4/K5 on the int8 barrier run, K6 on the int8 overlap run
+    # run, K4/K5 on the int8 barrier run, K6 on the int8 overlap run, K7
+    # on the Elastic-SGD run
     int8 = trained["int8"]
     for name, line, launches in (
             ("parle_inner_update", 52, trained["launches"]),
             ("parle_sync_update", 175, trained["launches"]),
+            ("elastic_update", 299, trained["elastic_sgd"]["launches"]),
             ("quantize_ef", 365, int8["barrier"]["launches"]),
             ("parle_sync_dequant", 412, int8["barrier"]["launches"]),
             ("parle_apply_quantize", 479, int8["overlap"]["launches"])):
@@ -1175,10 +1362,23 @@ def main() -> int:
             "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"]})
     print(json.dumps({"kernels": kernels}), flush=True)
+    quickstart_phase(t_start)
+    print(smi, flush=True)                 # the card and its power limit
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def quickstart_phase(t_start) -> dict:
+    """The paper's headline claim on the card: the port's quickstart at
+    its default 400 steps (its assert fails the run)."""
+    phase("8. quickstart on the card: MLP on the teacher task, SGD vs "
+          "Parle n=3, 400 steps")
+    out = quickstart.run(steps=400, replicas=3, device="cuda")
+    print(json.dumps({"quickstart": out, "total_s": round(
+        time.perf_counter() - t_start, 1)}), flush=True)
+    return out
 
 
 def _leaves(tree):

@@ -1,6 +1,7 @@
 """The ``Algorithm`` protocol for the Parle family.  Port of
-``repro/core/algorithm.py`` for the two algorithms the port has:
-``parle`` and ``entropy_sgd`` (= Parle with n=1, §2.1/§3).
+``repro/core/algorithm.py``: ``parle``, ``entropy_sgd`` (= Parle with
+n=1, §2.1/§3), ``elastic_sgd`` (Eq. 7, coupled every step) and ``sgd``
+(data-parallel Nesterov SGD, the paper's §4 baseline).
 
   canonicalize_cfg(cfg)      -> cfg with the algorithm's invariants
                                 applied (entropy_sgd forces n=1)
@@ -9,8 +10,9 @@
                              -> step(state, batch) -> (state, metrics)
   make_round_fn(loss_fn, cfg, *, weight_decay, use_kernel, lr_schedule)
                              -> round(state, batches) -> (state, metrics):
-                                the L = cfg.L inner steps and the sync in
-                                one call; batches leaves are (L, n, B, ...);
+                                L = cfg.L steps in one call (Parle: the
+                                inner steps, then the sync); batches
+                                leaves are (L, n, B, ...);
                                 with cfg.sync_overlap the staleness-1
                                 round (head first, then the inner steps)
   make_round_flush_fn(cfg, *, lr_schedule)
@@ -19,7 +21,7 @@
                                 unless cfg.sync_overlap
   deployable(state)          -> the single servable param tree
   diagnostics(state)         -> dict of host floats (gamma, rho, overlap,
-                                spread)
+                                spread, where the algorithm has them)
 
 Steps and rounds consume the state they are given (its buffers are
 updated in place).  ``lr_schedule`` maps the step counter to a
@@ -33,7 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.core import ensemble, parle
+from repro_torch.core import elastic_sgd, ensemble, parle
 from repro_torch.core.registry import register
 from repro_torch.optim import sgd
 
@@ -48,6 +50,11 @@ def resolve_lr_schedule(cfg, lr_schedule=None):
         return sgd.step_decay_schedule(1.0, cfg.lr_drop_steps,
                                        cfg.lr_drop_factor)
     return None
+
+
+def _replica_diagnostics(flat) -> dict:
+    return {"overlap": float(ensemble.replica_overlap(flat)),
+            "spread": float(ensemble.replica_spread(flat))}
 
 
 class ParleAlgorithm:
@@ -86,8 +93,7 @@ class ParleAlgorithm:
     def diagnostics(self, state) -> dict:
         return {"gamma": float(state.scopes.gamma),
                 "rho": float(state.scopes.rho),
-                "overlap": float(ensemble.replica_overlap(state.x)),
-                "spread": float(ensemble.replica_spread(state.x))}
+                **_replica_diagnostics(state.x)}
 
 
 class EntropySGDAlgorithm(ParleAlgorithm):
@@ -113,5 +119,85 @@ class EntropySGDAlgorithm(ParleAlgorithm):
         return super().make_round_flush_fn(self.canonicalize_cfg(cfg), **kw)
 
 
+# ------------------------------------------------------------------
+# Elastic-SGD (Eq. 7) — the per-step-coupling O(2nN) baseline
+# ------------------------------------------------------------------
+
+class ElasticSGDAlgorithm:
+    name = "elastic_sgd"
+
+    def canonicalize_cfg(self, cfg):
+        return dataclasses.replace(cfg, mode=self.name)
+
+    def init(self, params, cfg) -> elastic_sgd.ElasticState:
+        return elastic_sgd.init(params, cfg)
+
+    def make_step(self, loss_fn, cfg, *, weight_decay=0.0, use_kernel=False,
+                  lr_schedule=None):
+        return elastic_sgd.make_train_step(
+            loss_fn, cfg, weight_decay=weight_decay, use_kernel=use_kernel,
+            lr_schedule=resolve_lr_schedule(cfg, lr_schedule))
+
+    def make_round_fn(self, loss_fn, cfg, *, weight_decay=0.0,
+                      use_kernel=False, lr_schedule=None):
+        return elastic_sgd.make_round_fn(
+            loss_fn, cfg, weight_decay=weight_decay, use_kernel=use_kernel,
+            lr_schedule=resolve_lr_schedule(cfg, lr_schedule))
+
+    def make_round_flush_fn(self, cfg, *, lr_schedule=None):
+        del cfg, lr_schedule    # per-step coupling: nothing in flight
+        return None
+
+    def deployable(self, state):
+        return elastic_sgd.average_model(state)
+
+    def diagnostics(self, state) -> dict:
+        return {"rho": float(state.scopes.rho),
+                **_replica_diagnostics(state.x)}
+
+
+# ------------------------------------------------------------------
+# SGD — the paper's §4 baseline; the replica axis is read as plain
+# data-parallel shards (grads averaged every step)
+# ------------------------------------------------------------------
+
+class SGDAlgorithm:
+    name = "sgd"
+
+    def canonicalize_cfg(self, cfg):
+        return dataclasses.replace(cfg, mode=self.name)
+
+    def init(self, params, cfg) -> sgd.SGDState:
+        del cfg
+        return sgd.init(params)
+
+    def make_step(self, loss_fn, cfg, *, weight_decay=0.0, use_kernel=False,
+                  lr_schedule=None):
+        del use_kernel      # one update stream; no kernel, as the reference
+        return sgd.make_replica_train_step(
+            loss_fn, cfg, weight_decay=weight_decay,
+            lr_schedule=resolve_lr_schedule(cfg, lr_schedule))
+
+    def make_round_fn(self, loss_fn, cfg, *, weight_decay=0.0,
+                      use_kernel=False, lr_schedule=None):
+        del use_kernel
+        return sgd.make_round_fn(
+            loss_fn, cfg, weight_decay=weight_decay,
+            lr_schedule=resolve_lr_schedule(cfg, lr_schedule))
+
+    def make_round_flush_fn(self, cfg, *, lr_schedule=None):
+        del cfg, lr_schedule    # grads averaged every step: no sync debt
+        return None
+
+    def deployable(self, state):
+        return state.layout.tree(state.params)
+
+    def diagnostics(self, state) -> dict:
+        del state
+        return {}
+
+
 PARLE = register(ParleAlgorithm())
 ENTROPY_SGD = register(EntropySGDAlgorithm())
+ELASTIC_SGD = register(ElasticSGDAlgorithm())
+SGD = register(SGDAlgorithm())

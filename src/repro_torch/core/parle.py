@@ -47,7 +47,8 @@ rounds with rotated boundaries (bit for bit here).  With ``use_kernel``
 and int8 the head after the first is the kernel K6 (apply + quantize in
 one pass).
 
-Per-replica grads come from a Python loop over the replicas (only one
+Per-replica grads come from a Python loop over the replicas
+(:func:`replica_grads`, shared with Elastic-SGD and SGD: only one
 replica's activations are alive at a time; each replica is independent,
 as under the reference's ``jax.vmap``).  Replica a's ``y`` row is made a
 leaf that requires grad, and the params are ``torch.split`` views of it,
@@ -133,15 +134,16 @@ def _state_from_x(x, layout, cfg) -> ParleState:
            else None))
 
 
-def dealias_state(state: ParleState) -> ParleState:
-    """A state whose buffers are distinct: any field that shares storage
-    with an earlier one is copied (the updates run in place, so an
-    aliased y and x would corrupt x).  A state from :func:`init` or a
-    restore is returned as it is — no model-size copy."""
+def dealias_state(state):
+    """A state whose buffers are distinct: any tensor field that shares
+    storage with an earlier one is copied (the updates run in place, so
+    an aliased y and x would corrupt x).  A state from :func:`init` or a
+    restore is returned as it is — no model-size copy.  Any of the port's
+    algorithm states (Parle, Elastic-SGD, SGD) works."""
     seen, repl = set(), {}
-    for f in FIELDS:
+    for f in state._fields:
         t = getattr(state, f)
-        if t is None:
+        if not isinstance(t, torch.Tensor):
             continue
         ptr = t.untyped_storage().data_ptr()
         if ptr in seen:
@@ -374,7 +376,8 @@ def make_flush_fn(cfg, lr_schedule=None):
         if int(state.step) == 0:
             return state
         return consensus_step(state, state.c, cfg,
-                              lr_scale=_scale(lr_schedule, state.step - 1))
+                              lr_scale=schedule_scale(lr_schedule,
+                                                      state.step - 1))
 
     return flush
 
@@ -383,38 +386,51 @@ def make_flush_fn(cfg, lr_schedule=None):
 # Train-step factory
 # ------------------------------------------------------------------
 
-def _replica_grads(loss_fn: Callable, state: ParleState, batch, grads,
-                   weight_decay: float) -> torch.Tensor:
-    """Fill ``grads`` (n, M) with each replica's grad f(y^a) and return
-    the (n,) losses.  ``batch`` leaves carry the leading replica axis."""
+def replica_grads(loss_fn: Callable, layout: FlatLayout, rows, batch, out,
+                  weight_decay: float = 0.0, decay_rows=None) -> torch.Tensor:
+    """Replica a's grad of ``loss_fn`` at the params of ``rows[a]`` (an
+    (M,) row; the rows of an (n, M) buffer are views, so no copy) on row
+    a of ``batch`` (leaves with the leading replica axis), plus
+    ``weight_decay * decay_rows[a]`` when ``weight_decay`` is set.  ``out``
+    is an (n, M) buffer that receives each grad in its row, or an (M,)
+    buffer that receives their sum.  Returns the (n,) losses."""
     losses = []
-    for a in range(state.y.shape[0]):
-        row = state.y[a].detach().requires_grad_(True)
-        loss, _ = loss_fn(state.layout.split(row),
+    for a, r in enumerate(rows):
+        row = r.detach().requires_grad_(True)
+        loss, _ = loss_fn(layout.split(row),
                           {k: v[a] for k, v in batch.items()})
         g, = torch.autograd.grad(loss, row)
         if weight_decay:
-            g = g + weight_decay * state.y[a]
-        grads[a].copy_(g)
+            g = g + weight_decay * decay_rows[a]
+        if out.dim() == 2:
+            out[a].copy_(g)
+        elif a == 0:
+            out.copy_(g)
+        else:
+            out.add_(g)
         losses.append(loss.detach())
     return torch.stack(losses)
 
 
-class _GradBuffer:
-    """The (n, M) grad buffer of a step/round factory, allocated at its
-    first use and reused by every later step."""
+class GradBuffer:
+    """The grad buffer of a step/round factory, allocated at its first
+    use and reused by every later step."""
 
     def __init__(self):
         self.buf = None
 
-    def like(self, y) -> torch.Tensor:
-        if (self.buf is None or self.buf.shape != y.shape
-                or self.buf.dtype != y.dtype or self.buf.device != y.device):
-            self.buf = torch.empty_like(y)
+    def like(self, t, dtype=None) -> torch.Tensor:
+        """A buffer of ``t``'s shape and device, and of ``dtype`` (default
+        ``t``'s)."""
+        dtype = dtype or t.dtype
+        if (self.buf is None or self.buf.shape != t.shape
+                or self.buf.dtype != dtype or self.buf.device != t.device):
+            self.buf = torch.empty_like(t, dtype=dtype)
         return self.buf
 
 
-def _scale(lr_schedule, step):
+def schedule_scale(lr_schedule, step):
+    """The lr multiplier at ``step`` (1.0 without a schedule)."""
     return lr_schedule(step) if lr_schedule is not None else 1.0
 
 
@@ -428,19 +444,26 @@ def make_train_step(loss_fn: Callable, cfg, weight_decay: float = 0.0,
     ``lr_schedule``: step -> multiplier on BOTH cfg.lr and cfg.lr_inner.
     The step consumes ``state`` (its buffers are updated in place)."""
     _sync_compress(cfg)
-    gbuf = _GradBuffer()
+    gbuf = GradBuffer()
 
     def step(state: ParleState, batch):
-        losses = _replica_grads(loss_fn, state, batch, gbuf.like(state.y),
-                                weight_decay)
+        losses = _grads_at_y(loss_fn, state, batch, gbuf, weight_decay)
         new_state = fused_step(state, gbuf.buf, cfg, use_kernel=use_kernel,
-                               lr_scale=_scale(lr_schedule, state.step))
+                               lr_scale=schedule_scale(lr_schedule,
+                                                       state.step))
         return new_state, {
             "loss": losses.mean(), "loss_per_replica": losses,
             "gamma": new_state.scopes.gamma, "rho": new_state.scopes.rho,
             "step": new_state.step}
 
     return step
+
+
+def _grads_at_y(loss_fn, state: ParleState, batch, gbuf, weight_decay):
+    """grad f(y^a) of every replica into the (n, M) buffer of ``gbuf``;
+    returns the (n,) losses."""
+    return replica_grads(loss_fn, state.layout, state.y, batch,
+                         gbuf.like(state.y), weight_decay, state.y)
 
 
 def _round_entry(state: ParleState, cfg):
@@ -454,11 +477,11 @@ def _inner_steps(loss_fn, state: ParleState, batches, cfg, gbuf,
     """The round's L inner steps (8a-8b); returns (state, (L,) losses)."""
     step_losses = []
     for i in range(cfg.L):
-        losses = _replica_grads(loss_fn, state,
-                                {k: v[i] for k, v in batches.items()},
-                                gbuf.like(state.y), weight_decay)
+        losses = _grads_at_y(loss_fn, state,
+                             {k: v[i] for k, v in batches.items()}, gbuf,
+                             weight_decay)
         state = inner_step(state, gbuf.buf, cfg, use_kernel=use_kernel,
-                           lr_scale=_scale(lr_schedule, state.step))
+                           lr_scale=schedule_scale(lr_schedule, state.step))
         step_losses.append(losses.mean())
     return state, torch.stack(step_losses)
 
@@ -483,14 +506,15 @@ def make_round_fn(loss_fn: Callable, cfg, weight_decay: float = 0.0,
     last inner step (schedule(step - 1)).  Metrics: the round-mean
     ``loss`` plus the per-step ``losses`` (L,)."""
     _sync_compress(cfg)
-    gbuf = _GradBuffer()
+    gbuf = GradBuffer()
 
     def round_fn(state: ParleState, batches):
         _round_entry(state, cfg)
         state, losses = _inner_steps(loss_fn, state, batches, cfg, gbuf,
                                      weight_decay, use_kernel, lr_schedule)
         state = sync_step(state, cfg, use_kernel=use_kernel,
-                          lr_scale=_scale(lr_schedule, state.step - 1))
+                          lr_scale=schedule_scale(lr_schedule,
+                                                  state.step - 1))
         return state, _round_metrics(state, losses)
 
     return round_fn
@@ -506,12 +530,13 @@ def make_overlap_round_fn(loss_fn: Callable, cfg, weight_decay: float = 0.0,
     state trails it by exactly the in-flight ``c`` (see
     :func:`make_flush_fn`)."""
     _sync_compress(cfg)
-    gbuf = _GradBuffer()
+    gbuf = GradBuffer()
 
     def round_fn(state: ParleState, batches):
         _round_entry(state, cfg)
         state = overlap_head(state, cfg, use_kernel=use_kernel,
-                             lr_scale=_scale(lr_schedule, state.step - 1))
+                             lr_scale=schedule_scale(lr_schedule,
+                                                     state.step - 1))
         state, losses = _inner_steps(loss_fn, state, batches, cfg, gbuf,
                                      weight_decay, use_kernel, lr_schedule)
         return state, _round_metrics(state, losses)

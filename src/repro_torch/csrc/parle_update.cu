@@ -1,9 +1,11 @@
 // Parle's update kernels for Hopper, sm_90a: the inner step (K1), the sync
-// step (K2) and the compressed sync (K4, K5, K6).
+// step (K2), the Elastic-SGD worker step (K7) and the compressed sync (K4,
+// K5, K6).
 //
 // They replace the Pallas TPU kernels of src/repro/kernels/parle_update.py:
 // K1 `parle_update_flat` (pallas_call body `_kernel`), K2 `parle_sync_flat`
-// (`_sync_kernel`), K4 `quantize_ef_flat` (`_quant_ef_kernel`), K5
+// (`_sync_kernel`), K7 `elastic_update_flat` (`_elastic_kernel`), K4
+// `quantize_ef_flat` (`_quant_ef_kernel`), K5
 // `parle_sync_dequant_flat` (`_dequant_sync_kernel`) and K6
 // `parle_apply_quantize_flat` (`_apply_quant_kernel`).  They compute what
 // src/repro/kernels/ref.py's oracles compute:
@@ -14,6 +16,8 @@
 //   K2 (Eq. 8c-8d), per replica row r against ONE shared row xbar:
 //     g_x = gamma_scale (x - z) + inv_rho (x - xbar);  v' = mu v + g_x
 //     x'  = x - lr (g_x + mu v');  optionally y' = bf16(x')
+//   K7 (Eq. 7a), per replica row r against ONE shared row ref:
+//     g_e = g + inv_rho (x - ref);  v' = mu v + g_e;  x' = x - lr (g_e + mu v')
 //   K4 (the int8 codec with error feedback), per 1024-element chunk of c:
 //     s = amax == 0 ? 1 : amax * f32(1/127)   (amax = max |c|, NaN kept)
 //     q = clip(rint(c / s), -127, 127) as int8;  e = c - q s
@@ -26,7 +30,8 @@
 // (K2) float operations against 32 (K1, f32) or 28+ (K2) bytes of traffic,
 // far below the H100's ~20 FLOP/byte float32 ridge.  K1 reads y, z, v, g, x
 // and writes y, z, v: 8 streams.  K2 reads x, z, v (R rows) and xbar (one
-// row) and writes x, v (and y'): 3R + 1 reads, 2R (+R) writes.  K4 reads c
+// row) and writes x, v (and y'): 3R + 1 reads, 2R (+R) writes.  K7 has K2's
+// streams with g in place of z (9 operations an element).  K4 reads c
 // and writes e (f32) and q (int8): 9 bytes an element.  K5 reads x, z, v and
 // the n int8 payloads once, writes x, v.  K6 reads x, z, v, e and c once,
 // writes x, v, e and q.  Each does ~10-20 operations an element.  The least
@@ -41,14 +46,14 @@
 // * A grid-stride loop with 16-byte vector accesses (four f32, or four bf16
 //   as two bf16x2) where every stream is aligned, and a scalar tail for
 //   ragged lengths; enough blocks to fill the 132 SMs several times over.
-// * K2 runs one grid row per replica (blockIdx.y), so each thread reads
-//   xbar[j] for its own column j: xbar stays one (M,) buffer, never
-//   broadcast to R x M.
+// * K2 and K7 run one grid row per replica (blockIdx.y), so each thread
+//   reads xbar[j] (ref[j]) for its own column j: the shared row stays one
+//   (M,) buffer, never broadcast to R x M.
 // * The four scalars are read from device memory (the counterpart of the
 //   TPU kernels' scalar prefetch), so a captured CUDA graph can replay a
 //   round with new scalars and no change to this interface.
 // * The updates are in place: each thread reads an element of y, z, v
-//   (K1) or x, v (K2) before it writes the same element, and no two
+//   (K1) or x, v (K2, K7) before it writes the same element, and no two
 //   threads touch one element.
 // * Exact rounding: every product and sum is __fmul_rn / __fadd_rn /
 //   __fsub_rn, so nvcc cannot contract a*b+c into an FMA, and casts to
@@ -145,6 +150,10 @@ struct SyncScalars {
   float gamma_scale, inv_rho, lr, mu;
 };
 
+struct ElasticScalars {
+  float inv_rho, lr, mu;
+};
+
 // Eq. 8a-8b for one element, in the plain version's order of roundings.
 __device__ __forceinline__ void inner_elem(const InnerScalars& s, float y,
                                            float g, float x, float& z,
@@ -164,6 +173,15 @@ __device__ __forceinline__ void sync_elem(const SyncScalars& s, float& x,
                               __fmul_rn(s.inv_rho, __fsub_rn(x, xbar)));
   const float v_new = __fadd_rn(__fmul_rn(s.mu, v), g_x);
   x = __fsub_rn(x, __fmul_rn(s.lr, __fadd_rn(g_x, __fmul_rn(s.mu, v_new))));
+  v = v_new;
+}
+
+// Eq. 7a for one element.
+__device__ __forceinline__ void elastic_elem(const ElasticScalars& s, float& x,
+                                             float& v, float g, float ref) {
+  const float g_e = __fadd_rn(g, __fmul_rn(s.inv_rho, __fsub_rn(x, ref)));
+  const float v_new = __fadd_rn(__fmul_rn(s.mu, v), g_e);
+  x = __fsub_rn(x, __fmul_rn(s.lr, __fadd_rn(g_e, __fmul_rn(s.mu, v_new))));
   v = v_new;
 }
 
@@ -251,6 +269,46 @@ __global__ void __launch_bounds__(kThreads)
     xr[j] = xf;
     vr[j] = vf;
     if (EMIT_Y) yr[j] = __float2bfloat16_rn(xf);
+  }
+}
+
+// K7.  x, v: (R, M) float, row r = blockIdx.y; g: (R, M) GT (float or bf16);
+// ref: (M,) float.  The first 4 * m_vec columns of each row go through
+// aligned 4-element accesses.
+template <typename GT>
+__global__ void __launch_bounds__(kThreads)
+    elastic_kernel(float* __restrict__ x, float* __restrict__ v,
+                   const GT* __restrict__ g, const float* __restrict__ ref,
+                   const float* __restrict__ scalars, int64_t M,
+                   int64_t m_vec) {
+  ElasticScalars s;
+  s.inv_rho = scalars[0];
+  s.lr = scalars[1];
+  s.mu = scalars[2];
+  const int64_t row = static_cast<int64_t>(blockIdx.y) * M;
+  float* xr = x + row;
+  float* vr = v + row;
+  const GT* gr = g + row;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  for (int64_t i = tid; i < m_vec; i += stride) {
+    const int64_t j = 4 * i;
+    float xf[4], vf[4], gf[4], rf[4];
+    Pack4<float>::load(xr + j, xf);
+    Pack4<float>::load(vr + j, vf);
+    Pack4<GT>::load(gr + j, gf);
+    Pack4<float>::load(ref + j, rf);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) elastic_elem(s, xf[k], vf[k], gf[k], rf[k]);
+    Pack4<float>::store(xr + j, xf);
+    Pack4<float>::store(vr + j, vf);
+  }
+  for (int64_t j = 4 * m_vec + tid; j < M; j += stride) {
+    float xf = xr[j], vf = vr[j];
+    elastic_elem(s, xf, vf, to_f32(gr[j]), ref[j]);
+    xr[j] = xf;
+    vr[j] = vf;
   }
 }
 
@@ -482,6 +540,33 @@ extern "C" int parle_sync_update(float* x, const float* z, float* v,
   } else {
     parle_sync_kernel<false><<<grid, kThreads, 0, s>>>(
         x, z, v, xbar, nullptr, scalars, M, m_vec);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7.  x, v: (R, M) float; g: (R, M) bf16 when `bf16` != 0, else float;
+// ref: (M,) float; scalars: 3 floats on the device [inv_rho, lr, mu].  `vec`
+// != 0 promises 16-byte aligned pointers (8-byte for a bf16 g) and M % 4 ==
+// 0.  Updates x, v in place; ref is only read.
+extern "C" int elastic_update(float* x, float* v, const void* g,
+                              const float* ref, const float* scalars, int R,
+                              int64_t M, int bf16, int vec, int device,
+                              void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (R < 1 || R > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t m_vec = vec ? M / 4 : 0;
+  int blocks = 0;
+  err = grid_size(device, m_vec + (M - 4 * m_vec), R, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(blocks, R);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    elastic_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        x, v, static_cast<const __nv_bfloat16*>(g), ref, scalars, M, m_vec);
+  } else {
+    elastic_kernel<float><<<grid, kThreads, 0, s>>>(
+        x, v, static_cast<const float*>(g), ref, scalars, M, m_vec);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,12 @@
-"""Synthetic token stream (offline — no real datasets).  Port of
-``repro/data/synthetic.py``'s ``TokenStream``, ``replica_batches`` and
-``make_round_batch_fn`` (the classification streams are not ported yet).
+"""Synthetic data streams (offline — no real datasets).  Port of
+``repro/data/synthetic.py``'s ``TokenStream``, ``TeacherTask``,
+``replica_batches`` and ``make_round_batch_fn``.
+
+``TeacherTask`` (the paper-faithful classification task of
+``examples/quickstart.py``) draws everything from numpy's
+``RandomState`` exactly as the reference does, so its data and every
+batch equal the reference's bit for bit; the tensors live on the task's
+device.
 
 The same deterministic Markov structure: next token = (prev * 31 + 7)
 % V half the time, a uniform draw otherwise.  The draws come from a
@@ -14,6 +20,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 
@@ -48,17 +55,70 @@ def _token_batch(step, idx, cnt, seed, batch_size, seq_len, vocab_size,
             "labels": seq[:, 1:].to(torch.int32)}
 
 
-def replica_batches(stream: TokenStream, step: int, batch_size: int,
+@dataclass
+class TeacherTask:
+    """Fixed teacher-MLP labelled Gaussian classification task."""
+    in_dim: int = 64
+    hidden: int = 96
+    num_classes: int = 10
+    num_train: int = 4096
+    num_test: int = 1024
+    seed: int = 0
+    label_noise: float = 0.05
+    device: str = "cpu"
+
+    def __post_init__(self):
+        rng = np.random.RandomState(self.seed)
+        w1 = rng.randn(self.in_dim, self.hidden) / np.sqrt(self.in_dim)
+        w2 = rng.randn(self.hidden, self.num_classes) / np.sqrt(self.hidden)
+        xs = rng.randn(self.num_train + self.num_test,
+                       self.in_dim).astype(np.float32)
+        logits = np.tanh(xs @ w1) @ w2
+        ys = np.argmax(logits, axis=1)
+        flip = rng.rand(len(ys)) < self.label_noise
+        ys = np.where(flip, rng.randint(0, self.num_classes, len(ys)), ys)
+        on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device)
+        self.x_train = on(xs[:self.num_train])
+        self.y_train = on(ys[:self.num_train].astype(np.int32))
+        self.x_test = on(xs[self.num_train:])
+        self.y_test = on(ys[self.num_train:].astype(np.int32))
+
+    def train_batch(self, step: int, batch_size: int,
+                    shard: tuple = (0, 1)) -> dict:
+        """Replica shard (a, n): draw only from the a-th 1/n of the data
+        (paper §5 splitting).  Every sample is in exactly one shard."""
+        a, n = shard
+        per = self.num_train // n
+        rng = np.random.RandomState((step * n + a) * 7919 + 13)
+        idx = torch.from_numpy(a * per + rng.randint(0, per, batch_size)).to(
+            self.device)
+        return {"x": self.x_train[idx], "y": self.y_train[idx]}
+
+    def test_batch(self) -> dict:
+        return {"x": self.x_test, "y": self.y_test}
+
+    def batches_per_epoch(self, batch_size: int) -> int:
+        return max(1, self.num_train // batch_size)
+
+
+def replica_batches(task_or_stream, step: int, batch_size: int,
                     n_replicas: int, split: bool = False) -> dict:
-    """Per-replica batches stacked along a leading replica axis (n, B, T).
+    """Per-replica batches stacked along a leading replica axis.
 
     split=False: every replica draws from the full data (paper §4), its
     shard index decorrelating the draws; split=True: replica a draws
     only from shard a (paper §5)."""
-    outs = [_token_batch(step, a, n_replicas, stream.seed, batch_size,
-                         stream.seq_len, stream.vocab_size, split,
-                         stream.device)
+    if isinstance(task_or_stream, TeacherTask):
+        outs = [task_or_stream.train_batch(
+            step if split else step * n_replicas + a, batch_size,
+            (a, n_replicas) if split else (0, 1))
             for a in range(n_replicas)]
+    else:
+        s = task_or_stream
+        outs = [_token_batch(step, a, n_replicas, s.seed, batch_size,
+                             s.seq_len, s.vocab_size, split, s.device)
+                for a in range(n_replicas)]
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 

@@ -2,9 +2,10 @@
 
 A CUDA tensor launches the hand-written kernel, or the wrapper raises —
 there is no fallback.  A CPU tensor takes the kernel's plain PyTorch
-version.  Ported so far: K1 and K2 (the Parle updates), K4-K6 (the int8
-compressed sync) and K8 (paged attention); the other TPU kernels of the
-reference are listed in ROADMAP.md queue 2.
+version.  Ported so far: K1 and K2 (the Parle updates), K7 (the
+Elastic-SGD worker step), K4-K6 (the int8 compressed sync) and K8 (paged
+attention); the other TPU kernels of the reference are listed in
+ROADMAP.md queue 2.
 """
 from __future__ import annotations
 
@@ -63,6 +64,19 @@ def parle_sync_update(x, z, v, xbar, *, gamma_scale, inv_rho, lr, mu,
     else:
         _pu.parle_sync_update_cuda(x, z, v, xbar, scalars, y_out=y_out)
     return x, v, (y_out if y_out is not None else x)
+
+
+def elastic_worker_update(x, v, g, ref, *, inv_rho, lr, mu):
+    """Fused Elastic-SGD worker step (Eq. 7a, K7): x, v (R, M) float32 and
+    the grads g (R, M) in the compute dtype against the un-broadcast
+    reference variable ``ref`` (M,).  Updates x and v IN PLACE and returns
+    them; ref is only read (its Eq. 7b update is the caller's)."""
+    scalars = _pu.pack_scalars(inv_rho, lr, mu, device=x.device)
+    if x.device.type == "cpu":
+        _copy_into((x, v), _pu.elastic_worker_update_plain(x, v, g, ref,
+                                                           scalars))
+        return x, v
+    return _pu.elastic_worker_update_cuda(x, v, g, ref, scalars)
 
 
 def quantize_ef(c, *, in_place: bool = False):

@@ -1,10 +1,13 @@
 """Parle's update kernels for Hopper and their plain PyTorch versions:
-the inner step (K1), the sync step (K2) and the compressed sync (K4-K6).
+the inner step (K1), the sync step (K2), the Elastic-SGD worker step
+(K7) and the compressed sync (K4-K6).
 
 Replaces the Pallas TPU kernels of ``repro/kernels/parle_update.py``:
 
 * K1 ``parle_update_flat`` — Eq. 8a-8b;
 * K2 ``parle_sync_flat`` — Eq. 8c-8d against one (M,) xbar;
+* K7 ``elastic_update_flat`` — Elastic-SGD's Eq. 7a against one (M,)
+  reference variable;
 * K4 ``quantize_ef_flat`` — per-1024-chunk int8 quantize + the
   error-feedback residual;
 * K5 ``parle_sync_dequant_flat`` — dequantize n int8 payloads, their
@@ -25,9 +28,9 @@ kernel launches once for all replicas and leaves.
   y' cast back; y' = bf16(x') fused into the sync).  They return new
   tensors.  The CPU path and the on-card comparison use them.
 
-``scalars`` is a (4,) float32 tensor on the operands' device:
-[inv_gamma, lr, mu, alpha] for K1, [gamma_scale, inv_rho, lr, mu] for
-K2, K5 and K6.
+``scalars`` is a float32 tensor on the operands' device: (4,)
+[inv_gamma, lr, mu, alpha] for K1, (4,) [gamma_scale, inv_rho, lr, mu]
+for K2, K5 and K6, (3,) [inv_rho, lr, mu] for K7.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ from repro_torch.kernels import build
 # kernel launches since process start (or since the caller reset them)
 inner_launches = 0
 sync_launches = 0
+elastic_launches = 0
 quantize_launches = 0
 dequant_sync_launches = 0
 apply_quantize_launches = 0
@@ -85,6 +89,16 @@ def parle_sync_update_plain(x, z, v, xbar, scalars, y_dtype=None):
     return x_new, v_new
 
 
+def elastic_worker_update_plain(x, v, g, ref, scalars):
+    """K7, Eq. 7a.  x, v: (R, M) f32; g: (R, M) f32 or bf16 (upcast on
+    read); ref: (M,) f32, broadcast over the replicas.  Returns (x', v')."""
+    inv_rho, lr, mu = scalars.unbind(0)
+    g_e = g.float() + inv_rho * (x - ref)
+    v_new = mu * v + g_e
+    x_new = x - lr * (g_e + mu * v_new)
+    return x_new, v_new
+
+
 def quantize_ef_plain(c):
     """K4.  c: (R, M) f32, M % 1024 == 0.  Returns (q (R, M) int8,
     s (R, M/1024) f32, e = c - dequant(q) f32): the codec of
@@ -123,6 +137,8 @@ def _library():
         lib.parle_inner_update.restype = i
         lib.parle_sync_update.argtypes = [p] * 6 + [i, i64, i, i, p]
         lib.parle_sync_update.restype = i
+        lib.elastic_update.argtypes = [p] * 5 + [i, i64, i, i, i, p]
+        lib.elastic_update.restype = i
         lib.quantize_ef.argtypes = [p] * 4 + [i64, i, p]
         lib.quantize_ef.restype = i
         lib.parle_sync_dequant.argtypes = [p] * 7 + [i, i, i64, i, p]
@@ -132,7 +148,7 @@ def _library():
     return lib
 
 
-def _check(fn, tensors, dtypes, device):
+def _check(fn, tensors, dtypes, device, n_scalars=4):
     for name, t in tensors.items():
         if not t.is_cuda or t.device != device:
             raise ValueError(f"{fn}: {name} is on {t.device}, expected the "
@@ -143,8 +159,8 @@ def _check(fn, tensors, dtypes, device):
             raise TypeError(f"{fn}: {name} is {t.dtype}; the kernel takes "
                             f"{dtypes.get(name, (torch.float32,))}")
     scalars = tensors.get("scalars")
-    if scalars is not None and tuple(scalars.shape) != (4,):
-        raise ValueError(f"{fn}: scalars must be (4,), got "
+    if scalars is not None and tuple(scalars.shape) != (n_scalars,):
+        raise ValueError(f"{fn}: scalars must be ({n_scalars},), got "
                          f"{tuple(scalars.shape)}")
 
 
@@ -227,6 +243,33 @@ def parle_sync_update_cuda(x, z, v, xbar, scalars, y_out=None):
         raise RuntimeError(f"{fn} kernel launch failed: cudaError_t {err}")
     sync_launches += 1
     return (x, v) if y_out is None else (x, v, y_out)
+
+
+def elastic_worker_update_cuda(x, v, g, ref, scalars):
+    """Launch K7 on the current stream (no synchronisation): x and v are
+    updated in place and returned; ref is only read.  Same contract as
+    :func:`elastic_worker_update_plain`; raises on anything the kernel
+    does not take."""
+    global elastic_launches
+    fn = "elastic_update"
+    tensors = {"x": x, "v": v, "g": g, "ref": ref, "scalars": scalars}
+    _check(fn, tensors, {"g": COMPUTE_DTYPES}, x.device, n_scalars=3)
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"{fn}: x must be (R, M) with R, M >= 1, got "
+                         f"{tuple(x.shape)}")
+    R, M = x.shape
+    if R > 65535:
+        raise ValueError(f"{fn}: {R} replicas exceed the grid's 65535 rows")
+    _check_shapes(fn, tensors, {"v": (R, M), "g": (R, M), "ref": (M,)})
+    vec = M % 4 == 0 and _aligned([x, v, g, ref])
+    err = _library().elastic_update(
+        x.data_ptr(), v.data_ptr(), g.data_ptr(), ref.data_ptr(),
+        scalars.data_ptr(), R, M, int(g.dtype == torch.bfloat16), int(vec),
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: cudaError_t {err}")
+    elastic_launches += 1
+    return x, v
 
 
 # ------------------------------------------------------------------

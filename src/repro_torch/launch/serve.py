@@ -14,10 +14,12 @@ What gets served is the registry surface, as in the reference:
 training checkpoint of either package (algo-stamp validated) or fresh
 from params drawn with a ``torch.Generator`` seeded by ``--seed``, and
 the served weights are ``algo.deployable(state)`` — for Parle, the
-replica average.  A fresh state's replicas all equal the init, so its
-average is taken over the init broadcast to ``--replicas`` rows without
-building the n-replica state.  Prompts come from a numpy generator
-seeded by ``--seed``.
+replica average; for Elastic-SGD, the reference variable ``ref``; for
+SGD, its ``params``.  A fresh Parle state's replicas all equal the init,
+so its average is taken over the init broadcast to ``--replicas`` rows
+without building the n-replica state; a fresh Elastic-SGD ``ref`` and a
+fresh SGD ``params`` are the init itself.  Prompts come from a numpy
+generator seeded by ``--seed``.
 
 Modes:
 
@@ -94,6 +96,8 @@ def served_params(cfg, args, device):
         state = ckpt.restore(args.resume, algo.init(params, pcfg),
                              algo=args.algo)
         return algo.deployable(state), pcfg
+    if algo.name not in ("parle", "entropy_sgd"):
+        return params, pcfg         # Elastic-SGD's ref, SGD's params
     layout = FlatLayout(params)
     x = layout.flatten(params).expand(pcfg.n_replicas, -1)
     return layout.tree(parle.replica_mean(x)), pcfg

@@ -6,26 +6,31 @@
         --smoke --device cpu --replicas 2 --L 3 --steps 6 --batch 2 \\
         --seq 32 --use-kernel --round-fused --sync-compress int8 \\
         --sync-overlap
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
+        --smoke --device cpu --algo elastic_sgd --replicas 2 --L 3 \\
+        --steps 6 --batch 2 --seq 32 --use-kernel --round-fused
 
-Runs a registered algorithm (``repro_torch.core.registry``: parle,
-entropy_sgd) through one code path that talks only to the
-Algorithm protocol, on the synthetic token stream, with algo-stamped
+Runs any registered algorithm (``repro_torch.core.registry``: parle,
+entropy_sgd, elastic_sgd, sgd) through one code path that talks only to
+the Algorithm protocol, on the synthetic token stream, with algo-stamped
 checkpoints and the replica diagnostics of §1.2 (overlap / spread).  It
 takes the reference's flags and prints its JSON lines
 (``train_progress``, ``train_final``), plus ``--device``: ``cuda``
 unless ``--device cpu`` (no silent fallback to the CPU).  With
-``--use-kernel`` every inner step runs the CUDA kernel K1 and every sync
-K2 (their plain versions on the CPU); under ``--sync-compress int8`` the
-sync is K4 (quantize + error feedback) and K5 (dequantize + mean +
-update), and under ``--sync-overlap`` (with ``--round-fused``) each
-round's head is K4 (the first) or K6 (apply + quantize), with a plain
-flush after the last round.
+``--use-kernel`` Parle's every inner step runs the CUDA kernel K1 and
+every sync K2, and Elastic-SGD's every worker step (Eq. 7a) K7 (their
+plain versions on the CPU); SGD has no kernel and ignores the flag, as
+the reference does.  Under ``--sync-compress int8`` Parle's sync is K4
+(quantize + error feedback) and K5 (dequantize + mean + update), and
+under ``--sync-overlap`` (with ``--round-fused``) each round's head is K4
+(the first) or K6 (apply + quantize), with a plain flush after the last
+round; Elastic-SGD and SGD ignore ``--sync-compress`` and refuse
+``--sync-overlap``, as the reference does.
 
 Params are drawn from a ``torch.Generator`` seeded by ``--seed`` on the
 training device, and so are the batches: neither is the reference's
 threefry stream.  Not ported yet, each exiting with the ROADMAP.md item
 that ports it: ``--mesh`` / ``--host-devices`` (queue 1 item 6),
-``--algo elastic_sgd|sgd`` (item 5, raises ``NotImplementedError``),
 ``--sync-policy async`` (item 7).
 """
 from __future__ import annotations
@@ -40,7 +45,7 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import ParleConfig, get_config, smoke_variant
 from repro_torch.core import registry
-from repro_torch.core.parle import dealias_state
+from repro_torch.core.parle import dealias_state   # any algorithm's state
 from repro_torch.data.synthetic import (TokenStream, make_round_batch_fn,
                                         replica_batches)
 from repro_torch.models.model import build_model
@@ -73,8 +78,9 @@ def build_argparser():
                     help="paper §5: each replica sees a disjoint shard")
     ap.add_argument("--use-kernel", action="store_true",
                     help="the Parle updates through the CUDA kernels K1 "
-                         "(inner step) and K2 (sync); K4-K6 under "
-                         "--sync-compress int8")
+                         "(inner step) and K2 (sync), K4-K6 under "
+                         "--sync-compress int8; Elastic-SGD's worker step "
+                         "through K7")
     ap.add_argument("--round-fused", action="store_true",
                     help="run one whole L-step round (inner steps + sync) "
                          "per call, staging each round's batches "

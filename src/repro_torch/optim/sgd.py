@@ -1,12 +1,45 @@
-"""Learning-rate schedules of the form the paper uses ("dropped by a
-factor of 5-10 at epochs [...]").  Port of ``repro/optim/sgd.py::
-step_decay_schedule``; the SGD baseline itself is not ported yet
-(ROADMAP.md queue 1, item 5)."""
+"""SGD with Nesterov momentum — the paper's baseline optimizer (§4) — plus
+step-decay learning-rate schedules of the form the paper uses ("dropped
+by a factor of 5-10 at epochs [...]").  Port of ``repro/optim/sgd.py``
+(the local path; the sharded functions come with the replica axis across
+processes, ROADMAP.md queue 1 item 6).
+
+The state keeps params and v as ONE ``(M,)`` row each, in the flat layout
+of ``utils/pytree.py::FlatLayout``, and the updates run IN PLACE.  The
+Algorithm-protocol step reads the batch's leading axis as n data shards:
+each shard's grad is taken at the one param row (its compute copy under
+``precision="bf16"``), the n grads are summed into one float32 (M,)
+buffer and divided by n, and one Nesterov step follows.  There is no
+kernel: the reference ignores ``use_kernel`` for SGD, and so does the
+port.
+"""
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
+
+from repro_torch.core.parle import GradBuffer, replica_grads, schedule_scale
+from repro_torch.utils.pytree import FlatLayout
+
+
+class SGDState(NamedTuple):
+    params: torch.Tensor   # (M,) float32
+    v: torch.Tensor        # (M,) Nesterov momentum
+    step: torch.Tensor     # () int32
+    layout: FlatLayout
+
+    def tree(self) -> dict:
+        """The reference SGDState's pytree (leaf views)."""
+        return {"params": self.layout.tree(self.params),
+                "v": self.layout.tree(self.v), "step": self.step}
+
+
+def init(params) -> SGDState:
+    layout = FlatLayout(params)
+    row = layout.flatten(params)
+    return SGDState(params=row, v=torch.zeros_like(row),
+                    step=torch.zeros((), dtype=torch.int32), layout=layout)
 
 
 def step_decay_schedule(base_lr: float, boundaries: Sequence[int],
@@ -22,3 +55,80 @@ def step_decay_schedule(base_lr: float, boundaries: Sequence[int],
         return base * fac ** drops.float()
 
     return lr_at
+
+
+def update(state: SGDState, grads, lr, momentum: float = 0.9,
+           weight_decay: float = 0.0) -> SGDState:
+    """One Nesterov step on the flat (M,) ``grads`` (float32; consumed as
+    a scratch buffer).  Updates params and v in place."""
+    if weight_decay:
+        grads.add_(weight_decay * state.params)
+    state.v.mul_(momentum).add_(grads)                        # v' = mu v + g
+    state.params.sub_(torch.mul(state.v, momentum).add_(grads).mul_(lr))
+    return state._replace(step=state.step + 1)
+
+
+def make_train_step(loss_fn: Callable, lr_schedule, momentum: float = 0.9,
+                    weight_decay: float = 0.0):
+    """Single-model step: ``lr_schedule`` is a step -> lr callable or a
+    constant lr; ``batch`` has no shard axis."""
+    gbuf = GradBuffer()
+
+    def step(state: SGDState, batch):
+        row = state.params.detach().requires_grad_(True)
+        loss, _ = loss_fn(state.layout.split(row), batch)
+        g, = torch.autograd.grad(loss, row)
+        lr = lr_schedule(state.step) if callable(lr_schedule) else lr_schedule
+        new_state = update(state, gbuf.like(state.params).copy_(g), lr,
+                           momentum, weight_decay)
+        return new_state, {"loss": loss.detach(), "lr": lr}
+
+    return step
+
+
+# ------------------------------------------------------------------
+# The Algorithm-protocol steps (core/algorithm.py): the batch carries a
+# leading shard axis of size n and SGD treats it as plain data
+# parallelism — per-shard grads are averaged every step.
+# ------------------------------------------------------------------
+
+def make_replica_train_step(loss_fn: Callable, cfg, weight_decay: float = 0.0,
+                            lr_schedule=None):
+    """Protocol-shaped SGD step: ``batch`` leaves carry a leading shard
+    axis of size cfg.n_replicas; grads are averaged across shards every
+    step (one model copy, an n-times-larger effective batch).
+    ``lr_schedule``: step -> multiplier applied to cfg.lr."""
+    gbuf = GradBuffer()
+    cdt = cfg.compute_dtype()
+
+    def step(state: SGDState, batch):
+        n = next(iter(batch.values())).shape[0]
+        row = state.params.to(cdt)
+        losses = replica_grads(loss_fn, state.layout, [row] * n, batch,
+                               gbuf.like(state.params))
+        grads = gbuf.buf.div_(n)                  # the mean over the shards
+        lr = cfg.lr * schedule_scale(lr_schedule, state.step)
+        new_state = update(state, grads, lr, cfg.momentum, weight_decay)
+        return new_state, {"loss": losses.mean(), "lr": lr}
+
+    return step
+
+
+def make_round_fn(loss_fn: Callable, cfg, weight_decay: float = 0.0,
+                  lr_schedule=None):
+    """cfg.L steps per call (SGD has no sync boundary; the round length
+    mirrors the Parle family's).  ``batches`` leaves are (L, n, B, ...).
+    Metrics: the round-mean ``loss``, the per-step ``losses`` (L,), the
+    last step's ``lr`` and ``step``."""
+    step_fn = make_replica_train_step(loss_fn, cfg, weight_decay, lr_schedule)
+
+    def round_fn(state: SGDState, batches):
+        losses = []
+        for i in range(cfg.L):
+            state, m = step_fn(state, {k: v[i] for k, v in batches.items()})
+            losses.append(m["loss"])
+        losses = torch.stack(losses)
+        return state, {"loss": losses.mean(), "losses": losses,
+                       "lr": m["lr"], "step": state.step}
+
+    return round_fn

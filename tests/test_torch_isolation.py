@@ -36,7 +36,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.serving, "
             "repro_torch.launch.serve, repro_torch.kernels.ops, "
             "repro_torch.launch.train, repro_torch.core.algorithm, "
-            "repro_torch.checkpoint.checkpoint\n"
+            "repro_torch.checkpoint.checkpoint, "
+            "repro_torch.examples.quickstart, repro_torch.models.convnet\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

@@ -2,7 +2,8 @@
 checkpoint written by the JAX reference (``--algo``, ``--replicas``,
 ``--resume``) and serves ``algo.deployable(state)``, the replica
 average; its engine then emits the same greedy tokens as the reference
-engine serving the reference's restore of the same file."""
+engine serving the reference's restore of the same file.  Elastic-SGD
+and SGD checkpoints serve their ``ref`` and ``params``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -85,6 +86,43 @@ def test_fresh_state_serves_the_replica_average_of_the_init():
     init = serve.init_params(CFG, args, torch.device("cpu"))
     for k, leaf in _leaves(init).items():     # (x + x) / 2 is x exactly
         assert torch.equal(_leaves(params)[k], leaf), k
+
+
+@pytest.mark.parametrize("algo_name", ["elastic_sgd", "sgd"])
+def test_elastic_and_sgd_checkpoints_serve_ref_and_params(tmp_path,
+                                                          algo_name):
+    """A reference Elastic-SGD checkpoint serves its ``ref`` (not a worker
+    or their mean) and an SGD checkpoint its ``params``, leaf for leaf;
+    the algo stamp is checked; a fresh state of either serves the init."""
+    rng = np.random.default_rng(5)
+    algo = ref_registry.get(algo_name)
+    st = algo.init(jax.tree.map(jnp.asarray, numpy_params(RCFG, seed=0)),
+                   algo.canonicalize_cfg(RefParleConfig(n_replicas=2)))
+    noise = lambda t: jax.tree.map(lambda a: a + 0.05 * jnp.asarray(
+        rng.standard_normal(a.shape).astype(np.float32)), t)
+    if algo_name == "elastic_sgd":
+        st = st._replace(x=noise(st.x), ref=noise(st.ref))
+    else:
+        st = st._replace(params=noise(st.params))
+    path = str(tmp_path / "step000003.npz")
+    ref_ckpt.save(path, st, step=3, algo=algo_name)
+    argv = ARGV + ["--algo", algo_name]
+    params, _ = serve.served_params(CFG, serve.parse_args(
+        argv + ["--resume", str(tmp_path)]), torch.device("cpu"))
+    want = _leaves(algo.deployable(st))
+    got = _leaves(params)
+    assert sorted(got) == sorted(want)
+    for k, leaf in got.items():
+        np.testing.assert_array_equal(leaf.numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+    with pytest.raises(ValueError, match=f"written by algo '{algo_name}'"):
+        serve.served_params(CFG, serve.parse_args(ARGV + ["--resume", path]),
+                            torch.device("cpu"))
+    args = serve.parse_args(argv)
+    fresh, _ = serve.served_params(CFG, args, torch.device("cpu"))
+    init = serve.init_params(CFG, args, torch.device("cpu"))
+    for k, leaf in _leaves(init).items():
+        assert torch.equal(_leaves(fresh)[k], leaf), k
 
 
 def _leaves(tree, prefix=""):

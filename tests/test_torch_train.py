@@ -1,8 +1,10 @@
 """The port's training path against the JAX reference: the smoke
 Qwen2.5-3B loss and grads, the per-step losses of two fused Parle rounds
 fed the reference's own batches (with and without the kernels on both
-sides), checkpoints that cross-load in both directions, and the train
-CLI (its JSON records, its refusals, and the device rule).
+sides), Parle, Elastic-SGD and SGD checkpoints that cross-load in both
+directions (and an Elastic-SGD resume that continues exactly), and the
+train CLI (its JSON records for parle, elastic_sgd and sgd, its
+refusals, and the device rule).
 
 Tolerances: loss and grads of one forward/backward at MODEL_TOL (rtol =
 atol = 1e-4: XLA and PyTorch sum in different orders); the six per-step
@@ -311,8 +313,6 @@ def test_train_wants_cuda_unless_told_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["--algo", "elastic_sgd"], NotImplementedError, "item 5"),
-    (["--algo", "sgd"], NotImplementedError, "item 5"),
     (["--mesh", "replica:2"], SystemExit, "item 6"),
     # the reference's guards on the overlapped sync, with its messages
     (["--sync-overlap"], SystemExit, "requires --round-fused"),
@@ -323,3 +323,117 @@ def test_train_wants_cuda_unless_told_cpu(monkeypatch):
 def test_train_cli_names_what_is_not_ported(argv, exc, match):
     with pytest.raises(exc, match=match):
         train.main(["--smoke", "--device", "cpu", "--steps", "1"] + argv)
+
+
+def _cli_records(capsys, argv):
+    train.main(["--arch", "qwen2.5-3b", "--device", "cpu", "--smoke",
+                "--replicas", "2", "--L", "3", "--steps", "6", "--batch",
+                "2", "--seq", "32", "--log-every", "3"] + argv)
+    return [json.loads(l) for l in capsys.readouterr().out.splitlines()
+            if l.startswith("{")]
+
+
+@pytest.mark.parametrize("algo,extra,diag", [
+    ("elastic_sgd", ["--use-kernel", "--round-fused"],
+     {"rho", "overlap", "spread"}),
+    ("sgd", [], set()),
+])
+def test_train_cli_runs_elastic_sgd_and_sgd(capsys, tmp_path, algo, extra,
+                                            diag):
+    """``--algo elastic_sgd --use-kernel --round-fused`` (K7's plain
+    version here) and ``--algo sgd`` (per step) print the reference's
+    records and write checkpoints stamped with their algo."""
+    ck = tmp_path / "ck"
+    recs = _cli_records(capsys, ["--algo", algo, "--checkpoint-dir",
+                                 str(ck), "--checkpoint-every", "3"] + extra)
+    prog = [r for r in recs if r["kind"] == "train_progress"]
+    final = [r for r in recs if r["kind"] == "train_final"]
+    envelope = {"v", "kind", "ts"}
+    assert [r["step"] for r in prog] == ([3, 6] if extra else [1, 3, 6])
+    for r in prog:
+        assert set(r) == envelope | set(REF_KINDS["train_progress"])
+        assert set(r["diag"]) == diag and np.isfinite(r["loss"])
+    assert len(final) == 1
+    assert set(final[0]) == envelope | set(REF_KINDS["train_final"])
+    assert final[0]["algo"] == algo
+    assert np.isfinite(final[0]["final_eval_loss"])
+    assert ref_ckpt.saved_meta(str(ck / "step000006.npz"))["algo"] == algo
+    keys = np.load(ck / "step000006.npz").files
+    field = "ref" if algo == "elastic_sgd" else "params"
+    assert f"{field}/embed" in keys and "v/embed" in keys
+
+
+def _bumped(tree, rng, scale):
+    return jax.tree.map(lambda a: a + scale * jnp.asarray(
+        rng.standard_normal(a.shape).astype(np.float32)), tree)
+
+
+@pytest.mark.parametrize("algo_name", ["elastic_sgd", "sgd"])
+def test_elastic_and_sgd_checkpoints_cross_load_both_ways(np_params, tmp_path,
+                                                          algo_name):
+    kw = dict(n_replicas=N, L=L)
+    ralgo, algo = ref_registry.get(algo_name), registry.get(algo_name)
+    rcfg = ralgo.canonicalize_cfg(RefParleConfig(**kw))
+    pcfg = algo.canonicalize_cfg(ParleConfig(**kw))
+    rng = np.random.default_rng(11)
+    ref = ralgo.init(jax.tree.map(jnp.asarray, np_params), rcfg)
+    if algo_name == "elastic_sgd":
+        ref = ref._replace(x=_bumped(ref.x, rng, 0.1),
+                           v=_bumped(ref.v, rng, 0.2),
+                           scopes=ref.scopes._replace(
+                               rho=jnp.asarray(0.75, jnp.float32)))
+    else:
+        ref = ref._replace(params=_bumped(ref.params, rng, 0.1),
+                           v=_bumped(ref.v, rng, 0.2))
+    ref = ref._replace(step=jnp.asarray(6, jnp.int32))
+    fresh = lambda: algo.init(params_from_numpy(np_params, "cpu"), pcfg)
+
+    ref_path = str(tmp_path / "ref" / "step000006.npz")
+    ref_ckpt.save(ref_path, ref, step=6, algo=algo_name)
+    port = ckpt.restore(ref_path, fresh(), algo=algo_name)
+    want = state_from_numpy(jax.tree.map(np.asarray, ref), "cpu")
+    fields = ("x", "ref", "v") if algo_name == "elastic_sgd" \
+        else ("params", "v")
+    for f in fields:
+        assert torch.equal(getattr(port, f), getattr(want, f)), f
+    assert int(port.step) == 6
+
+    port_path = str(tmp_path / "port" / "step000006.npz")
+    ckpt.save(port_path, port, step=6, algo=algo_name)
+    with open(port_path + ".json") as f:
+        assert json.load(f)["keys"] == sorted(np.load(ref_path).files)
+    like = ref_parle.dealias_state(ralgo.init(
+        jax.tree.map(jnp.asarray, np_params), rcfg))
+    back = ref_ckpt.restore(port_path, like, algo=algo_name)
+    for a, b in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(ref)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    with pytest.raises(ValueError, match=f"written by algo '{algo_name}'"):
+        ckpt.restore(ref_path, fresh(), algo="parle")
+    with pytest.raises(ValueError, match=f"written by algo '{algo_name}'"):
+        ref_ckpt.restore(port_path, like, algo="parle")
+
+
+def test_resumed_elastic_round_continues_exactly(np_params, tmp_path):
+    """Two Elastic-SGD rounds straight, and one round, a checkpoint, a
+    restore into a fresh state and the second round: bit for bit."""
+    algo = registry.get("elastic_sgd")
+    pcfg = algo.canonicalize_cfg(ParleConfig(n_replicas=N, L=L,
+                                             batches_per_epoch=1))
+    batches = [{k: torch.from_numpy(np.array(v)) for k, v in b.items()}
+               for b in _ref_batches()]
+    rnd = algo.make_round_fn(build_model(CFG).loss, pcfg, use_kernel=True)
+    fresh = lambda: algo.init(params_from_numpy(np_params, "cpu"), pcfg)
+    straight = fresh()
+    for b in batches:
+        straight, m_straight = rnd(straight, b)
+    st, _ = rnd(fresh(), batches[0])
+    path = str(tmp_path / "step000003.npz")
+    ckpt.save(path, st, step=3, algo="elastic_sgd")
+    resumed = ckpt.restore(path, fresh(), algo="elastic_sgd")
+    resumed, m_resumed = rnd(resumed, batches[1])
+    assert torch.equal(m_straight["losses"], m_resumed["losses"])
+    for f in ("x", "ref", "v"):
+        assert torch.equal(getattr(straight, f), getattr(resumed, f)), f
+    assert int(resumed.step) == 6
+    assert float(resumed.scopes.rho) == float(straight.scopes.rho)
