@@ -24,18 +24,32 @@ itself and, in order:
    bumped; and a NaN chunk (its scale NaN in both); K7 (Elastic-SGD
    worker step) bit for bit at ragged lengths, 1-3 replicas, f32 and
    bf16 g, each scalar bumped, and once updating x and v in place (ref
-   only read);
+   only read); K3 (flash attention) within 2e-5 in float32 and 5e-2 in
+   bf16 at the reference test's cases, a ragged T of 200 (with and
+   without a window) and the Qwen2.5-3B prefill shape (2, 2048, 16,
+   128); K9 (SSD scan) in y and the final state within 1e-4 (1e-2 for
+   bf16 outputs) at the reference test's cases and the Mamba2-1.3B
+   shape (B 2, T 2048, 64 heads, P 64, N 128, Q 128);
 4. times each kernel, its plain version and, where one exists, one
    PyTorch library call (CUDA events, L2 flushed before every launch)
    beside the least time the card could take: K8 at the serve path's
    shapes, K1, K2, K4, K5, K6 and K7 at 2 replicas x 2^26 float32
-   elements;
+   elements, K3 at the prefill shape (SDPA with is_causal as the library
+   call), K9 at the Mamba2-1.3B shape;
 5. serves through the port's serve CLI functions: full-width
    Qwen2.5-3B in float32 (random params, torch.Generator seed 0), the
    paged engine decoding through K8, 8 requests of 63-84 prompt tokens,
    32 greedy tokens each; asserts every request got its tokens, that K8
    launched exactly num_layers x decode steps, and that the tokens equal
-   the gather path's (no kernel); then profiles that run;
+   the gather path's (no kernel); then profiles that run; then prefills
+   2 x 1024 tokens on the same params through
+   ``launch/steps.py::make_prefill_step(use_flash=True)`` (K3 once per
+   layer, 36 launches) and without K3: logits and KV caches within 1e-3,
+   the same next token in both rows; then full-width Mamba2-1.3B (48
+   layers, d_model 2048, float32, random params): a forward over 2 x
+   2048 tokens through K9 (48 launches) against ``ssd_chunked`` (logits
+   within 1e-3), and 8 requests served through the engine, dense and
+   paged, with equal tokens;
 6. trains through the port's train CLI functions, under deterministic
    algorithms: full-width Qwen2.5-3B (d_model 2048, 16 q / 2 KV heads,
    head_dim 128, d_ff 11008, vocab 151936) with its depth cut from 36
@@ -56,8 +70,10 @@ itself and, in order:
    other; peak and free device memory after each run; trains Elastic-SGD
    on the same cell through K7 (8 launches in 8 steps; losses and final
    x, v and ref equal to the run without ``--use-kernel`` bit for bit)
-   and SGD (finite losses, no port kernel); then holds K1, K2, K4, K5,
-   K6 and K7 against their plain versions at the training shape;
+   and SGD (finite losses, no port kernel), and Mamba2-1.3B cut to 4
+   layers through K1 / K2 (8 and 2 launches; losses and final x equal to
+   the plain path's bit for bit); then holds K1, K2, K4, K5, K6 and K7
+   against their plain versions at the training shape;
 7. prints one JSON line of per-kernel numbers;
 8. runs the quickstart (``repro_torch.examples.quickstart``: the MLP on
    the teacher task, SGD against Parle n=3, 400 steps) on the card and
@@ -83,6 +99,7 @@ import time
 # float32 products for the training phase's bitwise comparison
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -91,14 +108,19 @@ from repro_torch import resolve_device  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import parle_update as pu  # noqa: E402
-from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.launch import serve, steps, train  # noqa: E402
+from repro_torch.models import mamba2  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.obs import Obs  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
-SOURCES = ("paged_attention.cu", "parle_update.cu")
+SOURCES = ("paged_attention.cu", "parle_update.cu", "flash_attention.cu",
+           "ssd_scan.cu")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 F32_FLOP_PER_S = 67e12           # H100 SXM float32, outside tensor cores
 L2_FLUSH_BYTES = 64 * 2 ** 20    # > the 50 MB L2
@@ -810,8 +832,385 @@ def elastic_timing_phase(device) -> dict:
     return out
 
 
+# ------------------------------------------------------------------
+# K3 (flash attention) and K9 (SSD scan)
+# ------------------------------------------------------------------
+
+FLASH_CASES = {            # name: (B, T, H, hd, window, dtype)
+    "causal_hd32": (2, 128, 3, 32, 0, torch.float32),
+    "causal_hd64": (2, 128, 3, 64, 0, torch.float32),
+    "window32": (1, 128, 2, 32, 32, torch.float32),
+    "bf16": (1, 128, 2, 64, 0, torch.bfloat16),
+    "ragged_T200": (2, 200, 4, 128, 0, torch.float32),
+    "ragged_T200_window50": (1, 200, 2, 64, 50, torch.float32),
+    "prefill_shape": (2, 2048, 16, 128, 0, torch.float32),
+}
+FLASH_BF16_TOL = dict(rtol=5e-2, atol=5e-2)
+SSD_CASES = {              # name: (B, T, nh, P, N, chunk, dtype)
+    "n16_p32": (2, 128, 3, 32, 16, 128, torch.float32),
+    "n64_p64": (2, 128, 3, 64, 64, 128, torch.float32),
+    "n16_p32_bf16": (2, 128, 3, 32, 16, 128, torch.bfloat16),
+    "n64_p64_bf16": (2, 128, 3, 64, 64, 128, torch.bfloat16),
+    "mamba2_shape": (2, 2048, 64, 64, 128, 128, torch.float32),
+}
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)
+# bf16 y and h: both sides round their float32 result to bfloat16
+SSD_BF16_TOL = dict(rtol=1e-2, atol=1e-2)
+FLASH_PREFILL = (2, 1024)  # full-width Qwen2.5-3B prompt batch (B, T)
+MAMBA_FORWARD = (2, 2048)  # full-width Mamba2-1.3B forward (B, T)
+# full-width logits after 36 / 48 layers, kernel path against plain path
+PATH_LOGIT_TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+def flash_inputs(seed, B, T, H, hd, dtype, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((B, T, H, hd), generator=gen, device=device).to(dtype)
+            for _ in range(3)]
+
+
+def ssd_inputs(seed, B, T, nh, P, N, dtype, device):
+    """The reference kernel test's distributions: x and B, C ~ 0.5 N(0,1),
+    dt = softplus(N(0,1)), A = -exp(0.3 N(0,1))."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    x, dt = r(B, T, nh, P) * 0.5, torch.nn.functional.softplus(r(B, T, nh))
+    A = -torch.exp(r(nh) * 0.3)
+    Bm, Cm = r(B, T, N) * 0.5, r(B, T, N) * 0.5
+    return x.to(dtype), dt.to(dtype), A, Bm.to(dtype), Cm.to(dtype)
+
+
+def flash_check_phase(device) -> float:
+    """K3 against its plain version at every case (2e-5 in float32, 5e-2
+    in bf16); returns the largest float32 absolute error."""
+    phase("3e. K3 (flash attention) against its plain version")
+    max_err = 0.0
+    for i, (name, (B, T, H, hd, window, dtype)) in enumerate(
+            FLASH_CASES.items()):
+        q, k, v = flash_inputs(30 + i, B, T, H, hd, dtype, device)
+        got = fa.flash_attention_cuda(q, k, v, window=window)
+        torch.cuda.synchronize(device)
+        want = fa.flash_attention_plain(q, k, v, window=window)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = FLASH_BF16_TOL if dtype == torch.bfloat16 else TOL
+        if dtype == torch.float32:
+            max_err = max(max_err, err)
+        print(f"{name}: (B, T, H, hd) {(B, T, H, hd)} window {window} "
+              f"{str(dtype)[6:]} max_abs_err {err:.3e}", flush=True)
+        check(torch.allclose(got.float(), want.float(), **tol),
+              f"K3 disagrees with its plain version on {name} ({err:.3e})")
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return max_err
+
+
+def ssd_check_phase(device) -> float:
+    """K9 against its plain version (the naive recurrence) at every case:
+    y and the final state within 1e-4 in float32 (1e-2 for bf16 outputs);
+    returns the largest float32 absolute error."""
+    phase("3f. K9 (SSD scan) against its plain version")
+    max_err = 0.0
+    for i, (name, (B, T, nh, P, N, chunk, dtype)) in enumerate(
+            SSD_CASES.items()):
+        args = ssd_inputs(50 + i, B, T, nh, P, N, dtype, device)
+        got = ssd.ssd_scan_cuda(*args, chunk)
+        torch.cuda.synchronize(device)
+        want = ssd.ssd_scan_plain(*args)
+        tol = SSD_BF16_TOL if dtype == torch.bfloat16 else SSD_TOL
+        errs = [(g.float() - w.float()).abs().max().item()
+                for g, w in zip(got, want)]
+        if dtype == torch.float32:
+            max_err = max(max_err, *errs)
+        print(f"{name}: (B, T, nh, P, N, Q) {(B, T, nh, P, N, chunk)} "
+              f"{str(dtype)[6:]} max_abs_err y {errs[0]:.3e} h_final "
+              f"{errs[1]:.3e}", flush=True)
+        for g, w, what in zip(got, want, ("y", "h_final")):
+            check(torch.allclose(g.float(), w.float(), **tol),
+                  f"K9 {what} disagrees with its plain version on {name}")
+        del args, got, want
+    torch.cuda.empty_cache()
+    return max_err
+
+
+def flash_timing_phase(device) -> dict:
+    """K3, its plain version and SDPA (is_causal; timed here only, the
+    port never calls it) at the Qwen2.5-3B prefill shape, beside the
+    bound: 2 B H T^2 hd causal FLOP at float32's rate against q, k, v
+    and o once each."""
+    phase("4e. K3 timing at the Qwen2.5-3B prefill shape")
+    B, T, H, hd, window, dtype = FLASH_CASES["prefill_shape"]
+    q, k, v = flash_inputs(99, B, T, H, hd, dtype, device)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+
+    lib_err = (library().transpose(1, 2) - fa.flash_attention_plain(q, k, v)
+               ).abs().max().item()
+    n_flops = 2 * B * H * T * T * hd
+    n_bytes = 4 * q.numel() * 4
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_flops / F32_FLOP_PER_S * 1e3
+    t = {}
+    for key, fn, iters in (
+            ("ms", lambda: fa.flash_attention_cuda(q, k, v), 30),
+            ("plain_ms", lambda: fa.flash_attention_plain(q, k, v), 10),
+            ("library_ms", library, 30)):
+        t[key], _ = time_ms(fn, device, iters=iters, warmup=3)
+    t.update(bound_ms=max(bytes_ms, ops_ms),
+             bound_by="bytes" if bytes_ms > ops_ms else "operations")
+    print(json.dumps({"kernel": "flash_attention", **t,
+                      "shape": [B, T, H, hd], "flops": n_flops,
+                      "bytes": n_bytes,
+                      "achieved_flop_per_s": n_flops / (t["ms"] / 1e3),
+                      "share_of_67TFLOP/s": ops_ms / t["ms"],
+                      "library_call": "F.scaled_dot_product_attention("
+                                      "is_causal=True), (B, H, T, hd)",
+                      "library_max_abs_err": lib_err}), flush=True)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return t
+
+
+def ssd_timing_phase(device) -> dict:
+    """K9 and its plain version (the naive recurrence) at the Mamba2-1.3B
+    shape, beside the bound: the causal half of the chunk's products,
+    Q (Q + 1) N + Q (Q + 1) P + 4 Q N P FLOP per (b, head, chunk) (the
+    pairs j <= i of C B^T and of the scores times x, then the readout
+    and the state update), against x, dt, B, C, y and the final state
+    once each.  No single PyTorch call computes the scan."""
+    phase("4f. K9 timing at the Mamba2-1.3B shape")
+    B, T, nh, P, N, Q, dtype = SSD_CASES["mamba2_shape"]
+    args = ssd_inputs(98, B, T, nh, P, N, dtype, device)
+    n_flops = B * nh * (T // Q) * (Q * (Q + 1) * N + Q * (Q + 1) * P
+                                   + 4 * Q * N * P)
+    n_bytes = 4 * (2 * B * T * nh * P + B * T * nh + 2 * B * T * N + nh
+                   + B * nh * N * P)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_flops / F32_FLOP_PER_S * 1e3
+    t = {}
+    for key, fn, iters in (("ms", lambda: ssd.ssd_scan_cuda(*args, Q), 20),
+                           ("plain_ms", lambda: ssd.ssd_scan_plain(*args),
+                            3)):
+        t[key], _ = time_ms(fn, device, iters=iters, warmup=1)
+    t.update(bound_ms=max(bytes_ms, ops_ms),
+             bound_by="bytes" if bytes_ms > ops_ms else "operations",
+             library_ms=None)
+    print(json.dumps({"kernel": "ssd_scan", **t,
+                      "shape": {"B": B, "T": T, "nh": nh, "P": P, "N": N,
+                                "Q": Q},
+                      "flops": n_flops, "bytes": n_bytes,
+                      "achieved_flop_per_s": n_flops / (t["ms"] / 1e3),
+                      "share_of_67TFLOP/s": ops_ms / t["ms"],
+                      "library_call": "none: no single PyTorch call "
+                                      "computes the scan"}), flush=True)
+    del args
+    torch.cuda.empty_cache()
+    return t
+
+
+def flash_prefill_phase(device, cfg, params) -> dict:
+    """K3's path: one prompt batch through ``steps.make_prefill_step(cfg,
+    use_flash=True)`` at full width (K3 once per layer), then through
+    ``use_flash=False`` on the same params: logits and KV caches within
+    PATH_LOGIT_TOL, the same next token in every row."""
+    B, T = FLASH_PREFILL
+    phase(f"5c. K3's path: full-width {cfg.name} prefill of {B} x {T} "
+          "tokens through steps.make_prefill_step(use_flash=True)")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(B, T)), dtype=torch.int32, device=device)
+    model = build_model(cfg)
+    out = {}
+    for use_flash in (True, False):
+        cache = model.init_cache(params, B, T)
+        prefill = steps.make_prefill_step(cfg, use_flash=use_flash)
+        reset_launches()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": toks}, cache)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        launches = launch_counts(
+            flash_attention=cfg.num_layers if use_flash else 0)
+        out[use_flash] = (logits, cache, wall, launches)
+    (lf, cf, wall_f, launches), (lp, cp, wall_p, _) = out[True], out[False]
+    logit_err = (lf - lp).abs().max().item()
+    kv_err = max((cf.k - cp.k).abs().max().item(),
+                 (cf.v - cp.v).abs().max().item())
+    next_f, next_p = lf[:, -1].argmax(-1), lp[:, -1].argmax(-1)
+    agree = (lf.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    res = {"launches": launches["flash_attention"], "prompt": [B, T],
+           "max_logit_err": logit_err, "max_kv_cache_err": kv_err,
+           "next_tokens_flash": next_f.tolist(),
+           "next_tokens_plain": next_p.tolist(),
+           "argmax_agree_share_all_positions": agree,
+           "prefill_wall_s": {"flash": wall_f, "plain": wall_p}}
+    print(json.dumps(res), flush=True)
+    check(bool(torch.isfinite(lf).all()) and lf.shape == (B, T,
+                                                           cfg.vocab_size),
+          "flash prefill logits not finite or of the wrong shape")
+    check(torch.allclose(lf, lp, **PATH_LOGIT_TOL)
+          and torch.allclose(cf.k, cp.k, **PATH_LOGIT_TOL)
+          and torch.allclose(cf.v, cp.v, **PATH_LOGIT_TOL),
+          f"flash prefill differs from the plain prefill: logits "
+          f"{logit_err:.3e}, KV {kv_err:.3e}")
+    check(torch.equal(next_f, next_p), "flash prefill's next tokens differ "
+          "from the plain prefill's")
+    del out, lf, lp, cf, cp
+    torch.cuda.empty_cache()
+    return res
+
+
+MAMBA_SERVE_ARGV = ["--arch", "mamba2-1.3b", "--device", "cuda", "--slots",
+                    "4", "--decode-chunk", "8", "--requests", "8",
+                    "--prompt-len", "300", "--mixed-lens", "--arrive-every",
+                    "2", "--gen", "32", "--seed", "0"]
+
+
+def mamba2_phase(device) -> dict:
+    """K9's path at full width: Mamba2-1.3B (48 layers, d_model 2048,
+    float32, random params from torch.Generator seed 0) forward over
+    2 x 2048 tokens with ``use_kernel=True`` (K9 once per layer) and
+    without (``ssd_chunked``): logits within PATH_LOGIT_TOL.  Then the
+    same params served through the engine, dense and paged: equal
+    tokens (no port kernel on the serve path, as in the reference)."""
+    cfg = get_config("mamba2-1.3b")
+    B, T = MAMBA_FORWARD
+    phase(f"5d. K9's path: full-width {cfg.name} forward of {B} x {T} "
+          "tokens, use_kernel=True against ssd_chunked")
+    args = serve.parse_args(MAMBA_SERVE_ARGV)
+    t0 = time.perf_counter()
+    params = serve.init_params(cfg, args, device)
+    torch.cuda.synchronize(device)
+    n_params = sum(p.numel() for p in _leaves(params))
+    print(f"params: {n_params / 1e9:.3f} B f32 on {device}, init "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(B, T)), dtype=torch.int32, device=device)
+    walls = {}
+    with torch.no_grad():
+        reset_launches()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        logits_k, _ = mamba2.forward(params, cfg, toks, use_kernel=True)
+        torch.cuda.synchronize(device)
+        walls["kernel"] = time.perf_counter() - t0
+        launches = launch_counts(ssd_scan=cfg.num_layers)
+        t0 = time.perf_counter()
+        logits_p, _ = mamba2.forward(params, cfg, toks)
+        torch.cuda.synchronize(device)
+        walls["plain"] = time.perf_counter() - t0
+        launch_counts(ssd_scan=cfg.num_layers)   # ssd_chunked: no launch
+    err = (logits_k - logits_p).abs().max().item()
+    res = {"launches": launches["ssd_scan"], "tokens": [B, T],
+           "max_logit_err": err,
+           "logit_tolerance": PATH_LOGIT_TOL, "forward_wall_s": walls,
+           "argmax_agree_share": (logits_k.argmax(-1) == logits_p.argmax(-1)
+                                  ).float().mean().item()}
+    print(json.dumps(res), flush=True)
+    check(bool(torch.isfinite(logits_k).all())
+          and logits_k.shape == (B, T, cfg.vocab_size),
+          "mamba2 kernel-path logits not finite or of the wrong shape")
+    check(torch.allclose(logits_k, logits_p, **PATH_LOGIT_TOL),
+          f"mamba2 forward through K9 differs from ssd_chunked ({err:.3e})")
+    del logits_k, logits_p
+    torch.cuda.empty_cache()
+
+    phase(f"5e. {cfg.name} serving: the engine, dense and paged, on the "
+          "same params")
+    requests = serve.make_requests(cfg, args)
+    print("prompt lengths:", [len(r["tokens"]) for r in requests])
+    results, reports = {}, {}
+    for mode, extra in (("dense", []), ("paged", ["--paged",
+                                                  "--prefill-chunk", "32"])):
+        reset_launches()
+        results[mode], engine, reports[mode] = serve.engine_serve(
+            cfg, params, requests, serve.parse_args(MAMBA_SERVE_ARGV + extra),
+            Obs(), device)
+        launch_counts()                  # no port kernel serves the ssm
+        check(sorted(results[mode]) == list(range(len(requests))),
+              f"{mode}: requests missing")
+        for uid, toks_out in results[mode].items():
+            check(toks_out.shape == (args.gen,) and bool(
+                ((toks_out >= 0) & (toks_out < cfg.vocab_size)).all()),
+                f"{mode}: request {uid} returned {toks_out}")
+        if mode == "paged":
+            check(not engine.uses_pages
+                  and engine.prefill_chunk_len % cfg.ssm_chunk == 0,
+                  "the ssm engine reserved pages or did not round its "
+                  "prefill chunk up to ssm_chunk")
+            # every prompt is longer than one chunk, so each paged prefill
+            # resumes from the previous chunk's state and conv ring
+            chunks = sum(-(-len(r["tokens"]) // engine.prefill_chunk_len)
+                         for r in requests)
+            print(f"paged prefill: {engine.stats['prefill_chunks']} chunk "
+                  f"calls of {engine.prefill_chunk_len} tokens", flush=True)
+            check(engine.stats["prefill_chunks"] == chunks
+                  and chunks >= 2 * len(requests),
+                  f"paged prefill took {engine.stats['prefill_chunks']} "
+                  f"chunk calls, expected {chunks} (at least two a prompt)")
+        del engine
+    for uid in results["dense"]:
+        check(bool((results["dense"][uid] == results["paged"][uid]).all()),
+              f"request {uid}: dense tokens {results['dense'][uid].tolist()}"
+              f" != paged tokens {results['paged'][uid].tolist()}")
+    print(f"dense == paged tokens for all {len(requests)} requests",
+          flush=True)
+    keys = ("decode_tokens_per_s", "prefill_tokens_per_s", "itl_ms",
+            "ttft_ms", "wall_s")
+    res["serve"] = {mode: {k: reports[mode][k] for k in keys}
+                    for mode in reports}
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_mamba2_phase(device) -> dict:
+    """Full-width Mamba2-1.3B cut to TRAIN_LAYERS layers through the
+    train CLI: Parle n=2, L=4, 8 steps, --round-fused, through K1/K2 (8
+    and 2 launches; no K9 on the training path, as in the reference) and
+    without --use-kernel: the same losses and final x bit for bit."""
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"),
+                              num_layers=TRAIN_LAYERS)
+    phase(f"6g. {cfg.name} training: full width cut to {TRAIN_LAYERS} "
+          "layers, parle n=2 L=4, 8 steps, K1/K2 against the plain path")
+    losses_k, walls_k, state, eval_k, peak = _train_measured(
+        device, train_argv(arch="mamba2-1.3b"), cfg)
+    launches = launch_counts(parle_inner_update=8, parle_sync_update=2)
+    n, m = state.x.shape
+    x_k = state.x.cpu()
+    del state
+    _release()
+    print(f"mamba2: launches {launches}; M = {m} per replica; losses "
+          f"{losses_k.tolist()}; round walls {walls_k}; peak {peak:.3f} GiB",
+          flush=True)
+    losses_p, walls_p, state, _, peak_p = _train_measured(
+        device, train_argv(use_kernel=False, arch="mamba2-1.3b"), cfg)
+    launch_counts()
+    check(torch.equal(losses_k, losses_p) and torch.equal(x_k, state.x.cpu()),
+          f"mamba2: kernel path {losses_k.tolist()} != plain path "
+          f"{losses_p.tolist()} (or final x differs)")
+    del state, x_k
+    _release()
+    out = {"launches": {k: v for k, v in launches.items() if v},
+           "elements_per_replica": m, "losses": losses_k.tolist(),
+           "eval_loss": eval_k,
+           "round_wall_s": {"kernel": walls_k, "plain": walls_p},
+           "peak_memory_gib": round(peak, 3),
+           "plain_peak_memory_gib": round(peak_p, 3)}
+    print("mamba2: kernel path == plain path bit for bit (8 losses, final "
+          "x)", flush=True)
+    print(json.dumps(out), flush=True)
+    return out
+
+
 # each kernel's launch counter: (module, attribute)
 COUNTERS = {"paged_attention": (pa, "launches"),
+            "flash_attention": (fa, "launches"),
+            "ssd_scan": (ssd, "launches"),
             "parle_inner_update": (pu, "inner_launches"),
             "parle_sync_update": (pu, "sync_launches"),
             "elastic_update": (pu, "elastic_launches"),
@@ -838,8 +1237,8 @@ def launch_counts(**want) -> dict:
 TRAIN_LAYERS = 4
 
 
-def train_argv(steps=8, use_kernel=True, algo="parle"):
-    return (["--arch", "qwen2.5-3b", "--device", "cuda", "--algo", algo,
+def train_argv(steps=8, use_kernel=True, algo="parle", arch="qwen2.5-3b"):
+    return (["--arch", arch, "--device", "cuda", "--algo", algo,
              "--replicas", "2", "--L", "4", "--steps", str(steps),
              "--batch", "2", "--seq", "256", "--round-fused",
              "--log-every", "4", "--seed", "0"]
@@ -853,10 +1252,11 @@ def train_cfg():
                                num_layers=TRAIN_LAYERS)
 
 
-def _train_once(device, argv, profile=False):
-    """One run of the train CLI's run(); returns its per-step losses, the
-    wall of each round (device-synchronized), the final state, the eval
-    loss and, with ``profile``, the profiler over its first round."""
+def _train_once(device, argv, profile=False, cfg=None):
+    """One run of the train CLI's run() on ``cfg`` (default: train_cfg());
+    returns its per-step losses, the wall of each round
+    (device-synchronized), the final state, the eval loss and, with
+    ``profile``, the profiler over its first round."""
     args = train.parse_args(argv)
     losses, walls, marks = [], [], {}
     prof = (torch.profiler.profile(
@@ -876,7 +1276,7 @@ def _train_once(device, argv, profile=False):
             prof.stop()
         losses.append(metrics["losses"].detach().cpu())
 
-    state, _, eval_loss = train.run(args, train_cfg(), device, Obs(),
+    state, _, eval_loss = train.run(args, cfg or train_cfg(), device, Obs(),
                                     pre_round=pre_round, on_round=on_round)
     return torch.cat(losses), walls, state, eval_loss, prof
 
@@ -956,6 +1356,7 @@ def train_phase(device) -> dict:
     out["bf16"] = train_bf16_phase(device)
     out["int8"] = train_int8_phase(device)
     out.update(train_baselines_phase(device))
+    out["mamba2"] = train_mamba2_phase(device)
     torch.use_deterministic_algorithms(False)
     return out
 
@@ -1071,13 +1472,13 @@ def train_int8_phase(device) -> dict:
     return out
 
 
-def _train_measured(device, argv):
+def _train_measured(device, argv, cfg=None):
     """One run of the train CLI's run() from zeroed launch counters and
     peak-memory stats: (losses, round walls, final state, eval loss,
     peak GiB)."""
     torch.cuda.reset_peak_memory_stats(device)
     reset_launches()
-    losses, walls, state, eval_loss, _ = _train_once(device, argv)
+    losses, walls, state, eval_loss, _ = _train_once(device, argv, cfg=cfg)
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
     check(bool(torch.isfinite(losses).all())
           and torch.isfinite(torch.tensor(eval_loss)),
@@ -1232,11 +1633,13 @@ def main_path_phase(device) -> dict:
     del engine, logits
     torch.cuda.empty_cache()
     profile = profile_phase(device, cfg, params, requests, args_k)
+    flash = flash_prefill_phase(device, cfg, params)
     del params
     torch.cuda.empty_cache()
     return {"launches": k8_launches, "decode_steps": steps,
             "peak_memory_gib": round(peak / 2 ** 30, 3),
-            "paged_kernel": rep_k, "gather": rep_g, "profile": profile}
+            "paged_kernel": rep_k, "gather": rep_g, "profile": profile,
+            "flash_prefill": flash}
 
 
 def profile_phase(device, cfg, params, requests, args) -> dict:
@@ -1287,11 +1690,16 @@ def main() -> int:
     parle_errs = parle_check_phase(device)
     parle_errs.update(compress_check_phase(device))
     parle_errs.update(elastic_check_phase(device))
+    flash_err = flash_check_phase(device)
+    ssd_err = ssd_check_phase(device)
     timing = timing_phase(device)
     parle_timing = parle_timing_phase(device)
     parle_timing.update(compress_timing_phase(device))
     parle_timing.update(elastic_timing_phase(device))
+    flash_timing = flash_timing_phase(device)
+    ssd_timing = ssd_timing_phase(device)
     run = main_path_phase(device)
+    mamba = mamba2_phase(device)
     trained = train_phase(device)
     main_errs = parle_main_shape_phase(device, trained["replicas"],
                                        trained["elements_per_replica"])
@@ -1330,7 +1738,14 @@ def main() -> int:
                           "peak_memory_gib"]},
                   "sgd": {"round_wall_s": trained["sgd"]["round_wall_s"],
                           "peak_memory_gib": trained["sgd"][
-                              "peak_memory_gib"]}},
+                              "peak_memory_gib"]},
+                  "mamba2": {k: trained["mamba2"][k] for k in (
+                      "round_wall_s", "peak_memory_gib")}},
+        "flash_prefill": {k: run["flash_prefill"][k] for k in (
+            "max_logit_err", "max_kv_cache_err", "prefill_wall_s")},
+        "mamba2": {"max_logit_err": mamba["max_logit_err"],
+                   "forward_wall_s": mamba["forward_wall_s"],
+                   "serve": mamba["serve"]},
         "total_s": round(time.perf_counter() - t_start, 1)}), flush=True)
     kernels = [{
         "name": "paged_attention", "route": "cuda",
@@ -1359,6 +1774,19 @@ def main() -> int:
             "launches": launches[name],
             "max_abs_err": max(parle_errs[name], main_errs[name]),
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"]})
+    for name, src, line, launches, err, t in (
+            ("flash_attention", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:79",
+             run["flash_prefill"]["launches"], flash_err, flash_timing),
+            ("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:75",
+             mamba["launches"], ssd_err, ssd_timing)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}", "replaces": line,
+            "launches": launches, "max_abs_err": err, "ms": t["ms"],
+            "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"]})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,18 +2,44 @@
 
 A CUDA tensor launches the hand-written kernel, or the wrapper raises —
 there is no fallback.  A CPU tensor takes the kernel's plain PyTorch
-version.  Ported so far: K1 and K2 (the Parle updates), K7 (the
-Elastic-SGD worker step), K4-K6 (the int8 compressed sync) and K8 (paged
-attention); the other TPU kernels of the reference are listed in
-ROADMAP.md queue 2.
+version.  Every TPU kernel of the reference has its counterpart: K1 and
+K2 (the Parle updates), K3 (causal flash attention), K4-K6 (the int8
+compressed sync), K7 (the Elastic-SGD worker step), K8 (paged attention)
+and K9 (the chunked SSD scan).  Models call them through
+``use_flash=True`` / ``use_kernel=True`` / ``use_paged_kernel=True``; the
+default model path is the plain one.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import compress
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import parle_update as _pu
+from repro_torch.kernels import ssd_scan as _ssd
+
+
+def _forward_only(kernel: str, flag: str, *tensors) -> None:
+    """The reference's flash and SSD kernels have no VJP (``jax.grad``
+    through them fails), so neither port has a backward: a call autograd
+    would have to differentiate raises instead of returning a result with
+    no grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel} is forward only: the reference "
+                           f"defines no VJP for its kernel, so {flag} "
+                           "cannot be differentiated (train without it)")
+
+
+def flash_attention(q, k, v, window: int = 0):
+    """Causal (optionally sliding-window) attention over q, k, v
+    (B, T, H, hd), GQA already expanded (K3).  Forward only (see
+    :func:`_forward_only`).  The Pallas kernel's ``block_q`` / ``block_k``
+    are not taken: the CUDA kernel always tiles 64 x 64."""
+    _forward_only("flash_attention (K3)", "use_flash=True", q, k, v)
+    if q.device.type == "cpu":
+        return _fa.flash_attention_plain(q, k, v, window=window)
+    return _fa.flash_attention_cuda(q, k, v, window=window)
 
 
 def paged_attention(q, k_pool, v_pool, table, lengths):
@@ -22,6 +48,29 @@ def paged_attention(q, k_pool, v_pool, table, lengths):
     if q.device.type == "cpu":
         return _pa.paged_attention_plain(q, k_pool, v_pool, table, lengths)
     return _pa.paged_attention_cuda(q, k_pool, v_pool, table, lengths)
+
+
+def ssd_scan(x, dt, A, B_mat, C_mat, chunk: int = 128, h0=None):
+    """The Mamba2 selective scan over chunks of ``min(chunk, T)`` tokens
+    (K9): x (B, T, nh, P), dt (B, T, nh), A (nh,), B_mat / C_mat
+    (B, T, N).  Returns (y, final state).  The kernel starts from a zero
+    state, so a call with ``h0`` (a resumed prefix) takes the model's
+    chunked path, as the reference dispatches.  T must be a multiple of
+    the chunk, as the reference asserts.  Forward only, like K3."""
+    if h0 is not None:
+        from repro_torch.models.mamba2 import ssd_chunked
+        return ssd_chunked(x, dt, A, B_mat, C_mat, chunk, h0=h0)
+    _forward_only("ssd_scan (K9)", "use_kernel=True", x, dt, A, B_mat,
+                  C_mat)
+    T = x.shape[1]
+    Q = min(chunk, T)
+    if T % Q:
+        raise ValueError(f"ssd_scan: T {T} is not a multiple of the chunk "
+                         f"{Q}")
+    if x.device.type == "cpu":
+        return _ssd.ssd_scan_plain(x, dt, A, B_mat, C_mat)
+    return _ssd.ssd_scan_cuda(x, dt, A.float().contiguous(), B_mat, C_mat,
+                              Q)
 
 
 def _check_y_out(fn, y_out):

@@ -8,6 +8,8 @@
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --smoke --device cpu --naive
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+        --smoke --device cpu --paged
 
 What gets served is the registry surface, as in the reference:
 ``--algo`` resolves an Algorithm, the state is ``--resume``'d from a

@@ -9,10 +9,13 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
         --smoke --device cpu --algo elastic_sgd --replicas 2 --L 3 \\
         --steps 6 --batch 2 --seq 32 --use-kernel --round-fused
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
+        --smoke --device cpu --replicas 2 --L 2 --steps 4 --batch 2 \\
+        --seq 64 --use-kernel --round-fused
 
 Runs any registered algorithm (``repro_torch.core.registry``: parle,
-entropy_sgd, elastic_sgd, sgd) through one code path that talks only to
-the Algorithm protocol, on the synthetic token stream, with algo-stamped
+entropy_sgd, elastic_sgd, sgd) on a dense or ssm (Mamba2) architecture
+through one code path that talks only to the Algorithm protocol, on the synthetic token stream, with algo-stamped
 checkpoints and the replica diagnostics of §1.2 (overlap / spread).  It
 takes the reference's flags and prints its JSON lines
 (``train_progress``, ``train_final``), plus ``--device``: ``cuda``

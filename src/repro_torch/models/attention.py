@@ -74,19 +74,15 @@ def _project_qkv(params, cfg, x):
 CHUNKED_THRESHOLD = 2048
 CHUNK_Q = 1024
 
-_FLASH_NOT_PORTED = ("use_flash=True needs the flash-attention kernel K3 "
-                     "(repro/kernels/flash_attention.py), which is not "
-                     "ported yet (ROADMAP.md queue 2, K3)")
-
-
 def attention_core(q, k, v, mask, use_flash: bool = False,
                    window: int = 0, causal: bool = True):
     """q: (B, Tq, H, hd); k/v: (B, Tk, H, hd); mask: (B|1, 1, Tq, Tk) bool.
 
     Returns (B, Tq, H, hd).
     """
-    if use_flash:
-        raise NotImplementedError(_FLASH_NOT_PORTED)
+    if use_flash and causal and q.shape[1] == k.shape[1]:
+        from repro_torch.kernels import ops as kops
+        return kops.flash_attention(q, k, v, window=window)
     if causal and q.shape[1] == k.shape[1] and q.shape[1] > CHUNKED_THRESHOLD:
         return chunked_attention(q, k, v, window=window)
     scale = q.shape[-1] ** -0.5

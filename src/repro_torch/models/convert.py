@@ -1,9 +1,9 @@
 """Weights and optimizer states carried across from the JAX reference.
 
 The port keeps the reference's param tree: the same names, stacked
-``blocks`` leaves of shape ``(L, ...)``, ``(d_in, d_out)`` projection
-weights and ``bq``/``bk``/``bv`` biases (and, for the paper's convnets,
-HWIO conv weights).  So a reference param tree, turned into numpy leaf
+``blocks`` leaves of shape ``(L, ...)`` (``layers`` for the ssm family),
+``(d_in, d_out)`` projection weights and ``bq``/``bk``/``bv`` biases
+(and, for the paper's convnets, HWIO conv weights).  So a reference param tree, turned into numpy leaf
 by leaf (``jax.tree.map(np.asarray, params)``), loads with no
 transposes.  A reference optimizer state — ``ParleState``,
 ``ElasticState`` or ``SGDState`` — travels the same way (its fields as

@@ -37,6 +37,11 @@ def silu(x):
     return x * torch.sigmoid(x)
 
 
+def softplus(x):
+    """log(1 + exp(x)), as ``jax.nn.softplus``."""
+    return torch.nn.functional.softplus(x)
+
+
 def swiglu(x, w_gate, w_up, w_down):
     """SwiGLU MLP: down( silu(x @ gate) * (x @ up) )."""
     return (silu(x @ w_gate) * (x @ w_up)) @ w_down

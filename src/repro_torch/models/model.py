@@ -1,6 +1,6 @@
 """Family dispatch: a uniform Model API over the architecture families.
 
-Port of ``repro/models/model.py`` (dense family only so far).
+Port of ``repro/models/model.py`` (the dense and ssm families so far).
 
     model = build_model(cfg)
     params = model.init(torch.Generator(device).manual_seed(0))
@@ -10,8 +10,8 @@ Port of ``repro/models/model.py`` (dense family only so far).
     logits, cache = model.prefill(params, batch, cache)
     logits, cache = model.decode(params, batch, cache)
 
-``batch`` is a dict holding ``tokens`` (B, T) for the dense family, and
-``labels`` (B, T) for the loss.
+``batch`` is a dict holding ``tokens`` (B, T) for the dense and ssm
+families, and ``labels`` (B, T) for the loss.
 
 Cache position contract (``cache_positions`` / ``with_cache_positions``):
 every cache tuple carries one or more ``pos`` fields counting tokens
@@ -30,8 +30,8 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.models import mamba2 as ssm_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.attention import _FLASH_NOT_PORTED
 from repro_torch.models.layers import chunked_cross_entropy
 
 _NOT_PORTED = ("family {fam!r} is not ported yet (ROADMAP.md queue 1, "
@@ -131,31 +131,60 @@ def _lm_loss(hidden_fn, cfg):
 
 def build_model(cfg, use_flash: bool = False,
                 use_paged_kernel: bool = False) -> Model:
-    """``use_paged_kernel`` sends paged decode attention through the
-    paged-attention kernel (K8); ``use_flash`` (K3) is not ported yet."""
-    if use_flash:
-        raise NotImplementedError(_FLASH_NOT_PORTED)
+    """``use_flash`` sends the dense family's full causal attention
+    (``apply``, ``loss``, ``prefill``) through the flash-attention kernel
+    (K3; forward only, as the reference); ``use_paged_kernel`` sends
+    paged decode attention through the paged-attention kernel (K8).  The
+    ssm family takes neither, as in the reference."""
     fam = cfg.family
-    if fam != "dense":
-        raise NotImplementedError(_NOT_PORTED.format(fam=fam))
-    return Model(
-        cfg=cfg,
-        init=lambda generator, dtype=torch.float32:
-            tfm.init_params(generator, cfg, dtype),
-        apply=lambda p, b: tfm.forward(p, cfg, b["tokens"]),
-        init_cache=lambda p, bs, ml, dtype=torch.float32:
-            tfm.init_cache(p, cfg, bs, ml, dtype),
-        prefill=lambda p, b, c, valid=None: tfm.prefill(p, cfg, b["tokens"], c),
-        decode=lambda p, b, c: tfm.decode_step(p, cfg, b["tokens"], c),
-        loss=_lm_loss(lambda p, b: tfm.forward_hidden(p, cfg, b["tokens"]),
-                      cfg),
-        init_paged_cache=lambda p, bs, np_, ps, mp, dtype=torch.float32:
-            tfm.init_paged_cache(p, cfg, bs, np_, ps, mp, dtype),
-        prefill_chunk=lambda p, b, c, slot, frontier, valid, total:
-            tfm.prefill_chunk(p, cfg, b["tokens"], c, slot, frontier, valid),
-        decode_paged=lambda p, b, c, active:
-            tfm.decode_step_paged(p, cfg, b["tokens"], c, active,
-                                  use_kernel=use_paged_kernel),
-        paged_to_dense=tfm.paged_to_dense,
-        paged_restore=tfm.paged_restore,
-    )
+    if fam == "dense":
+        return Model(
+            cfg=cfg,
+            init=lambda generator, dtype=torch.float32:
+                tfm.init_params(generator, cfg, dtype),
+            apply=lambda p, b: tfm.forward(p, cfg, b["tokens"],
+                                           use_flash=use_flash),
+            init_cache=lambda p, bs, ml, dtype=torch.float32:
+                tfm.init_cache(p, cfg, bs, ml, dtype),
+            prefill=lambda p, b, c, valid=None:
+                tfm.prefill(p, cfg, b["tokens"], c, use_flash=use_flash),
+            decode=lambda p, b, c: tfm.decode_step(p, cfg, b["tokens"], c),
+            loss=_lm_loss(lambda p, b: tfm.forward_hidden(
+                p, cfg, b["tokens"], use_flash=use_flash), cfg),
+            init_paged_cache=lambda p, bs, np_, ps, mp, dtype=torch.float32:
+                tfm.init_paged_cache(p, cfg, bs, np_, ps, mp, dtype),
+            prefill_chunk=lambda p, b, c, slot, frontier, valid, total:
+                tfm.prefill_chunk(p, cfg, b["tokens"], c, slot, frontier,
+                                  valid),
+            decode_paged=lambda p, b, c, active:
+                tfm.decode_step_paged(p, cfg, b["tokens"], c, active,
+                                      use_kernel=use_paged_kernel),
+            paged_to_dense=tfm.paged_to_dense,
+            paged_restore=tfm.paged_restore,
+        )
+    if fam == "ssm":
+        return Model(
+            cfg=cfg,
+            init=lambda generator, dtype=torch.float32:
+                ssm_mod.init_params(generator, cfg, dtype),
+            apply=lambda p, b: ssm_mod.forward(p, cfg, b["tokens"]),
+            init_cache=lambda p, bs, ml, dtype=torch.float32:
+                ssm_mod.init_cache(cfg, bs, dtype,
+                                   device=p["embed"].device),
+            prefill=lambda p, b, c, valid=None:
+                ssm_mod.prefill(p, cfg, b["tokens"], c, valid=valid),
+            decode=lambda p, b, c: ssm_mod.decode_step(p, cfg, b["tokens"],
+                                                       c),
+            loss=_lm_loss(lambda p, b: ssm_mod.forward_hidden(
+                p, cfg, b["tokens"]), cfg),
+            init_paged_cache=lambda p, bs, np_, ps, mp, dtype=torch.float32:
+                ssm_mod.init_paged_cache(p, cfg, bs, np_, ps, mp, dtype),
+            prefill_chunk=lambda p, b, c, slot, frontier, valid, total:
+                ssm_mod.prefill_chunk(p, cfg, b["tokens"], c, slot,
+                                      frontier, valid),
+            decode_paged=lambda p, b, c, active:
+                ssm_mod.decode_step_paged(p, cfg, b["tokens"], c, active),
+            paged_to_dense=ssm_mod.paged_to_dense,
+            paged_restore=ssm_mod.paged_restore,
+        )
+    raise NotImplementedError(_NOT_PORTED.format(fam=fam))

@@ -6,6 +6,7 @@ from repro_torch.runtime.policies import (  # noqa: F401
     BarrierPolicy,
     OverlapPolicy,
     SyncPolicy,
+    policy_for,
     resolve_train_policy,
 )
 from repro_torch.runtime.runner import (  # noqa: F401

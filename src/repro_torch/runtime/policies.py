@@ -51,6 +51,24 @@ class OverlapPolicy(SyncPolicy):
     name = "overlap"
 
 
+def policy_for(pcfg=None, name: str = ""):
+    """Resolve a standalone policy by explicit name, or from a config's
+    ``sync_overlap`` flag — the selection rule the algorithm objects
+    themselves key off, so a factory caller holding only a pcfg gets the
+    matching policy."""
+    n = name or ("overlap" if getattr(pcfg, "sync_overlap", False)
+                 else "barrier")
+    if n == "barrier":
+        return BarrierPolicy()
+    if n == "overlap":
+        return OverlapPolicy()
+    if n == "async":
+        raise NotImplementedError("the async sync policy (elastic "
+                                  "multi-process pods) is not ported yet "
+                                  "(ROADMAP.md queue 1, item 7)")
+    raise ValueError(f"no sync policy {n!r} (one of {POLICY_NAMES})")
+
+
 def resolve_train_policy(args):
     """Map the trainer CLI onto a policy (``--sync-policy``, or the
     historical ``--sync-overlap`` flag), with the reference's guards and
@@ -70,5 +88,4 @@ def resolve_train_policy(args):
             raise SystemExit(f"--sync-overlap is a Parle Eq. 8d feature; "
                              f"--algo {args.algo} has no round-level sync to "
                              f"overlap")
-        return OverlapPolicy()
-    return BarrierPolicy()
+    return policy_for(name=name)

@@ -16,7 +16,8 @@ Paged layout (``init_paged_slot_cache``): KV fields become page POOLS —
 ``(L, num_pages, page_size, KV, hd)`` — addressed through a
 ``(num_slots, max_pages)`` int32 page table (attention.PagedKVCache);
 position p of slot b lives at ``pool[table[b, p // ps], p % ps]``.
-Which pages a slot's table row names is decided host-side by
+SSM state / conv fields stay dense per slot (O(1) per request).  Which
+pages a slot's table row names is decided host-side by
 ``serving/paging.py``; admission writes the row, prefill streams chunks
 through the table, and nothing is copied on eviction — the pages are
 simply returned to the pool.
@@ -69,13 +70,17 @@ def init_paged_slot_cache(model, params, num_slots: int, num_pages: int,
 
 
 def admit_slot(cache, slot: int, table_row):
-    """Slot admission: install the page-table row and reset the slot's
-    position.  Page pools are untouched."""
+    """Slot admission: install the page-table row, reset the slot's
+    position and recurrent state (SSM conv ring + state rows must not
+    leak from the previous occupant — chunked prefill RESUMES from
+    them).  Page pools are untouched."""
     for name, leaf in _leaves(cache):
         if is_pos_entry(name):
             leaf[slot] = 0
         elif name == "table":
             leaf[slot] = torch.as_tensor(table_row, dtype=torch.int32)
+        elif name in ("conv", "state"):        # (L, num_slots, ...)
+            leaf[:, slot] = 0
     return cache
 
 

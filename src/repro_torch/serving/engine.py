@@ -23,7 +23,10 @@ Execution model (dense layout — the oracle path):
 
 Paged layout (``paged=True``): KV lives in fixed-size page pools behind
 per-slot page tables (serving/paging.py decides the pages, cache.py /
-attention.py hold the device layout).
+attention.py hold the device layout).  The ssm family keeps its O(1)
+recurrent state per slot instead: it reserves no pages and shares no
+prefix, and its prefill chunk is rounded up to ``ssm_chunk`` so that the
+SSD chunk decomposition lines up across prefill calls.
 
 * Admission reserves the request's WORST-CASE pages — ceil((prompt +
   max_new) / page_size) — all-or-nothing: a request that can't get
@@ -66,6 +69,11 @@ from repro_torch.serving.scheduler import Scheduler
 # per-request latency bucket ladder (ms): sub-ms to minutes, 1-2-5
 _LATENCY_BOUNDS_MS = tuple(m * 10.0 ** e for e in range(-1, 6)
                            for m in (1.0, 2.0, 5.0))
+
+# families whose prompt KV depends only on the token ids — prefix pages
+# are shareable.  ssm carries non-pageable recurrent state, so it never
+# shares.
+_SHAREABLE = ("dense", "moe")
 
 
 def _bucket_len(n: int, lo: int, hi: int) -> int:
@@ -113,14 +121,19 @@ class Engine:
                                  "windows (ring-buffer layout)")
             self.page_size = page_size
             self.max_pages = -(-max_len // page_size)
+            # ssd's chunk decomposition must align across prefill calls
+            qc = getattr(cfg, "ssm_chunk", 0)
+            if cfg.family in ("ssm", "hybrid") and qc:
+                prefill_chunk = -(-prefill_chunk // qc) * qc
             self.prefill_chunk_len = prefill_chunk
+            # pages for kv-bearing families; ssm state is O(1) per slot
+            self.uses_pages = cfg.family != "ssm"
             if num_pages is None:
                 num_pages = num_slots * self.max_pages + 1
             self.num_pages = num_pages
-            # the dense family's prompt KV depends only on the token ids,
-            # so full prompt pages are shareable across requests
-            self.pool = paging.PagePool(num_pages, page_size,
-                                        share=prefix_share)
+            self.pool = paging.PagePool(
+                num_pages, page_size,
+                share=prefix_share and cfg.family in _SHAREABLE)
             self.cache = cache_lib.init_paged_slot_cache(
                 self.model, params, num_slots, num_pages, page_size,
                 self.max_pages)
@@ -153,7 +166,7 @@ class Engine:
             raise ValueError(
                 f"prompt_len {req.prompt_len} + max_new_tokens "
                 f"{max_new_tokens} exceeds max_len {self.max_len}")
-        if self.paged:
+        if self.paged and self.uses_pages:
             need = self.pool.pages_needed(req.prompt_len + max_new_tokens)
             if need > self.pool.alloc.usable:
                 raise ValueError(
@@ -211,15 +224,20 @@ class Engine:
             if req is None:
                 return
             total = req.prompt_len
-            plan = self.pool.admit(np.asarray(req.tokens, np.int32), total,
-                                   total + req.max_new_tokens)
-            if plan is None:
-                # backpressure: wait for pages; (arrival, uid) order is
-                # restored by the deterministic pop
-                self.obs.counter("serve.backpressure").inc()
-                self.obs.counter("serve.requeued").inc()
-                self.sched.requeue(req)
-                return
+            if self.uses_pages:
+                share_toks = (np.asarray(req.tokens, np.int32)
+                              if self.cfg.family in _SHAREABLE else None)
+                plan = self.pool.admit(share_toks, total,
+                                       total + req.max_new_tokens)
+                if plan is None:
+                    # backpressure: wait for pages; (arrival, uid) order
+                    # is restored by the deterministic pop
+                    self.obs.counter("serve.backpressure").inc()
+                    self.obs.counter("serve.requeued").inc()
+                    self.sched.requeue(req)
+                    return
+            else:
+                plan = paging.AdmitPlan(pages=[])
             slot = self.sched.free_slots()[0]
             self._slot_plan[slot] = plan
             if plan.cow is not None:
@@ -267,8 +285,9 @@ class Engine:
             self.stats["prefill_tokens"] += valid
             self.stats["prefill_chunks"] += 1
             if done:
-                # prompt pages are final now: publish for sharing
-                self.pool.finalize_prompt(self._slot_plan[slot], total)
+                if self.uses_pages:
+                    # prompt pages are final now: publish for sharing
+                    self.pool.finalize_prompt(self._slot_plan[slot], total)
                 cache_lib.set_slot_pos(self.cache, slot, total)
                 self.cur_tok[slot] = first[0]
                 self._observe_first_token(req.uid)
@@ -277,7 +296,7 @@ class Engine:
 
     def _release_slot(self, slot: int):
         plan = self._slot_plan.pop(slot, None)
-        if plan is not None:
+        if plan is not None and self.uses_pages:
             self.pool.release(plan)
 
     # -- decode chunks ------------------------------------------------
@@ -374,7 +393,7 @@ class Engine:
         self._n_done_obs = len(done)
 
     def _observe_pool(self) -> None:
-        if self.paged:
+        if self.paged and self.uses_pages:
             free = self.pool.alloc.num_free
             usable = max(self.pool.alloc.usable, 1)
             self.obs.gauge("serve.pages_free").set(float(free))
@@ -486,6 +505,8 @@ class Engine:
             for name in ("requests", "admitted", "requeued", "backpressure",
                          "finished", "deadline_exceeded")}
         if self.paged:
-            out["prefix_hit_rate"] = round(self.pool.prefix_hit_rate(), 4)
-            out["cow_copies"] = self.pool.stats["cow_copies"]
+            out["prefix_hit_rate"] = round(self.pool.prefix_hit_rate(), 4) \
+                if self.uses_pages else 0.0
+            if self.uses_pages:
+                out["cow_copies"] = self.pool.stats["cow_copies"]
         return out

@@ -37,7 +37,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.serve, repro_torch.kernels.ops, "
             "repro_torch.launch.train, repro_torch.core.algorithm, "
             "repro_torch.checkpoint.checkpoint, "
-            "repro_torch.examples.quickstart, repro_torch.models.convnet\n"
+            "repro_torch.examples.quickstart, repro_torch.models.convnet, "
+            "repro_torch.launch.steps, repro_torch.models.mamba2, "
+            "repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.ssd_scan\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
