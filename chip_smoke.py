@@ -13,8 +13,11 @@ itself and, in order:
    ``nvcc -Xptxas -v``'s register / shared-memory report;
 3. holds each kernel against its plain PyTorch version on the card:
    K8 (paged attention) within atol = rtol = 2e-5 at the unit-test
-   shapes, a shared-pages case, a length-1 case and the serve path's
-   shapes; K1 (Parle inner step) and K2 (sync step) bit for bit at
+   shapes, a shared-pages case (rows bitwise equal), a length-1 case,
+   the serve path's shapes, lengths on the edges of its splits (one and
+   two spans of positions, one short, one over, and 1) and a length of
+   1 over 512 pages, each launched twice (bitwise equal) and once with
+   host synchronisation forbidden (``set_sync_debug_mode("error")``); K1 (Parle inner step) and K2 (sync step) bit for bit at
    ragged lengths, 1-3 replicas, bf16 y/g (K1), with and without the
    fused bf16 y' (K2), and with each scalar bumped (the result moves);
    K4 (int8 quantize + error feedback, also in place), K5 (dequantize +
@@ -26,16 +29,21 @@ itself and, in order:
    bf16 g, each scalar bumped, and once updating x and v in place (ref
    only read); K3 (flash attention) within 2e-5 in float32 and 5e-2 in
    bf16 at the reference test's cases, a ragged T of 200 (with and
-   without a window) and the Qwen2.5-3B prefill shape (2, 2048, 16,
-   128); K9 (SSD scan) in y and the final state within 1e-4 (1e-2 for
+   without a window), T of 65, 127 and 129 at hd 128, bf16 at hd 128 and
+   the Qwen2.5-3B prefill shape (2, 2048, 16, 128), each launched with
+   host synchronisation forbidden; K9 (SSD scan) in y and the final state within 1e-4 (1e-2 for
    bf16 outputs) at the reference test's cases and the Mamba2-1.3B
    shape (B 2, T 2048, 64 heads, P 64, N 128, Q 128);
 4. times each kernel, its plain version and, where one exists, one
    PyTorch library call (CUDA events, L2 flushed before every launch)
    beside the least time the card could take: K8 at the serve path's
-   shapes, K1, K2, K4, K5, K6 and K7 at 2 replicas x 2^26 float32
-   elements, K3 at the prefill shape (SDPA with is_causal as the library
-   call), K9 at the Mamba2-1.3B shape;
+   shapes and at long context (Qwen2.5-3B's decode geometry, 4096-16384
+   positions a row; checked against its plain version there too), each
+   beside one empty kernel launch timed the same way, K1, K2, K4, K5, K6
+   and K7 at 2 replicas x 2^26 float32 elements, K3 at the prefill shape
+   (SDPA with is_causal as the library call; its bound counts each
+   float32 product as three TF32 tensor-core products, with the SIMT
+   float32 bound beside it), K9 at the Mamba2-1.3B shape;
 5. serves through the port's serve CLI functions: full-width
    Qwen2.5-3B in float32 (random params, torch.Generator seed 0), the
    paged engine decoding through K8, 8 requests of 63-84 prompt tokens,
@@ -117,12 +125,14 @@ from repro_torch.models import mamba2  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.obs import Obs  # noqa: E402
+from repro_torch.runtime.precision import pin_float32  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 SOURCES = ("paged_attention.cu", "parle_update.cu", "flash_attention.cu",
            "ssd_scan.cu")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 F32_FLOP_PER_S = 67e12           # H100 SXM float32, outside tensor cores
+TF32_FLOP_PER_S = 495e12         # H100 SXM dense TF32 tensor cores
 L2_FLUSH_BYTES = 64 * 2 ** 20    # > the 50 MB L2
 SPIN_CYCLES = 100_000_000        # ~50 ms of a ~2 GHz SM clock
 
@@ -189,7 +199,17 @@ CASES = {
                      lengths=[1, 1, 1, 1]),
     "main_path": dict(B=4, P=33, H=16, KV=2, hd=128, ps=16, M=8,
                       lengths=[63, 80, 99, 116]),
+    # lengths at a split's edge, L = span * ps: L, L - 1, L + 1, 2L,
+    # 2L + 1 and 1 (split_lengths fills them in on the card)
+    "split_boundary": dict(B=6, P=80, H=16, KV=2, hd=128, ps=16, M=512,
+                           lengths="split_edges"),
+    "length_1_large_M": dict(B=2, P=40, H=8, KV=2, hd=64, ps=16, M=512,
+                             lengths=[1, 1]),
 }
+# Qwen2.5-3B's decode geometry at long context: 40960 live positions,
+# 84 MB of K and V
+LONG_CONTEXT = dict(B=4, P=4 * 1024 + 1, H=16, KV=2, hd=128, ps=16, M=1024,
+                    lengths=[4096, 8192, 12288, 16384])
 SERVE_ARGV = ["--arch", "qwen2.5-3b", "--device", "cuda", "--paged",
               "--slots", "4", "--page-size", "16", "--prefill-chunk", "32",
               "--decode-chunk", "8", "--requests", "8", "--prompt-len", "64",
@@ -223,12 +243,54 @@ def build_phase():
     print(f"build phase {time.perf_counter() - t0:.2f} s", flush=True)
 
 
+def device_kernels(fn, device) -> list:
+    """Names of the device kernels a call of ``fn`` launches, as
+    torch.profiler shows them (host and device activity traced, two
+    calls, every row that took device time)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize(device)
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize(device)
+    return sorted({e.key for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")
+                   and getattr(e, "self_device_time_total", 0) > 0})
+
+
+def split_lengths(device, B, KV, M, ps):
+    """Row lengths at the edges of K8's splits on this card."""
+    span = pa.split_span(B, KV, M, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+    edge = span * ps
+    lengths = [edge, edge - 1, edge + 1, 2 * edge, 2 * edge + 1, 1][:B]
+    check(span > 1 and max(lengths) <= M * ps,
+          f"split_boundary: span {span} gives no split edge inside "
+          f"{M} pages")
+    return lengths
+
+
+def without_sync(fn, *args, **kwargs):
+    """``fn`` under ``torch.cuda.set_sync_debug_mode("error")``: any
+    device-to-host synchronisation inside raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def check_phase(device) -> float:
-    """K8 against its plain version at every case; returns the largest
-    absolute error seen."""
+    """K8 against its plain version at every case, each launched twice
+    (bitwise equal), once with host synchronisation forbidden; returns
+    the largest absolute error seen."""
     phase("3. K8 against its plain version")
     max_abs_err = 0.0
     for i, (name, shape) in enumerate(CASES.items()):
+        if shape is not None and shape["lengths"] == "split_edges":
+            shape = dict(shape, lengths=split_lengths(
+                device, shape["B"], shape["KV"], shape["M"], shape["ps"]))
         if shape is None:   # two rows naming the same pages: equal rows
             q, k_pool, v_pool, _, _ = paged_inputs(
                 10 + i, B=1, P=8, H=4, KV=2, hd=32, ps=8, M=3,
@@ -239,8 +301,11 @@ def check_phase(device) -> float:
                     torch.tensor([16, 16], dtype=torch.int32, device=device)]
         else:
             args = paged_inputs(10 + i, device=device, **shape)
-        got = pa.paged_attention_cuda(*args)
+        got = without_sync(pa.paged_attention_cuda, *args)
+        again = pa.paged_attention_cuda(*args)
         torch.cuda.synchronize(device)
+        check(torch.equal(got, again),
+              f"two K8 launches on {name} differ")
         want = pa.paged_attention_plain(*args)
         err = (got - want).abs().max().item()
         max_abs_err = max(max_abs_err, err)
@@ -261,37 +326,25 @@ def timing_phase(device) -> dict:
     phase("4. K8 timing at the main path's shapes")
     shape = CASES["main_path"]
     args = paged_inputs(99, device=device, **shape)
-    q, k_pool, v_pool, table, lengths = args
-    B, H, hd, KV = shape["B"], shape["H"], shape["hd"], shape["KV"]
-    S = shape["M"] * shape["ps"]
+    q, _, _, table, lengths = args
     live = sum(shape["lengths"])
-    # each live K/V position read once, q read and the output written once
-    n_bytes = (2 * live * KV * hd * 4 + 2 * q.numel() * 4
-               + table.numel() * 4 + lengths.numel() * 4)
-    n_flops = 4 * live * H * hd
+    n_bytes, n_flops = paged_bytes_flops(shape, q, table, lengths)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_flops / F32_FLOP_PER_S * 1e3
-    kk = k_pool[table].reshape(B, S, KV, hd).repeat_interleave(
-        H // KV, dim=2).transpose(1, 2).contiguous()
-    vv = v_pool[table].reshape(B, S, KV, hd).repeat_interleave(
-        H // KV, dim=2).transpose(1, 2).contiguous()
-    mask = (torch.arange(S, device=device)[None, :]
-            < lengths[:, None])[:, None, None, :]
-    qq = q[:, :, None, :]
-
-    def library():
-        return torch.nn.functional.scaled_dot_product_attention(
-            qq, kk, vv, attn_mask=mask)
-
+    library = sdpa_over_extent(shape, args, device)
     lib_err = (library()[:, :, 0] - pa.paged_attention_plain(*args)
                ).abs().max().item()
     timing, enqueue = {}, {}
     for key, fn in (("ms", lambda: pa.paged_attention_cuda(*args)),
                     ("plain_ms", lambda: pa.paged_attention_plain(*args)),
-                    ("library_ms", library)):
+                    ("library_ms", library),
+                    ("empty_launch_ms", lambda: torch.cuda._sleep(0))):
         timing[key], enqueue[key] = time_ms(fn, device)
     timing.update(bound_ms=max(bytes_ms, ops_ms),
                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    print(f"K8 bound {timing['bound_ms']:.6f} ms beside one empty kernel "
+          f"launch {timing['empty_launch_ms']:.6f} ms (torch.cuda._sleep(0),"
+          " timed the same way)", flush=True)
     print(json.dumps({"kernel": "paged_attention", **timing,
                       "live_positions": live, "bytes": n_bytes,
                       "flops": n_flops,
@@ -300,6 +353,82 @@ def timing_phase(device) -> dict:
                       "library_max_abs_err": lib_err,
                       "host_enqueue_ms_per_50": enqueue}), flush=True)
     return timing
+
+
+def sdpa_over_extent(shape, args, device):
+    """K8's library yardstick: SDPA over each row's pages gathered into
+    the contiguous extent (GQA expanded, dead positions masked); the
+    gather is done here, outside the timing."""
+    q, k_pool, v_pool, table, lengths = args
+    B, H, hd, KV = shape["B"], shape["H"], shape["hd"], shape["KV"]
+    S = shape["M"] * shape["ps"]
+    kk, vv = (pool[table].reshape(B, S, KV, hd).repeat_interleave(
+        H // KV, dim=2).transpose(1, 2).contiguous()
+        for pool in (k_pool, v_pool))
+    mask = (torch.arange(S, device=device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    qq = q[:, :, None, :]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask)
+
+
+def paged_bytes_flops(shape, q, table, lengths):
+    """K8's bytes (each live K/V position read once, q, table and
+    lengths read and the output written once) and FLOP (q.k and p.v)."""
+    live = sum(shape["lengths"])
+    KV, H, hd = shape["KV"], shape["H"], shape["hd"]
+    n_bytes = (2 * live * KV * hd * 4 + 2 * q.numel() * 4
+               + table.numel() * 4 + lengths.numel() * 4)
+    return n_bytes, 4 * live * H * hd
+
+
+def long_context_phase(device) -> dict:
+    """K8 at Qwen2.5-3B's decode geometry with 4096-16384 live positions:
+    against its plain version (TOL), then timed beside its byte bound,
+    SDPA over the pre-gathered extent and one empty kernel launch timed
+    the same way (torch.cuda._sleep(0))."""
+    phase("4g. K8 at long context (Qwen2.5-3B decode geometry)")
+    shape = LONG_CONTEXT
+    args = paged_inputs(97, device=device, **shape)
+    q, _, _, table, lengths = args
+    got = pa.paged_attention_cuda(*args)
+    want = pa.paged_attention_plain(*args)
+    err = (got - want).abs().max().item()
+    check(torch.allclose(got, want, **TOL),
+          f"K8 disagrees with its plain version at long context ({err:.3e})")
+    del got, want
+    n_bytes, n_flops = paged_bytes_flops(shape, q, table, lengths)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_flops / F32_FLOP_PER_S * 1e3
+    library = sdpa_over_extent(shape, args, device)
+    t = {}
+    for key, fn, iters in (
+            ("ms", lambda: pa.paged_attention_cuda(*args), 50),
+            ("plain_ms", lambda: pa.paged_attention_plain(*args), 5),
+            ("library_ms", library, 20),
+            ("empty_launch_ms", lambda: torch.cuda._sleep(0), 50)):
+        t[key], _ = time_ms(fn, device, iters=iters, warmup=3)
+    t.update(bound_ms=max(bytes_ms, ops_ms),
+             bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    print(json.dumps({"kernel": "paged_attention", "shape": "long_context",
+                      **t, "lengths": shape["lengths"],
+                      "splits": -(-shape["M"] // pa.split_span(
+                          shape["B"], shape["KV"], shape["M"],
+                          torch.cuda.get_device_properties(
+                              device).multi_processor_count)),
+                      "bytes": n_bytes, "flops": n_flops,
+                      "max_abs_err": err,
+                      "achieved_bytes_per_s": n_bytes / (t["ms"] / 1e3),
+                      "share_of_bound": t["bound_ms"] / t["ms"],
+                      "library_call": "F.scaled_dot_product_attention over "
+                                      "the pre-gathered extent",
+                      "library_kernels": device_kernels(library, device),
+                      "kernel_kernels": device_kernels(
+                          lambda: pa.paged_attention_cuda(*args), device)}),
+          flush=True)
+    del args, q, table, lengths, library
+    torch.cuda.empty_cache()
+    return t
 
 
 INNER_SCALARS = (0.1, 0.05, 0.9, 0.75)     # inv_gamma, lr, mu, alpha
@@ -843,6 +972,11 @@ FLASH_CASES = {            # name: (B, T, H, hd, window, dtype)
     "bf16": (1, 128, 2, 64, 0, torch.bfloat16),
     "ragged_T200": (2, 200, 4, 128, 0, torch.float32),
     "ragged_T200_window50": (1, 200, 2, 64, 50, torch.float32),
+    # one row past, one short of and one past two 64-row tiles at hd 128
+    "ragged_T65_hd128": (1, 65, 2, 128, 0, torch.float32),
+    "ragged_T127_hd128": (2, 127, 2, 128, 0, torch.float32),
+    "ragged_T129_hd128": (1, 129, 3, 128, 0, torch.float32),
+    "bf16_hd128": (2, 192, 2, 128, 0, torch.bfloat16),
     "prefill_shape": (2, 2048, 16, 128, 0, torch.float32),
 }
 FLASH_BF16_TOL = dict(rtol=5e-2, atol=5e-2)
@@ -884,13 +1018,14 @@ def ssd_inputs(seed, B, T, nh, P, N, dtype, device):
 
 def flash_check_phase(device) -> float:
     """K3 against its plain version at every case (2e-5 in float32, 5e-2
-    in bf16); returns the largest float32 absolute error."""
+    in bf16), each launched with host synchronisation forbidden; returns
+    the largest float32 absolute error."""
     phase("3e. K3 (flash attention) against its plain version")
     max_err = 0.0
     for i, (name, (B, T, H, hd, window, dtype)) in enumerate(
             FLASH_CASES.items()):
         q, k, v = flash_inputs(30 + i, B, T, H, hd, dtype, device)
-        got = fa.flash_attention_cuda(q, k, v, window=window)
+        got = without_sync(fa.flash_attention_cuda, q, k, v, window=window)
         torch.cuda.synchronize(device)
         want = fa.flash_attention_plain(q, k, v, window=window)
         err = (got.float() - want.float()).abs().max().item()
@@ -937,8 +1072,10 @@ def ssd_check_phase(device) -> float:
 def flash_timing_phase(device) -> dict:
     """K3, its plain version and SDPA (is_causal; timed here only, the
     port never calls it) at the Qwen2.5-3B prefill shape, beside the
-    bound: 2 B H T^2 hd causal FLOP at float32's rate against q, k, v
-    and o once each."""
+    bound: the 2 B H T^2 hd causal FLOP, each a float32 product that K3
+    computes as three TF32 tensor-core products (3xTF32), at the TF32
+    rate, against q, k, v and o once each; the same FLOP at the SIMT
+    float32 rate beside it (``simt_bound_ms``)."""
     phase("4e. K3 timing at the Qwen2.5-3B prefill shape")
     B, T, H, hd, window, dtype = FLASH_CASES["prefill_shape"]
     q, k, v = flash_inputs(99, B, T, H, hd, dtype, device)
@@ -953,7 +1090,7 @@ def flash_timing_phase(device) -> dict:
     n_flops = 2 * B * H * T * T * hd
     n_bytes = 4 * q.numel() * 4
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_flops / F32_FLOP_PER_S * 1e3
+    ops_ms = 3 * n_flops / TF32_FLOP_PER_S * 1e3
     t = {}
     for key, fn, iters in (
             ("ms", lambda: fa.flash_attention_cuda(q, k, v), 30),
@@ -961,14 +1098,18 @@ def flash_timing_phase(device) -> dict:
             ("library_ms", library, 30)):
         t[key], _ = time_ms(fn, device, iters=iters, warmup=3)
     t.update(bound_ms=max(bytes_ms, ops_ms),
-             bound_by="bytes" if bytes_ms > ops_ms else "operations")
+             bound_by="bytes" if bytes_ms > ops_ms else "operations",
+             bound_rate="3xTF32: 3 TF32 products a float32 product at "
+                        "495 TFLOP/s",
+             simt_bound_ms=n_flops / F32_FLOP_PER_S * 1e3)
     print(json.dumps({"kernel": "flash_attention", **t,
                       "shape": [B, T, H, hd], "flops": n_flops,
                       "bytes": n_bytes,
                       "achieved_flop_per_s": n_flops / (t["ms"] / 1e3),
-                      "share_of_67TFLOP/s": ops_ms / t["ms"],
+                      "share_of_bound": t["bound_ms"] / t["ms"],
                       "library_call": "F.scaled_dot_product_attention("
                                       "is_causal=True), (B, H, T, hd)",
+                      "library_kernels": device_kernels(library, device),
                       "library_max_abs_err": lib_err}), flush=True)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
@@ -1679,9 +1820,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    pin_float32()
     t_start = time.perf_counter()
 
     device, kind, smi = device_phase()
@@ -1693,6 +1832,7 @@ def main() -> int:
     flash_err = flash_check_phase(device)
     ssd_err = ssd_check_phase(device)
     timing = timing_phase(device)
+    long_context = long_context_phase(device)
     parle_timing = parle_timing_phase(device)
     parle_timing.update(compress_timing_phase(device))
     parle_timing.update(elastic_timing_phase(device))
@@ -1754,7 +1894,10 @@ def main() -> int:
         "launches": run["launches"], "max_abs_err": max_abs_err,
         "ms": timing["ms"], "kernel_ms": timing["ms"],
         "plain_ms": timing["plain_ms"], "library_ms": timing["library_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"]}]
+        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+        "empty_launch_ms": timing["empty_launch_ms"],
+        "long_context": {k: long_context[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms")}}]
     # each kernel's launches on its own path: K1/K2 on the f32 barrier
     # run, K4/K5 on the int8 barrier run, K6 on the int8 overlap run, K7
     # on the Elastic-SGD run
@@ -1788,7 +1931,8 @@ def main() -> int:
             "launches": launches, "max_abs_err": err, "ms": t["ms"],
             "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"]})
+            "bound_by": t["bound_by"],
+            **{k: t[k] for k in ("bound_rate", "simt_bound_ms") if k in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     quickstart_phase(t_start)
     print(smi, flush=True)                 # the card and its power limit

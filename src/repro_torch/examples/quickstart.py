@@ -30,6 +30,7 @@ from repro_torch.core.parle import dealias_state
 from repro_torch.data.synthetic import TeacherTask, replica_batches
 from repro_torch.models.convnet import (classification_loss, error_rate,
                                         init_mlp, mlp_forward)
+from repro_torch.runtime.precision import pin_float32
 from repro_torch.utils.pytree import tree_map
 
 BATCH = 128
@@ -80,6 +81,7 @@ def run(steps: int = 400, replicas: int = 3, device="cuda") -> dict:
     """Both trainings and the comparison table; returns the errors and
     walls.  Raises AssertionError when Parle generalizes worse than SGD
     by more than 0.02."""
+    pin_float32()
     device = resolve_device(device)
     task = TeacherTask(device=str(device))
     params = tree_map(lambda t: t.to(device),

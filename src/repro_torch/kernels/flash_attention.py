@@ -9,7 +9,9 @@ no VJP is defined for it.
 
 * ``flash_attention_cuda`` launches ``csrc/flash_attention.cu`` (built on
   first use by ``kernels/build.py``).  At the prefill shapes it is bound
-  by operations; the source's header says how its design meets that.
+  by operations; the source's header says how its design meets that:
+  tensor-core products, float32 to float32 accuracy through the 3xTF32
+  split.
 * ``flash_attention_plain`` is the torch form of the reference oracle
   ``repro/kernels/ref.py::flash_attention``: the whole (T, T) logits,
   masked to -1e30, softmax in float32, probabilities cast to v's dtype.
@@ -26,6 +28,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BLOCK_Q = 64                     # query rows of one kernel block
 
 # kernel launches since process start (or since the caller reset it)
 launches = 0
@@ -82,6 +85,9 @@ def _check(q, k, v, window):
     if min(B, T, H) < 1 or window < 0:
         raise ValueError("flash_attention: empty batch, sequence or heads, "
                          "or a negative window")
+    if B > 65535 or -(-T // BLOCK_Q) > 65535:
+        raise ValueError(f"flash_attention: B {B} or {-(-T // BLOCK_Q)} "
+                         "query tiles past the grid's 65535")
 
 
 def flash_attention_cuda(q, k, v, window: int = 0):

@@ -54,6 +54,7 @@ from repro_torch.configs import ParleConfig, get_config, smoke_variant
 from repro_torch.core import parle, registry
 from repro_torch.models.model import build_model, cache_positions
 from repro_torch.obs import Obs
+from repro_torch.runtime.precision import pin_float32
 from repro_torch.serving import (Engine, SamplingParams, make_naive_fns,
                                  naive_generate)
 from repro_torch.utils.pytree import FlatLayout
@@ -242,6 +243,7 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    pin_float32()
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)

@@ -55,6 +55,7 @@ from repro_torch.models.model import build_model
 from repro_torch.obs import Obs
 from repro_torch.runtime import (CheckpointSpec, RoundRunner, emit_progress,
                                  resolve_train_policy)
+from repro_torch.runtime.precision import pin_float32
 
 
 def build_argparser():
@@ -159,6 +160,7 @@ def run(args, cfg, device, obs, pre_round=None, on_round=None):
     """Train ``cfg`` as ``args`` say, on ``device``.  Returns (final
     state, progress history, the final eval loss as a float).  The hooks
     go to ``RoundRunner.run_rounds`` (``--round-fused``)."""
+    pin_float32()
     policy = resolve_train_policy(args)
     model = build_model(cfg)
     algo = registry.get(args.algo)

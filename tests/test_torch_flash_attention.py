@@ -6,8 +6,11 @@ window 32, bf16) with its tolerances (2e-5 f32, 5e-2 bf16) and at a
 ragged T; ``attention_core(use_flash=True)``; the dense model's
 ``apply`` and ``launch/steps.py::make_prefill_step(use_flash=True)``
 logits and KV caches (1e-4); the forward-only contract (the reference's
-K3 has no VJP, so training with it fails on both sides); and the kernel
-against its plain version on a card (``gpu``, skipped without one)."""
+K3 has no VJP, so training with it fails on both sides); a torch model of
+the kernel's float32 arithmetic on TF32 tensor cores (the 3xTF32 split,
+TF32 rounding by bit masking) against the plain version and the oracle;
+and the kernel against its plain version on a card (``gpu``, skipped
+without one)."""
 import dataclasses
 
 import jax
@@ -132,6 +135,87 @@ def test_attention_core_flash_branch_matches_reference():
     assert fa.launches == before
 
 
+def _tf32(x, round_to_nearest=True):
+    """``x`` (float32) to TF32, 10 mantissa bits: to nearest with ties
+    away (the kernel's big part: add half a TF32 ulp to the magnitude
+    bits, clear the 13 low ones) or by truncation (how the tensor core
+    reads the small part)."""
+    bits = x.contiguous().view(torch.int32)
+    if round_to_nearest:
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    big = _tf32(x)
+    return big, _tf32(x - big, round_to_nearest=False)
+
+
+def _product_3xtf32(eq, a, b):
+    """einsum ``eq`` of float32 a and b as K3 computes it: three products
+    of TF32 parts, the small terms first; each product of two TF32
+    values is exact in float32, as on the tensor core."""
+    (a_big, a_small), (b_big, b_small) = _split(a), _split(b)
+    return (torch.einsum(eq, a_small, b_big)
+            + torch.einsum(eq, a_big, b_small)
+            + torch.einsum(eq, a_big, b_big))
+
+
+def _product_1xtf32(eq, a, b):
+    return torch.einsum(eq, _tf32(a), _tf32(b))
+
+
+def _attention_model(q, k, v, window, product):
+    """K3's float32 forward with both products through ``product``:
+    scores in log2 units, exp2, the output over max(l, 1e-30)."""
+    T, hd = q.shape[1], q.shape[-1]
+    s = product("bqhd,bkhd->bhqk", q, k) * (hd ** -0.5 * np.log2(np.e))
+    pos = torch.arange(T)
+    mask = pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= pos[None, :] > pos[:, None] - window
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    out = product("bhqk,bkhd->bqhd", p, v)
+    return out / p.sum(-1).clamp_min(1e-30).transpose(1, 2)[..., None]
+
+
+def test_tf32_split_parts():
+    """big keeps 10 mantissa bits (rounded to nearest, ties away), and
+    big + small is x to within 2^-21 of x."""
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        4096).astype(np.float32) * 100)
+    big, small = _split(x)
+    assert not (big.view(torch.int32) & 0x1FFF).any()
+    assert not (small.view(torch.int32) & 0x1FFF).any()
+    assert (x - big).abs().le(big.abs() * 2.0 ** -11).all()
+    assert ((big + small) - x).abs().le(x.abs() * 2.0 ** -21).all()
+    # 1 + 2^-11 lies halfway between two TF32 values: ties go away
+    tie = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11)])
+    assert _tf32(tie).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10)]
+
+
+@pytest.mark.parametrize("case", ["causal_hd32", "causal_hd64", "window32",
+                                  "ragged_hd128"])
+def test_3xtf32_model_matches_plain_and_oracle(case):
+    """The split keeps float32 accuracy: within 2e-5 of the plain
+    version and of the JAX oracle, where one TF32 product per float32
+    product (TF32 alone) is two orders of magnitude further off."""
+    B, T, H, hd, window, _, _, _ = CASES.get(
+        case, (1, 129, 2, 128, 0, np.float32, 0, 0))
+    arrays = _qkv(B, T, H, hd, seed=21)
+    q, k, v = _torch(arrays)
+    got = _attention_model(q, k, v, window, _product_3xtf32)
+    plain = fa.flash_attention_plain(q, k, v, window=window)
+    oracle = ref_kernels.flash_attention(*_jax(arrays), window=window)
+    assert_close(got, plain.numpy(), KERNEL_TOL, f"{case} vs plain")
+    assert_close(got, oracle, KERNEL_TOL, f"{case} vs oracle")
+    tf32_only = _attention_model(q, k, v, window, _product_1xtf32)
+    err_3x = (got - plain).abs().max().item()
+    err_1x = (tf32_only - plain).abs().max().item()
+    assert err_1x > 100 * err_3x, (err_1x, err_3x)
+
+
 @pytest.fixture(scope="module")
 def dense_params():
     return both_params(REF_CFG, seed=0)
@@ -200,12 +284,22 @@ def cuda_device():
     return torch.device("cuda", torch.cuda.current_device())
 
 
+# cases of the card test beyond the reference's: ragged T around the
+# kernel's 64-row tiles at hd 128, and bf16 at hd 128
+CARD_CASES = {
+    "ragged_hd128": (2, 200, 4, 128, 0, np.float32, 0, 0),
+    "ragged_T65_hd128": (1, 65, 2, 128, 0, np.float32, 0, 0),
+    "ragged_T127_hd128": (2, 127, 2, 128, 0, np.float32, 0, 0),
+    "ragged_T129_hd128": (1, 129, 3, 128, 0, np.float32, 0, 0),
+    "bf16_hd128": (2, 192, 2, 128, 0, "bfloat16", 0, 0),
+}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["causal_hd32", "causal_hd64", "window32",
-                                  "bf16", "ragged_hd128"])
+                                  "bf16", *CARD_CASES])
 def test_kernel_matches_plain_on_card(case, cuda_device):
-    B, T, H, hd, window, dtype, _, _ = CASES.get(
-        case, (2, 200, 4, 128, 0, np.float32, 0, 0))
+    B, T, H, hd, window, dtype, _, _ = {**CASES, **CARD_CASES}[case]
     bf16 = dtype == "bfloat16"
     q, k, v = [t.to(cuda_device) for t in _torch(
         _qkv(B, T, H, hd, seed=7), torch.bfloat16 if bf16 else torch.float32)]

@@ -1,6 +1,6 @@
-"""The port stands alone: no file of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and importing the port
-loads neither."""
+"""The port stands alone: no file of ``src/repro_torch/``, not
+``chip_smoke.py`` and not the port's tools (``tools/*.py``) imports JAX
+or the JAX package, and importing the port loads neither."""
 import ast
 import os
 import subprocess
@@ -11,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _forbidden(module: str) -> bool:
