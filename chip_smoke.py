@@ -31,9 +31,13 @@ itself and, in order:
    bf16 at the reference test's cases, a ragged T of 200 (with and
    without a window), T of 65, 127 and 129 at hd 128, bf16 at hd 128 and
    the Qwen2.5-3B prefill shape (2, 2048, 16, 128), each launched with
-   host synchronisation forbidden; K9 (SSD scan) in y and the final state within 1e-4 (1e-2 for
-   bf16 outputs) at the reference test's cases and the Mamba2-1.3B
-   shape (B 2, T 2048, 64 heads, P 64, N 128, Q 128);
+   host synchronisation forbidden; K9 (SSD scan) in y and the final
+   state within 1e-4 (1e-2 for bf16 outputs) at the reference test's
+   cases, cases of several chunks (f32 and bf16), chunks of 24 and 5,
+   Zamba2-1.2B's geometry (N 64, T 2048), x, B and C as views of one
+   xBC tensor (as the Mamba2 model hands them over) and the Mamba2-1.3B
+   shape (B 2, T 2048, 64 heads, P 64, N 128, Q 128), each launched
+   twice (bitwise equal) and once with host synchronisation forbidden;
 4. times each kernel, its plain version and, where one exists, one
    PyTorch library call (CUDA events, L2 flushed before every launch)
    beside the least time the card could take: K8 at the serve path's
@@ -43,7 +47,9 @@ itself and, in order:
    and K7 at 2 replicas x 2^26 float32 elements, K3 at the prefill shape
    (SDPA with is_causal as the library call; its bound counts each
    float32 product as three TF32 tensor-core products, with the SIMT
-   float32 bound beside it), K9 at the Mamba2-1.3B shape;
+   float32 bound beside it), K9 at the Mamba2-1.3B shape in float32
+   and bf16 (its bound counts C B^T once per (b, chunk) and each
+   float32 product as three TF32 products, the SIMT bound beside it);
 5. serves through the port's serve CLI functions: full-width
    Qwen2.5-3B in float32 (random params, torch.Generator seed 0), the
    paged engine decoding through K8, 8 requests of 63-84 prompt tokens,
@@ -243,20 +249,21 @@ def build_phase():
     print(f"build phase {time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def device_kernels(fn, device) -> list:
-    """Names of the device kernels a call of ``fn`` launches, as
-    torch.profiler shows them (host and device activity traced, two
-    calls, every row that took device time)."""
+def device_kernels(fn, device, calls=2) -> dict:
+    """The device kernels a call of ``fn`` launches, as torch.profiler
+    shows them (host and device activity traced over ``calls`` calls,
+    every row that took device time), each with its device ms a call."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize(device)
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(2):
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize(device)
-    return sorted({e.key for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")
-                   and getattr(e, "self_device_time_total", 0) > 0})
+    return {e.key: e.self_device_time_total / calls / 1e3
+            for e in sorted(prof.key_averages(), key=lambda e: e.key)
+            if str(e.device_type).endswith("CUDA")
+            and getattr(e, "self_device_time_total", 0) > 0}
 
 
 def split_lengths(device, B, KV, M, ps):
@@ -985,6 +992,17 @@ SSD_CASES = {              # name: (B, T, nh, P, N, chunk, dtype)
     "n64_p64": (2, 128, 3, 64, 64, 128, torch.float32),
     "n16_p32_bf16": (2, 128, 3, 32, 16, 128, torch.bfloat16),
     "n64_p64_bf16": (2, 128, 3, 64, 64, 128, torch.bfloat16),
+    # several chunks, so the state passes between them
+    "multi_chunk_n16_p32": (2, 512, 3, 32, 16, 128, torch.float32),
+    "multi_chunk_n64_p64": (2, 512, 3, 64, 64, 128, torch.float32),
+    "multi_chunk_bf16": (2, 512, 3, 64, 64, 128, torch.bfloat16),
+    # chunks that are no multiple of 16 (ragged tiles), the least state
+    "q24": (2, 96, 3, 32, 16, 24, torch.float32),
+    "q5_n8": (1, 20, 2, 32, 8, 5, torch.float32),
+    # Zamba2-1.2B's geometry: 64 heads of 64, state 64
+    "zamba2_shape": (2, 2048, 64, 64, 64, 128, torch.float32),
+    # x, B and C as views of one xBC tensor, as models/mamba2.py hands them
+    "strided_xbc": (2, 256, 4, 64, 128, 128, torch.float32),
     "mamba2_shape": (2, 2048, 64, 64, 128, 128, torch.float32),
 }
 SSD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -1002,9 +1020,11 @@ def flash_inputs(seed, B, T, H, hd, dtype, device):
             for _ in range(3)]
 
 
-def ssd_inputs(seed, B, T, nh, P, N, dtype, device):
+def ssd_inputs(seed, B, T, nh, P, N, dtype, device, strided=False):
     """The reference kernel test's distributions: x and B, C ~ 0.5 N(0,1),
-    dt = softplus(N(0,1)), A = -exp(0.3 N(0,1))."""
+    dt = softplus(N(0,1)), A = -exp(0.3 N(0,1)).  ``strided``: x, B and C
+    are slices of one (B, T, nh P + 2 N) tensor, laid out as
+    ``models/mamba2.py::_ssd_inputs`` takes them from xBC."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def r(*shape):
@@ -1013,7 +1033,13 @@ def ssd_inputs(seed, B, T, nh, P, N, dtype, device):
     x, dt = r(B, T, nh, P) * 0.5, torch.nn.functional.softplus(r(B, T, nh))
     A = -torch.exp(r(nh) * 0.3)
     Bm, Cm = r(B, T, N) * 0.5, r(B, T, N) * 0.5
-    return x.to(dtype), dt.to(dtype), A, Bm.to(dtype), Cm.to(dtype)
+    x, dt, Bm, Cm = (t.to(dtype) for t in (x, dt, Bm, Cm))
+    if strided:
+        xbc = torch.cat([x.reshape(B, T, nh * P), Bm, Cm], dim=-1)
+        di = nh * P
+        x = xbc[..., :di].reshape(B, T, nh, P)
+        Bm, Cm = xbc[..., di:di + N], xbc[..., di + N:]
+    return x, dt, A, Bm, Cm
 
 
 def flash_check_phase(device) -> float:
@@ -1044,14 +1070,20 @@ def flash_check_phase(device) -> float:
 def ssd_check_phase(device) -> float:
     """K9 against its plain version (the naive recurrence) at every case:
     y and the final state within 1e-4 in float32 (1e-2 for bf16 outputs);
-    returns the largest float32 absolute error."""
+    each case launched twice (bitwise equal), once with host
+    synchronisation forbidden; returns the largest float32 absolute
+    error."""
     phase("3f. K9 (SSD scan) against its plain version")
     max_err = 0.0
     for i, (name, (B, T, nh, P, N, chunk, dtype)) in enumerate(
             SSD_CASES.items()):
-        args = ssd_inputs(50 + i, B, T, nh, P, N, dtype, device)
-        got = ssd.ssd_scan_cuda(*args, chunk)
+        args = ssd_inputs(50 + i, B, T, nh, P, N, dtype, device,
+                          strided=name.startswith("strided"))
+        got = without_sync(ssd.ssd_scan_cuda, *args, chunk)
+        again = ssd.ssd_scan_cuda(*args, chunk)
         torch.cuda.synchronize(device)
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"two K9 launches on {name} differ")
         want = ssd.ssd_scan_plain(*args)
         tol = SSD_BF16_TOL if dtype == torch.bfloat16 else SSD_TOL
         errs = [(g.float() - w.float()).abs().max().item()
@@ -1064,7 +1096,7 @@ def ssd_check_phase(device) -> float:
         for g, w, what in zip(got, want, ("y", "h_final")):
             check(torch.allclose(g.float(), w.float(), **tol),
                   f"K9 {what} disagrees with its plain version on {name}")
-        del args, got, want
+        del args, got, again, want
     torch.cuda.empty_cache()
     return max_err
 
@@ -1116,39 +1148,63 @@ def flash_timing_phase(device) -> dict:
     return t
 
 
+def ssd_bound(B, T, nh, P, N, Q, itemsize=4):
+    """The least work of the scan on these inputs: C B^T depends on no
+    head, so its causal half counts once per (b, chunk), Q (Q + 1) N;
+    per (b, head, chunk) the causal half of the scores times x,
+    Q (Q + 1) P, and the readout and the state update, 4 Q N P.  Bytes:
+    x, dt, B, C, y and the final state once each (A in float32)."""
+    nc = T // Q
+    n_flops = B * nc * Q * (Q + 1) * N + B * nh * nc * (
+        Q * (Q + 1) * P + 4 * Q * N * P)
+    n_bytes = (itemsize * (2 * B * T * nh * P + B * T * nh + 2 * B * T * N
+                           + B * nh * N * P) + 4 * nh)
+    return n_flops, n_bytes
+
+
 def ssd_timing_phase(device) -> dict:
     """K9 and its plain version (the naive recurrence) at the Mamba2-1.3B
-    shape, beside the bound: the causal half of the chunk's products,
-    Q (Q + 1) N + Q (Q + 1) P + 4 Q N P FLOP per (b, head, chunk) (the
-    pairs j <= i of C B^T and of the scores times x, then the readout
-    and the state update), against x, dt, B, C, y and the final state
-    once each.  No single PyTorch call computes the scan."""
+    shape, beside the bound (``ssd_bound``): K9 computes each float32
+    product as three TF32 tensor-core products (3xTF32), so the
+    operations count three times at the TF32 rate; the same FLOP at the
+    SIMT float32 rate beside it (``simt_bound_ms``).  K9 is also timed
+    on bf16 inputs.  No single PyTorch call computes the scan."""
     phase("4f. K9 timing at the Mamba2-1.3B shape")
     B, T, nh, P, N, Q, dtype = SSD_CASES["mamba2_shape"]
     args = ssd_inputs(98, B, T, nh, P, N, dtype, device)
-    n_flops = B * nh * (T // Q) * (Q * (Q + 1) * N + Q * (Q + 1) * P
-                                   + 4 * Q * N * P)
-    n_bytes = 4 * (2 * B * T * nh * P + B * T * nh + 2 * B * T * N + nh
-                   + B * nh * N * P)
+    bf16 = ssd_inputs(98, B, T, nh, P, N, torch.bfloat16, device)
+    n_flops, n_bytes = ssd_bound(B, T, nh, P, N, Q)
+    # the earlier count, with C B^T once per head as well
+    n_flops_per_head = B * nh * (T // Q) * (
+        Q * (Q + 1) * N + Q * (Q + 1) * P + 4 * Q * N * P)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_flops / F32_FLOP_PER_S * 1e3
+    ops_ms = 3 * n_flops / TF32_FLOP_PER_S * 1e3
     t = {}
-    for key, fn, iters in (("ms", lambda: ssd.ssd_scan_cuda(*args, Q), 20),
-                           ("plain_ms", lambda: ssd.ssd_scan_plain(*args),
-                            3)):
+    for key, fn, iters in (
+            ("ms", lambda: ssd.ssd_scan_cuda(*args, Q), 20),
+            ("bf16_ms", lambda: ssd.ssd_scan_cuda(*bf16, Q), 20),
+            ("plain_ms", lambda: ssd.ssd_scan_plain(*args), 3)):
         t[key], _ = time_ms(fn, device, iters=iters, warmup=1)
     t.update(bound_ms=max(bytes_ms, ops_ms),
              bound_by="bytes" if bytes_ms > ops_ms else "operations",
+             bound_rate="3xTF32: 3 TF32 products a float32 product at "
+                        "495 TFLOP/s",
+             simt_bound_ms=n_flops / F32_FLOP_PER_S * 1e3,
              library_ms=None)
     print(json.dumps({"kernel": "ssd_scan", **t,
                       "shape": {"B": B, "T": T, "nh": nh, "P": P, "N": N,
                                 "Q": Q},
                       "flops": n_flops, "bytes": n_bytes,
+                      "bf16_bytes": ssd_bound(B, T, nh, P, N, Q, 2)[1],
+                      "flops_counting_cb_per_head": n_flops_per_head,
                       "achieved_flop_per_s": n_flops / (t["ms"] / 1e3),
-                      "share_of_67TFLOP/s": ops_ms / t["ms"],
+                      "share_of_bound": t["bound_ms"] / t["ms"],
+                      "share_of_simt_bound": t["simt_bound_ms"] / t["ms"],
+                      "passes_ms": device_kernels(
+                          lambda: ssd.ssd_scan_cuda(*args, Q), device, 10),
                       "library_call": "none: no single PyTorch call "
                                       "computes the scan"}), flush=True)
-    del args
+    del args, bf16
     torch.cuda.empty_cache()
     return t
 

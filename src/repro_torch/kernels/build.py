@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers,
 so ``nvcc`` takes seconds, not minutes).  It is compiled for Hopper
 (``sm_90a``) into ``build/<name>-<hash>.so`` at the repository root, at
-the first CUDA launch that needs it; the hash covers the source and the
-flags, so an edited source is rebuilt and an unchanged one is loaded
-from the earlier build.  ``nvcc``'s ``-Xptxas -v`` report (registers,
+the first CUDA launch that needs it; the hash (``digest``) covers the
+source, every shared header ``csrc/*.cuh`` and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded from the
+earlier build.  ``nvcc``'s ``-Xptxas -v`` report (registers,
 shared memory, spills per kernel) is kept beside the library as
 ``<name>-<hash>.log``.
 
@@ -50,15 +51,24 @@ def nvcc() -> str:
                        "(CUDA kernels are built at their first launch)")
 
 
+def digest(src: Path) -> str:
+    """The build hash of ``src``: its bytes, the name and bytes of every
+    header ``*.cuh`` beside it (a source may include any of them) and
+    the nvcc flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load(source: str) -> Library:
     """Build ``csrc/<source>`` if no build of its current content exists,
     then load it (once per process)."""
     if source in _loaded:
         return _loaded[source]
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{src.stem}-{digest}.so"
+    out = BUILD_DIR / f"{src.stem}-{digest(src)}.so"
     log = out.with_suffix(".log")
     build_s = 0.0
     if not out.exists():

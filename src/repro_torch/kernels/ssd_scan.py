@@ -14,7 +14,10 @@ dtype.
 
 * ``ssd_scan_cuda`` launches ``csrc/ssd_scan.cu`` (built on first use by
   ``kernels/build.py``): the chunked SSD algorithm over chunks of Q
-  tokens, from a zero state.  It is bound by operations; the source's
+  tokens, from a zero state, as four chunk-parallel passes (C B^T, chunk
+  states, state passing, chunk scan) on the TF32 tensor cores in the
+  3xTF32 split, with float32 scratch the wrapper allocates.  One call is
+  one launch in ``launches``.  It is bound by operations; the source's
   header says how its design meets that.
 * ``ssd_scan_plain`` is the torch form of the reference oracle
   ``repro/kernels/ref.py::ssd_scan``: the naive O(T) recurrence, in
@@ -56,18 +59,25 @@ def ssd_scan_plain(x, dt, A, B_mat, C_mat, h0=None):
     return torch.stack(ys, dim=1).to(x.dtype), h.to(x.dtype)
 
 
+def _round16(v: int) -> int:
+    return (v + 15) // 16 * 16
+
+
 def smem_bytes(chunk: int, N: int, P: int) -> int:
-    """The kernel's dynamic shared memory: h (N, P), x (Q, P), B (Q, N+1),
-    a 32-row tile of C and of the scores, and cum / dt / w (Q each)."""
-    return 4 * (N * P + chunk * P + chunk * (N + 1) + 32 * (N + 1)
-                + 32 * (chunk + 1) + 3 * chunk)
+    """The largest dynamic shared memory of the kernel's passes, with Q
+    and N rounded up to 16: C B^T (64 rows of C and the keys of B, rows
+    of N + 8), the chunk states (two slots of x (Q, P+4), dt and w of 4
+    heads) and the chunk scan (x (Q, P+4), h_in (N, P+4), dt and cum)."""
+    Qp, Np = _round16(chunk), _round16(N)
+    return 4 * max((64 + Qp) * (Np + 8), Qp * (2 * (P + 4) + 8),
+                   (Qp + Np) * (P + 4) + 2 * Qp)
 
 
 def _library():
     lib = build.load("ssd_scan.cu")
     fn = lib.lib.ssd_scan_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 8
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -134,8 +144,16 @@ def ssd_scan_cuda(x, dt, A, B_mat, C_mat, chunk: int):
     N = B_mat.shape[-1]
     y = torch.empty((Bsz, T, nh, P), dtype=x.dtype, device=x.device)
     h_final = torch.empty((Bsz, nh, N, P), dtype=x.dtype, device=x.device)
+    # float32 scratch of the passes: C B^T of each chunk (Q rounded up to
+    # 16), each chunk's state (then the state entering it) and decay
+    nc, Qp = T // chunk, _round16(chunk)
+    cb = torch.empty((Bsz, nc, Qp, Qp), dtype=torch.float32, device=x.device)
+    states = torch.empty((Bsz, nc, nh, N, P), dtype=torch.float32,
+                         device=x.device)
+    decay = torch.empty((Bsz, nc, nh), dtype=torch.float32, device=x.device)
     err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(),
              C_mat.data_ptr(), y.data_ptr(), h_final.data_ptr(),
+             cb.data_ptr(), states.data_ptr(), decay.data_ptr(),
              Bsz, T, nh, P, N, chunk,
              *x.stride()[:2], *dt.stride()[:2], *B_mat.stride()[:2],
              *C_mat.stride()[:2],

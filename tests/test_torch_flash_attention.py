@@ -35,7 +35,9 @@ from repro_torch.kernels import ops
 from repro_torch.launch import steps
 from repro_torch.models import attention as attn
 from repro_torch.models.model import build_model
-from torch_parity import MODEL_TOL, KERNEL_TOL, assert_close, both_params
+from torch_parity import (MODEL_TOL, KERNEL_TOL, _product_1xtf32,
+                          _product_3xtf32, _split, _tf32, assert_close,
+                          both_params)
 
 BF16_TOL = dict(rtol=5e-2, atol=5e-2)
 # name: (B, T, H, hd, window, dtype, Pallas block_q, block_k) — the
@@ -133,36 +135,6 @@ def test_attention_core_flash_branch_matches_reference():
     assert torch.equal(attn.attention_core(q, k, v, m, use_flash=True),
                        attn.attention_core(q, k, v, m))
     assert fa.launches == before
-
-
-def _tf32(x, round_to_nearest=True):
-    """``x`` (float32) to TF32, 10 mantissa bits: to nearest with ties
-    away (the kernel's big part: add half a TF32 ulp to the magnitude
-    bits, clear the 13 low ones) or by truncation (how the tensor core
-    reads the small part)."""
-    bits = x.contiguous().view(torch.int32)
-    if round_to_nearest:
-        bits = bits + 0x1000
-    return (bits & ~0x1FFF).view(torch.float32)
-
-
-def _split(x):
-    big = _tf32(x)
-    return big, _tf32(x - big, round_to_nearest=False)
-
-
-def _product_3xtf32(eq, a, b):
-    """einsum ``eq`` of float32 a and b as K3 computes it: three products
-    of TF32 parts, the small terms first; each product of two TF32
-    values is exact in float32, as on the tensor core."""
-    (a_big, a_small), (b_big, b_small) = _split(a), _split(b)
-    return (torch.einsum(eq, a_small, b_big)
-            + torch.einsum(eq, a_big, b_small)
-            + torch.einsum(eq, a_big, b_big))
-
-
-def _product_1xtf32(eq, a, b):
-    return torch.einsum(eq, _tf32(a), _tf32(b))
 
 
 def _attention_model(q, k, v, window, product):

@@ -23,6 +23,40 @@ MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
 
 
+# float32 products on TF32 tensor cores, modelled on the CPU: TF32 rounding
+# by bit masking (csrc/tf32x3.cuh)
+def _tf32(x, round_to_nearest=True):
+    """``x`` (float32) to TF32, 10 mantissa bits: to nearest with ties
+    away (the kernel's big part: add half a TF32 ulp to the magnitude
+    bits, clear the 13 low ones) or by truncation (how the tensor core
+    reads the small part)."""
+    bits = x.contiguous().view(torch.int32)
+    if round_to_nearest:
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    big = _tf32(x)
+    return big, _tf32(x - big, round_to_nearest=False)
+
+
+def _product_3xtf32(eq, a, b):
+    """einsum ``eq`` of float32 a and b as the 3xTF32 kernels (K3, K9)
+    compute it: three products of TF32 parts, the small terms first; each
+    product of two TF32 values is exact in float32, as on the tensor
+    core."""
+    (a_big, a_small), (b_big, b_small) = _split(a), _split(b)
+    return (torch.einsum(eq, a_small, b_big)
+            + torch.einsum(eq, a_big, b_small)
+            + torch.einsum(eq, a_big, b_big))
+
+
+def _product_1xtf32(eq, a, b):
+    """One TF32 product per float32 product: what the split avoids."""
+    return torch.einsum(eq, _tf32(a), _tf32(b))
+
+
 def numpy_params(cfg, seed: int = 0):
     """A param tree with the reference's names and shapes, drawn with
     numpy: fan-in scaled projections, small embeddings, norm weights

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's two attention kernels, K3 (flash attention) and K8
-(paged decode attention), from the source tree named by ``--src``, on
-one CUDA card, beside SDPA on the same inputs.
+"""Time the port's attention kernels, K3 (flash attention) and K8 (paged
+decode attention), and its SSD scan K9, from the source tree named by
+``--src``, on one CUDA card, beside SDPA on the same inputs for K3 and K8.
 
     python3 tools/attention_timing.py --src src
     python3 tools/attention_timing.py --src path/to/another/checkout/src
@@ -14,7 +14,9 @@ card while the host enqueues, the median): K3 at the Qwen2.5-3B prefill
 shape (B 2, T 2048, H 16, hd 128) in float32, K8 at the serve path's
 shape (4 rows of 63-116 positions) and at long context (4 rows of
 4096-16384 positions), Qwen2.5-3B's decode geometry (H 16, KV 2, hd 128,
-page size 16).  Prints one JSON line with the card's name and power
+page size 16), K9 at the Mamba2-1.3B shape (B 2, T 2048, 64 heads of 64,
+state 128, chunk 128) in float32 and bf16, each against its plain
+version once.  Prints one JSON line with the card's name and power
 limit.  Exits 2 without a CUDA card.
 """
 from __future__ import annotations
@@ -37,6 +39,7 @@ K8_SHAPES = {
     "long_context": dict(B=4, P=4 * 1024 + 1, H=16, KV=2, hd=128, ps=16,
                          M=1024, lengths=[4096, 8192, 12288, 16384]),
 }
+K9_SHAPE = (2, 2048, 64, 64, 128, 128)   # Mamba2-1.3B: B, T, nh, P, N, Q
 
 
 def time_ms(fn, device, iters, warmup=3):
@@ -117,6 +120,25 @@ def time_k8(pa, shape, device):
             "bound_ms": n_bytes / 3.35e12 * 1e3, "max_abs_err": err}
 
 
+def time_k9(ssd, dtype, device):
+    """chip_smoke.py's K9 timing inputs (seed 98) in ``dtype``."""
+    B, T, nh, P, N, Q = K9_SHAPE
+    gen = torch.Generator(device=device).manual_seed(98)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    x, dt = r(B, T, nh, P) * 0.5, torch.nn.functional.softplus(r(B, T, nh))
+    A = -torch.exp(r(nh) * 0.3)
+    Bm, Cm = r(B, T, N) * 0.5, r(B, T, N) * 0.5
+    args = [t.to(dtype) for t in (x, dt)] + [A] + [
+        t.to(dtype) for t in (Bm, Cm)]
+    err = max((g.float() - w.float()).abs().max().item() for g, w in zip(
+        ssd.ssd_scan_cuda(*args, Q), ssd.ssd_scan_plain(*args)))
+    return {"ms": time_ms(lambda: ssd.ssd_scan_cuda(*args, Q), device, 20),
+            "max_abs_err": err}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", required=True,
@@ -129,6 +151,7 @@ def main() -> int:
     sys.path.insert(0, src)
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd_scan as ssd
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -141,6 +164,8 @@ def main() -> int:
            "flash_attention": time_k3(fa, device)}
     for name, shape in K8_SHAPES.items():
         out[f"paged_attention_{name}"] = time_k8(pa, shape, device)
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        out[f"ssd_scan_{name}"] = time_k9(ssd, dtype, device)
     out["script_s"] = round(time.perf_counter() - t0, 1)
     print(json.dumps(out), flush=True)
     return 0
