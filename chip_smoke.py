@@ -38,6 +38,13 @@ itself and, in order:
    xBC tensor (as the Mamba2 model hands them over) and the Mamba2-1.3B
    shape (B 2, T 2048, 64 heads, P 64, N 128, Q 128), each launched
    twice (bitwise equal) and once with host synchronisation forbidden;
+   then (phase 3g) K3 and K8 at the moe, hybrid, vlm and audio families'
+   geometries: K3 at (2, 1024) x 32 heads of 64 (and T 1088: MusicGen's
+   64 cond frames), 14 heads of 64 and 16 heads of 128, K8 at hd 64 with
+   groups of 1, hd 64 with a group of 7 (14 over 2 KV heads) and hd 128
+   with groups of 1, at the serve rows' lengths and on its splits'
+   edges, each launched twice (bitwise equal) and once with host
+   synchronisation forbidden;
 4. times each kernel, its plain version and, where one exists, one
    PyTorch library call (CUDA events, L2 flushed before every launch)
    beside the least time the card could take: K8 at the serve path's
@@ -49,7 +56,10 @@ itself and, in order:
    float32 product as three TF32 tensor-core products, with the SIMT
    float32 bound beside it), K9 at the Mamba2-1.3B shape in float32
    and bf16 (its bound counts C B^T once per (b, chunk) and each
-   float32 product as three TF32 products, the SIMT bound beside it);
+   float32 product as three TF32 products, the SIMT bound beside it),
+   and (phase 4h) K3 and K8 at the new families' geometries beside their
+   plain versions and SDPA, the card's name and power limit on each
+   line;
 5. serves through the port's serve CLI functions: full-width
    Qwen2.5-3B in float32 (random params, torch.Generator seed 0), the
    paged engine decoding through K8, 8 requests of 63-84 prompt tokens,
@@ -63,7 +73,23 @@ itself and, in order:
    layers, d_model 2048, float32, random params): a forward over 2 x
    2048 tokens through K9 (48 launches) against ``ssd_chunked`` (logits
    within 1e-3), and 8 requests served through the engine, dense and
-   paged, with equal tokens;
+   paged, with equal tokens; then (phases 5f-5i) the four remaining
+   families at full width and depth, float32, random params (seed 0),
+   each freed before the next is built — Qwen1.5-MoE-A2.7B (14.3 B
+   params), Zamba2-1.2B, InternVL2-1B (256 patch embeddings a request)
+   and MusicGen-large (64 cond frames, 4 codebooks): 8 requests, 32
+   greedy tokens each, 4 slots, page size 16, through the paged engine
+   with K8 (launches = attention layers or sites x decode steps) and
+   through the gather path, equal tokens (the hybrid also through the
+   dense engine; the moe family compared up to the first token whose
+   decode step routed a token below a router margin of 1e-4 on the
+   gather path), then a 2 x 1024 prefill (moe, through
+   ``steps.make_prefill_step``) or forward through K3 (24, 7, 24 and 48
+   launches; the hybrid also through K9, 38) against the plain path:
+   logits within 1e-3 and the same next tokens (moe: on every position
+   whose routings all clear the margin and that no routing difference
+   reaches; a routing difference whose margin clears it fails), with
+   each phase's wall time and peak memory;
 6. trains through the port's train CLI functions, under deterministic
    algorithms: full-width Qwen2.5-3B (d_model 2048, 16 q / 2 KV heads,
    head_dim 128, d_ff 11008, vocab 151936) with its depth cut from 36
@@ -85,8 +111,10 @@ itself and, in order:
    on the same cell through K7 (8 launches in 8 steps; losses and final
    x, v and ref equal to the run without ``--use-kernel`` bit for bit)
    and SGD (finite losses, no port kernel), and Mamba2-1.3B cut to 4
-   layers through K1 / K2 (8 and 2 launches; losses and final x equal to
-   the plain path's bit for bit); then holds K1, K2, K4, K5, K6 and K7
+   layers, Qwen1.5-MoE-A2.7B cut to 1 layer (4.77 GB a copy, five copies
+   a replica) and Zamba2-1.2B cut to 12 layers through K1 / K2 (8 and 2
+   launches; losses and final x equal to the plain path's bit for bit);
+   then holds K1, K2, K4, K5, K6 and K7
    against their plain versions at the training shape;
 7. prints one JSON line of per-kernel numbers;
 8. runs the quickstart (``repro_torch.examples.quickstart``: the MLP on
@@ -127,7 +155,9 @@ from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import parle_update as pu  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.launch import serve, steps, train  # noqa: E402
+from repro_torch.models import hybrid  # noqa: E402
 from repro_torch.models import mamba2  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.obs import Obs  # noqa: E402
@@ -1365,40 +1395,590 @@ def mamba2_phase(device) -> dict:
     return res
 
 
-def train_mamba2_phase(device) -> dict:
-    """Full-width Mamba2-1.3B cut to TRAIN_LAYERS layers through the
+# ------------------------------------------------------------------
+# K3 and K8 at the geometries of the moe, hybrid, vlm and audio families
+# ------------------------------------------------------------------
+
+# name: (B, T, H, hd): K3 takes GQA expanded, so a group shows only in H
+GEOMETRY_FLASH = {
+    "hd64_h32": (2, 1024, 32, 64),           # Zamba2-1.2B's sites
+    "hd64_h32_cond": (2, 1088, 32, 64),      # MusicGen: 64 cond + 1024
+    "hd64_h14": (2, 1024, 14, 64),           # InternVL2-1B, 14 over 2 KV
+    "hd128_h16": (2, 1024, 16, 128),         # Qwen1.5-MoE, 16 over 16 KV
+}
+# name: (H, KV, hd) of the decode q and pools
+GEOMETRY_PAGED = {
+    "hd64_group1": (32, 32, 64),
+    "hd64_group7": (14, 2, 64),
+    "hd128_group1": (16, 16, 128),
+}
+GEOMETRY_SERVE_LENGTHS = [63, 80, 99, 116]   # the serve shape's rows
+GEOMETRY_SPLIT_M = 64                        # pages a row, split edges
+
+
+def geometry_check_phase(device) -> dict:
+    """K3 and K8 against their plain versions at the new families'
+    geometries: K3 at hd 64 with 32 heads (groups of 1), 14 heads (a
+    group of 7, expanded) and hd 128 with 16 heads; K8 at hd 64 groups
+    of 1, hd 64 a group of 7 and hd 128 groups of 1, at the serve rows'
+    lengths and at lengths on the edges of its splits.  Each launched
+    twice (bitwise equal) and once with host synchronisation forbidden.
+    Returns the largest errors."""
+    phase("3g. K3 and K8 at the moe, hybrid, vlm and audio geometries")
+    errs = {"flash_attention": 0.0, "paged_attention": 0.0}
+    for i, (name, (B, T, H, hd)) in enumerate(GEOMETRY_FLASH.items()):
+        q, k, v = flash_inputs(70 + i, B, T, H, hd, torch.float32, device)
+        got = without_sync(fa.flash_attention_cuda, q, k, v)
+        again = fa.flash_attention_cuda(q, k, v)
+        torch.cuda.synchronize(device)
+        check(torch.equal(got, again), f"two K3 launches on {name} differ")
+        want = fa.flash_attention_plain(q, k, v)
+        err = (got - want).abs().max().item()
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        print(f"K3 {name}: (B, T, H, hd) {(B, T, H, hd)} max_abs_err "
+              f"{err:.3e}", flush=True)
+        check(torch.allclose(got, want, **TOL),
+              f"K3 disagrees with its plain version on {name} ({err:.3e})")
+        del q, k, v, got, again, want
+    for i, (name, (H, KV, hd)) in enumerate(GEOMETRY_PAGED.items()):
+        M = GEOMETRY_SPLIT_M
+        for case, B, lengths in (
+                ("serve", 4, GEOMETRY_SERVE_LENGTHS),
+                ("split_edges", 6, split_lengths(device, 6, KV, M, 16))):
+            P = B * M + 1
+            args = paged_inputs(80 + i, B=B, P=P, H=H, KV=KV, hd=hd, ps=16,
+                                M=M, lengths=lengths, device=device)
+            got = without_sync(pa.paged_attention_cuda, *args)
+            again = pa.paged_attention_cuda(*args)
+            torch.cuda.synchronize(device)
+            check(torch.equal(got, again),
+                  f"two K8 launches on {name} {case} differ")
+            want = pa.paged_attention_plain(*args)
+            err = (got - want).abs().max().item()
+            errs["paged_attention"] = max(errs["paged_attention"], err)
+            print(f"K8 {name} {case}: H {H} KV {KV} hd {hd} lengths "
+                  f"{lengths} max_abs_err {err:.3e}", flush=True)
+            check(torch.allclose(got, want, **TOL),
+                  f"K8 disagrees with its plain version on {name} {case} "
+                  f"({err:.3e})")
+            del args, got, again, want
+    torch.cuda.empty_cache()
+    return errs
+
+
+def geometry_timing_phase(device, smi) -> dict:
+    """K3 and K8 at the new geometries, each beside its plain version,
+    SDPA and its bound (K3: the 3xTF32 operations bound; K8: the bytes of
+    the live K/V), the card's name and power limit beside each line."""
+    phase("4h. K3 and K8 timing at the moe, hybrid, vlm and audio "
+          "geometries")
+    out = {}
+    for name, (B, T, H, hd) in GEOMETRY_FLASH.items():
+        q, k, v = flash_inputs(91, B, T, H, hd, torch.float32, device)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        n_flops = 2 * B * H * T * T * hd
+        bytes_ms = 4 * q.numel() * 4 / HBM_BYTES_PER_S * 1e3
+        ops_ms = 3 * n_flops / TF32_FLOP_PER_S * 1e3
+        t = {}
+        for key, fn, iters in (
+                ("ms", lambda: fa.flash_attention_cuda(q, k, v), 30),
+                ("plain_ms", lambda: fa.flash_attention_plain(q, k, v), 10),
+                ("library_ms", lambda: torch.nn.functional
+                 .scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                 30)):
+            t[key], _ = time_ms(fn, device, iters=iters, warmup=3)
+        t.update(bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms > ops_ms else "operations",
+                 simt_bound_ms=n_flops / F32_FLOP_PER_S * 1e3)
+        out[f"flash_attention/{name}"] = t
+        print(json.dumps({"kernel": "flash_attention", "geometry": name,
+                          "shape": [B, T, H, hd], **t, "card": smi}),
+              flush=True)
+        del q, k, v, qt, kt, vt
+    for name, (H, KV, hd) in GEOMETRY_PAGED.items():
+        shape = dict(B=4, P=4 * 8 + 1, H=H, KV=KV, hd=hd, ps=16, M=8,
+                     lengths=GEOMETRY_SERVE_LENGTHS)
+        args = paged_inputs(92, device=device, **shape)
+        q, _, _, table, lengths = args
+        n_bytes, n_flops = paged_bytes_flops(shape, q, table, lengths)
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = n_flops / F32_FLOP_PER_S * 1e3
+        library = sdpa_over_extent(shape, args, device)
+        t = {}
+        for key, fn in (("ms", lambda: pa.paged_attention_cuda(*args)),
+                        ("plain_ms", lambda: pa.paged_attention_plain(*args)),
+                        ("library_ms", library)):
+            t[key], _ = time_ms(fn, device)
+        t.update(bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        out[f"paged_attention/{name}"] = t
+        print(json.dumps({"kernel": "paged_attention", "geometry": name,
+                          "H": H, "KV": KV, "hd": hd,
+                          "lengths": shape["lengths"], **t, "card": smi}),
+              flush=True)
+        del args, q, table, lengths, library
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------------
+# the moe, hybrid, vlm and audio families at full width
+# ------------------------------------------------------------------
+
+MARGIN = 1e-4              # router margin (k-th minus (k+1)-th probability)
+FAMILY_FORWARD = (2, 1024)
+FAMILY_SERVE_ARGV = ["--device", "cuda", "--paged", "--slots", "4",
+                     "--page-size", "16", "--prefill-chunk", "32",
+                     "--decode-chunk", "8", "--requests", "8",
+                     "--mixed-lens", "--arrive-every", "2", "--gen", "32",
+                     "--seed", "0"]
+FAMILY_PROMPT_LEN = {"qwen2-moe-a2.7b": 64, "zamba2-1.2b": 300,
+                     "internvl2-1b": 300, "musicgen-large": 64}
+
+
+class RouteRecorder:
+    """Records every MoE routing while active: ``moe.route`` is wrapped
+    (the dispatch looks it up at each call) so each call appends the
+    router margin of every token — its k-th minus its (k+1)-th
+    probability — and its expert ids, as device tensors."""
+
+    def __init__(self):
+        self.records = []
+        self._orig = None
+
+    def __enter__(self):
+        self._orig = moe.route
+        orig = self._orig
+
+        def recording_route(params, cfg, xf):
+            probs, gates, ids = orig(params, cfg, xf)
+            top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+            self.records.append((top[:, -2] - top[:, -1], ids))
+            return probs, gates, ids
+
+        moe.route = recording_route
+        return self
+
+    def __exit__(self, *exc):
+        moe.route = self._orig
+
+
+def _kept_sets(ids, cfg):
+    """Each token's expert set and the subset its capacity kept (-1 for a
+    dropped routing), both sorted: the dispatch's keep rule on ``ids``
+    (T, K)."""
+    T, K = ids.shape
+    flat = ids.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    inv = torch.argsort(order)
+    counts = torch.bincount(flat, minlength=cfg.num_experts)
+    starts = torch.cumsum(counts, 0) - counts
+    keep = (inv - starts[flat]) < moe._capacity(T, cfg)
+    kept = torch.where(keep, flat, -1).reshape(T, K)
+    return ids.sort(-1).values, kept.sort(-1).values
+
+
+def routing_differences(rec_plain, rec_kernel, cfg, B, T):
+    """Compare the two paths' routings of a (B, T) forward, layer by
+    layer: (routing differs (L, B, T), root differences, margins (L, B,
+    T)).  A token's routing differs when its expert set or the part of
+    it the capacity kept differs.  A difference is explained by an
+    earlier-layer difference at or before its position in its row
+    (attention carries it there) or, for a changed kept set, by a
+    changed expert set at an earlier token of the same layer (the
+    bucket positions); the rest are roots."""
+    id_diff, keep_diff, margins = [], [], []
+    for (m_p, ids_p), (_, ids_k) in zip(rec_plain, rec_kernel):
+        set_p, kept_p = _kept_sets(ids_p, cfg)
+        set_k, kept_k = _kept_sets(ids_k, cfg)
+        id_diff.append((set_p != set_k).any(-1).cpu())
+        keep_diff.append((kept_p != kept_k).any(-1).cpu())
+        margins.append(m_p.float().cpu())
+    id_diff, keep_diff = torch.stack(id_diff), torch.stack(keep_diff)
+    margins = torch.stack(margins).reshape(-1, B, T)
+    diff = (id_diff | keep_diff).reshape(-1, B, T)
+    earlier = torch.zeros_like(diff)                  # any layer < l
+    earlier[1:] = diff.cumsum(0)[:-1] > 0
+    earlier = earlier.int().cummax(-1).values > 0     # at or before t
+    same_layer = torch.zeros_like(id_diff)            # earlier flat token
+    same_layer[:, 1:] = id_diff.int().cumsum(-1)[:, :-1] > 0
+    id_root = id_diff.reshape(diff.shape) & ~earlier
+    keep_root = (keep_diff & ~id_diff & ~same_layer).reshape(
+        diff.shape) & ~earlier
+    return diff, id_root, keep_root, margins
+
+
+def moe_prefill_phase(device, cfg, params) -> dict:
+    """K3's path through the moe family: a 2 x 1024 prefill through
+    ``steps.make_prefill_step(use_flash=True)`` (24 K3 launches) against
+    ``use_flash=False``, the routings of both recorded.  Routings whose
+    margin on the plain path is below MARGIN may flip; any other
+    difference fails.  Logits and KV are held to PATH_LOGIT_TOL on every
+    position whose routings all clear MARGIN and that no routing
+    difference reaches (it and every position after it in its row)."""
+    B, T = FAMILY_FORWARD
+    phase(f"5f-2. K3's path: {cfg.name} prefill of {B} x {T} tokens, "
+          "use_flash against plain, routing margins recorded")
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, size=(B, T)), dtype=torch.int32, device=device)
+    model = build_model(cfg)
+    out = {}
+    for use_flash in (True, False):
+        cache = model.init_cache(params, B, T)
+        prefill = steps.make_prefill_step(cfg, use_flash=use_flash)
+        reset_launches()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        with torch.no_grad(), RouteRecorder() as rec:
+            logits, cache = prefill(params, {"tokens": toks}, cache)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        launches = launch_counts(
+            flash_attention=cfg.num_layers if use_flash else 0)
+        out[use_flash] = (logits, cache, wall, launches, rec.records)
+    (lf, cf, wall_f, launches, rec_f), (lp, cp, wall_p, _, rec_p) = (
+        out[True], out[False])
+    check(len(rec_p) == len(rec_f) == cfg.num_layers,
+          f"recorded {len(rec_p)} / {len(rec_f)} routings, expected one a "
+          "layer")
+    diff, id_root, keep_root, margins = routing_differences(
+        rec_p, rec_f, cfg, B, T)
+    low = margins < MARGIN
+    bad = id_root & ~low
+    check(not bool(bad.any()) and not bool(keep_root.any()),
+          f"{int(bad.sum())} routings with margin >= {MARGIN} differ at "
+          f"their root, {int(keep_root.sum())} kept sets differ "
+          "unexplained")
+    # a difference reaches its position and every later one of its row
+    reached = diff.any(0).int().cummax(-1).values > 0        # (B, T)
+    include = ~reached & ~low.any(0)
+    inc = include.to(device)
+    logit_err = (lf - lp).abs()[inc].max().item()
+    kv_err = max((cf.k - cp.k).abs()[:, inc].max().item(),
+                 (cf.v - cp.v).abs()[:, inc].max().item())
+    next_f, next_p = lf[:, -1].argmax(-1), lp[:, -1].argmax(-1)
+    low_margins = margins[low]
+    res = {"launches": launches["flash_attention"], "prompt": [B, T],
+           "routings": int(margins.numel()) * cfg.top_k,
+           "routing_differences": int(diff.sum()),
+           "root_differences": int(id_root.sum()),
+           "root_margins": margins[id_root].tolist(),
+           "positions_held": int(include.sum()),
+           "positions_below_margin": int(low.any(0).sum()),
+           "positions_reached_by_a_difference": int(reached.sum()),
+           "routings_below_margin": int(low.sum()),
+           "smallest_margins": low_margins.sort().values[:16].tolist(),
+           "margin_quantiles_below": (torch.quantile(
+               low_margins, torch.tensor([0.1, 0.5, 0.9])).tolist()
+               if low_margins.numel() else []),
+           "max_logit_err_held": logit_err, "max_kv_cache_err_held": kv_err,
+           "next_tokens_flash": next_f.tolist(),
+           "next_tokens_plain": next_p.tolist(),
+           "last_position_held": include[:, -1].tolist(),
+           "prefill_wall_s": {"flash": wall_f, "plain": wall_p}}
+    print(json.dumps(res), flush=True)
+    check(bool(torch.isfinite(lf).all())
+          and lf.shape == (B, T, cfg.vocab_size),
+          "moe flash prefill logits not finite or of the wrong shape")
+    check(bool(inc.any()) and logit_err <= 1e-3 and kv_err <= 1e-3
+          and torch.allclose(lf[inc], lp[inc], **PATH_LOGIT_TOL),
+          f"moe flash prefill differs from the plain prefill on held "
+          f"positions: logits {logit_err:.3e}, KV {kv_err:.3e}")
+    for b in range(B):
+        if bool(include[b, -1]):
+            check(int(next_f[b]) == int(next_p[b]),
+                  f"row {b}: flash next token {int(next_f[b])} != plain "
+                  f"{int(next_p[b])}")
+    del out, lf, lp, cf, cp
+    _release()
+    return res
+
+
+def _decode_margin_cuts(chunks, num_layers):
+    """{uid: index of the first generated token whose decode step routed
+    a token of that request below MARGIN} from the gather run's decode
+    chunks: (slot -> (uid, tokens emitted before the chunk), routing
+    records of the chunk, one a layer and step)."""
+    cuts = {}
+    for slots, records in chunks:
+        if not records or not slots:
+            continue
+        m = torch.stack([r[0] for r in records]).float().cpu()
+        m = m.reshape(-1, num_layers, m.shape[-1]).min(1).values  # (C, B)
+        for slot, (uid, before) in slots.items():
+            low = torch.nonzero(m[:, slot] < MARGIN)
+            if low.numel():
+                cuts[uid] = min(cuts.get(uid, 1 << 30),
+                                before + int(low[0, 0]))
+    return cuts
+
+
+def _record_decode_chunks(engine_cls, recorder, chunks):
+    """Wrap ``engine_cls._decode_chunk`` so each chunk appends (its
+    decoding slots -> (uid, tokens emitted so far), the routings
+    recorded during it); returns the original to restore."""
+    orig = engine_cls._decode_chunk
+
+    def wrapped(self, active):
+        slots = {s: (self.sched.slots[s].request.uid,
+                     len(self.sched.slots[s].emitted))
+                 for s in self.sched.decoding_slots()}
+        start = len(recorder.records)
+        result = orig(self, active)
+        chunks.append((slots, recorder.records[start:]))
+        return result
+
+    engine_cls._decode_chunk = wrapped
+    return orig
+
+
+def family_serve_phase(device, cfg, params, label) -> dict:
+    """Serve 8 requests of ``cfg`` through the paged engine with K8
+    (launches = attention layers or sites x decode steps), then through
+    the gather path (no kernel): equal tokens; the hybrid also through
+    the dense engine.  For the moe family the gather run records every
+    decode step's routing margins, and a request's tokens are compared
+    up to the first one whose decode step routed below MARGIN."""
+    from repro_torch.serving.engine import Engine
+    argv = (["--arch", cfg.name, "--prompt-len",
+             str(FAMILY_PROMPT_LEN[cfg.name])] + FAMILY_SERVE_ARGV)
+    args_k = serve.parse_args(argv + ["--paged-kernel"])
+    phase(f"{label}. {cfg.name} serving: paged engine through K8, then the "
+          "gather path" + (" and the dense engine" if cfg.family == "hybrid"
+                           else ""))
+    requests = serve.make_requests(cfg, args_k)
+    print("prompt lengths:", [r["tokens"].shape[-1] for r in requests],
+          {k: list(v.shape) for k, v in requests[0].items() if k != "tokens"},
+          flush=True)
+    sites = (hybrid.num_attn_sites(cfg) if cfg.family == "hybrid"
+             else cfg.num_layers)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    res_k, engine, rep_k = serve.engine_serve(cfg, params, requests, args_k,
+                                              Obs(), device)
+    steps_k = engine.stats["decode_steps"]
+    k8 = launch_counts(paged_attention=sites * steps_k)["paged_attention"]
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    streams = cfg.num_codebooks if cfg.family == "audio" else 0
+    want_shape = (streams, args_k.gen) if streams else (args_k.gen,)
+    check(sorted(res_k) == list(range(len(requests))), "requests missing")
+    for uid, toks in res_k.items():
+        check(toks.shape == want_shape and bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"request {uid} returned {toks.shape} / out-of-vocabulary "
+            "tokens")
+    print(f"K8 launches {k8} = {sites} x {steps_k} decode steps; peak "
+          f"{peak:.3f} GiB", flush=True)
+    del engine
+    _release()
+
+    chunks = []
+    with RouteRecorder() as rec:
+        orig = _record_decode_chunks(Engine, rec, chunks)
+        try:
+            res_g, engine, rep_g = serve.engine_serve(
+                cfg, params, requests, serve.parse_args(argv), Obs(), device)
+        finally:
+            Engine._decode_chunk = orig
+    launch_counts(paged_attention=k8)              # the gather path: none
+    cuts = (_decode_margin_cuts(chunks, cfg.num_layers)
+            if cfg.family == "moe" else {})
+    del engine, rec, chunks
+    _release()
+    for uid in res_k:
+        n = cuts.get(uid, args_k.gen)
+        check(bool((res_k[uid][..., :n] == res_g[uid][..., :n]).all()),
+              f"request {uid}: kernel tokens {res_k[uid].tolist()} != "
+              f"gather-path tokens {res_g[uid].tolist()} (compared up to "
+              f"token {n})")
+    whole = sum(bool((res_k[u] == res_g[u]).all()) for u in res_k)
+    print(f"gather path: same tokens for all {len(res_g)} requests"
+          + (f"; {len(cuts)} compared only up to a decode step routed "
+             f"below {MARGIN}: {cuts}; all {args_k.gen} tokens equal in "
+             f"{whole} of {len(res_k)}" if cfg.family == "moe" else ""),
+          flush=True)
+    keys = ("decode_tokens_per_s", "prefill_tokens_per_s", "itl_ms",
+            "ttft_ms", "wall_s")
+    out = {"k8_launches": k8, "decode_steps": steps_k,
+           "peak_memory_gib": round(peak, 3),
+           "paged_kernel": {k: rep_k[k] for k in keys},
+           "gather": {k: rep_g[k] for k in keys},
+           "requests_cut_by_margin": {str(u): c for u, c in cuts.items()},
+           "requests_all_tokens_equal": whole}
+    if cfg.family == "hybrid":
+        dense_argv = [a for a in argv if a != "--paged"]
+        res_d, engine, rep_d = serve.engine_serve(
+            cfg, params, requests, serve.parse_args(dense_argv), Obs(),
+            device)
+        launch_counts(paged_attention=k8)
+        for uid in res_k:
+            check(bool((res_d[uid] == res_g[uid]).all()),
+                  f"request {uid}: dense tokens {res_d[uid].tolist()} != "
+                  f"paged tokens {res_g[uid].tolist()}")
+        print(f"dense engine: same tokens for all {len(res_d)} requests",
+              flush=True)
+        out["dense"] = {k: rep_d[k] for k in keys}
+        del engine
+        _release()
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def family_forward_phase(device, cfg, params, label) -> dict:
+    """The 2 x 1024 forward of the hybrid (K3 once a site, K9 once an SSM
+    layer), vlm (256 patch embeddings a row; K3 once a layer) or audio
+    (64 cond frames, 4 codebooks; K3 once a layer) family through the
+    kernels against the plain forward: logits within PATH_LOGIT_TOL and
+    the same next tokens."""
+    B, T = FAMILY_FORWARD
+    rng = np.random.default_rng(3)
+    if cfg.family == "audio":
+        tshape = (B, cfg.num_codebooks, T)
+    else:
+        tshape = (B, T)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=tshape),
+                           dtype=torch.int32, device=device)
+    batch = {"tokens": toks}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.as_tensor(rng.standard_normal(
+            (B, cfg.num_patches, cfg.d_model), dtype=np.float32),
+            device=device)
+    if cfg.family == "audio":
+        batch["cond"] = torch.as_tensor(rng.standard_normal(
+            (B, cfg.cond_len, cfg.d_model), dtype=np.float32), device=device)
+    if cfg.family == "hybrid":
+        want = dict(flash_attention=hybrid.num_attn_sites(cfg),
+                    ssd_scan=cfg.num_layers)
+        run = {True: lambda: hybrid.forward(params, cfg, toks,
+                                            use_flash=True, use_kernel=True),
+               False: lambda: hybrid.forward(params, cfg, toks)}
+    else:
+        want = dict(flash_attention=cfg.num_layers)
+        run = {f: (lambda f=f: build_model(cfg, use_flash=f).apply(params,
+                                                                   batch))
+               for f in (True, False)}
+    phase(f"{label}. {cfg.name} forward of {B} x {T} tokens through "
+          f"{', '.join(want)} against the plain forward")
+    walls, logits = {}, {}
+    torch.cuda.reset_peak_memory_stats(device)
+    with torch.no_grad():
+        for kern in (True, False):
+            reset_launches()
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            logits[kern], _ = run[kern]()
+            torch.cuda.synchronize(device)
+            walls["kernel" if kern else "plain"] = time.perf_counter() - t0
+            launches = launch_counts(**(want if kern else {}))
+            if kern:
+                got_launches = {k: launches[k] for k in want}
+    lk, lp = logits[True], logits[False]
+    err = (lk - lp).abs().max().item()
+    next_k, next_p = lk[:, -1].argmax(-1), lp[:, -1].argmax(-1)
+    res = {"launches": got_launches, "tokens": list(tshape),
+           "max_logit_err": err, "logit_tolerance": PATH_LOGIT_TOL,
+           "forward_wall_s": walls,
+           "peak_memory_gib": round(torch.cuda.max_memory_allocated(device)
+                                    / 2 ** 30, 3),
+           "next_tokens_kernel": next_k.tolist(),
+           "argmax_agree_share": (lk.argmax(-1) == lp.argmax(-1)).float()
+           .mean().item()}
+    print(json.dumps(res), flush=True)
+    shape = ((B, T, cfg.num_codebooks, cfg.vocab_size)
+             if cfg.family == "audio" else (B, T, cfg.vocab_size))
+    check(bool(torch.isfinite(lk).all()) and tuple(lk.shape) == shape,
+          f"{cfg.name} kernel-path logits not finite or not {shape}")
+    check(torch.allclose(lk, lp, **PATH_LOGIT_TOL),
+          f"{cfg.name} forward through the kernels differs from the plain "
+          f"forward ({err:.3e})")
+    check(torch.equal(next_k, next_p),
+          f"{cfg.name} next tokens differ: {next_k.tolist()} vs "
+          f"{next_p.tolist()}")
+    del logits, lk, lp
+    _release()
+    return res
+
+
+FAMILY_ARCHS = (("qwen2-moe-a2.7b", "5f"), ("zamba2-1.2b", "5g"),
+                ("internvl2-1b", "5h"), ("musicgen-large", "5i"))
+
+
+def families_phase(device) -> dict:
+    """Each of the four families at full width and depth, float32,
+    random params from torch.Generator seed 0: served through K8 (and
+    the gather path), then the 2 x 1024 prefill (moe) or forward through
+    K3 (and K9 in the hybrid).  Each model is freed before the next is
+    built; wall time and peak memory of each phase are printed."""
+    out = {}
+    for arch, label in FAMILY_ARCHS:
+        _release()
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats(device)
+        args = serve.parse_args(["--arch", arch] + FAMILY_SERVE_ARGV)
+        params = serve.init_params(cfg, args, device)
+        torch.cuda.synchronize(device)
+        n_params = sum(p.numel() for p in _leaves(params))
+        print(f"== {label}. {arch}: {n_params / 1e9:.3f} B params f32 "
+              f"({n_params * 4 / 1e9:.1f} GB) on {device}, init "
+              f"{time.perf_counter() - t0:.2f} s; device memory in use "
+              f"{torch.cuda.memory_allocated(device) / 2 ** 30:.3f} GiB",
+              flush=True)
+        res = {"params": n_params,
+               "serve": family_serve_phase(device, cfg, params, label)}
+        if cfg.family == "moe":
+            res["prefill"] = moe_prefill_phase(device, cfg, params)
+        else:
+            res["forward"] = family_forward_phase(device, cfg, params,
+                                                  f"{label}-2")
+        res["peak_memory_gib"] = round(torch.cuda.max_memory_allocated(
+            device) / 2 ** 30, 3)
+        res["phase_wall_s"] = round(time.perf_counter() - t0, 1)
+        print(json.dumps({"family_phase": arch, **{
+            k: res[k] for k in ("params", "peak_memory_gib",
+                                "phase_wall_s")}}), flush=True)
+        out[arch] = res
+        del params
+        _release()
+    return out
+
+
+def train_family_phase(device, arch, layers, label) -> dict:
+    """Full-width ``arch`` with its depth cut to ``layers`` through the
     train CLI: Parle n=2, L=4, 8 steps, --round-fused, through K1/K2 (8
-    and 2 launches; no K9 on the training path, as in the reference) and
-    without --use-kernel: the same losses and final x bit for bit."""
-    cfg = dataclasses.replace(get_config("mamba2-1.3b"),
-                              num_layers=TRAIN_LAYERS)
-    phase(f"6g. {cfg.name} training: full width cut to {TRAIN_LAYERS} "
+    and 2 launches; no K3 or K9 on the training path, as in the
+    reference) and without --use-kernel: the same losses and final x bit
+    for bit (deterministic algorithms, set by the caller)."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    phase(f"{label}. {cfg.name} training: full width cut to {layers} "
           "layers, parle n=2 L=4, 8 steps, K1/K2 against the plain path")
+    _release()
     losses_k, walls_k, state, eval_k, peak = _train_measured(
-        device, train_argv(arch="mamba2-1.3b"), cfg)
+        device, train_argv(arch=arch), cfg)
     launches = launch_counts(parle_inner_update=8, parle_sync_update=2)
-    n, m = state.x.shape
+    m = state.x.shape[1]
     x_k = state.x.cpu()
     del state
     _release()
-    print(f"mamba2: launches {launches}; M = {m} per replica; losses "
+    print(f"{arch}: launches {launches}; M = {m} per replica; losses "
           f"{losses_k.tolist()}; round walls {walls_k}; peak {peak:.3f} GiB",
           flush=True)
     losses_p, walls_p, state, _, peak_p = _train_measured(
-        device, train_argv(use_kernel=False, arch="mamba2-1.3b"), cfg)
+        device, train_argv(use_kernel=False, arch=arch), cfg)
     launch_counts()
     check(torch.equal(losses_k, losses_p) and torch.equal(x_k, state.x.cpu()),
-          f"mamba2: kernel path {losses_k.tolist()} != plain path "
+          f"{arch}: kernel path {losses_k.tolist()} != plain path "
           f"{losses_p.tolist()} (or final x differs)")
     del state, x_k
     _release()
-    out = {"launches": {k: v for k, v in launches.items() if v},
+    out = {"layers": layers, "launches": {k: v for k, v in launches.items()
+                                          if v},
            "elements_per_replica": m, "losses": losses_k.tolist(),
            "eval_loss": eval_k,
            "round_wall_s": {"kernel": walls_k, "plain": walls_p},
            "peak_memory_gib": round(peak, 3),
            "plain_peak_memory_gib": round(peak_p, 3)}
-    print("mamba2: kernel path == plain path bit for bit (8 losses, final "
+    print(f"{arch}: kernel path == plain path bit for bit (8 losses, final "
           "x)", flush=True)
     print(json.dumps(out), flush=True)
     return out
@@ -1432,6 +2012,14 @@ def launch_counts(**want) -> dict:
 
 
 TRAIN_LAYERS = 4
+# train_phase's result key, arch: the families trained beside Qwen2.5-3B
+TRAINED_FAMILIES = (("mamba2", "mamba2-1.3b"), ("moe", "qwen2-moe-a2.7b"),
+                    ("hybrid", "zamba2-1.2b"))
+# Qwen1.5-MoE-A2.7B: one layer plus the embedding and the untied head is
+# 4.77 GB of float32 a copy; Parle keeps five a replica, 47.7 GB at n = 2
+MOE_TRAIN_LAYERS = 1
+# Zamba2-1.2B: 12 Mamba2 layers (two sites of the shared block)
+HYBRID_TRAIN_LAYERS = 12
 
 
 def train_argv(steps=8, use_kernel=True, algo="parle", arch="qwen2.5-3b"):
@@ -1553,7 +2141,12 @@ def train_phase(device) -> dict:
     out["bf16"] = train_bf16_phase(device)
     out["int8"] = train_int8_phase(device)
     out.update(train_baselines_phase(device))
-    out["mamba2"] = train_mamba2_phase(device)
+    out["mamba2"] = train_family_phase(device, "mamba2-1.3b", TRAIN_LAYERS,
+                                       "6g")
+    out["moe"] = train_family_phase(device, "qwen2-moe-a2.7b", MOE_TRAIN_LAYERS,
+                                    "6h")
+    out["hybrid"] = train_family_phase(device, "zamba2-1.2b",
+                                       HYBRID_TRAIN_LAYERS, "6i")
     torch.use_deterministic_algorithms(False)
     return out
 
@@ -1887,6 +2480,7 @@ def main() -> int:
     parle_errs.update(elastic_check_phase(device))
     flash_err = flash_check_phase(device)
     ssd_err = ssd_check_phase(device)
+    geometry_errs = geometry_check_phase(device)
     timing = timing_phase(device)
     long_context = long_context_phase(device)
     parle_timing = parle_timing_phase(device)
@@ -1894,8 +2488,10 @@ def main() -> int:
     parle_timing.update(elastic_timing_phase(device))
     flash_timing = flash_timing_phase(device)
     ssd_timing = ssd_timing_phase(device)
+    geometry_timing = geometry_timing_phase(device, smi)
     run = main_path_phase(device)
     mamba = mamba2_phase(device)
+    families = families_phase(device)
     trained = train_phase(device)
     main_errs = parle_main_shape_phase(device, trained["replicas"],
                                        trained["elements_per_replica"])
@@ -1935,25 +2531,42 @@ def main() -> int:
                   "sgd": {"round_wall_s": trained["sgd"]["round_wall_s"],
                           "peak_memory_gib": trained["sgd"][
                               "peak_memory_gib"]},
-                  "mamba2": {k: trained["mamba2"][k] for k in (
-                      "round_wall_s", "peak_memory_gib")}},
+                  **{key: {k: trained[key][k] for k in (
+                      "layers", "round_wall_s", "peak_memory_gib")}
+                     for key, _ in TRAINED_FAMILIES}},
         "flash_prefill": {k: run["flash_prefill"][k] for k in (
             "max_logit_err", "max_kv_cache_err", "prefill_wall_s")},
         "mamba2": {"max_logit_err": mamba["max_logit_err"],
                    "forward_wall_s": mamba["forward_wall_s"],
                    "serve": mamba["serve"]},
+        "families": {arch: {
+            "params": f["params"], "peak_memory_gib": f["peak_memory_gib"],
+            "phase_wall_s": f["phase_wall_s"],
+            "itl_ms_p50": {mode: f["serve"][mode]["itl_ms"]["p50"]
+                           for mode in ("paged_kernel", "gather")},
+            "itl_ms_mean": {mode: f["serve"][mode]["itl_ms"]["mean"]
+                            for mode in ("paged_kernel", "gather")},
+            "forward_wall_s": (f["forward"]["forward_wall_s"]
+                               if "forward" in f
+                               else f["prefill"]["prefill_wall_s"])}
+            for arch, f in families.items()},
         "total_s": round(time.perf_counter() - t_start, 1)}), flush=True)
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:81",
-        "launches": run["launches"], "max_abs_err": max_abs_err,
+        "launches": run["launches"],
+        "launches_by_path": {"qwen2.5-3b": run["launches"], **{
+            arch: f["serve"]["k8_launches"] for arch, f in families.items()}},
+        "max_abs_err": max(max_abs_err, geometry_errs["paged_attention"]),
         "ms": timing["ms"], "kernel_ms": timing["ms"],
         "plain_ms": timing["plain_ms"], "library_ms": timing["library_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "empty_launch_ms": timing["empty_launch_ms"],
         "long_context": {k: long_context[k] for k in (
-            "ms", "plain_ms", "library_ms", "bound_ms")}}]
+            "ms", "plain_ms", "library_ms", "bound_ms")},
+        "geometries": {k.split("/")[1]: v for k, v in geometry_timing.items()
+                       if k.startswith("paged_attention/")}}]
     # each kernel's launches on its own path: K1/K2 on the f32 barrier
     # run, K4/K5 on the int8 barrier run, K6 on the int8 overlap run, K7
     # on the Elastic-SGD run
@@ -1971,20 +2584,41 @@ def main() -> int:
             "source": "src/repro_torch/csrc/parle_update.cu",
             "replaces": f"src/repro/kernels/parle_update.py:{line}",
             "launches": launches[name],
+            **({"launches_by_path": {
+                "qwen2.5-3b": launches[name], **{
+                    get_config(arch).name: trained[key]["launches"][name]
+                    for key, arch in TRAINED_FAMILIES}}}
+               if name in ("parle_inner_update", "parle_sync_update")
+               else {}),
             "max_abs_err": max(parle_errs[name], main_errs[name]),
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"]})
+    fam_k3 = {arch: (f.get("forward") or f["prefill"])["launches"]
+              for arch, f in families.items()}
+    by_path = {
+        "flash_attention": {"qwen2.5-3b": run["flash_prefill"]["launches"],
+                            **{arch: (v["flash_attention"]
+                                      if isinstance(v, dict) else v)
+                               for arch, v in fam_k3.items()}},
+        "ssd_scan": {"mamba2-1.3b": mamba["launches"],
+                     "zamba2-1.2b": fam_k3["zamba2-1.2b"]["ssd_scan"]}}
     for name, src, line, launches, err, t in (
             ("flash_attention", "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:79",
-             run["flash_prefill"]["launches"], flash_err, flash_timing),
+             run["flash_prefill"]["launches"],
+             max(flash_err, geometry_errs["flash_attention"]), flash_timing),
             ("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:75",
              mamba["launches"], ssd_err, ssd_timing)):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}", "replaces": line,
-            "launches": launches, "max_abs_err": err, "ms": t["ms"],
+            "launches": launches, "launches_by_path": by_path[name],
+            **({"geometries": {
+                k.split("/")[1]: v for k, v in geometry_timing.items()
+                if k.startswith("flash_attention/")}}
+               if name == "flash_attention" else {}),
+            "max_abs_err": err, "ms": t["ms"],
             "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],

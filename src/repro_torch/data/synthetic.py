@@ -31,28 +31,32 @@ class TokenStream:
     batch_size: int
     seed: int = 0
     device: str = "cpu"
+    num_codebooks: int = 0        # audio: emit (B, K, T)
 
     def batch(self, step: int) -> dict:
         """Deterministic pseudo-Markov batch for ``step`` (the whole
         stream: shard 0 of 1)."""
         return _token_batch(step, 0, 1, self.seed, self.batch_size,
                             self.seq_len, self.vocab_size, False,
-                            self.device)
+                            self.device, self.num_codebooks)
 
 
 def _token_batch(step, idx, cnt, seed, batch_size, seq_len, vocab_size,
-                 split, device):
+                 split, device, num_codebooks=0):
     """split=True gives shard ``idx`` its own disjoint 2^20-wide key
-    block; split=False interleaves all shards through the full stream."""
+    block; split=False interleaves all shards through the full stream.
+    ``num_codebooks`` K > 0 gives (B, K, T) tokens and labels."""
     base_idx = idx * (1 << 20) + step if split else step * cnt + idx
     gen = torch.Generator(device=device).manual_seed(seed * 100003 + base_idx)
-    shape = (batch_size, seq_len + 1)
+    shape = ((batch_size, num_codebooks, seq_len + 1) if num_codebooks
+             else (batch_size, seq_len + 1))
     base = torch.randint(0, vocab_size, shape, generator=gen, device=device)
-    nxt = (base[:, :-1] * 31 + 7) % vocab_size
+    nxt = (base[..., :-1] * 31 + 7) % vocab_size
     coin = torch.rand(nxt.shape, generator=gen, device=device) < 0.5
-    seq = torch.cat([base[:, :1], torch.where(coin, nxt, base[:, 1:])], dim=1)
-    return {"tokens": seq[:, :-1].to(torch.int32),
-            "labels": seq[:, 1:].to(torch.int32)}
+    seq = torch.cat([base[..., :1], torch.where(coin, nxt, base[..., 1:])],
+                    dim=-1)
+    return {"tokens": seq[..., :-1].to(torch.int32),
+            "labels": seq[..., 1:].to(torch.int32)}
 
 
 @dataclass
@@ -117,7 +121,8 @@ def replica_batches(task_or_stream, step: int, batch_size: int,
     else:
         s = task_or_stream
         outs = [_token_batch(step, a, n_replicas, s.seed, batch_size,
-                             s.seq_len, s.vocab_size, split, s.device)
+                             s.seq_len, s.vocab_size, split, s.device,
+                             s.num_codebooks)
                 for a in range(n_replicas)]
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 

@@ -21,7 +21,11 @@ SGD, its ``params``.  A fresh Parle state's replicas all equal the init,
 so its average is taken over the init broadcast to ``--replicas`` rows
 without building the n-replica state; a fresh Elastic-SGD ``ref`` and a
 fresh SGD ``params`` are the init itself.  Prompts come from a numpy
-generator seeded by ``--seed``.
+generator seeded by ``--seed``; a vlm request's patch embeddings and an
+audio request's conditioning frames from a second numpy generator
+(seeded by ``(--seed, 1)``), so they never share a stream with the
+prompts or the params, as the reference splits its keys.  Audio prompts
+are (K, T) over the config's codebooks.
 
 Modes:
 
@@ -75,12 +79,34 @@ def prompt_lengths(args):
 
 
 def make_requests(cfg, args):
-    """Per-request prompts drawn from ``np.random.default_rng(--seed)``."""
+    """Per-request prompts drawn from ``np.random.default_rng(--seed)``,
+    plus the vlm / audio conditioning from ``default_rng((--seed, 1))``
+    (standard normal, float32)."""
     lens = prompt_lengths(args)
     rng = np.random.default_rng(args.seed)
-    toks = rng.integers(0, cfg.vocab_size, size=(args.requests, max(lens)),
+    lead = ((args.requests, cfg.num_codebooks) if cfg.family == "audio"
+            else (args.requests,))
+    toks = rng.integers(0, cfg.vocab_size, size=lead + (max(lens),),
                         dtype=np.int32)
-    return [{"tokens": toks[i, :T]} for i, T in enumerate(lens)]
+    cond_rng = np.random.default_rng((args.seed, 1))
+    out = []
+    for i, T in enumerate(lens):
+        req = {"tokens": toks[i, ..., :T]}
+        if cfg.family == "vlm":
+            req["patch_embeds"] = cond_rng.standard_normal(
+                (cfg.num_patches, cfg.d_model), dtype=np.float32)
+        if cfg.family == "audio":
+            req["cond"] = cond_rng.standard_normal(
+                (cfg.cond_len, cfg.d_model), dtype=np.float32)
+        out.append(req)
+    return out
+
+
+def _max_len(requests, args) -> int:
+    """Cache positions a request can reach: its conditioning frames, its
+    prompt and ``--gen`` new tokens."""
+    return max(len(r.get("cond", ())) + r["tokens"].shape[-1]
+               for r in requests) + args.gen
 
 
 def init_params(cfg, args, device):
@@ -111,13 +137,14 @@ def naive_serve(cfg, params, requests, args, obs, device):
     pass is a warm-up; the second, device-synced, is reported."""
     fns = make_naive_fns(cfg, SamplingParams(args.temperature, args.top_k))
     model = build_model(cfg)
-    max_len = max(r["tokens"].shape[-1] for r in requests) + args.gen
+    max_len = _max_len(requests, args)
 
     def one_pass():
         outs, pos = [], []
         t0 = time.perf_counter()
         for i, r in enumerate(requests):
-            batch = {"tokens": torch.as_tensor(r["tokens"], device=device)[None]}
+            batch = {k: torch.as_tensor(v, device=device)[None]
+                     for k, v in r.items()}
             cache = model.init_cache(params, 1, max_len)
             gen = torch.Generator(device=device).manual_seed(args.seed + 1 + i)
             toks, cache = naive_generate(fns, params, batch, cache, args.gen,
@@ -142,8 +169,7 @@ def naive_serve(cfg, params, requests, args, obs, device):
 
 def make_engine(cfg, params, requests, args, obs, device):
     return Engine(cfg, params, num_slots=args.slots,
-                  max_len=max(r["tokens"].shape[-1] for r in requests)
-                  + args.gen,
+                  max_len=_max_len(requests, args),
                   decode_chunk=args.decode_chunk,
                   sampling=SamplingParams(args.temperature, args.top_k),
                   seed=args.seed, paged=args.paged,
@@ -161,7 +187,8 @@ def engine_serve(cfg, params, requests, args, obs, device):
     for i, r in enumerate(requests):
         engine.submit(r["tokens"], max_new_tokens=args.gen,
                       eos_id=args.eos_id if args.eos_id >= 0 else None,
-                      arrival=(i // max(args.slots, 1)) * args.arrive_every)
+                      arrival=(i // max(args.slots, 1)) * args.arrive_every,
+                      cond=r.get("cond"), patch_embeds=r.get("patch_embeds"))
     t0 = time.perf_counter()
     results = engine.run()
     _sync(device)

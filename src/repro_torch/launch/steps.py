@@ -13,8 +13,8 @@
    (8a-8b), sync_step (8c-8d) and their fused step.
  * ``make_prefill_step`` / ``make_decode_step`` — serving programs.
 
-``use_flash=True`` routes the dense family's full causal attention
-through the flash-attention kernel K3.  It is forward only, as in the
+``use_flash=True`` routes full causal attention (the dense, moe, hybrid,
+vlm and audio families) through the flash-attention kernel K3.  It is forward only, as in the
 reference: ``make_prefill_step`` and ``Model.apply`` run it, and a
 training step built with it raises at its backward.  The step functions
 consume the state they are given (its buffers are updated in place).

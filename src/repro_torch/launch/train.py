@@ -14,8 +14,9 @@
         --seq 64 --use-kernel --round-fused
 
 Runs any registered algorithm (``repro_torch.core.registry``: parle,
-entropy_sgd, elastic_sgd, sgd) on a dense or ssm (Mamba2) architecture
-through one code path that talks only to the Algorithm protocol, on the synthetic token stream, with algo-stamped
+entropy_sgd, elastic_sgd, sgd) on a dense, moe, ssm (Mamba2) or hybrid
+(Zamba2) architecture through one code path that talks only to the
+Algorithm protocol, on the synthetic token stream, with algo-stamped
 checkpoints and the replica diagnostics of §1.2 (overlap / spread).  It
 takes the reference's flags and prints its JSON lines
 (``train_progress``, ``train_final``), plus ``--device``: ``cuda``
@@ -34,7 +35,10 @@ Params are drawn from a ``torch.Generator`` seeded by ``--seed`` on the
 training device, and so are the batches: neither is the reference's
 threefry stream.  Not ported yet, each exiting with the ROADMAP.md item
 that ports it: ``--mesh`` / ``--host-devices`` (queue 1 item 6),
-``--sync-policy async`` (item 7).
+``--sync-policy async`` (item 7).  The vlm and audio families need
+batches with ``patch_embeds`` / ``cond``, which the token stream does
+not draw (as in the reference's CLI): they train through the Algorithm
+API with their own batches.
 """
 from __future__ import annotations
 

@@ -57,26 +57,31 @@ def rope_frequencies(head_dim: int, theta: float, device=None):
     return 1.0 / (theta ** exps)
 
 
-def chunked_cross_entropy(h, head_w, labels, chunk: int = 512):
+def chunked_cross_entropy(h, head_w, labels, chunk: int = 512,
+                          num_streams: int = 0):
     """Mean next-token CE computed in T-chunks so the (B, T, V) logits
     tensor is never materialized whole (V is 151936 for Qwen2.5).
 
-    h: (B, T, d); head_w: (d, V); labels: (B, T) int.  The reference
-    rematerializes each chunk in the backward (``jax.checkpoint``); here
-    autograd keeps each chunk's logits for the backward — one chunk is
-    B x chunk x V floats (311 MB at B 2, T 256, V 151936), and the
-    single-chunk case (T not a multiple of ``chunk``) has nothing to
-    recompute anyway."""
+    h: (B, T, d); head_w: (d, V) or (d, K*V); labels: (B, T) int, or
+    (B, T, K) with ``num_streams=K`` for multi-codebook (audio) heads.
+    The reference rematerializes each chunk in the backward
+    (``jax.checkpoint``); here autograd keeps each chunk's logits for the
+    backward — one chunk is B x chunk x V floats (311 MB at B 2, T 256,
+    V 151936), and the single-chunk case (T not a multiple of ``chunk``)
+    has nothing to recompute anyway."""
     B, T, d = h.shape
     if T % chunk:
         chunk = T                       # degenerate: single chunk
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, T, chunk):
         logits = (h[:, i:i + chunk] @ head_w).float()
+        if num_streams:
+            logits = logits.reshape(*logits.shape[:2], num_streams, -1)
         lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, labels[:, i:i + chunk, None].long())[..., 0]
+        gold = logits.gather(-1, labels[:, i:i + chunk, ..., None].long())[
+            ..., 0]
         total = total + (lse - gold).sum()
-    return total / (B * T)
+    return total / (B * T * (num_streams or 1))
 
 
 def cross_entropy(logits, labels, mask=None):

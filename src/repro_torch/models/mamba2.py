@@ -318,6 +318,51 @@ def init_cache(cfg, batch, dtype=torch.float32, num_layers=None,
     )
 
 
+def prefill_layer(lp, cfg, x, cache: SSMCache, l: int, valid=None,
+                  use_kernel=False):
+    """Layer ``l`` of a prefill: returns its output and writes the
+    layer's final state and conv ring into ``cache`` in place (the ssm
+    and hybrid families' prefill)."""
+    if valid is not None:
+        out, hf, ring = ssm_block_prefill(lp, cfg, x, cache.state[l],
+                                          cache.conv[l], valid)
+    else:
+        out, hf = ssm_block_forward(lp, cfg, x, h0=cache.state[l],
+                                    use_kernel=use_kernel)
+        # conv cache = last W-1 raw xBC inputs of this layer
+        u = rms_norm(x, lp["ln"], cfg.norm_eps)
+        _, ring, _ = _split_proj(cfg, u[:, -(cfg.ssm_conv - 1):]
+                                 @ lp["in_proj"])
+    cache.state[l].copy_(hf)
+    cache.conv[l].copy_(ring)
+    return out
+
+
+def decode_layer(lp, cfg, x, cache: SSMCache, l: int, active=None):
+    """Layer ``l`` of a one-token decode, its conv ring and state written
+    in place; ``active`` (B,) bool keeps inactive rows' old values."""
+    x, conv, state = ssm_block_decode(lp, cfg, x, cache.conv[l],
+                                      cache.state[l])
+    if active is not None:
+        conv = torch.where(active[:, None, None], conv, cache.conv[l])
+        state = torch.where(active[:, None, None, None], state,
+                            cache.state[l])
+    cache.conv[l].copy_(conv)
+    cache.state[l].copy_(state)
+    return x
+
+
+def prefill_chunk_layer(lp, cfg, x, cache: SSMCache, l: int, slot: int,
+                        valid):
+    """Layer ``l`` of one slot's resumable prefill chunk (x: (1, C, d)),
+    resuming from and writing back that slot's state and conv ring."""
+    x, hf, ring = ssm_block_prefill(lp, cfg, x, cache.state[l, slot][None],
+                                    cache.conv[l, slot][None], valid)
+    cache.state[l, slot] = hf[0]
+    cache.conv[l, slot] = ring[0]
+    return x
+
+
 def prefill(params, cfg, tokens, cache: SSMCache, use_kernel=False,
             valid=None):
     """Absorb a prompt; returns logits + the populated state cache
@@ -328,22 +373,10 @@ def prefill(params, cfg, tokens, cache: SSMCache, use_kernel=False,
     conv ring ends at ``valid``.  None keeps the unpadded path.
     """
     x = params["embed"][tokens]
-    T = tokens.shape[1]
-    W = cfg.ssm_conv
     for l, lp in enumerate(_layers(params, cfg)):
-        if valid is not None:
-            x, hf, ring = ssm_block_prefill(lp, cfg, x, cache.state[l],
-                                            cache.conv[l], valid)
-        else:
-            h_in = x
-            x, hf = ssm_block_forward(lp, cfg, h_in, h0=cache.state[l],
-                                      use_kernel=use_kernel)
-            # conv cache = last W-1 raw xBC inputs of this layer
-            u = rms_norm(h_in, lp["ln"], cfg.norm_eps)
-            _, ring, _ = _split_proj(cfg, u[:, -(W - 1):] @ lp["in_proj"])
-        cache.state[l].copy_(hf)
-        cache.conv[l].copy_(ring)
-    return _logits(params, cfg, x), cache._replace(pos=cache.pos + T)
+        x = prefill_layer(lp, cfg, x, cache, l, valid, use_kernel)
+    return _logits(params, cfg, x), cache._replace(
+        pos=cache.pos + tokens.shape[1])
 
 
 def decode_step(params, cfg, token, cache: SSMCache):
@@ -351,10 +384,7 @@ def decode_step(params, cfg, token, cache: SSMCache):
     place."""
     x = params["embed"][token]
     for l, lp in enumerate(_layers(params, cfg)):
-        x, conv, state = ssm_block_decode(lp, cfg, x, cache.conv[l],
-                                          cache.state[l])
-        cache.conv[l].copy_(conv)
-        cache.state[l].copy_(state)
+        x = decode_layer(lp, cfg, x, cache, l)
     return _logits(params, cfg, x), cache._replace(pos=cache.pos + 1)
 
 
@@ -382,11 +412,7 @@ def prefill_chunk(params, cfg, tokens, cache: SSMCache, slot, frontier,
     del frontier                      # state carry IS the position
     x = params["embed"][tokens]
     for l, lp in enumerate(_layers(params, cfg)):
-        x, hf, ring = ssm_block_prefill(lp, cfg, x,
-                                        cache.state[l, slot][None],
-                                        cache.conv[l, slot][None], valid)
-        cache.state[l, slot] = hf[0]
-        cache.conv[l, slot] = ring[0]
+        x = prefill_chunk_layer(lp, cfg, x, cache, l, slot, valid)
     return _logits(params, cfg, x), cache
 
 
@@ -396,12 +422,7 @@ def decode_step_paged(params, cfg, token, cache: SSMCache, active):
     garbage the engine never reads)."""
     x = params["embed"][token]
     for l, lp in enumerate(_layers(params, cfg)):
-        x, conv, state = ssm_block_decode(lp, cfg, x, cache.conv[l],
-                                          cache.state[l])
-        cache.conv[l].copy_(torch.where(active[:, None, None], conv,
-                                        cache.conv[l]))
-        cache.state[l].copy_(torch.where(active[:, None, None, None], state,
-                                         cache.state[l]))
+        x = decode_layer(lp, cfg, x, cache, l, active)
     return _logits(params, cfg, x), cache._replace(
         pos=cache.pos + active.to(torch.int32))
 

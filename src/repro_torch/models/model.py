@@ -1,6 +1,7 @@
 """Family dispatch: a uniform Model API over the architecture families.
 
-Port of ``repro/models/model.py`` (the dense and ssm families so far).
+Port of ``repro/models/model.py``: all six families (dense, moe, ssm,
+hybrid, vlm, audio).
 
     model = build_model(cfg)
     params = model.init(torch.Generator(device).manual_seed(0))
@@ -10,8 +11,11 @@ Port of ``repro/models/model.py`` (the dense and ssm families so far).
     logits, cache = model.prefill(params, batch, cache)
     logits, cache = model.decode(params, batch, cache)
 
-``batch`` is a dict holding ``tokens`` (B, T) for the dense and ssm
-families, and ``labels`` (B, T) for the loss.
+``batch`` is a dict; its keys per family (see data/synthetic.py):
+    dense / moe / ssm / hybrid : tokens (B, T), labels (B, T)
+    vlm                        : tokens, labels, patch_embeds (B, P, d)
+    audio                      : tokens (B, K, T), labels (B, K, T),
+                                 cond (B, cond_len, d)
 
 Cache position contract (``cache_positions`` / ``with_cache_positions``):
 every cache tuple carries one or more ``pos`` fields counting tokens
@@ -30,12 +34,12 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.models import audio as audio_mod
+from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import mamba2 as ssm_mod
 from repro_torch.models import transformer as tfm
+from repro_torch.models import vlm as vlm_mod
 from repro_torch.models.layers import chunked_cross_entropy
-
-_NOT_PORTED = ("family {fam!r} is not ported yet (ROADMAP.md queue 1, "
-               "'Other model families')")
 
 
 @dataclass(frozen=True)
@@ -129,15 +133,28 @@ def _lm_loss(hidden_fn, cfg):
     return loss
 
 
+def _audio_loss(hidden_fn, cfg):
+    def loss(params, batch):
+        h, aux = hidden_fn(params, batch)                   # (B, T, d)
+        labels = batch["labels"].transpose(1, 2)            # (B, T, K)
+        ce = chunked_cross_entropy(h, params["head"], labels,
+                                   num_streams=cfg.num_codebooks)
+        return ce + aux, {"ce": ce, "aux": aux}
+    return loss
+
+
 def build_model(cfg, use_flash: bool = False,
                 use_paged_kernel: bool = False) -> Model:
-    """``use_flash`` sends the dense family's full causal attention
-    (``apply``, ``loss``, ``prefill``) through the flash-attention kernel
-    (K3; forward only, as the reference); ``use_paged_kernel`` sends
-    paged decode attention through the paged-attention kernel (K8).  The
-    ssm family takes neither, as in the reference."""
+    """``use_flash`` sends full causal attention (``apply``, ``loss`` and,
+    where the reference passes it, ``prefill``) through the
+    flash-attention kernel (K3; forward only, as the reference);
+    ``use_paged_kernel`` sends paged decode attention through the
+    paged-attention kernel (K8).  The ssm family takes neither, as in the
+    reference; its SSD-scan kernel (K9), and the hybrid's, are reached
+    through ``mamba2.forward`` / ``hybrid.forward`` with
+    ``use_kernel=True``."""
     fam = cfg.family
-    if fam == "dense":
+    if fam in ("dense", "moe"):
         return Model(
             cfg=cfg,
             init=lambda generator, dtype=torch.float32:
@@ -187,4 +204,88 @@ def build_model(cfg, use_flash: bool = False,
             paged_to_dense=ssm_mod.paged_to_dense,
             paged_restore=ssm_mod.paged_restore,
         )
-    raise NotImplementedError(_NOT_PORTED.format(fam=fam))
+    if fam == "hybrid":
+        return Model(
+            cfg=cfg,
+            init=lambda generator, dtype=torch.float32:
+                hybrid_mod.init_params(generator, cfg, dtype),
+            apply=lambda p, b: hybrid_mod.forward(p, cfg, b["tokens"],
+                                                  use_flash=use_flash),
+            init_cache=lambda p, bs, ml, dtype=torch.float32:
+                hybrid_mod.init_cache(cfg, bs, ml, dtype,
+                                      device=p["embed"].device),
+            prefill=lambda p, b, c, valid=None:
+                hybrid_mod.prefill(p, cfg, b["tokens"], c,
+                                   use_flash=use_flash, valid=valid),
+            decode=lambda p, b, c: hybrid_mod.decode_step(p, cfg,
+                                                          b["tokens"], c),
+            loss=_lm_loss(lambda p, b: hybrid_mod.forward_hidden(
+                p, cfg, b["tokens"], use_flash=use_flash), cfg),
+            init_paged_cache=lambda p, bs, np_, ps, mp, dtype=torch.float32:
+                hybrid_mod.init_paged_cache(p, cfg, bs, np_, ps, mp, dtype),
+            prefill_chunk=lambda p, b, c, slot, frontier, valid, total:
+                hybrid_mod.prefill_chunk(p, cfg, b["tokens"], c, slot,
+                                         frontier, valid),
+            decode_paged=lambda p, b, c, active:
+                hybrid_mod.decode_step_paged(p, cfg, b["tokens"], c, active,
+                                             use_kernel=use_paged_kernel),
+            paged_to_dense=hybrid_mod.paged_to_dense,
+            paged_restore=hybrid_mod.paged_restore,
+        )
+    if fam == "vlm":
+        return Model(
+            cfg=cfg,
+            init=lambda generator, dtype=torch.float32:
+                vlm_mod.init_params(generator, cfg, dtype),
+            apply=lambda p, b: vlm_mod.forward(p, cfg, b["tokens"],
+                                               b["patch_embeds"],
+                                               use_flash=use_flash),
+            init_cache=lambda p, bs, ml, dtype=torch.float32:
+                vlm_mod.init_cache(p, cfg, bs, ml, dtype),
+            prefill=lambda p, b, c, valid=None:
+                vlm_mod.prefill(p, cfg, b["tokens"], b["patch_embeds"], c),
+            decode=lambda p, b, c: vlm_mod.decode_step(p, cfg, b["tokens"],
+                                                       c),
+            loss=_lm_loss(lambda p, b: vlm_mod.forward_hidden(
+                p, cfg, b["tokens"], b["patch_embeds"],
+                use_flash=use_flash), cfg),
+            init_paged_cache=lambda p, bs, np_, ps, mp, dtype=torch.float32:
+                vlm_mod.init_paged_cache(p, cfg, bs, np_, ps, mp, dtype),
+            prefill_chunk=lambda p, b, c, slot, frontier, valid, total:
+                vlm_mod.prefill_chunk(p, cfg, b["tokens"], b["patch_embeds"],
+                                      c, slot, frontier, valid, total),
+            decode_paged=lambda p, b, c, active:
+                vlm_mod.decode_step_paged(p, cfg, b["tokens"], c, active,
+                                          use_kernel=use_paged_kernel),
+            paged_to_dense=tfm.paged_to_dense,
+            paged_restore=tfm.paged_restore,
+        )
+    if fam == "audio":
+        return Model(
+            cfg=cfg,
+            init=lambda generator, dtype=torch.float32:
+                audio_mod.init_params(generator, cfg, dtype),
+            apply=lambda p, b: audio_mod.forward(p, cfg, b["tokens"],
+                                                 b.get("cond"),
+                                                 use_flash=use_flash),
+            init_cache=lambda p, bs, ml, dtype=torch.float32:
+                audio_mod.init_cache(p, cfg, bs, ml, dtype),
+            prefill=lambda p, b, c, valid=None:
+                audio_mod.prefill(p, cfg, b["tokens"], c, cond=b.get("cond")),
+            decode=lambda p, b, c: audio_mod.decode_step(p, cfg,
+                                                         b["tokens"], c),
+            loss=_audio_loss(lambda p, b: audio_mod.forward_hidden(
+                p, cfg, b["tokens"], b.get("cond"), use_flash=use_flash),
+                cfg),
+            init_paged_cache=lambda p, bs, np_, ps, mp, dtype=torch.float32:
+                audio_mod.init_paged_cache(p, cfg, bs, np_, ps, mp, dtype),
+            prefill_chunk=lambda p, b, c, slot, frontier, valid, total:
+                audio_mod.prefill_chunk(p, cfg, b["tokens"], c, slot,
+                                        frontier, valid, cond=b.get("cond")),
+            decode_paged=lambda p, b, c, active:
+                audio_mod.decode_step_paged(p, cfg, b["tokens"], c, active,
+                                            use_kernel=use_paged_kernel),
+            paged_to_dense=tfm.paged_to_dense,
+            paged_restore=tfm.paged_restore,
+        )
+    raise ValueError(f"unknown family: {fam}")

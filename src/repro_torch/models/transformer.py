@@ -1,24 +1,23 @@
 """Pre-norm decoder transformer with GQA over stacked layer parameters.
 
-Port of the dense branches of ``repro/models/transformer.py``.  The
+Port of ``repro/models/transformer.py``.  The same block serves the
+dense, moe (MLP swapped for the routed MoE of ``moe.py``), vlm and audio
+families; their embedding and head handling lives in model.py, vlm.py
+and audio.py, which hand merged embeddings in as ``extra_embeds``.  The
 reference scans the stacked blocks with ``lax.scan``; here each scan is
 a Python loop over the layer index over views of the same stacked
 tensors (so reference params load without reshaping), taken by one
 ``unbind(0)`` per leaf: its backward is one ``stack``, where indexing
 each layer out would write a zero-filled copy of the whole stacked leaf
-per layer.  Caches are written in place (see attention.py).  The MoE MLP
-is not ported yet.
+per layer.  Caches are written in place (see attention.py).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import dense_init, embed_init, rms_norm, swiglu
-
-_MOE_NOT_PORTED = ("the moe family's routed MLP (repro/models/moe.py) is "
-                   "not ported yet (ROADMAP.md queue 1, 'Other model "
-                   "families')")
 
 
 # ------------------------------------------------------------------
@@ -28,20 +27,22 @@ _MOE_NOT_PORTED = ("the moe family's routed MLP (repro/models/moe.py) is "
 def init_stacked_blocks(generator, cfg, dtype=torch.float32):
     """All ``num_layers`` decoder blocks, each leaf stacked along a
     leading layer axis."""
-    if cfg.family == "moe":
-        raise NotImplementedError(_MOE_NOT_PORTED)
     L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
     dev = generator.device
-    return {
+    p = {
         "ln1": torch.ones((L, d), dtype=dtype, device=dev),
         "ln2": torch.ones((L, d), dtype=dtype, device=dev),
         "attn": attn.init_attn_params(generator, cfg, dtype, layers=(L,)),
-        "mlp": {
+    }
+    if cfg.family == "moe":
+        p["moe"] = moe_mod.init_moe_params(generator, cfg, dtype, layers=(L,))
+    else:
+        p["mlp"] = {
             "w_gate": dense_init(generator, (L, d, f), dtype=dtype),
             "w_up": dense_init(generator, (L, d, f), dtype=dtype),
             "w_down": dense_init(generator, (L, f, d), dtype=dtype),
-        },
-    }
+        }
+    return p
 
 
 def init_params(generator, cfg, dtype=torch.float32):
@@ -71,9 +72,10 @@ def layer_params(blocks, num_layers: int) -> list:
 
 
 def _mlp(bp, cfg, u):
+    """(MLP output, the MoE's aux loss or None)."""
     if cfg.family == "moe":
-        raise NotImplementedError(_MOE_NOT_PORTED)
-    return swiglu(u, **bp["mlp"])
+        return moe_mod.moe_forward(bp["moe"], cfg, u)
+    return swiglu(u, **bp["mlp"]), None
 
 
 # ------------------------------------------------------------------
@@ -81,16 +83,20 @@ def _mlp(bp, cfg, u):
 # ------------------------------------------------------------------
 
 def _decoder_layer(bp, cfg, h, attend):
-    """One pre-norm block around an attention callable ``attend(x)``."""
+    """One pre-norm block around an attention callable ``attend(x)``;
+    returns (h, aux loss or None)."""
     h = h + attend(rms_norm(h, bp["ln1"], cfg.norm_eps))
-    return h + _mlp(bp, cfg, rms_norm(h, bp["ln2"], cfg.norm_eps))
+    m, aux = _mlp(bp, cfg, rms_norm(h, bp["ln2"], cfg.norm_eps))
+    return h + m, aux
 
 
 def block_forward(bp, cfg, x, positions, use_flash=False):
     """x: (B, T, d) -> (B, T, d); returns (x, aux_loss)."""
-    x = _decoder_layer(bp, cfg, x, lambda u: attn.attn_forward(
+    x, aux = _decoder_layer(bp, cfg, x, lambda u: attn.attn_forward(
         bp["attn"], cfg, u, positions, use_flash=use_flash))
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def stack_forward(params, cfg, x, positions, use_flash=False):
@@ -108,6 +114,13 @@ def head_matrix(params, cfg):
 
 def _positions(B, T, device):
     return torch.arange(T, dtype=torch.int32, device=device).expand(B, T)
+
+
+def _embed(params, tokens, extra_embeds):
+    """Token embeddings, plus ``extra_embeds`` (B, T, d) where given (the
+    vlm and audio families' merged inputs)."""
+    x = params["embed"][tokens]
+    return x if extra_embeds is None else x + extra_embeds
 
 
 def forward_hidden(params, cfg, tokens, use_flash=False):
@@ -143,26 +156,26 @@ def init_cache(params, cfg, batch, max_len, dtype=torch.float32):
                               layers=(cfg.num_layers,))
 
 
-def prefill(params, cfg, tokens, cache, use_flash=False):
+def prefill(params, cfg, tokens, cache, use_flash=False, extra_embeds=None):
     B, T = tokens.shape
-    x = params["embed"][tokens]
+    x = _embed(params, tokens, extra_embeds)
     positions = _positions(B, T, x.device)
     h = x
     for l, bp in enumerate(layer_params(params["blocks"], cfg.num_layers)):
         lc = attn.KVCache(cache.k[l], cache.v[l], cache.pos)
-        h = _decoder_layer(bp, cfg, h, lambda u: attn.attn_prefill(
+        h, _ = _decoder_layer(bp, cfg, h, lambda u: attn.attn_prefill(
             bp["attn"], cfg, u, positions, lc, use_flash=use_flash)[0])
     new_cache = attn.KVCache(cache.k, cache.v, cache.pos + T)
     return logits_from_hidden(params, cfg, h), new_cache
 
 
-def decode_step(params, cfg, token, cache):
+def decode_step(params, cfg, token, cache, extra_embeds=None):
     """token: (B, 1) int32 -> logits (B, 1, V), updated cache."""
-    x = params["embed"][token]
+    x = _embed(params, token, extra_embeds)
     h = x
     for l, bp in enumerate(layer_params(params["blocks"], cfg.num_layers)):
         lc = attn.KVCache(cache.k[l], cache.v[l], cache.pos)
-        h = _decoder_layer(bp, cfg, h, lambda u: attn.attn_decode(
+        h, _ = _decoder_layer(bp, cfg, h, lambda u: attn.attn_decode(
             bp["attn"], cfg, u, lc)[0])
     new_cache = attn.KVCache(cache.k, cache.v, cache.pos + 1)
     return logits_from_hidden(params, cfg, h), new_cache
@@ -179,7 +192,8 @@ def init_paged_cache(params, cfg, num_slots, num_pages, page_size, max_pages,
         device=params["embed"].device, layers=(cfg.num_layers,)))
 
 
-def prefill_chunk(params, cfg, tokens, cache, slot, frontier, valid):
+def prefill_chunk(params, cfg, tokens, cache, slot, frontier, valid,
+                  extra_embeds=None):
     """One chunk of a single slot's prefill through the page table.
 
     tokens: (1, C) — the chunk's slice of the prompt, zero-padded past
@@ -192,26 +206,27 @@ def prefill_chunk(params, cfg, tokens, cache, slot, frontier, valid):
     """
     del valid  # attention needs no masking: padded rows are causal-future
     C = tokens.shape[1]
-    x = params["embed"][tokens]
+    x = _embed(params, tokens, extra_embeds)
     positions = (frontier + torch.arange(C, dtype=torch.int32,
                                          device=x.device))[None]
     table_row = cache.table[slot]
     h = x
     for l, bp in enumerate(layer_params(params["blocks"], cfg.num_layers)):
-        h = _decoder_layer(bp, cfg, h, lambda u: attn.attn_prefill_paged(
+        h, _ = _decoder_layer(bp, cfg, h, lambda u: attn.attn_prefill_paged(
             bp["attn"], cfg, u, positions, cache.k[l], cache.v[l],
             table_row)[0])
     return logits_from_hidden(params, cfg, h), cache
 
 
-def decode_step_paged(params, cfg, token, cache, active, use_kernel=False):
+def decode_step_paged(params, cfg, token, cache, active, extra_embeds=None,
+                      use_kernel=False):
     """token: (B, 1) int32 -> logits (B, 1, V), updated paged cache.
     ``active``: (B,) bool — inactive rows write to the trash page and
     keep their pos."""
-    x = params["embed"][token]
+    x = _embed(params, token, extra_embeds)
     h = x
     for l, bp in enumerate(layer_params(params["blocks"], cfg.num_layers)):
-        h = _decoder_layer(bp, cfg, h, lambda u: attn.attn_decode_paged(
+        h, _ = _decoder_layer(bp, cfg, h, lambda u: attn.attn_decode_paged(
             bp["attn"], cfg, u, cache.k[l], cache.v[l], cache.table,
             cache.pos, active, use_kernel=use_kernel)[0])
     new_cache = cache._replace(pos=cache.pos + active.to(torch.int32))

@@ -21,12 +21,20 @@ Execution model (dense layout — the oracle path):
   max-new-tokens; tokens decoded speculatively past a termination are
   discarded), and freed slots are refilled on the next step.
 
+Conditioned families: a vlm request carries ``patch_embeds``
+(num_patches, d) and an audio request ``cond`` (cond_len, d) frames and a
+(K, T) prompt over K codebooks.  The audio cond frames take the first
+cache positions, so every position the engine reckons (bucket, pages,
+frontier, pos) counts them (``_cond_extra``); the audio engine's tokens
+are (K,) per step, ``cur_tok`` (num_slots, K, 1).
+
 Paged layout (``paged=True``): KV lives in fixed-size page pools behind
 per-slot page tables (serving/paging.py decides the pages, cache.py /
 attention.py hold the device layout).  The ssm family keeps its O(1)
 recurrent state per slot instead: it reserves no pages and shares no
-prefix, and its prefill chunk is rounded up to ``ssm_chunk`` so that the
-SSD chunk decomposition lines up across prefill calls.
+prefix; the ssm and hybrid families' prefill chunk is rounded up to
+``ssm_chunk`` so that the SSD chunk decomposition lines up across
+prefill calls.
 
 * Admission reserves the request's WORST-CASE pages — ceil((prompt +
   max_new) / page_size) — all-or-nothing: a request that can't get
@@ -112,7 +120,9 @@ class Engine:
         self.use_paged_kernel = use_paged_kernel
 
         self.sched = Scheduler(num_slots)
-        self.cur_tok = torch.zeros((num_slots, 1), dtype=torch.int32,
+        tok_shape = ((num_slots, cfg.num_codebooks, 1)
+                     if cfg.family == "audio" else (num_slots, 1))
+        self.cur_tok = torch.zeros(tok_shape, dtype=torch.int32,
                                    device=self.device)
 
         if paged:
@@ -156,18 +166,29 @@ class Engine:
         self._n_done_obs = 0         # finished-dict prefix already observed
 
     # -- submission ---------------------------------------------------
+    def _cond_extra(self, req: Request) -> int:
+        """Extra leading cache positions (audio conditioning frames)."""
+        return int(req.cond.shape[0]) if req.cond is not None else 0
+
     def submit(self, tokens, max_new_tokens: int, eos_id: Optional[int] = None,
-               arrival: int = 0, deadline_ms: Optional[float] = None) -> int:
-        """Queue one (T,) int prompt; returns its uid."""
+               arrival: int = 0, cond=None, patch_embeds=None,
+               deadline_ms: Optional[float] = None) -> int:
+        """Queue one (T,) int prompt — (K, T) for audio, with its ``cond``
+        frames; vlm prompts need their ``patch_embeds`` — and return its
+        uid."""
         req = Request(uid=self._uid, tokens=tokens,
                       max_new_tokens=max_new_tokens, eos_id=eos_id,
-                      arrival=arrival, deadline_ms=deadline_ms)
+                      arrival=arrival, cond=cond, patch_embeds=patch_embeds,
+                      deadline_ms=deadline_ms)
         if req.prompt_len + max_new_tokens > self.max_len:
             raise ValueError(
                 f"prompt_len {req.prompt_len} + max_new_tokens "
                 f"{max_new_tokens} exceeds max_len {self.max_len}")
+        if self.cfg.family == "vlm" and patch_embeds is None:
+            raise ValueError("vlm requests need patch_embeds conditioning")
         if self.paged and self.uses_pages:
-            need = self.pool.pages_needed(req.prompt_len + max_new_tokens)
+            need = self.pool.pages_needed(
+                self._cond_extra(req) + req.prompt_len + max_new_tokens)
             if need > self.pool.alloc.usable:
                 raise ValueError(
                     f"request needs {need} pages but the pool only has "
@@ -183,12 +204,22 @@ class Engine:
         return req.uid
 
     # -- dense admission ----------------------------------------------
+    def _conditioning(self, req: Request, batch: dict) -> dict:
+        """``batch`` plus the request's cond / patch_embeds, batched."""
+        for name in ("cond", "patch_embeds"):
+            value = getattr(req, name)
+            if value is not None:
+                batch[name] = torch.as_tensor(value, device=self.device)[None]
+        return batch
+
     def _prefill_batch(self, req: Request):
         """Bucket-padded single-request batch + the true valid length."""
         toks = np.asarray(req.tokens, np.int32)
         T = toks.shape[-1]
-        toks = np.pad(toks, (0, _bucket_len(T, 8, self.max_len) - T))
-        return {"tokens": torch.as_tensor(toks, device=self.device)[None]}, T
+        bucket = _bucket_len(T, 8, self.max_len - self._cond_extra(req))
+        toks = np.pad(toks, [(0, 0)] * (toks.ndim - 1) + [(0, bucket - T)])
+        batch = {"tokens": torch.as_tensor(toks, device=self.device)[None]}
+        return self._conditioning(req, batch), T
 
     def _admit(self):
         while True:
@@ -204,14 +235,14 @@ class Engine:
                     logits, one_cache = self.model.prefill(
                         self.params, batch, one_cache, valid)
                     first = self.selector(logits[:, valid - 1:valid],
-                                          self.generator)  # (1, 1)
-                    first_host = first[0, 0].cpu().numpy()
+                                          self.generator)  # (1, [K,] 1)
+                    first_host = first[0, ..., 0].cpu().numpy()
                 self.stats["prefill_s"] += time.perf_counter() - t0
                 self.stats["prefill_tokens"] += req.prompt_len
                 self._observe_first_token(req.uid)
                 self.obs.counter("serve.admitted").inc()
                 cache_lib.write_slot(self.cache, one_cache, slot,
-                                     req.prompt_len)
+                                     self._cond_extra(req) + req.prompt_len)
                 self.cur_tok[slot] = first[0]
                 self.sched.place(slot, req, first_host)
                 # a request finishing on its first token frees the slot
@@ -223,7 +254,7 @@ class Engine:
             req = self.sched._pop_arrived()
             if req is None:
                 return
-            total = req.prompt_len
+            total = self._cond_extra(req) + req.prompt_len
             if self.uses_pages:
                 share_toks = (np.asarray(req.tokens, np.int32)
                               if self.cfg.family in _SHAREABLE else None)
@@ -250,13 +281,19 @@ class Engine:
             self.sched.place_prefilling(slot, req, frontier=plan.reuse_len)
 
     def _chunk_batch(self, req: Request, frontier: int):
-        """The (1, C)-token slice of the prompt at ``frontier``,
-        zero-filled past the prompt's end."""
-        chunk = np.zeros((self.prefill_chunk_len,), np.int32)
-        span = np.asarray(req.tokens, np.int32)[frontier:
-                                                frontier + chunk.shape[0]]
-        chunk[:span.shape[0]] = span
-        return {"tokens": torch.as_tensor(chunk, device=self.device)[None]}
+        """The (1, [K,] C)-token slice of the prompt at ``frontier``
+        (merged coordinates), zero-filled for cond-region and padded
+        positions."""
+        C = self.prefill_chunk_len
+        ce = self._cond_extra(req)
+        toks = np.asarray(req.tokens, np.int32)
+        chunk = np.zeros(toks.shape[:-1] + (C,), np.int32)
+        lo = max(frontier - ce, 0)               # first token of the chunk
+        span = toks[..., lo:max(frontier + C - ce, lo)]
+        at = lo + ce - frontier                  # its column in the chunk
+        chunk[..., at:at + span.shape[-1]] = span
+        batch = {"tokens": torch.as_tensor(chunk, device=self.device)[None]}
+        return self._conditioning(req, batch)
 
     def _prefill_step_paged(self):
         """Advance every prefilling slot by one chunk; slots whose prompt
@@ -264,7 +301,7 @@ class Engine:
         for slot in self.sched.prefilling_slots():
             rec = self.sched.slots[slot]
             req = rec.request
-            total = req.prompt_len
+            total = self._cond_extra(req) + req.prompt_len
             f = rec.frontier
             valid = min(self.prefill_chunk_len, total - f)
             batch = self._chunk_batch(req, f)
@@ -277,8 +314,8 @@ class Engine:
                 done = rec.frontier >= total
                 if done:
                     first = self.selector(logits[:, valid - 1:valid],
-                                          self.generator)  # (1, 1)
-                    first_host = first[0, 0].cpu().numpy()
+                                          self.generator)  # (1, [K,] 1)
+                    first_host = first[0, ..., 0].cpu().numpy()
                 elif self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
             self.stats["prefill_s"] += time.perf_counter() - t0
@@ -302,7 +339,7 @@ class Engine:
     # -- decode chunks ------------------------------------------------
     def _decode_chunk(self, active):
         """``decode_chunk`` single-token decodes over the slot batch;
-        returns the chunk's tokens (C, B, 1) and leaves
+        returns the chunk's tokens (C, B, [K,] 1) and leaves
         the updated cache in ``self.cache``.  ``active``: (B,) bool
         device mask of decoding rows (paged layout only)."""
         model, params, tok = self.model, self.params, self.cur_tok
@@ -434,7 +471,7 @@ class Engine:
                               chunk=self.decode_chunk):
             toks = self._decode_chunk(active)
             self.cur_tok = toks[-1]
-            toks_host = toks[..., 0].cpu().numpy()  # (C, B)
+            toks_host = toks[..., 0].cpu().numpy()  # (C, B) | (C, B, K)
         dt = time.perf_counter() - t0
         self.stats["decode_s"] += dt
         self.stats["decode_steps"] += self.decode_chunk
@@ -444,18 +481,24 @@ class Engine:
         emitted = self.sched.tokens_emitted - emitted_before
         self.stats["decode_tokens"] += emitted
         # inter-token latency: chunk wall / chunk steps, weighted by the
-        # KEPT tokens this chunk produced
-        if emitted:
+        # KEPT token positions this chunk produced (codebooks collapse)
+        kept = emitted // self._streams
+        if kept:
             self.obs.histogram("serve.itl_ms", _LATENCY_BOUNDS_MS).observe(
-                dt / self.decode_chunk * 1e3, n=emitted)
+                dt / self.decode_chunk * 1e3, n=kept)
         if self.paged:
             for slot in freed:
                 self._release_slot(slot)
         self._note_finished()
         self._observe_pool()
 
+    @property
+    def _streams(self) -> int:
+        """Tokens a decode step emits per slot: K codebooks for audio."""
+        return self.cfg.num_codebooks if self.cfg.family == "audio" else 1
+
     def run(self, max_steps: int = 100_000) -> Dict[int, np.ndarray]:
-        """Drain the queue; returns {uid: emitted tokens (G,)}."""
+        """Drain the queue; returns {uid: emitted tokens (G,) | (K, G)}."""
         steps = 0
         while self.sched.has_work():
             self.step()
@@ -483,7 +526,7 @@ class Engine:
         """
         self._note_finished()       # requests finished since last step()
         s = self.stats
-        kept = s["decode_tokens"]
+        kept = s["decode_tokens"] / self._streams   # token POSITIONS kept
         capacity = s["decode_steps"] * self.num_slots
         out = {
             "compile_s": round(s["compile_s"], 3),

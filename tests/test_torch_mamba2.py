@@ -42,7 +42,8 @@ from repro_torch.models.model import (build_model, cache_positions,
                                       with_cache_positions)
 from repro_torch.serving import Engine
 from torch_parity import (MODEL_TOL, assert_close, both_params, leaf_pairs,
-                          numpy_params, port_rounds, ref_rounds)
+                          numpy_params, port_rounds, ref_rounds,
+                          ssm_init_draws)
 
 REF_CFG = FAMILY_CONFIGS["ssm"]
 CFG = ModelConfig(**dataclasses.asdict(REF_CFG))
@@ -213,20 +214,11 @@ def test_engine_tokens_match_reference_engine(params, paged):
 @pytest.fixture(scope="module")
 def smoke_params():
     """numpy_params with A_log and dt_bias from the Mamba2 init's own
-    distribution (A = -[1 .. 16], dt around 1e-3 .. 1e-1).  With the
-    generic draws (dt near 0.7) the masked decays of a 32-token chunk
-    overflow and the reference's backward turns NaN from the second
-    step on — the reference fault of ROADMAP.md §3, pinned by
+    distribution (``torch_parity.ssm_init_draws``): with the generic
+    draws the reference's backward turns NaN from the second step on —
+    the reference fault of ROADMAP.md §3, pinned by
     test_torch_ssd_scan.py; the port's trajectory stays finite there."""
-    tree = numpy_params(RSMOKE, seed=0)
-    rng = np.random.default_rng(1)
-    lay = tree["layers"]
-    L, nh = lay["A_log"].shape
-    lay["A_log"] = np.broadcast_to(np.log(np.linspace(
-        1.0, 16.0, nh, dtype=np.float32)), (L, nh)).copy()
-    dt0 = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (L, nh)))
-    lay["dt_bias"] = np.log(np.expm1(dt0)).astype(np.float32)
-    return tree
+    return ssm_init_draws(numpy_params(RSMOKE, seed=0))
 
 
 def _ref_batches(n=2, L=2, b=2, t=32):
