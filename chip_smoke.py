@@ -63,9 +63,19 @@ itself and, in order:
 5. serves through the port's serve CLI functions: full-width
    Qwen2.5-3B in float32 (random params, torch.Generator seed 0), the
    paged engine decoding through K8, 8 requests of 63-84 prompt tokens,
-   32 greedy tokens each; asserts every request got its tokens, that K8
-   launched exactly num_layers x decode steps, and that the tokens equal
-   the gather path's (no kernel); then profiles that run; then prefills
+   32 greedy tokens each; every engine decodes through one CUDA graph of
+   its decode chunk (captured at its first decode step after a warm-up
+   run of the chunk) unless it is built with ``graphs=False``; asserts
+   every request got its tokens, that each captured engine captured
+   exactly one decode program, that K8 launched exactly num_layers x
+   (decode steps + the warm-up's steps), counted through the replays,
+   and that the tokens equal the gather path's (no kernel), captured
+   and eager; then (5b) profiles that run, captured and eager (K8 named
+   in one of them); then (5j) holds the captured chunk against the
+   eager one: the same tokens greedy and sampled (temperature 0.8,
+   top-k 50, one seed), one replay with host synchronisation forbidden,
+   ITL, capture seconds and the device's busy share of both (whole runs
+   and a two-step window); then prefills
    2 x 1024 tokens on the same params through
    ``launch/steps.py::make_prefill_step(use_flash=True)`` (K3 once per
    layer, 36 launches) and without K3: logits and KV caches within 1e-3,
@@ -73,17 +83,20 @@ itself and, in order:
    layers, d_model 2048, float32, random params): a forward over 2 x
    2048 tokens through K9 (48 launches) against ``ssd_chunked`` (logits
    within 1e-3), and 8 requests served through the engine, dense and
-   paged, with equal tokens; then (phases 5f-5i) the four remaining
+   paged (each captured) and paged eagerly, with equal tokens; then
+   (phases 5f-5i) the four remaining
    families at full width and depth, float32, random params (seed 0),
    each freed before the next is built — Qwen1.5-MoE-A2.7B (14.3 B
    params), Zamba2-1.2B, InternVL2-1B (256 patch embeddings a request)
    and MusicGen-large (64 cond frames, 4 codebooks): 8 requests, 32
    greedy tokens each, 4 slots, page size 16, through the paged engine
-   with K8 (launches = attention layers or sites x decode steps) and
-   through the gather path, equal tokens (the hybrid also through the
-   dense engine; the moe family compared up to the first token whose
-   decode step routed a token below a router margin of 1e-4 on the
-   gather path), then a 2 x 1024 prefill (moe, through
+   with K8 as a CUDA graph (launches = attention layers or sites x
+   (decode steps + the warm-up's)), the same eagerly and the gather path
+   eagerly, equal tokens (the hybrid also through the dense engine's
+   graph; the moe family compared up to the first token whose decode
+   step routed a token below a router margin of 1e-4 on the gather
+   path), ITL and busy windows of the captured and the eager K8 path,
+   then a 2 x 1024 prefill (moe, through
    ``steps.make_prefill_step``) or forward through K3 (24, 7, 24 and 48
    launches; the hybrid also through K9, 38) against the plain path:
    logits within 1e-3 and the same next tokens (moe: on every position
@@ -1346,25 +1359,28 @@ def mamba2_phase(device) -> dict:
     del logits_k, logits_p
     torch.cuda.empty_cache()
 
-    phase(f"5e. {cfg.name} serving: the engine, dense and paged, on the "
-          "same params")
+    phase(f"5e. {cfg.name} serving: the engine, dense and paged, each "
+          "decoding through its CUDA graph, and paged eagerly, on the same "
+          "params")
     requests = serve.make_requests(cfg, args)
     print("prompt lengths:", [len(r["tokens"]) for r in requests])
     results, reports = {}, {}
-    for mode, extra in (("dense", []), ("paged", ["--paged",
-                                                  "--prefill-chunk", "32"])):
+    paged = ["--paged", "--prefill-chunk", "32"]
+    for mode, extra, graphs in (("dense", [], True), ("paged", paged, True),
+                                ("paged_eager", paged, False)):
         reset_launches()
         results[mode], engine, reports[mode] = serve.engine_serve(
             cfg, params, requests, serve.parse_args(MAMBA_SERVE_ARGV + extra),
-            Obs(), device)
+            Obs(), device, graphs=graphs)
         launch_counts()                  # no port kernel serves the ssm
+        captured(engine, graphs)
         check(sorted(results[mode]) == list(range(len(requests))),
               f"{mode}: requests missing")
         for uid, toks_out in results[mode].items():
             check(toks_out.shape == (args.gen,) and bool(
                 ((toks_out >= 0) & (toks_out < cfg.vocab_size)).all()),
                 f"{mode}: request {uid} returned {toks_out}")
-        if mode == "paged":
+        if mode == "paged_eager":
             check(not engine.uses_pages
                   and engine.prefill_chunk_len % cfg.ssm_chunk == 0,
                   "the ssm engine reserved pages or did not round its "
@@ -1380,12 +1396,15 @@ def mamba2_phase(device) -> dict:
                   f"paged prefill took {engine.stats['prefill_chunks']} "
                   f"chunk calls, expected {chunks} (at least two a prompt)")
         del engine
-    for uid in results["dense"]:
-        check(bool((results["dense"][uid] == results["paged"][uid]).all()),
-              f"request {uid}: dense tokens {results['dense'][uid].tolist()}"
-              f" != paged tokens {results['paged'][uid].tolist()}")
-    print(f"dense == paged tokens for all {len(requests)} requests",
-          flush=True)
+    for mode in ("dense", "paged"):
+        for uid in results[mode]:
+            check(bool((results[mode][uid]
+                        == results["paged_eager"][uid]).all()),
+                  f"request {uid}: {mode} tokens "
+                  f"{results[mode][uid].tolist()} != eager paged tokens "
+                  f"{results['paged_eager'][uid].tolist()}")
+    print(f"dense == paged == eager paged tokens for all {len(requests)} "
+          "requests", flush=True)
     keys = ("decode_tokens_per_s", "prefill_tokens_per_s", "itl_ms",
             "ttft_ms", "wall_s")
     res["serve"] = {mode: {k: reports[mode][k] for k in keys}
@@ -1716,15 +1735,17 @@ def _decode_margin_cuts(chunks, num_layers):
 def _record_decode_chunks(engine_cls, recorder, chunks):
     """Wrap ``engine_cls._decode_chunk`` so each chunk appends (its
     decoding slots -> (uid, tokens emitted so far), the routings
-    recorded during it); returns the original to restore."""
+    recorded during it); returns the original to restore.  The engine
+    must run eagerly (``graphs=False``): a CUDA graph's replay runs no
+    Python, so neither the wrapper nor the recorder would see a chunk."""
     orig = engine_cls._decode_chunk
 
-    def wrapped(self, active):
+    def wrapped(self, *args):
         slots = {s: (self.sched.slots[s].request.uid,
                      len(self.sched.slots[s].emitted))
                  for s in self.sched.decoding_slots()}
         start = len(recorder.records)
-        result = orig(self, active)
+        result = orig(self, *args)
         chunks.append((slots, recorder.records[start:]))
         return result
 
@@ -1733,19 +1754,20 @@ def _record_decode_chunks(engine_cls, recorder, chunks):
 
 
 def family_serve_phase(device, cfg, params, label) -> dict:
-    """Serve 8 requests of ``cfg`` through the paged engine with K8
-    (launches = attention layers or sites x decode steps), then through
-    the gather path (no kernel): equal tokens; the hybrid also through
-    the dense engine.  For the moe family the gather run records every
+    """Serve 8 requests of ``cfg`` through the paged engine with K8,
+    decoding through its CUDA graph (launches = attention layers or sites
+    x (decode steps + the warm-up's)), then through the gather path (no
+    kernel), eagerly: equal tokens; the hybrid also through the dense
+    engine's graph.  For the moe family the gather run records every
     decode step's routing margins, and a request's tokens are compared
     up to the first one whose decode step routed below MARGIN."""
     from repro_torch.serving.engine import Engine
     argv = (["--arch", cfg.name, "--prompt-len",
              str(FAMILY_PROMPT_LEN[cfg.name])] + FAMILY_SERVE_ARGV)
     args_k = serve.parse_args(argv + ["--paged-kernel"])
-    phase(f"{label}. {cfg.name} serving: paged engine through K8, then the "
-          "gather path" + (" and the dense engine" if cfg.family == "hybrid"
-                           else ""))
+    phase(f"{label}. {cfg.name} serving: paged engine through K8 as a CUDA "
+          "graph, then the eager gather path" + (
+              " and the dense engine" if cfg.family == "hybrid" else ""))
     requests = serve.make_requests(cfg, args_k)
     print("prompt lengths:", [r["tokens"].shape[-1] for r in requests],
           {k: list(v.shape) for k, v in requests[0].items() if k != "tokens"},
@@ -1757,7 +1779,10 @@ def family_serve_phase(device, cfg, params, label) -> dict:
     res_k, engine, rep_k = serve.engine_serve(cfg, params, requests, args_k,
                                               Obs(), device)
     steps_k = engine.stats["decode_steps"]
-    k8 = launch_counts(paged_attention=sites * steps_k)["paged_attention"]
+    warm = captured(engine)
+    k8 = launch_counts(paged_attention=sites * (steps_k + warm))[
+        "paged_attention"]
+    capture_s = engine.stats["compile_s"]
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
     streams = cfg.num_codebooks if cfg.family == "audio" else 0
     want_shape = (streams, args_k.gen) if streams else (args_k.gen,)
@@ -1767,8 +1792,9 @@ def family_serve_phase(device, cfg, params, label) -> dict:
             ((toks >= 0) & (toks < cfg.vocab_size)).all()),
             f"request {uid} returned {toks.shape} / out-of-vocabulary "
             "tokens")
-    print(f"K8 launches {k8} = {sites} x {steps_k} decode steps; peak "
-          f"{peak:.3f} GiB", flush=True)
+    print(f"K8 launches {k8} = {sites} x ({steps_k} decode steps + {warm} "
+          f"warm-up steps); capture {capture_s:.3f} s; peak {peak:.3f} GiB",
+          flush=True)
     del engine
     _release()
 
@@ -1777,10 +1803,12 @@ def family_serve_phase(device, cfg, params, label) -> dict:
         orig = _record_decode_chunks(Engine, rec, chunks)
         try:
             res_g, engine, rep_g = serve.engine_serve(
-                cfg, params, requests, serve.parse_args(argv), Obs(), device)
+                cfg, params, requests, serve.parse_args(argv), Obs(), device,
+                graphs=False)
         finally:
             Engine._decode_chunk = orig
     launch_counts(paged_attention=k8)              # the gather path: none
+    captured(engine, False)
     cuts = (_decode_margin_cuts(chunks, cfg.num_layers)
             if cfg.family == "moe" else {})
     del engine, rec, chunks
@@ -1797,11 +1825,35 @@ def family_serve_phase(device, cfg, params, label) -> dict:
              f"below {MARGIN}: {cuts}; all {args_k.gen} tokens equal in "
              f"{whole} of {len(res_k)}" if cfg.family == "moe" else ""),
           flush=True)
+
+    # the same K8 path decoding eagerly: the same tokens (up to the same
+    # margin cuts), and its ITL and busy share beside the captured one's
+    reset_launches()
+    res_e, engine, rep_e = serve.engine_serve(cfg, params, requests, args_k,
+                                              Obs(), device, graphs=False)
+    launch_counts(paged_attention=sites * engine.stats["decode_steps"])
+    captured(engine, False)
+    del engine
+    _release()
+    for uid in res_k:
+        n = cuts.get(uid, args_k.gen)
+        check(bool((res_k[uid][..., :n] == res_e[uid][..., :n]).all()),
+              f"request {uid}: captured tokens {res_k[uid].tolist()} != "
+              f"eager tokens {res_e[uid].tolist()} (compared up to token "
+              f"{n})")
+    print(f"eager K8 path: the captured tokens for all {len(res_e)} "
+          "requests", flush=True)
+    busy = {name: busy_window(device, cfg, params, requests, args_k, graphs)
+            for name, graphs in (("captured", True), ("eager", False))}
+    reset_launches()
     keys = ("decode_tokens_per_s", "prefill_tokens_per_s", "itl_ms",
             "ttft_ms", "wall_s")
     out = {"k8_launches": k8, "decode_steps": steps_k,
+           "warmup_steps": warm, "capture_s": capture_s,
            "peak_memory_gib": round(peak, 3),
            "paged_kernel": {k: rep_k[k] for k in keys},
+           "paged_kernel_eager": {k: rep_e[k] for k in keys},
+           "busy_window": busy,
            "gather": {k: rep_g[k] for k in keys},
            "requests_cut_by_margin": {str(u): c for u, c in cuts.items()},
            "requests_all_tokens_equal": whole}
@@ -1810,7 +1862,8 @@ def family_serve_phase(device, cfg, params, label) -> dict:
         res_d, engine, rep_d = serve.engine_serve(
             cfg, params, requests, serve.parse_args(dense_argv), Obs(),
             device)
-        launch_counts(paged_attention=k8)
+        launch_counts()
+        captured(engine)
         for uid in res_k:
             check(bool((res_d[uid] == res_g[uid]).all()),
                   f"request {uid}: dense tokens {res_d[uid].tolist()} != "
@@ -1899,6 +1952,8 @@ def family_forward_phase(device, cfg, params, label) -> dict:
     return res
 
 
+# the served runs the summary gives: K8 captured and eager, gather eager
+FAMILY_MODES = ("paged_kernel", "paged_kernel_eager", "gather")
 FAMILY_ARCHS = (("qwen2-moe-a2.7b", "5f"), ("zamba2-1.2b", "5g"),
                 ("internvl2-1b", "5h"), ("musicgen-large", "5i"))
 
@@ -2368,9 +2423,12 @@ def train_profile_phase(device, round_wall_s) -> dict:
 
 
 def main_path_phase(device) -> dict:
-    """Serve the main path through K8, then the gather path on the same
-    params; returns the K8 launch count and the two reports."""
-    phase("5. main path: full-width qwen2.5-3b, paged engine through K8")
+    """Serve the main path through K8, decoding through the engine's CUDA
+    graph, then the gather path on the same params, captured and eager;
+    profile both K8 runs (5b) and hold the captured chunk against the
+    eager one (5j).  Returns the K8 launch count and the reports."""
+    phase("5. main path: full-width qwen2.5-3b, paged engine through K8, "
+          "the decode chunk as a CUDA graph")
     args_k = serve.parse_args(SERVE_ARGV + ["--paged-kernel"])
     cfg = get_config(args_k.arch)
     t0 = time.perf_counter()
@@ -2388,12 +2446,12 @@ def main_path_phase(device) -> dict:
                                               Obs(), device)
     peak = torch.cuda.max_memory_allocated(device)
     steps = engine.stats["decode_steps"]
-    # K8 once per layer and decode step; no training kernel
-    k8_launches = launch_counts(
-        paged_attention=cfg.num_layers * steps)["paged_attention"]
-    print(f"K8 launches {k8_launches} = {cfg.num_layers} layers x "
-          f"{steps} decode steps; peak memory {peak / 2 ** 30:.3f} GiB",
-          flush=True)
+    k8_launches = launch_counts(paged_attention=cfg.num_layers * (
+        steps + captured(engine)))["paged_attention"]
+    print(f"K8 launches {k8_launches} = {cfg.num_layers} layers x ({steps} "
+          f"decode steps + {engine.stats['warmup_steps']} warm-up steps); "
+          f"capture {engine.stats['compile_s']:.3f} s; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB", flush=True)
     check(sorted(res_k) == list(range(len(requests))), "requests missing")
     for uid, toks in res_k.items():
         check(toks.shape == (args_k.gen,),
@@ -2403,16 +2461,24 @@ def main_path_phase(device) -> dict:
     del engine
     torch.cuda.empty_cache()
 
-    # reference on the card: the gather path (no kernel), same params
-    res_g, engine, rep_g = serve.engine_serve(
-        cfg, params, requests, serve.parse_args(SERVE_ARGV), Obs(), device)
-    check(pa.launches == k8_launches, "the gather path launched K8")
-    for uid in res_k:
-        check(bool((res_k[uid] == res_g[uid]).all()),
-              f"request {uid}: kernel tokens {res_k[uid].tolist()} != "
-              f"gather-path tokens {res_g[uid].tolist()}")
-    print(f"gather path: same tokens for all {len(res_g)} requests",
-          flush=True)
+    # reference on the card: the gather path (no kernel), same params,
+    # through its own graph and eagerly
+    rep_g = {}
+    for graphs in (True, False):
+        res_g, engine, rep_g[graphs] = serve.engine_serve(
+            cfg, params, requests, serve.parse_args(SERVE_ARGV), Obs(),
+            device, graphs=graphs)
+        captured(engine, graphs)
+        check(pa.launches == k8_launches, "the gather path launched K8")
+        for uid in res_k:
+            check(bool((res_k[uid] == res_g[uid]).all()),
+                  f"request {uid}: kernel tokens {res_k[uid].tolist()} != "
+                  f"gather-path tokens {res_g[uid].tolist()} (graphs "
+                  f"{graphs})")
+        del engine
+        torch.cuda.empty_cache()
+    print(f"gather path, captured and eager: same tokens for all "
+          f"{len(res_g)} requests", flush=True)
     # the first token of request 0 is the argmax of a plain full forward
     prompt = torch.as_tensor(requests[0]["tokens"], device=device)[None]
     logits, _ = tfm.forward(params, cfg, prompt)
@@ -2420,31 +2486,35 @@ def main_path_phase(device) -> dict:
           and bool(torch.isfinite(logits).all()), "forward logits not finite")
     check(int(logits[0, -1].argmax()) == int(res_k[0][0]),
           "request 0's first token is not the argmax of the forward logits")
-    del engine, logits
+    del logits
     torch.cuda.empty_cache()
     profile = profile_phase(device, cfg, params, requests, args_k)
+    graph = graph_phase(device, cfg, params, requests, args_k, res_k, rep_k,
+                        profile)
     flash = flash_prefill_phase(device, cfg, params)
     del params
     torch.cuda.empty_cache()
     return {"launches": k8_launches, "decode_steps": steps,
             "peak_memory_gib": round(peak / 2 ** 30, 3),
-            "paged_kernel": rep_k, "gather": rep_g, "profile": profile,
-            "flash_prefill": flash}
+            "paged_kernel": rep_k, "gather": rep_g[False],
+            "gather_captured": rep_g[True], "profile": profile,
+            "graph": graph, "flash_prefill": flash}
 
 
-def profile_phase(device, cfg, params, requests, args) -> dict:
-    """Where the time goes: the K8 main path once more under
-    torch.profiler — device busy time against the wall clock, and the
-    kernels that take it.  The profiler slows the host side, so the
-    idle share is also given against the unprofiled run's wall."""
-    phase("5b. main path under torch.profiler")
-    # device activity only: with host-op events too, processing the trace
-    # of this run took minutes, and busy time needs none of them
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
-        _, engine, rep = serve.engine_serve(cfg, params, requests, args,
-                                            Obs(), device)
+def captured(engine, graphs=True) -> int:
+    """Check that ``engine`` captured exactly one decode program (none
+    when it ran eagerly) and took time to; returns its warm-up steps,
+    whose K8 launches count beside the decode steps'."""
+    compiles = engine.obs.counter("serve.compiles").total
+    check(compiles == int(graphs) and (engine.stats["compile_s"] > 0)
+          == graphs, f"{compiles} decode programs captured in "
+          f"{engine.stats['compile_s']} s, graphs {graphs}")
+    return engine.stats["warmup_steps"]
+
+
+def _device_rows(prof):
+    """(device us, name, calls) of every kernel row the profiler saw,
+    largest first."""
     rows = []
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
@@ -2452,17 +2522,161 @@ def profile_phase(device, cfg, params, requests, args) -> dict:
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
         rows.append((us, e.key, e.count))
-    rows.sort(reverse=True)
+    return sorted(rows, reverse=True)
+
+
+BUSY_STEPS = 2             # engine steps a busy-share window profiles
+
+
+def busy_window(device, cfg, params, requests, args, graphs) -> dict:
+    """The device's busy share over a short steady window: one engine
+    serves ``requests`` until its first decode chunk is done (the capture
+    included, with ``graphs``), then BUSY_STEPS engine steps (decode
+    chunks, with any prefill chunks interleaved) run under torch.profiler
+    (device activity only): every kernel's device time over the window's
+    wall.  A window keeps the trace short: a whole run's took a minute
+    to process."""
+    engine = serve.make_engine(cfg, params, requests, args, Obs(), device,
+                               graphs)
+    serve.submit_requests(engine, requests, args)
+    while engine.stats["chunks"] == 0:
+        engine.step()
+    chunks = engine.stats["chunks"]
+    torch.cuda.synchronize(device)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(BUSY_STEPS):
+            engine.step()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    chunks = engine.stats["chunks"] - chunks
+    del engine
+    _release()
+    busy = sum(us for us, _, _ in _device_rows(prof)) / 1e6
+    check(busy > 0 and chunks >= 1,
+          f"busy window: {busy} s of device time, {chunks} decode chunks")
+    return {"steps": BUSY_STEPS, "decode_chunks": chunks,
+            "wall_s": round(wall, 4),
+            "device_busy_s": round(busy, 4),
+            "busy_share": round(busy / wall, 4)}
+
+
+def _profile_run(device, cfg, params, requests, args, graphs):
+    """One serve run under torch.profiler (device activity only: with
+    host-op events too, processing the trace of this run took minutes,
+    and busy time needs none of them)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        _, engine, rep = serve.engine_serve(cfg, params, requests, args,
+                                            Obs(), device, graphs=graphs)
+    rows = _device_rows(prof)
     busy_s = sum(us for us, _, _ in rows) / 1e6
-    check(busy_s > 0 and any("paged_attention" in k for _, k, _ in rows),
-          "the profiler saw no device time or no K8 launch")
-    out = {"profiled_wall_s": rep["wall_s"], "device_busy_s": busy_s,
-           "profile_phase_s": round(time.perf_counter() - t0, 1),
-           "decode_steps": engine.stats["decode_steps"],
-           "top_kernels": [{"name": k[:90], "device_ms": us / 1e3,
-                            "calls": n} for us, k, n in rows[:8]]}
-    print(json.dumps(out), flush=True)
+    return {"profiled_wall_s": rep["wall_s"], "device_busy_s": busy_s,
+            "profile_phase_s": round(time.perf_counter() - t0, 1),
+            "decode_steps": engine.stats["decode_steps"],
+            "names_k8": any("paged_attention" in k for _, k, _ in rows),
+            "top_kernels": [{"name": k[:90], "device_ms": us / 1e3,
+                             "calls": n} for us, k, n in rows[:8]]}
+
+
+def profile_phase(device, cfg, params, requests, args) -> dict:
+    """Where the time goes: the K8 main path once more under
+    torch.profiler, decoding through its CUDA graph, then eagerly —
+    device busy time against the wall clock, and the kernels that take
+    it.  The profiler slows the host side, so the idle share is also
+    given against an unprofiled run's wall."""
+    phase("5b. main path under torch.profiler, captured and eager")
+    out = {}
+    for name, graphs in (("captured", True), ("eager", False)):
+        out[name] = _profile_run(device, cfg, params, requests, args, graphs)
+        check(out[name]["device_busy_s"] > 0,
+              f"the profiler saw no device time in the {name} run")
+        print(json.dumps({"profile": name, **out[name]}), flush=True)
+    # K8 inside the graph: a replay's kernels are named where the
+    # profiler sees into the graph; the eager run names them in any case
+    check(out["eager"]["names_k8"], "the profiler saw no K8 launch in the "
+          "eager run")
+    print(f"K8 named by the profiler: captured run "
+          f"{out['captured']['names_k8']}, eager run "
+          f"{out['eager']['names_k8']}", flush=True)
     return out
+
+
+def graph_phase(device, cfg, params, requests, args_k, res_k, rep_k,
+                profile) -> dict:
+    """The decode chunk as a CUDA graph against the eager chunk on the
+    main path (paged engine through K8): the same tokens greedy (phase
+    5's captured run) and sampled (temperature 0.8, top-k 50, one seed);
+    one replay with host synchronisation forbidden; one decode program a
+    captured engine; K8 launches = layers x decode steps through the
+    replays (+ the warm-up's); ITL and device-busy share of both."""
+    phase("5j. the decode chunk as a CUDA graph: captured against eager, "
+          "greedy and sampled")
+    sampled = serve.parse_args(SERVE_ARGV + ["--paged-kernel",
+                                             "--temperature", "0.8",
+                                             "--top-k", "50"])
+    out = {}
+    for label, args, graphs in (("greedy_eager", args_k, False),
+                                ("sampled_captured", sampled, True),
+                                ("sampled_eager", sampled, False)):
+        reset_launches()
+        res, engine, rep = serve.engine_serve(cfg, params, requests, args,
+                                              Obs(), device, graphs=graphs)
+        steps = engine.stats["decode_steps"]
+        k8 = launch_counts(paged_attention=cfg.num_layers * (
+            steps + captured(engine, graphs)))["paged_attention"]
+        want = res_k if label == "greedy_eager" else out.get(
+            "sampled_captured", {}).get("tokens")
+        if want is not None:
+            for uid in res:
+                check(bool((res[uid] == want[uid]).all()),
+                      f"{label} request {uid}: {res[uid].tolist()} != "
+                      f"captured {want[uid].tolist()}")
+        if label == "sampled_captured":
+            greedy_equal = sum(bool((res[u] == res_k[u]).all())
+                               for u in res)
+            print(f"sampled tokens equal the greedy ones in {greedy_equal} "
+                  f"of {len(res)} requests", flush=True)
+            # one more replay, with host synchronisation forbidden
+            reset_launches()
+            without_sync(engine._decode_program())
+            torch.cuda.synchronize(device)
+            launch_counts(paged_attention=cfg.num_layers
+                          * engine.decode_chunk)
+        out[label] = {"tokens": res, "k8_launches": k8,
+                      "decode_steps": steps, "report": rep,
+                      "compile_s": engine.stats["compile_s"]}
+        del engine
+        torch.cuda.empty_cache()
+    wall = {"captured": rep_k["wall_s"],
+            "eager": out["greedy_eager"]["report"]["wall_s"]}
+    summary = {
+        "itl_ms": {"captured": rep_k["itl_ms"],
+                   "eager": out["greedy_eager"]["report"]["itl_ms"],
+                   "sampled_captured": out["sampled_captured"]["report"][
+                       "itl_ms"],
+                   "sampled_eager": out["sampled_eager"]["report"][
+                       "itl_ms"]},
+        "decode_tokens_per_s": {
+            "captured": rep_k["decode_tokens_per_s"],
+            "eager": out["greedy_eager"]["report"]["decode_tokens_per_s"]},
+        "wall_s": wall,
+        "device_busy_share": {
+            k: round(profile[k]["device_busy_s"] / wall[k], 4)
+            for k in wall},
+        "busy_window": {
+            name: busy_window(device, cfg, params, requests, args_k, graphs)
+            for name, graphs in (("captured", True), ("eager", False))},
+        "capture_s": {"greedy": rep_k["compile_s"],
+                      "sampled": out["sampled_captured"]["compile_s"]},
+        "k8_launches": {k: v["k8_launches"] for k, v in out.items()},
+        "replay_without_sync": True}
+    print("captured == eager tokens for all "
+          f"{len(res_k)} requests, greedy and sampled", flush=True)
+    print(json.dumps(summary), flush=True)
+    return summary
 
 
 def main() -> int:
@@ -2502,11 +2716,13 @@ def main() -> int:
     prof = trained["profile"]
     print(json.dumps({
         "throughput": {mode: {k: run[mode][k] for k in keys}
-                       for mode in ("paged_kernel", "gather")},
+                       for mode in ("paged_kernel", "gather",
+                                    "gather_captured")},
         "peak_memory_gib": run["peak_memory_gib"],
         "decode_steps": run["decode_steps"],
-        "device_busy_share": round(run["profile"]["device_busy_s"]
-                                   / run["paged_kernel"]["wall_s"], 4),
+        "device_busy_share": run["graph"]["device_busy_share"],
+        "graph": {k: run["graph"][k] for k in (
+            "itl_ms", "capture_s", "busy_window")},
         "train": {"step_wall_s": trained["step_wall_s"],
                   "tokens_per_s": trained["tokens_per_s"],
                   "peak_memory_gib": trained["peak_memory_gib"],
@@ -2543,9 +2759,12 @@ def main() -> int:
             "params": f["params"], "peak_memory_gib": f["peak_memory_gib"],
             "phase_wall_s": f["phase_wall_s"],
             "itl_ms_p50": {mode: f["serve"][mode]["itl_ms"]["p50"]
-                           for mode in ("paged_kernel", "gather")},
+                           for mode in FAMILY_MODES},
             "itl_ms_mean": {mode: f["serve"][mode]["itl_ms"]["mean"]
-                            for mode in ("paged_kernel", "gather")},
+                            for mode in FAMILY_MODES},
+            "capture_s": f["serve"]["capture_s"],
+            "busy_share": {k: v["busy_share"] for k, v in
+                           f["serve"]["busy_window"].items()},
             "forward_wall_s": (f["forward"]["forward_wall_s"]
                                if "forward" in f
                                else f["prefill"]["prefill_wall_s"])}

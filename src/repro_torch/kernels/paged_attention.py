@@ -34,8 +34,18 @@ MAX_SMEM_BYTES = 232448          # per-block dynamic shared memory, sm_90
 BLOCKS_PER_SM = 4                # the split grid's aim
 RING_PAGES = 4                   # csrc/paged_attention.cu's kStages
 
-# kernel launches since process start (or since the caller reset it)
+# kernel launches since process start (or since the caller reset it),
+# those of CUDA-graph replays included (``count_replay``)
 launches = 0
+# launches recorded into a CUDA graph under capture (none ran then)
+captures = 0
+
+
+def count_replay(captured: int) -> None:
+    """Count the ``captured`` launches a CUDA graph's replay ran: a replay
+    runs no Python, so the wrapper did not see them."""
+    global launches
+    launches += captured
 
 
 def paged_attention_plain(q, k_pool, v_pool, table, lengths):
@@ -132,10 +142,11 @@ def _check(q, k_pool, v_pool, table, lengths):
 def paged_attention_cuda(q, k_pool, v_pool, table, lengths):
     """Launch the K8 kernels on the current stream (no synchronisation,
     no read of ``lengths`` on the host): the split kernel and, with more
-    than one split, the combine kernel — one launch in ``launches``.
-    Same contract as :func:`paged_attention_plain`; raises on anything
-    the kernel does not take."""
-    global launches
+    than one split, the combine kernel — one launch in ``launches``, or
+    in ``captures`` when the stream is capturing a CUDA graph.  Same
+    contract as :func:`paged_attention_plain`; raises on anything the
+    kernel does not take."""
+    global launches, captures
     _check(q, k_pool, v_pool, table, lengths)
     fn = _library()
     B, H, hd = q.shape
@@ -164,5 +175,8 @@ def paged_attention_cuda(q, k_pool, v_pool, table, lengths):
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError_t {err}")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captures += 1
+    else:
+        launches += 1
     return out

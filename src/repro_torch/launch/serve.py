@@ -31,7 +31,9 @@ Modes:
 
 * default — the engine: ``--slots``-wide continuous batching, mixed
   prompt lengths (``--mixed-lens``), staggered arrivals
-  (``--arrive-every``), greedy or ``--temperature``/``--top-k``.
+  (``--arrive-every``), greedy or ``--temperature``/``--top-k``.  On
+  CUDA it decodes through one CUDA graph of its decode chunk; the
+  ``serve_summary``'s ``compile_s`` is that graph's capture.
 * ``--naive`` — the one-request-at-a-time reference loop (first token
   from the prefill logits; measured after a warm-up pass).
 * ``--paged`` — the paged KV cache: ``--page-size`` token pages behind
@@ -167,7 +169,7 @@ def naive_serve(cfg, params, requests, args, obs, device):
     return outs, rep
 
 
-def make_engine(cfg, params, requests, args, obs, device):
+def make_engine(cfg, params, requests, args, obs, device, graphs=True):
     return Engine(cfg, params, num_slots=args.slots,
                   max_len=_max_len(requests, args),
                   decode_chunk=args.decode_chunk,
@@ -177,18 +179,27 @@ def make_engine(cfg, params, requests, args, obs, device):
                   num_pages=args.num_pages if args.num_pages > 0 else None,
                   prefill_chunk=args.prefill_chunk,
                   use_paged_kernel=args.paged_kernel,
-                  registry=obs.registry, tracer=obs.tracer, device=device)
+                  registry=obs.registry, tracer=obs.tracer, device=device,
+                  graphs=graphs)
 
 
-def engine_serve(cfg, params, requests, args, obs, device):
-    """Serve ``requests`` through one engine.  Returns (results {uid:
-    tokens}, engine, the printed ``serve_summary`` record)."""
-    engine = make_engine(cfg, params, requests, args, obs, device)
+def submit_requests(engine, requests, args):
+    """Queue every request, each slot-sized wave ``--arrive-every`` engine
+    steps after the one before."""
     for i, r in enumerate(requests):
         engine.submit(r["tokens"], max_new_tokens=args.gen,
                       eos_id=args.eos_id if args.eos_id >= 0 else None,
                       arrival=(i // max(args.slots, 1)) * args.arrive_every,
                       cond=r.get("cond"), patch_embeds=r.get("patch_embeds"))
+
+
+def engine_serve(cfg, params, requests, args, obs, device, graphs=True):
+    """Serve ``requests`` through one engine.  Returns (results {uid:
+    tokens}, engine, the printed ``serve_summary`` record, whose
+    ``compile_s`` is the decode graph's capture).  ``graphs=False`` decodes
+    eagerly on CUDA too (the engine's keyword; the CLI has no flag)."""
+    engine = make_engine(cfg, params, requests, args, obs, device, graphs)
+    submit_requests(engine, requests, args)
     t0 = time.perf_counter()
     results = engine.run()
     _sync(device)

@@ -5,6 +5,9 @@ donate the slot-batch cache so XLA updates it in place; here every
 function below writes the caller's tensors in place and returns the same
 cache tuple.
 
+The engine's caches stay at fixed addresses (its decode chunk is one
+CUDA graph): ``copy_into`` puts what a model returns back into them.
+
 Dense layout (``init_slot_cache``): the engine's decode batch owns ONE
 cache whose batch axis is the slot axis (layers are stacked at axis 0)
 and whose ``pos`` fields are (num_slots,) vectors: each slot keeps its
@@ -36,6 +39,24 @@ def _leaves(cache):
             yield name, leaf
         else:
             yield from _leaves(leaf)
+
+
+def clone(cache):
+    """A copy of a (nested) cache tuple, every tensor cloned."""
+    return cache._replace(**{
+        name: leaf.clone() if isinstance(leaf, torch.Tensor) else clone(leaf)
+        for name, leaf in cache._asdict().items()})
+
+
+def copy_into(cache, new):
+    """Copy each tensor of ``new`` that is not ``cache``'s own into it, and
+    return ``cache``.  The models write a cache in place but return its
+    ``pos`` fields as new tensors; the engine's decode graph needs every
+    tensor of its cache at a fixed address."""
+    for (_, old), (_, leaf) in zip(_leaves(cache), _leaves(new)):
+        if leaf is not old:
+            old.copy_(leaf)
+    return cache
 
 
 def init_slot_cache(model, params, num_slots: int, max_len: int):

@@ -1,11 +1,22 @@
 """The continuous-batching engine loop.
 
-Port of ``repro/serving/engine.py``.  It runs eagerly: where the
-reference AOT-compiles a ``lax.scan`` decode chunk with a donated cache,
-the port loops ``decode_chunk`` single-token decodes and updates the
-cache tensors in place.  ``stats["compile_s"]`` stays in the report and
-is 0.0 (nothing is compiled; the CUDA kernel's one-time build happens
-at its first launch, see ``kernels/build.py``).
+Port of ``repro/serving/engine.py``.  Where the reference AOT-compiles
+its decode chunk (``_compile`` + ``_decode_compiled``: one ``lax.scan``
+over ``decode_chunk`` steps with a donated cache), the port captures the
+chunk into one CUDA graph per engine (``_decode_program``): at the first
+decode step it runs the chunk once on copies of its buffers (a warm-up,
+on a side stream: cuBLAS's workspaces and the paged-attention kernel's
+build come before capture), captures ``decode_chunk`` decodes with
+sampling after each, and replays the graph at every engine step.  The
+capture time counts in ``stats["compile_s"]`` and ``serve.compiles``.
+A graph reads and writes fixed addresses, so the chunk's inputs and
+outputs are buffers made at construction — the cache tensors,
+``cur_tok``, the ``active`` row mask, the chunk's tokens — and every
+``pos`` field the models return as a new tensor is copied back into the
+cache's own (``cache.copy_into``).  Admission writes those buffers in
+place.  On the CPU, or with ``graphs=False``, the same chunk runs
+eagerly over the same buffers, and ``compile_s`` stays 0.0.  Prefill
+runs eagerly.
 
 Execution model (dense layout — the oracle path):
 
@@ -65,6 +76,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels import paged_attention
 from repro_torch.models.model import build_model
 from repro_torch.obs.metrics import Registry
 from repro_torch.obs.trace import Tracer
@@ -100,9 +112,12 @@ class Engine:
                  num_pages: Optional[int] = None, prefill_chunk: int = 32,
                  prefix_share: bool = True, use_paged_kernel: bool = False,
                  registry: Optional[Registry] = None,
-                 tracer: Optional[Tracer] = None, device=None):
+                 tracer: Optional[Tracer] = None, device=None,
+                 graphs: bool = True):
         """``device``: where the engine runs — ``cuda`` unless given;
-        ``params`` must already live there."""
+        ``params`` must already live there.  ``graphs``: on CUDA, decode
+        through one CUDA graph of the chunk; ``False`` runs the chunk
+        eagerly there too, as it always runs on the CPU."""
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -118,12 +133,19 @@ class Engine:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.paged = paged
         self.use_paged_kernel = use_paged_kernel
+        self.graphs = graphs and self.device.type == "cuda"
+        self._program = None          # the decode chunk, see _decode_program
 
         self.sched = Scheduler(num_slots)
         tok_shape = ((num_slots, cfg.num_codebooks, 1)
                      if cfg.family == "audio" else (num_slots, 1))
+        # the decode chunk's inputs and outputs, at fixed addresses
         self.cur_tok = torch.zeros(tok_shape, dtype=torch.int32,
                                    device=self.device)
+        self._active = torch.zeros((num_slots,), dtype=torch.bool,
+                                   device=self.device)
+        self._toks = torch.zeros((decode_chunk,) + tok_shape,
+                                 dtype=torch.int32, device=self.device)
 
         if paged:
             if getattr(cfg, "sliding_window", 0):
@@ -155,7 +177,8 @@ class Engine:
         self._uid = 0
         self.stats = {"compile_s": 0.0, "prefill_s": 0.0, "decode_s": 0.0,
                       "prefill_tokens": 0, "decode_steps": 0,
-                      "decode_tokens": 0, "chunks": 0, "prefill_chunks": 0}
+                      "decode_tokens": 0, "chunks": 0, "prefill_chunks": 0,
+                      "warmup_steps": 0}
         # telemetry: always-on host-side registry (a caller-supplied one
         # lets serve.py / tests aggregate across engines); the tracer
         # defaults to disabled — spans cost nothing unless requested
@@ -308,7 +331,8 @@ class Engine:
             t0 = time.perf_counter()
             with self.tracer.span("prefill_chunk", cat="prefill",
                                   uid=req.uid, frontier=f, tokens=valid):
-                logits, self.cache = self.model.prefill_chunk(
+                # writes self.cache in place; pos is set once done
+                logits, _ = self.model.prefill_chunk(
                     self.params, batch, self.cache, slot, f, valid, total)
                 rec.frontier = f + valid
                 done = rec.frontier >= total
@@ -337,40 +361,108 @@ class Engine:
             self.pool.release(plan)
 
     # -- decode chunks ------------------------------------------------
-    def _decode_chunk(self, active):
-        """``decode_chunk`` single-token decodes over the slot batch;
-        returns the chunk's tokens (C, B, [K,] 1) and leaves
-        the updated cache in ``self.cache``.  ``active``: (B,) bool
-        device mask of decoding rows (paged layout only)."""
-        model, params, tok = self.model, self.params, self.cur_tok
+    def _decode_chunk(self, cache, tok, active, generator):
+        """``decode_chunk`` single-token decodes over the slot batch from
+        ``tok``, sampling after each; the models write ``cache`` in
+        place.  Returns the chunk's tokens (C, B, [K,] 1) and the cache
+        tuple the last step returned (its ``pos`` fields new tensors).
+        ``active``: (B,) bool mask of decoding rows (paged layout
+        only)."""
+        model, params = self.model, self.params
         toks = []
         if self.paged and self.use_paged_kernel:
             # per-step paged attention: every step reads KV straight
             # from the pool through the paged-attention kernel
             for _ in range(self.decode_chunk):
-                logits, self.cache = model.decode_paged(
-                    params, {"tokens": tok}, self.cache, active)
-                tok = self.selector(logits, self.generator)
+                logits, cache = model.decode_paged(
+                    params, {"tokens": tok}, cache, active)
+                tok = self.selector(logits, generator)
                 toks.append(tok)
         elif self.paged:
             # hoisted gather: page tables are constant across the
             # chunk, so gather pool -> dense view once, loop the plain
             # dense decode (bitwise the same values), scatter back once
             # (inactive rows -> trash page, pos frozen)
-            dense = model.paged_to_dense(self.cache)
+            dense = model.paged_to_dense(cache)
             for _ in range(self.decode_chunk):
                 logits, dense = model.decode(params, {"tokens": tok}, dense)
-                tok = self.selector(logits, self.generator)
+                tok = self.selector(logits, generator)
                 toks.append(tok)
-            self.cache = model.paged_restore(self.cache, dense, active,
-                                             self.decode_chunk)
+            cache = model.paged_restore(cache, dense, active,
+                                        self.decode_chunk)
         else:
             for _ in range(self.decode_chunk):
-                logits, self.cache = model.decode(params, {"tokens": tok},
-                                                  self.cache)
-                tok = self.selector(logits, self.generator)
+                logits, cache = model.decode(params, {"tokens": tok}, cache)
+                tok = self.selector(logits, generator)
                 toks.append(tok)
-        return torch.stack(toks)
+        return torch.stack(toks), cache
+
+    def _chunk_into(self, cache, tok, active, generator, out):
+        """One decode chunk that leaves its results in the buffers it was
+        given: the tokens in ``out``, the last of them in ``tok``, the
+        advanced positions in ``cache``'s own pos tensors."""
+        toks, new = self._decode_chunk(cache, tok, active, generator)
+        cache_lib.copy_into(cache, new)
+        out.copy_(toks)
+        tok.copy_(toks[-1])
+
+    def _run_eager(self):
+        self._chunk_into(self.cache, self.cur_tok, self._active,
+                         self.generator, self._toks)
+
+    def _decode_program(self):
+        """The decode chunk as one call over the engine's buffers: it
+        reads ``cur_tok``, ``_active`` and the cache, and writes the
+        cache, ``_toks`` and ``cur_tok`` in place.
+
+        On CUDA (``graphs``) it replays one CUDA graph of the whole chunk,
+        captured here at the first decode step: the port of the
+        reference's ``_compile`` + ``_decode_compiled``.  The engine's
+        generator is registered with the graph, so each replay draws from
+        and advances it as the eager chunk does.  A replay runs no
+        Python, so it adds the paged-attention launches its capture
+        recorded to that kernel's count.  Otherwise the chunk runs
+        eagerly."""
+        if self._program is not None:
+            return self._program
+        if not self.graphs:
+            self._program = self._run_eager
+            return self._program
+        t0 = time.perf_counter()
+        with self.tracer.span("compile:decode_chunk", cat="compile"):
+            self._warm_up()
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(self.generator)
+            before = paged_attention.captures
+            with torch.cuda.graph(graph):
+                self._run_eager()
+            k8 = paged_attention.captures - before
+        self.stats["compile_s"] += time.perf_counter() - t0
+        self.obs.counter("serve.compiles").inc()
+
+        def replay():
+            graph.replay()
+            paged_attention.count_replay(k8)
+        self._program = replay
+        return replay
+
+    def _warm_up(self):
+        """Run the chunk once, eagerly, on a side stream and on copies of
+        its buffers and generator, so that everything set up at a first
+        call (cuBLAS's handles and workspaces, the paged-attention
+        kernel's build) is in place before capture and the engine's state
+        is untouched.  The copies hold the cache a second time until the
+        capture."""
+        gen = torch.Generator(device=self.device)
+        gen.set_state(self.generator.get_state())
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._chunk_into(cache_lib.clone(self.cache), self.cur_tok.clone(),
+                             self._active.clone(), gen,
+                             torch.empty_like(self._toks))
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        self.stats["warmup_steps"] += self.decode_chunk
 
     # -- graceful degradation: deadline shedding ----------------------
     def _shed_expired(self) -> None:
@@ -456,7 +548,7 @@ class Engine:
                 return
             active = np.zeros((self.num_slots,), bool)
             active[dec] = True
-            active = torch.as_tensor(active, device=self.device)
+            self._active.copy_(torch.as_tensor(active))
             n_slots = len(dec)
         else:
             self._admit()
@@ -464,14 +556,15 @@ class Engine:
                 self.sched.tick()     # idle tick: arrivals advance
                 self._note_finished()
                 return
-            active = None
             n_slots = len(self.sched.active_slots())
+        program = self._decode_program()
         t0 = time.perf_counter()
         with self.tracer.span("decode_chunk", cat="decode", slots=n_slots,
                               chunk=self.decode_chunk):
-            toks = self._decode_chunk(active)
-            self.cur_tok = toks[-1]
-            toks_host = toks[..., 0].cpu().numpy()  # (C, B) | (C, B, K)
+            program()
+            # (C, B) | (C, B, K); a copy: the next chunk rewrites the
+            # buffer, and on the CPU .cpu() returns it as it is
+            toks_host = self._toks[..., 0].cpu().numpy().copy()
         dt = time.perf_counter() - t0
         self.stats["decode_s"] += dt
         self.stats["decode_steps"] += self.decode_chunk
