@@ -64,18 +64,27 @@ itself and, in order:
    Qwen2.5-3B in float32 (random params, torch.Generator seed 0), the
    paged engine decoding through K8, 8 requests of 63-84 prompt tokens,
    32 greedy tokens each; every engine decodes through one CUDA graph of
-   its decode chunk (captured at its first decode step after a warm-up
-   run of the chunk) unless it is built with ``graphs=False``; asserts
-   every request got its tokens, that each captured engine captured
-   exactly one decode program, that K8 launched exactly num_layers x
-   (decode steps + the warm-up's steps), counted through the replays,
-   and that the tokens equal the gather path's (no kernel), captured
-   and eager; then (5b) profiles that run, captured and eager (K8 named
-   in one of them); then (5j) holds the captured chunk against the
-   eager one: the same tokens greedy and sampled (temperature 0.8,
-   top-k 50, one seed), one replay with host synchronisation forbidden,
-   ITL, capture seconds and the device's busy share of both (whole runs
-   and a two-step window); then prefills
+   its decode chunk and prefills through CUDA graphs too — one a prompt
+   bucket (dense) or one of the prefill chunk (paged) — each captured
+   at its first use after a warm-up run, unless it is built with
+   ``graphs=False`` (then all of it runs eagerly); asserts every request
+   got its tokens, that each captured engine captured exactly the
+   programs the reference compiles (decode + buckets dense, 2 paged),
+   that K8 launched exactly num_layers x (decode steps + the warm-up's
+   steps), counted through the replays (a prefill launches none), and
+   that the tokens equal the gather path's (no kernel), captured and
+   eager; then (5b) profiles that run, captured and eager (K8 named in
+   one of them); then (5j) holds the captured engine against the eager
+   one: the same tokens greedy and sampled (temperature 0.8, top-k 50,
+   one seed), one replay of the decode graph and one of the prefill
+   chunk graph with host synchronisation forbidden, ITL, prefill
+   tokens/s, TTFT, capture seconds and the device's busy share of both
+   (whole runs and a two-step window); then (5k) one captured engine
+   serves the 8 requests twice, a cold pass (captures included, each
+   timed) and a warm pass (no capture), each with phase 5's tokens,
+   beside the eager engine: prefill tokens/s, TTFT, ITL, busy shares
+   (whole pass and two-step window) and peak memory of each; then
+   prefills
    2 x 1024 tokens on the same params through
    ``launch/steps.py::make_prefill_step(use_flash=True)`` (K3 once per
    layer, 36 launches) and without K3: logits and KV caches within 1e-3,
@@ -83,19 +92,22 @@ itself and, in order:
    layers, d_model 2048, float32, random params): a forward over 2 x
    2048 tokens through K9 (48 launches) against ``ssd_chunked`` (logits
    within 1e-3), and 8 requests served through the engine, dense and
-   paged (each captured) and paged eagerly, with equal tokens; then
+   paged (each captured; the dense prefill graphs replayed once more
+   with host synchronisation forbidden) and paged eagerly, with equal
+   tokens; then
    (phases 5f-5i) the four remaining
    families at full width and depth, float32, random params (seed 0),
    each freed before the next is built — Qwen1.5-MoE-A2.7B (14.3 B
    params), Zamba2-1.2B, InternVL2-1B (256 patch embeddings a request)
    and MusicGen-large (64 cond frames, 4 codebooks): 8 requests, 32
    greedy tokens each, 4 slots, page size 16, through the paged engine
-   with K8 as a CUDA graph (launches = attention layers or sites x
-   (decode steps + the warm-up's)), the same eagerly and the gather path
-   eagerly, equal tokens (the hybrid also through the dense engine's
-   graph; the moe family compared up to the first token whose decode
-   step routed a token below a router margin of 1e-4 on the gather
-   path), ITL and busy windows of the captured and the eager K8 path,
+   prefilling and decoding (K8) through its CUDA graphs (launches =
+   attention layers or sites x (decode steps + the warm-up's)), the same
+   eagerly and the gather path eagerly, equal tokens (the hybrid also
+   through the dense engine's graphs; the moe family compared up to the
+   first token whose decode step routed a token below a router margin of
+   1e-4 on the gather path), ITL, prefill tokens/s, TTFT and busy
+   windows of the captured and the eager K8 path,
    then a 2 x 1024 prefill (moe, through
    ``steps.make_prefill_step``) or forward through K3 (24, 7, 24 and 48
    launches; the hybrid also through K9, 38) against the plain path:
@@ -173,8 +185,9 @@ from repro_torch.models import mamba2  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
-from repro_torch.obs import Obs  # noqa: E402
+from repro_torch.obs import Obs, Registry  # noqa: E402
 from repro_torch.runtime.precision import pin_float32  # noqa: E402
+from repro_torch.serving.engine import _bucket_len  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 SOURCES = ("paged_attention.cu", "parle_update.cu", "flash_attention.cu",
@@ -1360,8 +1373,8 @@ def mamba2_phase(device) -> dict:
     torch.cuda.empty_cache()
 
     phase(f"5e. {cfg.name} serving: the engine, dense and paged, each "
-          "decoding through its CUDA graph, and paged eagerly, on the same "
-          "params")
+          "prefilling and decoding through its CUDA graphs, and paged "
+          "eagerly, on the same params")
     requests = serve.make_requests(cfg, args)
     print("prompt lengths:", [len(r["tokens"]) for r in requests])
     results, reports = {}, {}
@@ -1373,7 +1386,9 @@ def mamba2_phase(device) -> dict:
             cfg, params, requests, serve.parse_args(MAMBA_SERVE_ARGV + extra),
             Obs(), device, graphs=graphs)
         launch_counts()                  # no port kernel serves the ssm
-        captured(engine, graphs)
+        captured(engine, requests, graphs)
+        if mode == "dense":
+            replay_prefills_without_sync(engine, device)
         check(sorted(results[mode]) == list(range(len(requests))),
               f"{mode}: requests missing")
         for uid, toks_out in results[mode].items():
@@ -1779,7 +1794,7 @@ def family_serve_phase(device, cfg, params, label) -> dict:
     res_k, engine, rep_k = serve.engine_serve(cfg, params, requests, args_k,
                                               Obs(), device)
     steps_k = engine.stats["decode_steps"]
-    warm = captured(engine)
+    warm = captured(engine, requests)
     k8 = launch_counts(paged_attention=sites * (steps_k + warm))[
         "paged_attention"]
     capture_s = engine.stats["compile_s"]
@@ -1808,7 +1823,7 @@ def family_serve_phase(device, cfg, params, label) -> dict:
         finally:
             Engine._decode_chunk = orig
     launch_counts(paged_attention=k8)              # the gather path: none
-    captured(engine, False)
+    captured(engine, requests, False)
     cuts = (_decode_margin_cuts(chunks, cfg.num_layers)
             if cfg.family == "moe" else {})
     del engine, rec, chunks
@@ -1832,7 +1847,7 @@ def family_serve_phase(device, cfg, params, label) -> dict:
     res_e, engine, rep_e = serve.engine_serve(cfg, params, requests, args_k,
                                               Obs(), device, graphs=False)
     launch_counts(paged_attention=sites * engine.stats["decode_steps"])
-    captured(engine, False)
+    captured(engine, requests, False)
     del engine
     _release()
     for uid in res_k:
@@ -1863,7 +1878,7 @@ def family_serve_phase(device, cfg, params, label) -> dict:
             cfg, params, requests, serve.parse_args(dense_argv), Obs(),
             device)
         launch_counts()
-        captured(engine)
+        captured(engine, requests)
         for uid in res_k:
             check(bool((res_d[uid] == res_g[uid]).all()),
                   f"request {uid}: dense tokens {res_d[uid].tolist()} != "
@@ -2447,7 +2462,7 @@ def main_path_phase(device) -> dict:
     peak = torch.cuda.max_memory_allocated(device)
     steps = engine.stats["decode_steps"]
     k8_launches = launch_counts(paged_attention=cfg.num_layers * (
-        steps + captured(engine)))["paged_attention"]
+        steps + captured(engine, requests)))["paged_attention"]
     print(f"K8 launches {k8_launches} = {cfg.num_layers} layers x ({steps} "
           f"decode steps + {engine.stats['warmup_steps']} warm-up steps); "
           f"capture {engine.stats['compile_s']:.3f} s; peak memory "
@@ -2468,7 +2483,7 @@ def main_path_phase(device) -> dict:
         res_g, engine, rep_g[graphs] = serve.engine_serve(
             cfg, params, requests, serve.parse_args(SERVE_ARGV), Obs(),
             device, graphs=graphs)
-        captured(engine, graphs)
+        captured(engine, requests, graphs)
         check(pa.launches == k8_launches, "the gather path launched K8")
         for uid in res_k:
             check(bool((res_k[uid] == res_g[uid]).all()),
@@ -2491,6 +2506,8 @@ def main_path_phase(device) -> dict:
     profile = profile_phase(device, cfg, params, requests, args_k)
     graph = graph_phase(device, cfg, params, requests, args_k, res_k, rep_k,
                         profile)
+    prefill = prefill_graph_phase(device, cfg, params, requests, args_k,
+                                  res_k, profile, graph)
     flash = flash_prefill_phase(device, cfg, params)
     del params
     torch.cuda.empty_cache()
@@ -2498,18 +2515,41 @@ def main_path_phase(device) -> dict:
             "peak_memory_gib": round(peak / 2 ** 30, 3),
             "paged_kernel": rep_k, "gather": rep_g[False],
             "gather_captured": rep_g[True], "profile": profile,
-            "graph": graph, "flash_prefill": flash}
+            "graph": graph, "prefill_graphs": prefill,
+            "flash_prefill": flash}
 
 
-def captured(engine, graphs=True) -> int:
-    """Check that ``engine`` captured exactly one decode program (none
-    when it ran eagerly) and took time to; returns its warm-up steps,
-    whose K8 launches count beside the decode steps'."""
+def prompt_buckets(engine, requests) -> set:
+    """The dense engine's prompt buckets of ``requests``."""
+    return {_bucket_len(r["tokens"].shape[-1], 8, engine.max_len - (
+        r["cond"].shape[0] if "cond" in r else 0)) for r in requests}
+
+
+def captured(engine, requests, graphs=True) -> int:
+    """Check that ``engine`` captured the programs the reference compiles
+    — one decode chunk, and one prefill a prompt bucket of ``requests``
+    (dense) or one prefill chunk (paged) — and took time to (none, and
+    no time, when it ran eagerly); returns its warm-up steps, whose K8
+    launches count beside the decode steps'."""
+    want = 1 + (1 if engine.paged else len(prompt_buckets(engine,
+                                                          requests)))
+    want = want if graphs else 0
     compiles = engine.obs.counter("serve.compiles").total
-    check(compiles == int(graphs) and (engine.stats["compile_s"] > 0)
-          == graphs, f"{compiles} decode programs captured in "
+    check(compiles == want and (engine.stats["compile_s"] > 0) == graphs,
+          f"{compiles} programs captured (want {want}) in "
           f"{engine.stats['compile_s']} s, graphs {graphs}")
     return engine.stats["warmup_steps"]
+
+
+def replay_prefills_without_sync(engine, device) -> None:
+    """One more replay of each of ``engine``'s prefill graphs (on its
+    last request's inputs), with host synchronisation forbidden."""
+    torch.cuda.synchronize(device)
+    for prog in engine._prefills.values():
+        without_sync(prog.run)
+    torch.cuda.synchronize(device)
+    print(f"{len(engine._prefills)} prefill graph(s) replayed with host "
+          "synchronisation forbidden", flush=True)
 
 
 def _device_rows(prof):
@@ -2528,18 +2568,35 @@ def _device_rows(prof):
 BUSY_STEPS = 2             # engine steps a busy-share window profiles
 
 
-def busy_window(device, cfg, params, requests, args, graphs) -> dict:
-    """The device's busy share over a short steady window: one engine
-    serves ``requests`` until its first decode chunk is done (the capture
+def submit_pass(engine, requests, args) -> list:
+    """Queue ``requests`` on ``engine`` as ``serve.submit_requests`` does,
+    each slot-sized wave ``--arrive-every`` steps after the one before,
+    from the engine's current step; returns their uids."""
+    now = engine.sched.step_count
+    return [engine.submit(r["tokens"], max_new_tokens=args.gen,
+                          eos_id=args.eos_id if args.eos_id >= 0 else None,
+                          arrival=now + (i // args.slots) * args.arrive_every,
+                          cond=r.get("cond"),
+                          patch_embeds=r.get("patch_embeds"))
+            for i, r in enumerate(requests)]
+
+
+def busy_window(device, cfg, params, requests, args, graphs,
+                engine=None) -> dict:
+    """The device's busy share over a short steady window: one engine (a
+    new one, or ``engine``, which served before) serves ``requests``
+    until its first decode chunk of them is done (a new engine's captures
     included, with ``graphs``), then BUSY_STEPS engine steps (decode
     chunks, with any prefill chunks interleaved) run under torch.profiler
     (device activity only): every kernel's device time over the window's
     wall.  A window keeps the trace short: a whole run's took a minute
     to process."""
-    engine = serve.make_engine(cfg, params, requests, args, Obs(), device,
-                               graphs)
-    serve.submit_requests(engine, requests, args)
-    while engine.stats["chunks"] == 0:
+    if engine is None:
+        engine = serve.make_engine(cfg, params, requests, args, Obs(),
+                                   device, graphs)
+    submit_pass(engine, requests, args)
+    chunks = engine.stats["chunks"]
+    while engine.stats["chunks"] == chunks:
         engine.step()
     chunks = engine.stats["chunks"]
     torch.cuda.synchronize(device)
@@ -2626,7 +2683,7 @@ def graph_phase(device, cfg, params, requests, args_k, res_k, rep_k,
                                               Obs(), device, graphs=graphs)
         steps = engine.stats["decode_steps"]
         k8 = launch_counts(paged_attention=cfg.num_layers * (
-            steps + captured(engine, graphs)))["paged_attention"]
+            steps + captured(engine, requests, graphs)))["paged_attention"]
         want = res_k if label == "greedy_eager" else out.get(
             "sampled_captured", {}).get("tokens")
         if want is not None:
@@ -2645,6 +2702,9 @@ def graph_phase(device, cfg, params, requests, args_k, res_k, rep_k,
             torch.cuda.synchronize(device)
             launch_counts(paged_attention=cfg.num_layers
                           * engine.decode_chunk)
+            reset_launches()
+            replay_prefills_without_sync(engine, device)
+            launch_counts()                    # a prefill launches no K8
         out[label] = {"tokens": res, "k8_launches": k8,
                       "decode_steps": steps, "report": rep,
                       "compile_s": engine.stats["compile_s"]}
@@ -2672,11 +2732,118 @@ def graph_phase(device, cfg, params, requests, args_k, res_k, rep_k,
         "capture_s": {"greedy": rep_k["compile_s"],
                       "sampled": out["sampled_captured"]["compile_s"]},
         "k8_launches": {k: v["k8_launches"] for k, v in out.items()},
+        "prefill_tokens_per_s": {
+            "captured": rep_k["prefill_tokens_per_s"],
+            "eager": out["greedy_eager"]["report"]["prefill_tokens_per_s"]},
+        "ttft_ms": {"captured": rep_k["ttft_ms"],
+                    "eager": out["greedy_eager"]["report"]["ttft_ms"]},
         "replay_without_sync": True}
     print("captured == eager tokens for all "
           f"{len(res_k)} requests, greedy and sampled", flush=True)
     print(json.dumps(summary), flush=True)
     return summary
+
+
+def _serve_pass(engine, requests, args, device) -> tuple:
+    """Serve ``requests`` once more on ``engine`` (``submit_pass``), with
+    a fresh registry and zeroed stats, so that the pass's numbers are its
+    own: (tokens by request, the pass's ``throughput()`` with its wall
+    and its captures)."""
+    engine.obs = Registry()
+    engine.stats = dict.fromkeys(engine.stats, 0)
+    uids = submit_pass(engine, requests, args)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    rep = engine.throughput()
+    rep.update(wall_s=round(wall, 3),
+               compiles=engine.obs.counter("serve.compiles").total)
+    return [results[u] for u in uids], rep
+
+
+PASS_KEYS = ("prefill_tokens_per_s", "ttft_ms", "itl_ms",
+             "decode_tokens_per_s", "wall_s", "compile_s", "compiles")
+
+
+def prefill_graph_phase(device, cfg, params, requests, args_k, res_k,
+                        profile, graph) -> dict:
+    """The prefills as CUDA graphs on the main path (paged, through K8):
+    one captured engine serves the 8 requests twice — a cold pass, which
+    captures the prefill-chunk and the decode graph (each capture
+    timed), and a warm pass, which captures nothing — both with phase
+    5's tokens; then a third warm pass under torch.profiler (its device
+    time over the warm pass's wall: the busy share of the whole run) and
+    a two-step busy window on the same engine.  Beside them the eager
+    engine once (with its peak memory), its whole-run busy share from
+    5b's eager profile and its window from 5j; the cold pass's busy
+    share from 5b's captured profile (a cold engine too)."""
+    phase("5k. the prefills as CUDA graphs: one engine serves the main "
+          "path's requests twice (cold: captures included; warm), beside "
+          "the eager engine")
+    engine = serve.make_engine(cfg, params, requests, args_k, Obs(), device,
+                               True)
+    capture_s = {}
+    capture = engine._capture
+
+    def timed_capture(name, *args, **kwargs):
+        t0 = time.perf_counter()
+        program = capture(name, *args, **kwargs)
+        capture_s[name] = round(time.perf_counter() - t0, 4)
+        return program
+    engine._capture = timed_capture
+    torch.cuda.reset_peak_memory_stats(device)
+    out = {}
+    for name in ("cold", "warm"):
+        toks, rep = _serve_pass(engine, requests, args_k, device)
+        for i, t in enumerate(toks):
+            check(bool((t == res_k[i]).all()),
+                  f"{name} pass, request {i}: {t.tolist()} != phase 5's "
+                  f"{res_k[i].tolist()}")
+        out[name] = {k: rep[k] for k in PASS_KEYS}
+    out["cold"]["peak_memory_gib"] = out["warm"]["peak_memory_gib"] = round(
+        torch.cuda.max_memory_allocated(device) / 2 ** 30, 3)
+    check(sorted(capture_s) == ["decode_chunk", "prefill_chunk"]
+          and out["cold"]["compiles"] == 2 and out["warm"]["compiles"] == 0
+          and out["warm"]["compile_s"] == 0,
+          f"captures {capture_s}; compiles cold {out['cold']['compiles']}, "
+          f"warm {out['warm']['compiles']}")
+    out["capture_s"] = capture_s
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        toks, _ = _serve_pass(engine, requests, args_k, device)
+    warm_busy_s = sum(us for us, _, _ in _device_rows(prof)) / 1e6
+    del prof
+    out["warm"]["device_busy_s"] = round(warm_busy_s, 4)
+    out["warm"]["busy_share"] = round(warm_busy_s / out["warm"]["wall_s"], 4)
+    out["warm"]["busy_window"] = busy_window(device, cfg, params, requests,
+                                             args_k, True, engine)
+    out["cold"]["busy_share"] = round(profile["captured"]["device_busy_s"]
+                                      / out["cold"]["wall_s"], 4)
+    out["cold"]["busy_window"] = graph["busy_window"]["captured"]
+    del engine
+    _release()
+
+    torch.cuda.reset_peak_memory_stats(device)
+    engine = serve.make_engine(cfg, params, requests, args_k, Obs(), device,
+                               False)
+    toks, rep = _serve_pass(engine, requests, args_k, device)
+    for i, t in enumerate(toks):
+        check(bool((t == res_k[i]).all()),
+              f"eager pass, request {i}: {t.tolist()} != phase 5's "
+              f"{res_k[i].tolist()}")
+    eager = {k: rep[k] for k in PASS_KEYS}
+    eager["peak_memory_gib"] = round(
+        torch.cuda.max_memory_allocated(device) / 2 ** 30, 3)
+    eager["busy_share"] = round(profile["eager"]["device_busy_s"]
+                                / eager["wall_s"], 4)
+    eager["busy_window"] = graph["busy_window"]["eager"]
+    out["eager"] = eager
+    del engine
+    _release()
+    print(json.dumps({"prefill_graphs": out}), flush=True)
+    return out
 
 
 def main() -> int:
@@ -2723,6 +2890,7 @@ def main() -> int:
         "device_busy_share": run["graph"]["device_busy_share"],
         "graph": {k: run["graph"][k] for k in (
             "itl_ms", "capture_s", "busy_window")},
+        "prefill_graphs": run["prefill_graphs"],
         "train": {"step_wall_s": trained["step_wall_s"],
                   "tokens_per_s": trained["tokens_per_s"],
                   "peak_memory_gib": trained["peak_memory_gib"],
@@ -2762,6 +2930,11 @@ def main() -> int:
                            for mode in FAMILY_MODES},
             "itl_ms_mean": {mode: f["serve"][mode]["itl_ms"]["mean"]
                             for mode in FAMILY_MODES},
+            "prefill_tokens_per_s": {
+                mode: f["serve"][mode]["prefill_tokens_per_s"]
+                for mode in FAMILY_MODES},
+            "ttft_ms_mean": {mode: f["serve"][mode]["ttft_ms"]["mean"]
+                             for mode in FAMILY_MODES},
             "capture_s": f["serve"]["capture_s"],
             "busy_share": {k: v["busy_share"] for k, v in
                            f["serve"]["busy_window"].items()},

@@ -32,8 +32,9 @@ Modes:
 * default — the engine: ``--slots``-wide continuous batching, mixed
   prompt lengths (``--mixed-lens``), staggered arrivals
   (``--arrive-every``), greedy or ``--temperature``/``--top-k``.  On
-  CUDA it decodes through one CUDA graph of its decode chunk; the
-  ``serve_summary``'s ``compile_s`` is that graph's capture.
+  CUDA it replays CUDA graphs: one of its decode chunk, and one of its
+  prefill a prompt bucket (dense) or of its prefill chunk (paged); the
+  ``serve_summary``'s ``compile_s`` is those graphs' capture.
 * ``--naive`` — the one-request-at-a-time reference loop (first token
   from the prefill logits; measured after a warm-up pass).
 * ``--paged`` — the paged KV cache: ``--page-size`` token pages behind
@@ -196,7 +197,8 @@ def submit_requests(engine, requests, args):
 def engine_serve(cfg, params, requests, args, obs, device, graphs=True):
     """Serve ``requests`` through one engine.  Returns (results {uid:
     tokens}, engine, the printed ``serve_summary`` record, whose
-    ``compile_s`` is the decode graph's capture).  ``graphs=False`` decodes
+    ``compile_s`` is the capture of the engine's CUDA graphs: its decode
+    chunk and its prefills).  ``graphs=False`` prefills and decodes
     eagerly on CUDA too (the engine's keyword; the CLI has no flag)."""
     engine = make_engine(cfg, params, requests, args, obs, device, graphs)
     submit_requests(engine, requests, args)

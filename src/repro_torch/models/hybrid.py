@@ -25,7 +25,8 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
-from repro_torch.models.layers import dense_init, embed_init, rms_norm, swiglu
+from repro_torch.models.layers import (dense_init, device_index, embed_init,
+                                       rms_norm, swiglu)
 from repro_torch.models.transformer import _positions, layer_params
 
 
@@ -190,13 +191,16 @@ def init_paged_cache(params, cfg, num_slots, num_pages, page_size, max_pages,
 
 def prefill_chunk(params, cfg, tokens, cache: HybridCache, slot, frontier,
                   valid):
-    """One resumable prefill chunk for a single slot.  tokens: (1, C).
-    pos is not advanced (the engine sets it once the prompt is in)."""
+    """One resumable prefill chunk for a single slot.  tokens: (1, C);
+    ``slot``, ``frontier`` and ``valid``: ints or (1,) int64 device
+    tensors.  pos is not advanced (the engine sets it once the prompt is
+    in)."""
     C = tokens.shape[1]
     x = params["embed"][tokens]
     positions = (frontier + torch.arange(C, dtype=torch.int32,
                                          device=x.device))[None]
-    table_row = cache.kv.table[slot]
+    slot = device_index(slot, x.device)
+    table_row = cache.kv.table.index_select(0, slot)[0]
     sp = params["shared_attn"]
     for g, group in _groups(params, cfg):
         for l, lp in group:

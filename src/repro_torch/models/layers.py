@@ -20,6 +20,16 @@ def dense_init(generator: torch.Generator, shape, in_axis=-2,
     return w.to(dtype)
 
 
+def device_index(i, device):
+    """``i`` as a (1,) int64 tensor on ``device``: a Python int, or a
+    1-element int64 tensor already there (then returned as it is).  The
+    serving engine's captured prefills hand every per-request integer
+    (slot, frontier, valid length, prompt extent) in as a device value: a
+    Python int reaching a CUDA graph is baked into it, and indexing by a
+    0-dim tensor reads it back to the host."""
+    return torch.as_tensor(i, dtype=torch.int64, device=device).reshape(1)
+
+
 def embed_init(generator: torch.Generator, shape, dtype=torch.float32):
     w = torch.empty(shape, dtype=torch.float32, device=generator.device)
     return w.normal_(generator=generator).mul_(0.02).to(dtype)

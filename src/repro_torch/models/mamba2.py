@@ -25,8 +25,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.models.layers import (dense_init, embed_init, rms_norm,
-                                       silu, softplus)
+from repro_torch.models.layers import (dense_init, device_index, embed_init,
+                                       rms_norm, silu, softplus)
 from repro_torch.models.transformer import layer_params
 
 
@@ -225,8 +225,8 @@ def ssm_block_prefill(lp, cfg, x, h0, conv0, valid):
     segment boundaries, padded tail made exactly inert.
 
     x: (B, C, d); h0: (B, nh, N, P); conv0: (B, W-1, conv_dim) raw-xBC
-    ring entering this segment; valid: int — positions >= valid are
-    padding.  Forcing their dt to exactly 0 AFTER softplus makes them
+    ring entering this segment; valid: an int or a (1,) int64 device
+    tensor (``layers.device_index``) — positions >= valid are padding.  Forcing their dt to exactly 0 AFTER softplus makes them
     inert in the SSD recurrence (decay exp(0·A)=1, update dt·B⊗x=0),
     matching ``ssd_chunked``'s own dt=0 chunk padding, so a segmented
     prefill reproduces the one-shot scan state.  Segment length must be
@@ -235,7 +235,7 @@ def ssm_block_prefill(lp, cfg, x, h0, conv0, valid):
     new_ring).
     """
     Bsz, T, _ = x.shape
-    valid = int(valid)
+    valid = device_index(valid, x.device)
     u = rms_norm(x, lp["ln"], cfg.norm_eps)
     z, xBC_raw, dt = _split_proj(cfg, u @ lp["in_proj"])
     xBC = _causal_conv(xBC_raw, lp["conv_w"], lp["conv_b"], prefix=conv0)
@@ -247,7 +247,8 @@ def ssm_block_prefill(lp, cfg, x, h0, conv0, valid):
     # ring leaving the segment: raw xBC of the W-1 positions before
     # ``valid`` (reaching into conv0 when the segment is shorter)
     hist = torch.cat([conv0.to(xBC_raw.dtype), xBC_raw], dim=1)
-    return out, hf, hist[:, valid:valid + cfg.ssm_conv - 1]
+    ring = valid + torch.arange(cfg.ssm_conv - 1, device=x.device)
+    return out, hf, hist.index_select(1, ring)
 
 
 def ssm_block_decode(lp, cfg, x, conv_cache, h):
@@ -352,14 +353,17 @@ def decode_layer(lp, cfg, x, cache: SSMCache, l: int, active=None):
     return x
 
 
-def prefill_chunk_layer(lp, cfg, x, cache: SSMCache, l: int, slot: int,
+def prefill_chunk_layer(lp, cfg, x, cache: SSMCache, l: int, slot,
                         valid):
     """Layer ``l`` of one slot's resumable prefill chunk (x: (1, C, d)),
-    resuming from and writing back that slot's state and conv ring."""
-    x, hf, ring = ssm_block_prefill(lp, cfg, x, cache.state[l, slot][None],
-                                    cache.conv[l, slot][None], valid)
-    cache.state[l, slot] = hf[0]
-    cache.conv[l, slot] = ring[0]
+    resuming from and writing back that slot's state and conv ring.
+    ``slot`` and ``valid``: ints or (1,) int64 device tensors."""
+    slot = device_index(slot, x.device)
+    state, conv = cache.state[l], cache.conv[l]
+    x, hf, ring = ssm_block_prefill(lp, cfg, x, state.index_select(0, slot),
+                                    conv.index_select(0, slot), valid)
+    state.index_copy_(0, slot, hf.to(state.dtype))
+    conv.index_copy_(0, slot, ring.to(conv.dtype))
     return x
 
 
@@ -368,8 +372,8 @@ def prefill(params, cfg, tokens, cache: SSMCache, use_kernel=False,
     """Absorb a prompt; returns logits + the populated state cache
     (written in place).
 
-    ``valid``: optional int — positions >= valid are padding (the
-    engine's bucketed prompts); they are made inert in the scan and the
+    ``valid``: optional int or (1,) int64 device tensor — positions >=
+    valid are padding (the engine's bucketed prompts); they are made inert in the scan and the
     conv ring ends at ``valid``.  None keeps the unpadded path.
     """
     x = params["embed"][tokens]

@@ -59,7 +59,10 @@ class Model:
     prefill_chunk: Callable = None
     # (params, batch, cache, slot, frontier, valid, total) -> (logits, cache):
     # one (1, C)-token chunk of one slot's prompt; ``frontier`` its absolute
-    # start, ``valid`` the live rows, ``total`` the full prompt extent
+    # start, ``valid`` the live rows, ``total`` the full prompt extent.  The
+    # four integers may be Python ints or (1,) int64 device tensors (the
+    # engine's captured chunk reads them from a device buffer), and so
+    # may ``prefill``'s ``valid``
     decode_paged: Callable = None
     # (params, batch, cache, active) -> (logits, cache): one decode step over
     # the slot batch; ``active`` (B,) bool freezes inactive rows

@@ -17,7 +17,8 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import dense_init, embed_init, rms_norm, swiglu
+from repro_torch.models.layers import (dense_init, device_index, embed_init,
+                                       rms_norm, swiglu)
 
 
 # ------------------------------------------------------------------
@@ -200,16 +201,17 @@ def prefill_chunk(params, cfg, tokens, cache, slot, frontier, valid,
     ``valid``; ``frontier`` is the chunk's absolute start position.  The
     padded tail's writes land past the slot's allocated pages (-> trash)
     or in not-yet-live positions later overwritten by decode, so only
-    ``valid`` logit rows are meaningful.  Returns (logits (1, C, V),
-    cache); cache.pos is NOT advanced (the engine sets it once the whole
-    prompt is in).
+    ``valid`` logit rows are meaningful.  ``slot`` and ``frontier`` are
+    ints or (1,) int64 device tensors (``layers.device_index``).  Returns
+    (logits (1, C, V), cache); cache.pos is NOT advanced (the engine sets
+    it once the whole prompt is in).
     """
     del valid  # attention needs no masking: padded rows are causal-future
     C = tokens.shape[1]
     x = _embed(params, tokens, extra_embeds)
     positions = (frontier + torch.arange(C, dtype=torch.int32,
                                          device=x.device))[None]
-    table_row = cache.table[slot]
+    table_row = cache.table.index_select(0, device_index(slot, x.device))[0]
     h = x
     for l, bp in enumerate(layer_params(params["blocks"], cfg.num_layers)):
         h, _ = _decoder_layer(bp, cfg, h, lambda u: attn.attn_prefill_paged(

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import transformer
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import device_index, rms_norm
 
 
 def init_params(generator, cfg, dtype=torch.float32):
@@ -89,12 +89,14 @@ def prefill_chunk(params, cfg, tokens, patch_embeds, cache, slot, frontier,
     """One prefill chunk with the patch/text merge done chunk-locally:
     absolute positions < min(num_patches, total) take the (normed) patch
     embedding, the rest the token embedding — row for row the values
-    ``_merge`` gives the whole prompt."""
+    ``_merge`` gives the whole prompt.  ``slot``, ``frontier``, ``valid``
+    and ``total``: ints or (1,) int64 device tensors."""
     C = tokens.shape[1]
     npatch = patch_embeds.shape[1]
     pe = rms_norm(patch_embeds, params["patch_ln"], cfg.norm_eps)
     p = frontier + torch.arange(C, dtype=torch.int64, device=tokens.device)
-    in_img = (p < min(npatch, total))[None, :, None]
+    image = torch.clamp(device_index(total, tokens.device), max=npatch)
+    in_img = (p < image)[None, :, None]
     rows = pe[0][torch.clamp(p, 0, npatch - 1)][None]        # (1, C, d)
     emb = params["embed"][tokens]
     extra = (torch.where(in_img, rows, torch.zeros((), dtype=rows.dtype,

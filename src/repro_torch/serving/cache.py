@@ -48,6 +48,14 @@ def clone(cache):
         for name, leaf in cache._asdict().items()})
 
 
+def reset(cache):
+    """Zero every tensor of ``cache`` in place — a model's ``init_cache``
+    values — and return it."""
+    for _, leaf in _leaves(cache):
+        leaf.zero_()
+    return cache
+
+
 def copy_into(cache, new):
     """Copy each tensor of ``new`` that is not ``cache``'s own into it, and
     return ``cache``.  The models write a cache in place but return its

@@ -1,22 +1,31 @@
 """The continuous-batching engine loop.
 
 Port of ``repro/serving/engine.py``.  Where the reference AOT-compiles
-its decode chunk (``_compile`` + ``_decode_compiled``: one ``lax.scan``
-over ``decode_chunk`` steps with a donated cache), the port captures the
-chunk into one CUDA graph per engine (``_decode_program``): at the first
-decode step it runs the chunk once on copies of its buffers (a warm-up,
-on a side stream: cuBLAS's workspaces and the paged-attention kernel's
-build come before capture), captures ``decode_chunk`` decodes with
-sampling after each, and replays the graph at every engine step.  The
-capture time counts in ``stats["compile_s"]`` and ``serve.compiles``.
-A graph reads and writes fixed addresses, so the chunk's inputs and
-outputs are buffers made at construction — the cache tensors,
-``cur_tok``, the ``active`` row mask, the chunk's tokens — and every
-``pos`` field the models return as a new tensor is copied back into the
-cache's own (``cache.copy_into``).  Admission writes those buffers in
-place.  On the CPU, or with ``graphs=False``, the same chunk runs
-eagerly over the same buffers, and ``compile_s`` stays 0.0.  Prefill
-runs eagerly.
+its programs (``_compile``), the port captures each into a CUDA graph
+(``_capture``) at its first use and replays it after: the decode chunk
+(``_decode_compiled`` -> ``_decode_program``: ``decode_chunk`` decodes
+with sampling after each, one graph per engine), the dense prefill
+(``_prefill_compiled`` -> ``_prefill`` of kind "prefill": one graph per
+batch signature, i.e. per prompt bucket and conditioning shape) and the
+paged prefill chunk (``_prefill_chunk_compiled`` -> kind
+"prefill_chunk": one graph per engine).  Each capture first runs its
+program once on copies of the buffers it writes (a warm-up, on a side
+stream: cuBLAS's workspaces and the paged-attention kernel's build come
+before capture); its time counts in ``stats["compile_s"]`` and
+``serve.compiles``, outside ``prefill_s`` and ``decode_s``.  A graph
+reads and writes fixed addresses, so every program's inputs and outputs
+are buffers made once — the cache tensors, the dense engine's one-slot
+prefill cache, ``cur_tok``, the ``active`` row mask, the chunk's
+tokens, each prefill program's token, conditioning, integer and
+logits-row buffers — and every ``pos`` field the models return as a new
+tensor is copied back into the cache's own (``cache.copy_into``).  The
+per-request integers of a prefill (slot, frontier, valid length, prompt
+extent) reach the models as device values; the prefills pick their
+logits row on the device, and sampling the first token stays eager, so
+the generator draws only after a prompt's last chunk, as in the
+reference.  Admission writes those buffers in place.  On the CPU, or
+with ``graphs=False``, the same programs run eagerly over the same
+buffers, and ``compile_s`` stays 0.0.
 
 Execution model (dense layout — the oracle path):
 
@@ -69,6 +78,7 @@ prefill calls.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Dict, Optional
 
@@ -96,6 +106,39 @@ _LATENCY_BOUNDS_MS = tuple(m * 10.0 ** e for e in range(-1, 6)
 _SHAREABLE = ("dense", "moe")
 
 
+def _conditioning(req: Request) -> dict:
+    """The request's ``cond`` / ``patch_embeds`` that it has, as tensors."""
+    return {name: torch.as_tensor(getattr(req, name))
+            for name in ("cond", "patch_embeds")
+            if getattr(req, name) is not None}
+
+
+class _Prefill:
+    """One prefill program and the buffers it reads and writes, made once
+    at fixed addresses: ``batch`` (``tokens`` (1, [K,] T) int32 and the
+    conditioning), ``ints`` = (slot, frontier, valid, total) as a (4,)
+    int64 tensor, and ``row``, the (1, 1, [K,] V) logits row the program
+    picks at ``valid - 1``.  ``run`` is set by ``Engine._prefill``."""
+
+    def __init__(self, tokens_shape, cond: dict, row_shape, row_dtype,
+                 device):
+        self.batch = {"tokens": torch.zeros((1,) + tokens_shape,
+                                            dtype=torch.int32, device=device)}
+        for name, value in cond.items():
+            self.batch[name] = torch.zeros((1,) + tuple(value.shape),
+                                           dtype=value.dtype, device=device)
+        self.ints = torch.zeros((4,), dtype=torch.int64, device=device)
+        self.row = torch.zeros(row_shape, dtype=row_dtype, device=device)
+        self.run = None
+
+    def stage(self, tokens: np.ndarray, cond: dict, ints) -> None:
+        """Copy one prefill's inputs into the buffers."""
+        self.batch["tokens"].copy_(torch.from_numpy(tokens)[None])
+        for name, value in cond.items():
+            self.batch[name].copy_(value[None])
+        self.ints.copy_(torch.tensor(ints, dtype=torch.int64))
+
+
 def _bucket_len(n: int, lo: int, hi: int) -> int:
     """Next power of two >= n, clamped to [lo, hi] but never below n."""
     b = lo
@@ -115,9 +158,9 @@ class Engine:
                  tracer: Optional[Tracer] = None, device=None,
                  graphs: bool = True):
         """``device``: where the engine runs — ``cuda`` unless given;
-        ``params`` must already live there.  ``graphs``: on CUDA, decode
-        through one CUDA graph of the chunk; ``False`` runs the chunk
-        eagerly there too, as it always runs on the CPU."""
+        ``params`` must already live there.  ``graphs``: on CUDA, replay
+        each program (decode chunk, prefills) as a CUDA graph; ``False``
+        runs them eagerly there too, as they always run on the CPU."""
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -134,7 +177,13 @@ class Engine:
         self.paged = paged
         self.use_paged_kernel = use_paged_kernel
         self.graphs = graphs and self.device.type == "cuda"
+        # one memory pool for all of the engine's graphs (see _capture)
+        self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
         self._program = None          # the decode chunk, see _decode_program
+        self._prefills = {}           # signature -> _Prefill, see _prefill
+        self._row_shape = ((1, 1) + ((cfg.num_codebooks,)
+                                     if cfg.family == "audio" else ())
+                           + (cfg.vocab_size,))
 
         self.sched = Scheduler(num_slots)
         tok_shape = ((num_slots, cfg.num_codebooks, 1)
@@ -173,6 +222,8 @@ class Engine:
         else:
             self.cache = cache_lib.init_slot_cache(self.model, params,
                                                    num_slots, max_len)
+            # the dense prefill's one-slot cache, reset at every prefill
+            self._one = self.model.init_cache(params, 1, max_len)
 
         self._uid = 0
         self.stats = {"compile_s": 0.0, "prefill_s": 0.0, "decode_s": 0.0,
@@ -226,23 +277,72 @@ class Engine:
         self.sched.submit(req)
         return req.uid
 
-    # -- dense admission ----------------------------------------------
-    def _conditioning(self, req: Request, batch: dict) -> dict:
-        """``batch`` plus the request's cond / patch_embeds, batched."""
-        for name in ("cond", "patch_embeds"):
-            value = getattr(req, name)
-            if value is not None:
-                batch[name] = torch.as_tensor(value, device=self.device)[None]
-        return batch
+    # -- prefill programs ---------------------------------------------
+    def _prefill(self, kind: str, req: Request, tokens: np.ndarray,
+                 ints) -> _Prefill:
+        """Stage one prefill into the buffers of its program and return
+        the program (a ``_Prefill``; call its ``run``): ``tokens`` (T,) or
+        (K, T), the request's conditioning, and ``ints`` = (slot,
+        frontier, valid, total).  ``kind`` "prefill" is the dense prefill
+        of one bucket-padded request from a fresh one-slot cache, one
+        program per batch signature (the reference's
+        ``_prefill_compiled``); "prefill_chunk" is one paged chunk of one
+        slot, written into the slot cache (``_prefill_chunk_compiled``:
+        one program per engine, as its shapes never change).  A program is
+        made, and on CUDA captured, at its first use, after its inputs are
+        staged (its warm-up reads them)."""
+        cond = _conditioning(req)
+        sig = (kind, tokens.shape) + tuple(
+            (name, tuple(v.shape), v.dtype) for name, v in cond.items())
+        prog = self._prefills.get(sig)
+        if prog is None:
+            prog = self._prefills[sig] = _Prefill(
+                tokens.shape, cond, self._row_shape,
+                self.params["embed"].dtype, self.device)
+        prog.stage(tokens, cond, ints)
+        if prog.run is None:
+            if kind == "prefill":
+                body, cache = self._prefill_into, self._one
+                name = f"prefill[{tokens.shape[-1]}]"
+            else:
+                body, cache, name = (self._prefill_chunk_into, self.cache,
+                                     "prefill_chunk")
+            args = (prog.batch, prog.ints, prog.row)
+            prog.run = self._capture(
+                name, functools.partial(body, cache, *args),
+                lambda: body(cache_lib.clone(cache), prog.batch, prog.ints,
+                             torch.empty_like(prog.row)))
+        return prog
 
-    def _prefill_batch(self, req: Request):
-        """Bucket-padded single-request batch + the true valid length."""
+    def _prefill_into(self, cache, batch, ints, row):
+        """The dense prefill: ``cache`` (the one-slot cache) reset to its
+        init values — the reference starts every prefill from a fresh
+        cache, and the ssm and hybrid states must not leak from the last
+        request — then written in place, and the logits row at ``valid -
+        1`` (``ints[2]``) copied into ``row``."""
+        cache_lib.reset(cache)
+        valid = ints[2:3]
+        logits, _ = self.model.prefill(self.params, batch, cache, valid)
+        row.copy_(logits.index_select(1, valid - 1))
+
+    def _prefill_chunk_into(self, cache, batch, ints, row):
+        """One paged prefill chunk of slot ``ints[0]`` from frontier
+        ``ints[1]``, ``ints[2]`` live rows of a prompt of ``ints[3]``
+        positions, written into ``cache`` in place; the logits row at
+        ``valid - 1`` copied into ``row``."""
+        slot, frontier, valid, total = ints.split(1)
+        logits, _ = self.model.prefill_chunk(self.params, batch, cache, slot,
+                                             frontier, valid, total)
+        row.copy_(logits.index_select(1, valid - 1))
+
+    # -- dense admission ----------------------------------------------
+    def _prefill_tokens(self, req: Request):
+        """The prompt zero-padded to its bucket + the true valid length."""
         toks = np.asarray(req.tokens, np.int32)
         T = toks.shape[-1]
         bucket = _bucket_len(T, 8, self.max_len - self._cond_extra(req))
         toks = np.pad(toks, [(0, 0)] * (toks.ndim - 1) + [(0, bucket - T)])
-        batch = {"tokens": torch.as_tensor(toks, device=self.device)[None]}
-        return self._conditioning(req, batch), T
+        return toks, T
 
     def _admit(self):
         while True:
@@ -250,22 +350,22 @@ class Engine:
             if not pairs:
                 return
             for slot, req in pairs:
-                batch, valid = self._prefill_batch(req)
-                one_cache = self.model.init_cache(self.params, 1, self.max_len)
+                tokens, valid = self._prefill_tokens(req)
+                total = self._cond_extra(req) + req.prompt_len
+                prog = self._prefill("prefill", req, tokens,
+                                     (slot, 0, valid, total))
                 t0 = time.perf_counter()
                 with self.tracer.span("prefill", cat="prefill",
                                       uid=req.uid, tokens=req.prompt_len):
-                    logits, one_cache = self.model.prefill(
-                        self.params, batch, one_cache, valid)
-                    first = self.selector(logits[:, valid - 1:valid],
+                    prog.run()
+                    first = self.selector(prog.row,
                                           self.generator)  # (1, [K,] 1)
                     first_host = first[0, ..., 0].cpu().numpy()
                 self.stats["prefill_s"] += time.perf_counter() - t0
                 self.stats["prefill_tokens"] += req.prompt_len
                 self._observe_first_token(req.uid)
                 self.obs.counter("serve.admitted").inc()
-                cache_lib.write_slot(self.cache, one_cache, slot,
-                                     self._cond_extra(req) + req.prompt_len)
+                cache_lib.write_slot(self.cache, self._one, slot, total)
                 self.cur_tok[slot] = first[0]
                 self.sched.place(slot, req, first_host)
                 # a request finishing on its first token frees the slot
@@ -303,10 +403,9 @@ class Engine:
             self.obs.counter("serve.admitted").inc()
             self.sched.place_prefilling(slot, req, frontier=plan.reuse_len)
 
-    def _chunk_batch(self, req: Request, frontier: int):
-        """The (1, [K,] C)-token slice of the prompt at ``frontier``
-        (merged coordinates), zero-filled for cond-region and padded
-        positions."""
+    def _chunk_tokens(self, req: Request, frontier: int) -> np.ndarray:
+        """The ([K,] C)-token slice of the prompt at ``frontier`` (merged
+        coordinates), zero-filled for cond-region and padded positions."""
         C = self.prefill_chunk_len
         ce = self._cond_extra(req)
         toks = np.asarray(req.tokens, np.int32)
@@ -315,8 +414,7 @@ class Engine:
         span = toks[..., lo:max(frontier + C - ce, lo)]
         at = lo + ce - frontier                  # its column in the chunk
         chunk[..., at:at + span.shape[-1]] = span
-        batch = {"tokens": torch.as_tensor(chunk, device=self.device)[None]}
-        return self._conditioning(req, batch)
+        return chunk
 
     def _prefill_step_paged(self):
         """Advance every prefilling slot by one chunk; slots whose prompt
@@ -327,17 +425,19 @@ class Engine:
             total = self._cond_extra(req) + req.prompt_len
             f = rec.frontier
             valid = min(self.prefill_chunk_len, total - f)
-            batch = self._chunk_batch(req, f)
+            prog = self._prefill("prefill_chunk", req,
+                                 self._chunk_tokens(req, f),
+                                 (slot, f, valid, total))
             t0 = time.perf_counter()
             with self.tracer.span("prefill_chunk", cat="prefill",
                                   uid=req.uid, frontier=f, tokens=valid):
                 # writes self.cache in place; pos is set once done
-                logits, _ = self.model.prefill_chunk(
-                    self.params, batch, self.cache, slot, f, valid, total)
+                prog.run()
                 rec.frontier = f + valid
                 done = rec.frontier >= total
                 if done:
-                    first = self.selector(logits[:, valid - 1:valid],
+                    # sampled only after the last chunk, as the reference
+                    first = self.selector(prog.row,
                                           self.generator)  # (1, [K,] 1)
                     first_host = first[0, ..., 0].cpu().numpy()
                 elif self.device.type == "cuda":
@@ -413,29 +513,59 @@ class Engine:
     def _decode_program(self):
         """The decode chunk as one call over the engine's buffers: it
         reads ``cur_tok``, ``_active`` and the cache, and writes the
-        cache, ``_toks`` and ``cur_tok`` in place.
+        cache, ``_toks`` and ``cur_tok`` in place; captured at the first
+        decode step (see ``_capture``; the warm-up's steps count in
+        ``stats["warmup_steps"]``).  The engine's generator is registered
+        with the graph, so each replay draws from and advances it as the
+        eager chunk does."""
+        if self._program is None:
+            def warm_up():
+                gen = torch.Generator(device=self.device)
+                gen.set_state(self.generator.get_state())
+                self._chunk_into(cache_lib.clone(self.cache),
+                                 self.cur_tok.clone(), self._active.clone(),
+                                 gen, torch.empty_like(self._toks))
+                self.stats["warmup_steps"] += self.decode_chunk
+            self._program = self._capture("decode_chunk", self._run_eager,
+                                          warm_up, self.generator)
+        return self._program
 
-        On CUDA (``graphs``) it replays one CUDA graph of the whole chunk,
-        captured here at the first decode step: the port of the
-        reference's ``_compile`` + ``_decode_compiled``.  The engine's
-        generator is registered with the graph, so each replay draws from
-        and advances it as the eager chunk does.  A replay runs no
-        Python, so it adds the paged-attention launches its capture
-        recorded to that kernel's count.  Otherwise the chunk runs
-        eagerly."""
-        if self._program is not None:
-            return self._program
+    def _capture(self, name: str, run, warm_up, generator=None):
+        """The program ``run`` (a call over the engine's buffers).
+
+        On CUDA (``graphs``) it returns the replay of one CUDA graph of
+        ``run``, captured here under the span ``compile:<name>``, timed
+        into ``stats["compile_s"]`` and counted in ``serve.compiles``:
+        the port of the reference's ``_compile``.  ``warm_up`` first runs
+        the same call eagerly on a side stream, over copies of the
+        buffers it writes (and of ``generator``), so that everything set
+        up at a first call (cuBLAS's handles and workspaces, the
+        paged-attention kernel's build) is in place before capture and
+        the engine's state is untouched; the copies are freed before the
+        capture.  ``generator`` is registered with the graph.  A replay
+        runs no Python, so it adds the paged-attention launches its
+        capture recorded to that kernel's count.  All of an engine's
+        graphs allocate from one memory pool: their replays may come in
+        any order, so nothing a caller reads after a replay may live in
+        it — every output is written into a buffer made outside capture.
+        There is no fallback: a failed capture or replay raises.
+        Otherwise (CPU, ``graphs=False``) the program is ``run`` itself,
+        eager."""
         if not self.graphs:
-            self._program = self._run_eager
-            return self._program
+            return run
         t0 = time.perf_counter()
-        with self.tracer.span("compile:decode_chunk", cat="compile"):
-            self._warm_up()
+        with self.tracer.span(f"compile:{name}", cat="compile"):
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                warm_up()
+            torch.cuda.current_stream(self.device).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            graph.register_generator_state(self.generator)
+            if generator is not None:
+                graph.register_generator_state(generator)
             before = paged_attention.captures
-            with torch.cuda.graph(graph):
-                self._run_eager()
+            with torch.cuda.graph(graph, pool=self._pool):
+                run()
             k8 = paged_attention.captures - before
         self.stats["compile_s"] += time.perf_counter() - t0
         self.obs.counter("serve.compiles").inc()
@@ -443,26 +573,7 @@ class Engine:
         def replay():
             graph.replay()
             paged_attention.count_replay(k8)
-        self._program = replay
         return replay
-
-    def _warm_up(self):
-        """Run the chunk once, eagerly, on a side stream and on copies of
-        its buffers and generator, so that everything set up at a first
-        call (cuBLAS's handles and workspaces, the paged-attention
-        kernel's build) is in place before capture and the engine's state
-        is untouched.  The copies hold the cache a second time until the
-        capture."""
-        gen = torch.Generator(device=self.device)
-        gen.set_state(self.generator.get_state())
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._chunk_into(cache_lib.clone(self.cache), self.cur_tok.clone(),
-                             self._active.clone(), gen,
-                             torch.empty_like(self._toks))
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        self.stats["warmup_steps"] += self.decode_chunk
 
     # -- graceful degradation: deadline shedding ----------------------
     def _shed_expired(self) -> None:

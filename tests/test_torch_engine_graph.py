@@ -15,7 +15,6 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from conftest import FAMILY_CONFIGS
 from repro_torch.configs.base import ModelConfig
@@ -24,7 +23,7 @@ from repro_torch.models import hybrid
 from repro_torch.models.model import build_model
 from repro_torch.serving import Engine, SamplingParams
 from repro_torch.serving.cache import _leaves
-from torch_parity import family_requests
+from torch_parity import NoHostSync, family_requests
 from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
 LAYOUTS = {"dense": dict(paged=False),
@@ -34,39 +33,7 @@ LAYOUTS = {"dense": dict(paged=False),
 FAMILIES = sorted(FAMILY_CONFIGS)
 LENS = (5, 9, 12)
 MAX_LEN = 32
-
-aten = torch.ops.aten
-# ops a CUDA graph cannot capture: each makes the host wait on the device
-# (a value read back, a shape that depends on the data, a copy between
-# host and device)
-HOST_SYNC_OPS = {aten._local_scalar_dense, aten.nonzero, aten.masked_select,
-                 aten._unique, aten._unique2, aten.unique_dim,
-                 aten.unique_consecutive, aten.lift_fresh,
-                 aten.lift_fresh_copy}
-INDEX_OPS = {aten.index, aten.index_put, aten.index_put_,
-             aten._index_put_impl_}
-
-
-class NoHostSync(TorchDispatchMode):
-    """Raises on every op in ``HOST_SYNC_OPS``, on a copy to another
-    device, on indexing by a boolean mask and on ``repeat_interleave``
-    by a tensor of counts (both size their output from the data)."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        packet = func.overloadpacket
-        if packet in HOST_SYNC_OPS:
-            raise AssertionError(f"{func} would make the host wait")
-        if packet is aten._to_copy and "device" in kwargs:
-            raise AssertionError(f"{func} copies to {kwargs['device']}")
-        if packet in INDEX_OPS and any(
-                isinstance(i, torch.Tensor) and i.dtype == torch.bool
-                for i in args[1] if i is not None):
-            raise AssertionError(f"{func} indexes by a boolean mask")
-        if func in (aten.repeat_interleave.Tensor,
-                    aten.repeat_interleave.self_Tensor):
-            raise AssertionError(f"{func} sizes its output from the data")
-        return func(*args, **kwargs)
+BUCKETS = (8, 16)          # the dense engine's prompt buckets of LENS
 
 
 def _cfg(family):
@@ -196,8 +163,10 @@ def test_captured_chunk_matches_eager_on_card(family, family_params,
                                               cuda_device):
     """(d) In every layout, greedy and at temperature 0.8 / top-k 50 from
     one seed, the captured engine's tokens equal the eager engine's; one
-    capture per engine; the paged-attention kernel's launches count the
-    replays (sites x (decode steps + the warm-up's steps))."""
+    decode capture per engine; the paged-attention kernel's launches count the
+    replays (sites x (decode steps + the warm-up's steps)); the prefills
+    captured too: one graph a prompt bucket (dense) or one chunk graph
+    (paged)."""
     cfg, params = family_params(family, cuda_device)
     sites = (hybrid.num_attn_sites(cfg) if cfg.family == "hybrid"
              else cfg.num_layers)
@@ -214,7 +183,11 @@ def test_captured_chunk_matches_eager_on_card(family, family_params,
                 steps = eng.stats["decode_steps"] + eng.stats["warmup_steps"]
                 kernel = layout == "paged_kernel" and family != "ssm"
                 assert k8 == (sites * steps if kernel else 0)
-                assert eng.obs.counter("serve.compiles").total == int(graphs)
+                # one decode graph, and one prefill graph a prompt bucket
+                # (dense) or one prefill-chunk graph (paged)
+                programs = 1 + (len(BUCKETS) if layout == "dense" else 1)
+                assert eng.obs.counter("serve.compiles").total == (
+                    programs if graphs else 0)
                 assert (eng.stats["compile_s"] > 0) == graphs
             for uid, toks in out[False].items():
                 np.testing.assert_array_equal(

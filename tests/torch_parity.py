@@ -11,11 +11,46 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.models.model import build_model as ref_build_model
 from repro_torch.models.convert import params_from_numpy
 
 torch.set_float32_matmul_precision("highest")
+
+aten = torch.ops.aten
+# ops a CUDA graph cannot capture: each makes the host wait on the device
+# (a value read back, a shape that depends on the data, a copy between
+# host and device)
+HOST_SYNC_OPS = {aten._local_scalar_dense, aten.nonzero, aten.masked_select,
+                 aten._unique, aten._unique2, aten.unique_dim,
+                 aten.unique_consecutive, aten.lift_fresh,
+                 aten.lift_fresh_copy}
+INDEX_OPS = {aten.index, aten.index_put, aten.index_put_,
+             aten._index_put_impl_}
+
+
+class NoHostSync(TorchDispatchMode):
+    """Raises on every op in ``HOST_SYNC_OPS``, on a copy to another
+    device, on indexing by a boolean mask and on ``repeat_interleave``
+    by a tensor of counts (both size their output from the data)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        packet = func.overloadpacket
+        if packet in HOST_SYNC_OPS:
+            raise AssertionError(f"{func} would make the host wait")
+        if packet is aten._to_copy and "device" in kwargs:
+            raise AssertionError(f"{func} copies to {kwargs['device']}")
+        if packet in INDEX_OPS and any(
+                isinstance(i, torch.Tensor) and i.dtype == torch.bool
+                for i in args[1] if i is not None):
+            raise AssertionError(f"{func} indexes by a boolean mask")
+        if func in (aten.repeat_interleave.Tensor,
+                    aten.repeat_interleave.self_Tensor):
+            raise AssertionError(f"{func} sizes its output from the data")
+        return func(*args, **kwargs)
+
 
 # f32 logits after a few layers: different summation orders in XLA's
 # and PyTorch's CPU matmuls leave ~1e-6 relative differences
