@@ -145,8 +145,25 @@ itself and, in order:
 8. runs the quickstart (``repro_torch.examples.quickstart``: the MLP on
    the teacher task, SGD against Parle n=3, 400 steps) on the card and
    fails unless Parle's test error is within 0.02 of SGD's or better;
-   then prints the card's name and power limit again and, last, the
-   device line ``{"ok": true, "device": {...}}``.
+9. runs the paper's experiments (``repro_torch/examples/``) on the card
+   at the reference's default steps: Table 1's seed 0 (600 steps, n=3)
+   twice, through K1 / K2 / K7 and through their plain versions, under
+   deterministic algorithms — the four algorithms' deployables and errors
+   equal bit for bit, K1 launched 600 times and K2 24 for Parle and for
+   Entropy-SGD, K7 600 for Elastic-SGD, none for SGD and none on the
+   plain run — then seeds 1 and 2, Table 2 (400 steps, n=2 and 4) and
+   Fig. 1 (400 steps) through the kernels (launches checked), printing
+   every row the reference prints as a JSON line with the card's name
+   and power limit (the ``holds=`` values are findings, not gates); then
+   ``split_data`` at its defaults (its assert is a gate),
+   ``train_llm_parle`` at its defaults (full-width e2e-60m, 200 steps,
+   n=2; the mean loss of the last tenth of the steps below the first
+   tenth's; its checkpoint, in a temporary directory, restores into a
+   fresh state that takes the same next step bit for bit) and
+   ``serve_batched`` on ``mamba2-1.3b`` and on ``llama3-8b --window 64``
+   (the reference's cache-position assert), none of them launching a port
+   kernel; then prints the card's name and power limit again and, last,
+   the device line ``{"ok": true, "device": {...}}``.
 
 Nothing is caught: a failing phase exits non-zero and prints no device
 line.  Without a CUDA card it exits 2 before doing anything.
@@ -160,7 +177,9 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+from collections import Counter
 
 # cuBLAS reads its workspace setting once, at its first use: deterministic
 # float32 products for the training phase's bitwise comparison
@@ -173,7 +192,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.examples import quickstart  # noqa: E402
+from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
+from repro_torch.core import parle  # noqa: E402
+from repro_torch.data.synthetic import replica_batches  # noqa: E402
+from repro_torch.examples import common as paper  # noqa: E402
+from repro_torch.examples import (fig1_overlap, quickstart,  # noqa: E402
+                                  serve_batched, split_data,
+                                  table1_baselines, table2_split_data,
+                                  train_llm_parle)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
@@ -188,6 +214,7 @@ from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.obs import Obs, Registry  # noqa: E402
 from repro_torch.runtime.precision import pin_float32  # noqa: E402
 from repro_torch.serving.engine import _bucket_len  # noqa: E402
+from repro_torch.utils.pytree import tree_map  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 SOURCES = ("paged_attention.cu", "parle_update.cu", "flash_attention.cu",
@@ -3017,6 +3044,7 @@ def main() -> int:
             **{k: t[k] for k in ("bound_rate", "simt_bound_ms") if k in t}})
     print(json.dumps({"kernels": kernels}), flush=True)
     quickstart_phase(t_start)
+    paper_phase(device, smi, t_start)
     print(smi, flush=True)                 # the card and its power limit
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -3032,6 +3060,182 @@ def quickstart_phase(t_start) -> dict:
     out = quickstart.run(steps=400, replicas=3, device="cuda")
     print(json.dumps({"quickstart": out, "total_s": round(
         time.perf_counter() - t_start, 1)}), flush=True)
+    return out
+
+
+# the reference's default steps of Table 1 (n = 3, seeds 0-2), Table 2
+# and Fig. 1; the Parle family's L
+TABLE1_STEPS, TABLE2_STEPS, FIG1_STEPS, PAPER_L = 600, 400, 400, 25
+
+
+def _parle_launches(steps, runs=1) -> dict:
+    """K1 once a step and K2 once every L steps, for all replicas."""
+    return {"parle_inner_update": runs * steps,
+            "parle_sync_update": runs * (steps // PAPER_L)}
+
+
+# the kernel launches of one algorithm's run in Table 1
+TABLE1_LAUNCHES = {"sgd": {}, "entropy_sgd": _parle_launches(TABLE1_STEPS),
+                   "elastic_sgd": {"elastic_update": TABLE1_STEPS},
+                   "parle": _parle_launches(TABLE1_STEPS)}
+
+
+def _print_rows(script, lines, smi) -> None:
+    for line in lines:
+        print(json.dumps({"paper": script, "row": line, "card": smi}),
+              flush=True)
+
+
+def _table1_bitwise(device) -> dict:
+    """Table 1's seed 0 at its default steps twice, through K1 / K2 / K7
+    and through their plain versions, under deterministic algorithms: the
+    four deployables and their errors equal bit for bit, each kernel
+    launched once a step (K2 once every L) and the plain run launching
+    none.  Returns the kernel run's rows: [(name, test err, train err,
+    wall_s)]."""
+    torch.use_deterministic_algorithms(True)
+    runs = {}
+    for use_kernel in (True, False):
+        got = {}
+        reset_launches()
+        for name, params, wall, task in table1_baselines.trained(
+                TABLE1_STEPS, 3, 0, device, use_kernel):
+            launches = launch_counts(
+                **(TABLE1_LAUNCHES[name] if use_kernel else {}))
+            reset_launches()
+            got[name] = (params, paper.errors(params, task), wall,
+                         {k: v for k, v in launches.items() if v})
+        runs[use_kernel] = got
+    torch.use_deterministic_algorithms(False)
+    for name, (params, errs, _, _) in runs[True].items():
+        plain_params, plain_errs, _, _ = runs[False][name]
+        for k in params:
+            check(torch.equal(params[k], plain_params[k]),
+                  f"table 1 {name}: kernel deployable {k} != plain")
+        check(errs == plain_errs, f"table 1 {name}: errors {errs} != "
+              f"{plain_errs}")
+    print(json.dumps({"paper_bitwise": {
+        name: {"test_err": errs[0], "train_err": errs[1],
+               "kernel_wall_s": round(wall, 3),
+               "plain_wall_s": round(runs[False][name][2], 3),
+               "launches": launches}
+        for name, (_, errs, wall, launches) in runs[True].items()}}),
+        flush=True)
+    print("table 1 seed 0: kernel path == plain path bit for bit (four "
+          "deployables, their errors)", flush=True)
+    return [(name,) + errs + (wall,)
+            for name, (_, errs, wall, _) in runs[True].items()]
+
+
+def _llm_resume_check(res, path) -> None:
+    """The checkpoint at ``path`` restores into a fresh state that takes
+    the same next step as the trained one, bit for bit (deterministic
+    algorithms)."""
+    state, pcfg = res["state"], res["pcfg"]
+    like = parle.init(tree_map(torch.zeros_like,
+                               parle.replica_model(state, 0)), pcfg)
+    restored = ckpt.restore(path, like)
+    step = train_llm_parle.make_step(res["model"], pcfg)
+    batch = replica_batches(res["stream"], len(res["losses"]),
+                            res["stream"].batch_size, pcfg.n_replicas)
+    torch.use_deterministic_algorithms(True)
+    s2, m2 = step(restored, batch)
+    s1, m1 = step(state, batch)
+    torch.use_deterministic_algorithms(False)
+    check(torch.equal(m1["loss"], m2["loss"]) and torch.equal(s1.x, s2.x),
+          f"restored state's next step differs: loss {float(m2['loss'])} "
+          f"vs {float(m1['loss'])}")
+
+
+def paper_phase(device, smi, t_start) -> dict:
+    """Phase 9: the paper's experiments and the examples on the card.
+    Table 1 (seed 0 bitwise against the plain path, then seeds 1 and 2),
+    Table 2 and Fig. 1 at the reference's default steps through K1, K2
+    and K7 (launches checked, every row printed beside the card), then
+    split_data (its assert), train_llm_parle at its defaults (the mean
+    loss of the last tenth of the steps is below the first tenth's; the
+    checkpoint restores to the same next step) and
+    serve_batched on mamba2-1.3b and windowed llama3-8b (no port kernel
+    on either path: launches checked)."""
+    phase(f"9. the paper on the card: Table 1 ({TABLE1_STEPS} steps, n=3, "
+          f"seeds 0-2), Table 2 ({TABLE2_STEPS}), Fig. 1 ({FIG1_STEPS}) "
+          "through K1, K2, K7; split_data, train_llm_parle, serve_batched")
+    t0 = time.perf_counter()
+    walls = {}
+    per_seed = [_table1_bitwise(device)]
+    for seed in (1, 2):
+        reset_launches()
+        per_seed.append(table1_baselines.run_one(TABLE1_STEPS, 3, seed,
+                                                 device, use_kernel=True))
+        launch_counts(**sum(map(Counter, TABLE1_LAUNCHES.values()),
+                            Counter()))
+    table1 = table1_baselines.report(table1_baselines.summarize(per_seed),
+                                     TABLE1_STEPS)
+    _print_rows("table1", table1, smi)
+    walls["table1"] = time.perf_counter() - t0
+
+    t = time.perf_counter()
+    reset_launches()
+    table2 = table2_split_data.report(table2_split_data.run(
+        TABLE2_STEPS, 0, device, use_kernel=True), TABLE2_STEPS)
+    launch_counts(**_parle_launches(TABLE2_STEPS, runs=2),
+                  elastic_update=2 * TABLE2_STEPS)
+    _print_rows("table2", table2, smi)
+    walls["table2"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    reset_launches()
+    fig1 = fig1_overlap.report(fig1_overlap.run(FIG1_STEPS, 0, device,
+                                                use_kernel=True))
+    launch_counts(**_parle_launches(FIG1_STEPS))
+    _print_rows("fig1", fig1, smi)
+    walls["fig1"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    reset_launches()
+    split = split_data.main(["--device", "cuda"])
+    launch_counts()
+    walls["split_data"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "e2e_parle.npz")
+        reset_launches()
+        llm = train_llm_parle.run(checkpoint=path, device="cuda")
+        launch_counts()
+        tenth = len(llm["losses"]) // 10
+        first = float(llm["losses"][:tenth].mean())
+        last = float(llm["losses"][-tenth:].mean())
+        check(last < first, f"train_llm_parle: loss did not fall (mean of "
+              f"the first tenth of the steps {first}, of the last {last})")
+        _llm_resume_check(llm, path)
+    walls["train_llm_parle"] = time.perf_counter() - t
+    print("train_llm_parle: loss fell, checkpoint restored, next step "
+          "equal bit for bit", flush=True)
+
+    served = {}
+    for argv in (["--arch", "mamba2-1.3b"],
+                 ["--arch", "llama3-8b", "--window", "64"]):
+        t = time.perf_counter()
+        reset_launches()
+        served[" ".join(argv)] = serve_batched.main(argv + ["--device",
+                                                            "cuda"])
+        launch_counts()
+        walls["serve_batched " + " ".join(argv)] = time.perf_counter() - t
+
+    out = {"split_data": split,
+           "train_llm_parle": {
+               "loss_first_tenth": first, "loss_last_tenth": last,
+               **{k: llm[k] for k in (
+                   "params", "progress", "final_avg_model_eval_loss")}},
+           "serve_batched": {k: {f: v[f] for f in (
+               "tokens_per_s", "warm_s", "compile_s", "family")}
+               for k, v in served.items()},
+           "walls_s": {k: round(v, 3) for k, v in walls.items()},
+           "phase_wall_s": round(time.perf_counter() - t0, 1),
+           "total_s": round(time.perf_counter() - t_start, 1),
+           "card": smi}
+    print(json.dumps({"paper_phase": out}), flush=True)
     return out
 
 

@@ -36,24 +36,34 @@ from repro_torch.utils.pytree import tree_map
 BATCH = 128
 
 
-def _sync(device) -> None:
+def sync(device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
-def train(algo_name, task, loss_fn, params, cfg, steps, bs=BATCH):
+def train(algo_name, task, loss_fn, params, cfg, steps, bs=BATCH, *,
+          batches=None, use_kernel=False):
     """The whole training loop, for ANY registered algorithm.  Returns
-    (the deployable params, the final state, the wall in seconds)."""
+    (the deployable params, the final state, the wall in seconds).
+
+    ``batches(i, n)``: the batch of step ``i`` for ``n`` replicas (the
+    algorithm's, after ``canonicalize_cfg``); default
+    ``replica_batches(task, i, bs, n)``.  ``use_kernel`` is forwarded to
+    ``make_step``.  The wall is taken between two device
+    synchronizations."""
     algo = registry.get(algo_name)
     cfg = algo.canonicalize_cfg(cfg)
     state = dealias_state(algo.init(params, cfg))
-    step = algo.make_step(loss_fn, cfg)
+    step = algo.make_step(loss_fn, cfg, use_kernel=use_kernel)
+    if batches is None:
+        batches = lambda i, n: replica_batches(task, i, bs, n)  # noqa: E731
     device = task.x_train.device
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     for i in range(steps):
-        state, _ = step(state, replica_batches(task, i, bs, cfg.n_replicas))
-    _sync(device)
+        state, _ = step(state, batches(i, cfg.n_replicas))
+    sync(device)
     return algo.deployable(state), state, time.perf_counter() - t0
 
 

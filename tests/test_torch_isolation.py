@@ -40,7 +40,13 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.examples.quickstart, repro_torch.models.convnet, "
             "repro_torch.launch.steps, repro_torch.models.mamba2, "
             "repro_torch.kernels.flash_attention, "
-            "repro_torch.kernels.ssd_scan\n"
+            "repro_torch.kernels.ssd_scan, repro_torch.examples.common, "
+            "repro_torch.examples.table1_baselines, "
+            "repro_torch.examples.table2_split_data, "
+            "repro_torch.examples.fig1_overlap, "
+            "repro_torch.examples.split_data, "
+            "repro_torch.examples.train_llm_parle, "
+            "repro_torch.examples.serve_batched\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

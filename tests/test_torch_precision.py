@@ -7,7 +7,9 @@ on a card, where the reference computes in float32."""
 import pytest
 import torch
 
-from repro_torch.examples import quickstart
+from repro_torch.examples import (fig1_overlap, quickstart, serve_batched,
+                                  split_data, table1_baselines,
+                                  table2_split_data, train_llm_parle)
 from repro_torch.launch import serve, train
 from repro_torch.runtime.precision import pin_float32
 
@@ -20,6 +22,17 @@ ENTRY_POINTS = {
     # no training step: both models are the init, the claim holds
     # with equality (test_torch_convnet.py runs the 400-step claim)
     "quickstart": (quickstart.main, ["--device", "cpu", "--steps", "0"]),
+    # the paper's experiments and examples at a step or two
+    "table1": (table1_baselines.main, ["--device", "cpu", "--steps", "2"]),
+    "table2": (table2_split_data.main, ["--device", "cpu", "--steps", "2"]),
+    "fig1": (fig1_overlap.main, ["--device", "cpu", "--steps", "2"]),
+    "split_data": (split_data.main, ["--device", "cpu", "--steps", "0"]),
+    "train_llm_parle": (train_llm_parle.main, [
+        "--device", "cpu", "--steps", "1", "--batch", "1", "--seq", "8",
+        "--checkpoint", ""]),
+    "serve_batched": (serve_batched.main, [
+        "--arch", "llama3-8b", "--device", "cpu", "--batch", "1",
+        "--prompt-len", "4", "--gen", "2"]),
 }
 
 
