@@ -163,7 +163,22 @@ itself and, in order:
    ``serve_batched`` on ``mamba2-1.3b`` and on ``llama3-8b --window 64``
    (the reference's cache-position assert), none of them launching a port
    kernel; then prints the card's name and power limit again and, last,
-   the device line ``{"ok": true, "device": {...}}``.
+   the device line ``{"ok": true, "device": {...}}``;
+10. (run right after phase 6, before its 6c) puts Parle's replica axis
+   over two ranks of a gloo ``torch.distributed`` world on the one card:
+   two spawned processes, each holding one of phase 6's two replicas
+   and staging every collective through pinned host memory, run phase
+   6's argv plus ``--mesh pod:2`` under deterministic algorithms — the
+   f32 barrier run through K1 / K2, the int8 barrier (K4 / K5) and
+   overlap (K4 / K6 and the flush) runs, and Elastic-SGD through K7 —
+   and each rank's 8 losses, eval loss and final rows (x; e, c; v, ref)
+   equal phase 6's bit for bit (sha256 of each row), with each kernel's
+   launches a rank and each collective a rank counted; then the pod
+   launcher (``launch/dist_run.py --nproc 2 --smoke --device cuda``)
+   ends ``bitwise_equal``; round walls, each collective's bytes and its
+   d2h / gloo / h2d times, peak memory a rank and the phase wall are
+   printed (two ranks time-slicing one card over loopback: not a
+   multi-card figure).
 
 Nothing is caught: a failing phase exits non-zero and prints no device
 line.  Without a CUDA card it exits 2 before doing anything.
@@ -173,6 +188,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import gc
+import hashlib
 import json
 import os
 import subprocess
@@ -187,6 +203,8 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+import torch.multiprocessing as mp  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -214,6 +232,7 @@ from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.obs import Obs, Registry  # noqa: E402
 from repro_torch.runtime.precision import pin_float32  # noqa: E402
 from repro_torch.serving.engine import _bucket_len  # noqa: E402
+from repro_torch.sharding.partition import collective_counts  # noqa: E402
 from repro_torch.utils.pytree import tree_map  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -2134,11 +2153,12 @@ def train_cfg():
                                num_layers=TRAIN_LAYERS)
 
 
-def _train_once(device, argv, profile=False, cfg=None):
-    """One run of the train CLI's run() on ``cfg`` (default: train_cfg());
-    returns its per-step losses, the wall of each round
-    (device-synchronized), the final state, the eval loss and, with
-    ``profile``, the profiler over its first round."""
+def _train_once(device, argv, profile=False, cfg=None, obs=None):
+    """One run of the train CLI's run() on ``cfg`` (default: train_cfg())
+    with the telemetry ``obs`` (default: none armed); returns its
+    per-step losses, the wall of each round (device-synchronized), the
+    final state, the eval loss and, with ``profile``, the profiler over
+    its first round."""
     args = train.parse_args(argv)
     losses, walls, marks = [], [], {}
     prof = (torch.profiler.profile(
@@ -2158,8 +2178,9 @@ def _train_once(device, argv, profile=False, cfg=None):
             prof.stop()
         losses.append(metrics["losses"].detach().cpu())
 
-    state, _, eval_loss = train.run(args, cfg or train_cfg(), device, Obs(),
-                                    pre_round=pre_round, on_round=on_round)
+    state, _, eval_loss = train.run(args, cfg or train_cfg(), device,
+                                    obs or Obs(), pre_round=pre_round,
+                                    on_round=on_round)
     return torch.cat(losses), walls, state, eval_loss, prof
 
 
@@ -2181,6 +2202,8 @@ def train_phase(device) -> dict:
     peak = torch.cuda.max_memory_allocated(device)
     n, m = state.x.shape
     x_k = state.x.cpu()
+    pod_refs = {"none": {"losses": losses_k.tolist(), "eval_loss": eval_k,
+                         "digests": {"x": row_digests(x_k)}}}
     print(f"layout: {len(state.layout.paths)} leaves, M = {m} per replica "
           f"({sum(state.layout.sizes)} params); launches {launches}; peak "
           f"memory {peak / 2 ** 30:.3f} GiB; run {run_s:.1f} s", flush=True)
@@ -2236,8 +2259,9 @@ def train_phase(device) -> dict:
     out["overlap_round_wall_s"] = walls_o
     out["profile"] = train_profile_phase(device, walls_k[1])
     out["bf16"] = train_bf16_phase(device)
-    out["int8"] = train_int8_phase(device)
-    out.update(train_baselines_phase(device))
+    out["int8"] = train_int8_phase(device, pod_refs)
+    out.update(train_baselines_phase(device, pod_refs))
+    out["pod_refs"] = pod_refs
     out["mamba2"] = train_family_phase(device, "mamba2-1.3b", TRAIN_LAYERS,
                                        "6g")
     out["moe"] = train_family_phase(device, "qwen2-moe-a2.7b", MOE_TRAIN_LAYERS,
@@ -2291,7 +2315,7 @@ INT8_PATHS = {   # path: (extra flags, launches of the kernel path)
 }
 
 
-def train_int8_phase(device) -> dict:
+def train_int8_phase(device, pod_refs) -> dict:
     """The int8 compressed sync at the training shape: the barrier path
     (each sync: x + e formed in place in e, K4, then K5) and the
     overlapped path (the first head K4, the second K6, then the plain
@@ -2299,7 +2323,8 @@ def train_int8_phase(device) -> dict:
     losses, final x, residual e (and carried c) bit for bit.  Then the
     overlapped run against the barrier run: equal too (the head takes
     the same payload, and the mean is one function).  Peak and free
-    device memory after every run."""
+    device memory after every run.  ``pod_refs`` receives each kernel
+    run's losses, eval loss and row digests (phase 10's references)."""
     phase("6e. int8 sync: barrier through K4 + K5, overlap through K4 + "
           "K6, each against its plain path")
     out, barrier = {}, None
@@ -2316,6 +2341,9 @@ def train_int8_phase(device) -> dict:
               f"int8 {name}: losses not finite {losses_k.tolist()}")
         kept = {f: getattr(state, f).cpu() for f in ("x", "e", "c")
                 if getattr(state, f) is not None}
+        pod_refs[f"int8_{name}"] = {
+            "losses": losses_k.tolist(), "eval_loss": eval_k,
+            "digests": {f: row_digests(t) for f, t in kept.items()}}
         del state
         gc.collect()
         torch.cuda.empty_cache()
@@ -2378,7 +2406,7 @@ def _release():
     torch.cuda.empty_cache()
 
 
-def train_baselines_phase(device) -> dict:
+def train_baselines_phase(device, pod_refs) -> dict:
     """The paper's baselines on the same cell: Elastic-SGD through K7
     (one launch a step, so 8; no other kernel), then without
     ``--use-kernel`` (the same 8 losses and final x, v and ref bit for
@@ -2391,6 +2419,9 @@ def train_baselines_phase(device) -> dict:
         device, train_argv(algo="elastic_sgd"))
     launches = launch_counts(elastic_update=8)
     kept = {f: getattr(state, f).cpu() for f in ("x", "v", "ref")}
+    pod_refs["elastic_sgd"] = {
+        "losses": losses_k.tolist(), "eval_loss": eval_k,
+        "digests": {f: row_digests(t) for f, t in kept.items()}}
     del state
     _release()
     print(f"elastic_sgd: launches {launches}; losses {losses_k.tolist()}; "
@@ -2461,6 +2492,251 @@ def train_profile_phase(device, round_wall_s) -> dict:
     print(json.dumps(out), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------------
+# phase 10: the replica axis across processes, two ranks on the one card
+# ------------------------------------------------------------------
+
+POD_WORLD = 2
+POD_TIMEOUT_S = 600
+ROW_FIELDS = ("x", "e", "v")          # (n, M): a rank holds its own row
+# job: (train_argv's algo, extra flags, kernel launches a rank, the
+# fields held against phase 6's, the rank's collectives as {op: calls})
+POD_JOBS = {
+    "none": ("parle", [], dict(parle_inner_update=8, parle_sync_update=2),
+             ("x",), {"all_reduce": 3, "all_gather": 2}),
+    "int8_barrier": ("parle", ["--sync-compress", "int8"],
+                     INT8_PATHS["barrier"][1], ("x", "e"),
+                     {"all_reduce": 1, "all_gather": 4}),
+    "int8_overlap": ("parle", ["--sync-compress", "int8", "--sync-overlap"],
+                     INT8_PATHS["overlap"][1], ("x", "e", "c"),
+                     {"all_reduce": 1, "all_gather": 4}),
+    "elastic_sgd": ("elastic_sgd", [], dict(elastic_update=8),
+                    ("x", "v", "ref"), {"all_reduce": 8, "all_gather": 2}),
+}
+
+
+def row_digests(t) -> list:
+    """The sha256 of each row of a tensor (of the whole tensor when it is
+    1-D), hashed on the host in parallel threads: phase 10 holds the
+    ranks' rows against phase 6's through them, bit for bit."""
+    rows = [t] if t.dim() == 1 else list(t)
+    digest = lambda r: hashlib.sha256(
+        r.cpu().contiguous().view(torch.uint8).numpy()).hexdigest()
+    with concurrent.futures.ThreadPoolExecutor(len(rows)) as ex:
+        return list(ex.map(digest, rows))
+
+
+def field_digests(state, fields) -> dict:
+    """:func:`row_digests` of several fields of a state, all at once."""
+    with concurrent.futures.ThreadPoolExecutor(len(fields)) as ex:
+        return dict(zip(fields, ex.map(
+            lambda f: row_digests(getattr(state, f)), fields)))
+
+
+def _sync_records(events) -> list:
+    """Each collective's d2h, gloo and h2d times from its three spans."""
+    parts = [e for e in events
+             if e["name"] in ("pod.d2h", "pod.collective", "pod.h2d")]
+    return [{"op": c["args"]["op"], "bytes": c["args"]["bytes"],
+             "d2h_ms": round(d["dur"] / 1e3, 3),
+             "collective_ms": round(c["dur"] / 1e3, 3),
+             "h2d_ms": round(h["dur"] / 1e3, 3)}
+            for d, c, h in zip(parts[0::3], parts[1::3], parts[2::3])]
+
+
+def _pod_job(device, algo, extra, fields) -> dict:
+    """One job of a rank: the train CLI's run() with ``--mesh pod:2``;
+    what phase 10 compares and prints."""
+    obs = Obs(trace_out=os.devnull)    # spans kept in memory, never saved
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    losses, walls, state, eval_loss, _ = _train_once(
+        device, train_argv(algo=algo) + extra
+        + ["--mesh", f"pod:{POD_WORLD}"], obs=obs)
+    launches = {name: getattr(mod, attr)
+                for name, (mod, attr) in COUNTERS.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    digests = field_digests(state, fields)
+    m = state.x.shape[-1]
+    del state
+    _release()
+    return {"losses": losses.tolist(), "eval_loss": eval_loss,
+            "round_wall_s": walls, "launches": launches,
+            "digests": digests, "elements_per_replica": m,
+            "collectives": collective_counts(obs.registry),
+            "syncs": _sync_records(obs.tracer.events),
+            "peak_memory_gib": round(peak / 2 ** 30, 3)}
+
+
+def pod_rank_main(rank, world, port, out_q):
+    """One rank of phase 10, a spawned process (a fresh interpreter that
+    imported this file; the parent built the kernels): join the gloo
+    world, run every POD_JOBS job on this rank's replica under
+    deterministic algorithms, and put the results on ``out_q``."""
+    import traceback
+    # two ranks of ~33 GB each share the card: no reserved-but-free blocks
+    # (the allocator reads this at its first allocation, still ahead)
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        torch.use_deterministic_algorithms(True)
+        pin_float32()
+        device = resolve_device("cuda")
+        dist.init_process_group("gloo",
+                                init_method=f"tcp://127.0.0.1:{port}",
+                                rank=rank, world_size=world)
+        res = {name: _pod_job(device, algo, extra, fields)
+               for name, (algo, extra, _, fields, _) in POD_JOBS.items()}
+        out_q.put((rank, res, None))
+    except BaseException:            # reported to the parent, then raised
+        out_q.put((rank, None, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _run_pod_ranks() -> dict:
+    """Spawn the POD_WORLD ranks (spawn, never fork: this process has a
+    live CUDA context) and collect their results; a failing rank fails
+    the phase, and no rank outlives it."""
+    import queue
+    ctx = mp.get_context("spawn")
+    out_q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=pod_rank_main,
+                         args=(r, POD_WORLD, port, out_q))
+             for r in range(POD_WORLD)]
+    for p in procs:
+        p.start()
+    results, err = {}, None
+    try:
+        for _ in range(POD_WORLD):       # drain before joining
+            rank, res, tb = out_q.get(timeout=POD_TIMEOUT_S)
+            if tb is not None:
+                err = f"pod rank {rank} failed:\n{tb}"
+                break
+            results[rank] = res
+    except queue.Empty:
+        err = f"pod ranks gave no result within {POD_TIMEOUT_S} s"
+    finally:
+        for p in procs:
+            p.join(timeout=5 if err else 120)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(err is None, str(err))
+    check(all(p.exitcode == 0 for p in procs),
+          f"pod rank exit codes {[p.exitcode for p in procs]}")
+    return results
+
+
+def pod_phase(device, refs, smi) -> dict:
+    """Phase 10: Parle's replica axis over two ranks of a gloo world on
+    the one card (each rank a spawned process holding one of the two
+    replicas; every collective staged through pinned host memory): the
+    f32 barrier run through K1 / K2, the int8 barrier (K4 / K5) and
+    overlap (K4 / K6 + the flush) runs, and Elastic-SGD through K7, each
+    phase 6's argv plus ``--mesh pod:2``.  Every rank's losses and eval
+    loss equal phase 6's run and its final rows (and c, ref) hash to
+    phase 6's rows bit for bit; each rank launches each kernel as
+    counted, and makes exactly its collectives.  Then the pod launcher's
+    CLI at smoke size on the card: bitwise_equal.  Times: two ranks
+    time-slicing one card over loopback gloo, not a multi-card figure."""
+    phase("10. the replica axis across processes: two ranks on the one "
+          "card over gloo (pinned host staging), parle n=2 L=4 8 steps "
+          "through K1/K2, int8 through K4/K5 and K4/K6, elastic_sgd "
+          "through K7; then dist_run --device cuda")
+    t0 = time.perf_counter()
+    _release()
+    free = torch.cuda.mem_get_info(device)[0]
+    print(f"pod: free device memory before the ranks "
+          f"{free / 2 ** 30:.3f} GiB", flush=True)
+    results = _run_pod_ranks()
+    out = {}
+    for name, (_, _, want, fields, calls) in POD_JOBS.items():
+        ref = refs[name]
+        expected = {k: want.get(k, 0) for k in COUNTERS}
+        for rank in range(POD_WORLD):
+            r = results[rank][name]
+            m = r["elements_per_replica"]
+            check(r["losses"] == ref["losses"]
+                  and r["eval_loss"] == ref["eval_loss"],
+                  f"pod {name} rank {rank}: losses {r['losses']} / eval "
+                  f"{r['eval_loss']} != phase 6's {ref['losses']} / "
+                  f"{ref['eval_loss']}")
+            for f in fields:
+                d = ref["digests"][f]
+                check(r["digests"][f] == (d[rank:rank + 1]
+                                          if f in ROW_FIELDS else d),
+                      f"pod {name} rank {rank}: final {f} differs from "
+                      "phase 6's bit for bit")
+            check(r["launches"] == expected,
+                  f"pod {name} rank {rank}: launches {r['launches']}, "
+                  f"expected {expected}")
+            got_calls = {op: c[0] for op, c in r["collectives"].items()}
+            check(got_calls == calls, f"pod {name} rank {rank}: "
+                  f"collectives {r['collectives']}, expected calls {calls}")
+            model_size = [s for s in r["syncs"] if s["bytes"] == 4 * m]
+            if name in ("none", "elastic_sgd"):
+                check(len(model_size) == calls["all_reduce"],
+                      f"pod {name}: {len(model_size)} model-size "
+                      "all-reduces")
+            print(json.dumps({"pod_job": name, "rank": rank,
+                              "round_wall_s": r["round_wall_s"],
+                              "collectives": r["collectives"],
+                              "syncs": r["syncs"],
+                              "peak_memory_gib": r["peak_memory_gib"],
+                              "card": smi}), flush=True)
+        out[name] = {
+            "launches_per_rank": {k: v for k, v in
+                                  results[0][name]["launches"].items() if v},
+            "round_wall_s": [results[r][name]["round_wall_s"]
+                             for r in range(POD_WORLD)],
+            "collectives": results[0][name]["collectives"],
+            "syncs": results[0][name]["syncs"],
+            "peak_memory_gib": [results[r][name]["peak_memory_gib"]
+                                for r in range(POD_WORLD)]}
+        print(f"pod {name}: both ranks == phase 6 bit for bit (8 losses, "
+              f"eval, final {', '.join(fields)}); launches a rank "
+              f"{out[name]['launches_per_rank']}", flush=True)
+    ranks_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dist_run", "--nproc", "2",
+         "--smoke", "--steps", "6", "--L", "3", "--device", "cuda",
+         "--port", str(free_port())],
+        env=env, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0,
+          f"dist_run exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+          f"{proc.stderr[-3000:]}")
+    verdict = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(verdict["bitwise_equal"] is True
+          and verdict["compared_steps"] == 6, f"dist_run: {verdict}")
+    print(f"dist_run --nproc 2 --smoke --device cuda: {json.dumps(verdict)}",
+          flush=True)
+    out["dist_run"] = {"verdict": verdict,
+                       "wall_s": round(time.perf_counter() - t1, 1)}
+    out["ranks_wall_s"] = round(ranks_s, 1)
+    out["phase_wall_s"] = round(time.perf_counter() - t0, 1)
+    print(json.dumps({"pod_phase_wall_s": out["phase_wall_s"],
+                      "ranks_wall_s": out["ranks_wall_s"],
+                      "dist_run_wall_s": out["dist_run"]["wall_s"],
+                      "card": smi}), flush=True)
     return out
 
 
@@ -2901,6 +3177,7 @@ def main() -> int:
     mamba = mamba2_phase(device)
     families = families_phase(device)
     trained = train_phase(device)
+    pod = pod_phase(device, trained.pop("pod_refs"), smi)
     main_errs = parle_main_shape_phase(device, trained["replicas"],
                                        trained["elements_per_replica"])
 
@@ -2945,6 +3222,9 @@ def main() -> int:
                   **{key: {k: trained[key][k] for k in (
                       "layers", "round_wall_s", "peak_memory_gib")}
                      for key, _ in TRAINED_FAMILIES}},
+        "pod": {k: (pod[k] if k.endswith("_s") else {
+            kk: pod[k][kk] for kk in ("round_wall_s", "peak_memory_gib")})
+            for k in (*POD_JOBS, "phase_wall_s", "ranks_wall_s")},
         "flash_prefill": {k: run["flash_prefill"][k] for k in (
             "max_logit_err", "max_kv_cache_err", "prefill_wall_s")},
         "mamba2": {"max_logit_err": mamba["max_logit_err"],
@@ -3009,6 +3289,9 @@ def main() -> int:
                     for key, arch in TRAINED_FAMILIES}}}
                if name in ("parle_inner_update", "parle_sync_update")
                else {}),
+            "pod_launches_per_rank": {
+                job: pod[job]["launches_per_rank"][name] for job in POD_JOBS
+                if name in pod[job]["launches_per_rank"]},
             "max_abs_err": max(parle_errs[name], main_errs[name]),
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],

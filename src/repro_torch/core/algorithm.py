@@ -5,31 +5,44 @@ n=1, §2.1/§3), ``elastic_sgd`` (Eq. 7, coupled every step) and ``sgd``
 
   canonicalize_cfg(cfg)      -> cfg with the algorithm's invariants
                                 applied (entropy_sgd forces n=1)
-  init(params, cfg)          -> State
+  init(params, cfg, group=None)
+                             -> State (under a group: the rank's rows)
   make_step(loss_fn, cfg, *, weight_decay, use_kernel, lr_schedule)
                              -> step(state, batch) -> (state, metrics)
-  make_round_fn(loss_fn, cfg, *, weight_decay, use_kernel, lr_schedule)
+  make_sharded_step(loss_fn, cfg, mesh, *, ...)
+                             -> the same step with the replica axis over
+                                the ranks of ``mesh``, a ReplicaGroup
+                                (sharding/partition.py); batches hold the
+                                rank's k replicas
+  make_round_fn(loss_fn, cfg, *, mesh=None, weight_decay, use_kernel,
+                lr_schedule)
                              -> round(state, batches) -> (state, metrics):
                                 L = cfg.L steps in one call (Parle: the
                                 inner steps, then the sync); batches
-                                leaves are (L, n, B, ...);
+                                leaves are (L, n, B, ...) (under a mesh,
+                                (L, k, B, ...));
                                 with cfg.sync_overlap the staleness-1
                                 round (head first, then the inner steps)
   make_round_flush_fn(cfg, *, lr_schedule)
                              -> flush(state) -> state, the end-of-training
                                 apply of the in-flight consensus; None
                                 unless cfg.sync_overlap
-  deployable(state)          -> the single servable param tree
-  diagnostics(state)         -> dict of host floats (gamma, rho, overlap,
-                                spread, where the algorithm has them)
+  deployable(state, group=None)
+                             -> the single servable param tree (Parle:
+                                the mean over every rank's rows)
+  diagnostics(state, group=None)
+                             -> dict of host floats (gamma, rho, overlap,
+                                spread, where the algorithm has them;
+                                under a group of ranks overlap and spread
+                                are left out: they would gather the model)
 
 Steps and rounds consume the state they are given (its buffers are
 updated in place).  ``lr_schedule`` maps the step counter to a
 MULTIPLIER on both lr and lr_inner; left None it is derived from
 ``cfg.lr_drop_steps``/``cfg.lr_drop_factor`` (the paper's §4 step
-decay) by :func:`resolve_lr_schedule`.  The reference's mesh variants
-(``make_sharded_step``, ``mesh=``) are not ported yet (ROADMAP.md queue
-1, item 6).
+decay) by :func:`resolve_lr_schedule`.  :func:`validate_replicas` is
+the reference trainer's check of ``--replicas`` against the mesh's
+replica axis, with its messages.
 """
 from __future__ import annotations
 
@@ -38,6 +51,7 @@ import dataclasses
 from repro_torch.core import elastic_sgd, ensemble, parle
 from repro_torch.core.registry import register
 from repro_torch.optim import sgd
+from repro_torch.sharding.partition import active
 
 
 def resolve_lr_schedule(cfg, lr_schedule=None):
@@ -52,9 +66,33 @@ def resolve_lr_schedule(cfg, lr_schedule=None):
     return None
 
 
-def _replica_diagnostics(flat) -> dict:
+def _replica_diagnostics(flat, group=None) -> dict:
+    if active(group) is not None:
+        return {}
     return {"overlap": float(ensemble.replica_overlap(flat)),
             "spread": float(ensemble.replica_spread(flat))}
+
+
+def validate_replicas(algo: str, replicas: int, n: int, axis: str,
+                      size: int):
+    """Fail fast with a readable message when ``--replicas`` and the
+    mesh's replica axis disagree (the reference trainer's
+    ``_validate_replicas``).  ``replicas``: the flag (0 when not given);
+    ``n``: the canonicalized count, so ``--algo entropy_sgd --mesh
+    pod:2`` dies here with the fix spelled out."""
+    if replicas and n != replicas and size != n:
+        raise SystemExit(
+            f"--algo {algo} canonicalizes --replicas "
+            f"{replicas} to n_replicas={n}, which does not fit the "
+            f"mesh replica axis {axis!r} of size {size}; use --algo "
+            f"parle to keep {replicas} replicas, or a mesh with "
+            f"{axis}:{n}")
+    if n % size != 0:
+        raise SystemExit(
+            f"--replicas {n} is not divisible by the mesh replica axis "
+            f"{axis!r} of size {size} (each device must hold a whole "
+            f"number of replicas); pick a multiple of {size} or resize "
+            f"the mesh")
 
 
 class ParleAlgorithm:
@@ -63,8 +101,8 @@ class ParleAlgorithm:
     def canonicalize_cfg(self, cfg):
         return dataclasses.replace(cfg, mode=self.name)
 
-    def init(self, params, cfg) -> parle.ParleState:
-        return parle.init(params, cfg)
+    def init(self, params, cfg, group=None) -> parle.ParleState:
+        return parle.init(params, cfg, group)
 
     def make_step(self, loss_fn, cfg, *, weight_decay=0.0, use_kernel=False,
                   lr_schedule=None):
@@ -72,14 +110,25 @@ class ParleAlgorithm:
             loss_fn, cfg, weight_decay=weight_decay, use_kernel=use_kernel,
             lr_schedule=resolve_lr_schedule(cfg, lr_schedule))
 
-    def make_round_fn(self, loss_fn, cfg, *, weight_decay=0.0,
+    def make_sharded_step(self, loss_fn, cfg, mesh, *, weight_decay=0.0,
+                          use_kernel=False, lr_schedule=None):
+        return parle.make_sharded_train_step(
+            loss_fn, cfg, mesh, weight_decay=weight_decay,
+            use_kernel=use_kernel,
+            lr_schedule=resolve_lr_schedule(cfg, lr_schedule))
+
+    def make_round_fn(self, loss_fn, cfg, *, mesh=None, weight_decay=0.0,
                       use_kernel=False, lr_schedule=None):
-        factory = (parle.make_overlap_round_fn
-                   if getattr(cfg, "sync_overlap", False)
-                   else parle.make_round_fn)
-        return factory(loss_fn, cfg, weight_decay=weight_decay,
-                       use_kernel=use_kernel,
-                       lr_schedule=resolve_lr_schedule(cfg, lr_schedule))
+        overlap = getattr(cfg, "sync_overlap", False)
+        kw = dict(weight_decay=weight_decay, use_kernel=use_kernel,
+                  lr_schedule=resolve_lr_schedule(cfg, lr_schedule))
+        if mesh is None:
+            factory = (parle.make_overlap_round_fn if overlap
+                       else parle.make_round_fn)
+            return factory(loss_fn, cfg, **kw)
+        factory = (parle.make_sharded_overlap_round_fn if overlap
+                   else parle.make_sharded_round_fn)
+        return factory(loss_fn, cfg, mesh, **kw)
 
     def make_round_flush_fn(self, cfg, *, lr_schedule=None):
         if not getattr(cfg, "sync_overlap", False):
@@ -87,13 +136,13 @@ class ParleAlgorithm:
         return parle.make_flush_fn(
             cfg, lr_schedule=resolve_lr_schedule(cfg, lr_schedule))
 
-    def deployable(self, state):
-        return parle.average_model(state)
+    def deployable(self, state, group=None):
+        return parle.average_model(state, group)
 
-    def diagnostics(self, state) -> dict:
+    def diagnostics(self, state, group=None) -> dict:
         return {"gamma": float(state.scopes.gamma),
                 "rho": float(state.scopes.rho),
-                **_replica_diagnostics(state.x)}
+                **_replica_diagnostics(state.x, group)}
 
 
 class EntropySGDAlgorithm(ParleAlgorithm):
@@ -105,18 +154,36 @@ class EntropySGDAlgorithm(ParleAlgorithm):
     def canonicalize_cfg(self, cfg):
         return dataclasses.replace(cfg, n_replicas=1, mode=self.name)
 
-    def init(self, params, cfg):
-        return super().init(params, self.canonicalize_cfg(cfg))
+    def init(self, params, cfg, group=None):
+        return super().init(params, self.canonicalize_cfg(cfg), group)
 
     def make_step(self, loss_fn, cfg, **kw):
         return super().make_step(loss_fn, self.canonicalize_cfg(cfg), **kw)
 
-    def make_round_fn(self, loss_fn, cfg, **kw):
+    def make_sharded_step(self, loss_fn, cfg, mesh, **kw):
+        self._single_replica(mesh)
+        return super().make_sharded_step(loss_fn, self.canonicalize_cfg(cfg),
+                                         mesh, **kw)
+
+    def make_round_fn(self, loss_fn, cfg, *, mesh=None, **kw):
+        if mesh is not None:
+            self._single_replica(mesh)
         return super().make_round_fn(loss_fn, self.canonicalize_cfg(cfg),
-                                     **kw)
+                                     mesh=mesh, **kw)
 
     def make_round_flush_fn(self, cfg, **kw):
         return super().make_round_flush_fn(self.canonicalize_cfg(cfg), **kw)
+
+    @staticmethod
+    def _single_replica(mesh):
+        """A replica axis above size 1 has nothing to shard at n = 1 (the
+        reference's message)."""
+        if mesh.world != 1:
+            raise ValueError(
+                "entropy_sgd runs a single replica (Parle n=1), so a "
+                f"replica-sharded mesh ({mesh.axis}:{mesh.world}) has "
+                "nothing to shard — use --algo parle for n>1 replicas, or "
+                "--algo sgd for plain data parallelism over the axis")
 
 
 # ------------------------------------------------------------------
@@ -129,8 +196,8 @@ class ElasticSGDAlgorithm:
     def canonicalize_cfg(self, cfg):
         return dataclasses.replace(cfg, mode=self.name)
 
-    def init(self, params, cfg) -> elastic_sgd.ElasticState:
-        return elastic_sgd.init(params, cfg)
+    def init(self, params, cfg, group=None) -> elastic_sgd.ElasticState:
+        return elastic_sgd.init(params, cfg, group)
 
     def make_step(self, loss_fn, cfg, *, weight_decay=0.0, use_kernel=False,
                   lr_schedule=None):
@@ -138,22 +205,32 @@ class ElasticSGDAlgorithm:
             loss_fn, cfg, weight_decay=weight_decay, use_kernel=use_kernel,
             lr_schedule=resolve_lr_schedule(cfg, lr_schedule))
 
-    def make_round_fn(self, loss_fn, cfg, *, weight_decay=0.0,
-                      use_kernel=False, lr_schedule=None):
-        return elastic_sgd.make_round_fn(
-            loss_fn, cfg, weight_decay=weight_decay, use_kernel=use_kernel,
+    def make_sharded_step(self, loss_fn, cfg, mesh, *, weight_decay=0.0,
+                          use_kernel=False, lr_schedule=None):
+        return elastic_sgd.make_sharded_train_step(
+            loss_fn, cfg, mesh, weight_decay=weight_decay,
+            use_kernel=use_kernel,
             lr_schedule=resolve_lr_schedule(cfg, lr_schedule))
+
+    def make_round_fn(self, loss_fn, cfg, *, mesh=None, weight_decay=0.0,
+                      use_kernel=False, lr_schedule=None):
+        kw = dict(weight_decay=weight_decay, use_kernel=use_kernel,
+                  lr_schedule=resolve_lr_schedule(cfg, lr_schedule))
+        if mesh is None:
+            return elastic_sgd.make_round_fn(loss_fn, cfg, **kw)
+        return elastic_sgd.make_sharded_round_fn(loss_fn, cfg, mesh, **kw)
 
     def make_round_flush_fn(self, cfg, *, lr_schedule=None):
         del cfg, lr_schedule    # per-step coupling: nothing in flight
         return None
 
-    def deployable(self, state):
+    def deployable(self, state, group=None):
+        del group           # ref is whole on every rank
         return elastic_sgd.average_model(state)
 
-    def diagnostics(self, state) -> dict:
+    def diagnostics(self, state, group=None) -> dict:
         return {"rho": float(state.scopes.rho),
-                **_replica_diagnostics(state.x)}
+                **_replica_diagnostics(state.x, group)}
 
 
 # ------------------------------------------------------------------
@@ -167,8 +244,8 @@ class SGDAlgorithm:
     def canonicalize_cfg(self, cfg):
         return dataclasses.replace(cfg, mode=self.name)
 
-    def init(self, params, cfg) -> sgd.SGDState:
-        del cfg
+    def init(self, params, cfg, group=None) -> sgd.SGDState:
+        del cfg, group      # one model, whole on every rank
         return sgd.init(params)
 
     def make_step(self, loss_fn, cfg, *, weight_decay=0.0, use_kernel=False,
@@ -178,22 +255,32 @@ class SGDAlgorithm:
             loss_fn, cfg, weight_decay=weight_decay,
             lr_schedule=resolve_lr_schedule(cfg, lr_schedule))
 
-    def make_round_fn(self, loss_fn, cfg, *, weight_decay=0.0,
+    def make_sharded_step(self, loss_fn, cfg, mesh, *, weight_decay=0.0,
+                          use_kernel=False, lr_schedule=None):
+        del use_kernel
+        return sgd.make_sharded_train_step(
+            loss_fn, cfg, mesh, weight_decay=weight_decay,
+            lr_schedule=resolve_lr_schedule(cfg, lr_schedule))
+
+    def make_round_fn(self, loss_fn, cfg, *, mesh=None, weight_decay=0.0,
                       use_kernel=False, lr_schedule=None):
         del use_kernel
-        return sgd.make_round_fn(
-            loss_fn, cfg, weight_decay=weight_decay,
-            lr_schedule=resolve_lr_schedule(cfg, lr_schedule))
+        kw = dict(weight_decay=weight_decay,
+                  lr_schedule=resolve_lr_schedule(cfg, lr_schedule))
+        if mesh is None:
+            return sgd.make_round_fn(loss_fn, cfg, **kw)
+        return sgd.make_sharded_round_fn(loss_fn, cfg, mesh, **kw)
 
     def make_round_flush_fn(self, cfg, *, lr_schedule=None):
         del cfg, lr_schedule    # grads averaged every step: no sync debt
         return None
 
-    def deployable(self, state):
+    def deployable(self, state, group=None):
+        del group
         return state.layout.tree(state.params)
 
-    def diagnostics(self, state) -> dict:
-        del state
+    def diagnostics(self, state, group=None) -> dict:
+        del state, group
         return {}
 
 

@@ -22,6 +22,8 @@ zero gap quantizes to scale 1 / code 0.
 :func:`dequantize_mean` is the one Eq. (8d) reduction of n payloads, used
 by the barrier sync, the overlapped head and the plain version of the
 fused dequantize + sync kernel alike, so their means agree bit for bit.
+Across ranks, :func:`gather_payload` assembles the n payloads in rank
+order first, so the mean reads them in the single-process order.
 """
 from __future__ import annotations
 
@@ -87,6 +89,17 @@ def quantize_ef(c, method: str):
     sync."""
     q, scales = quantize(c, method)
     return q, scales, c - dequantize(q, scales, method)
+
+
+def gather_payload(q, scales, group):
+    """The payloads of all n replicas from each rank's k local rows, in
+    rank order (so row a is replica a, as in one process): one
+    all-gather of the ``group`` (``sharding/partition.py``), int8 codes
+    and their scales together.  Returns (q (n, M), scales (n, M/CHUNK) or
+    None)."""
+    if scales is None:
+        return group.all_gather_rows(q), None
+    return group.all_gather_rows(q, scales)
 
 
 def dequantize_mean(q, scales, method: str, out=None):

@@ -1,7 +1,7 @@
 """Elastic-SGD (Zhang et al., 2015) — Eq. (7) — with the paper's rho-scoping
-(§2.4, §4.4), for PyTorch.  Port of ``repro/core/elastic_sgd.py``: the
-local path (the sharded functions come with the replica axis across
-processes, ROADMAP.md queue 1 item 6).
+(§2.4, §4.4), for PyTorch.  Port of ``repro/core/elastic_sgd.py``, in
+one process or with the workers over the ranks of a ``torch.distributed``
+group (the sharded step and round).
 
 Unlike Parle, the elastic coupling fires on EVERY step: each worker takes
 a gradient step with the elastic term, and the reference variable moves
@@ -23,6 +23,13 @@ ops, one worker row at a time.  (7b) takes the replica mean of the NEW x
 into one reused (M,) buffer.  Grads are taken at the compute copy of x
 (under ``precision="bf16"`` a bf16 copy of one row at a time); weight
 decay uses the f32 master x.
+
+Across ranks (``sharding/partition.py::ReplicaGroup``) each rank holds
+its k = n / W worker rows of x and v and the whole ref; (7b)'s mean is
+one model-size all-reduce of the local row sums every step
+(``mean_rows``), so every rank applies the same (7b) update to its ref
+and K7 reads the same ref on every rank.  A round's step losses meet in
+one small all-gather after its L steps.
 """
 from __future__ import annotations
 
@@ -34,6 +41,8 @@ from repro_torch.core.parle import (GradBuffer, dealias_state,  # noqa: F401
                                     replica_grads, replica_mean,
                                     schedule_scale)
 from repro_torch.core.scoping import Scopes, init_scopes, update_scopes
+from repro_torch.sharding.partition import (active, check_divisible,
+                                            make_sharded_step_fn)
 from repro_torch.utils.pytree import FlatLayout
 
 
@@ -58,23 +67,26 @@ class ElasticState(NamedTuple):
                            "rho": self.scopes.rho}}
 
 
-def init(params, cfg) -> ElasticState:
+def init(params, cfg, group=None) -> ElasticState:
     """``params``: single-model param tree; every worker and the
-    reference start at it."""
+    reference start at it (under a ``group``, only the rank's k worker
+    rows are made)."""
     layout = FlatLayout(params)
     ref = layout.flatten(params)
-    x = ref.expand(cfg.n_replicas, -1).clone()
+    k = cfg.n_replicas if active(group) is None else group.local
+    x = ref.expand(k, -1).clone()
     return ElasticState(x=x, ref=ref, v=torch.zeros_like(x),
                         step=torch.zeros((), dtype=torch.int32),
                         scopes=init_scopes(cfg), layout=layout)
 
 
 def update(state: ElasticState, grads, cfg, use_kernel: bool = False,
-           lr_scale=1.0, xbar=None) -> ElasticState:
+           lr_scale=1.0, xbar=None, group=None) -> ElasticState:
     """One Eq. (7) step.  ``grads``: ``(n, M)`` flat buffer of grad
     f(x^a), float32 or the bf16 compute dtype (accumulated in f32).
     ``xbar``: an (M,) float32 buffer for the replica mean (one is
-    allocated when None)."""
+    allocated when None); under an active ``group`` the mean is over the
+    workers of every rank (one all-reduce)."""
     mu, lr = cfg.momentum, cfg.lr * lr_scale
     inv_rho = 1.0 / state.scopes.rho
 
@@ -93,7 +105,8 @@ def update(state: ElasticState, grads, cfg, use_kernel: bool = False,
             del g_e
 
     # (7b): ref <- ref - lr (ref - mean_a x^a)   [plain lr, not lr/rho]
-    xbar = replica_mean(state.x, out=xbar)
+    xbar = (replica_mean(state.x, out=xbar) if active(group) is None
+            else group.mean_rows(state.x, out=xbar))
     diff = torch.sub(state.ref, xbar, out=xbar)
     state.ref.sub_(diff.mul_(lr))
 
@@ -104,14 +117,13 @@ def update(state: ElasticState, grads, cfg, use_kernel: bool = False,
     return state._replace(step=step, scopes=scopes)
 
 
-def make_train_step(loss_fn: Callable, cfg, weight_decay: float = 0.0,
-                    use_kernel: bool = False, lr_schedule=None):
-    """loss_fn(params, batch) -> (scalar, aux); ``batch`` leaves carry a
-    leading replica axis of size n.  ``lr_schedule``: step -> multiplier
-    on cfg.lr.  Returns step(state, batch) -> (state, metrics); the step
-    consumes ``state`` (its buffers are updated in place)."""
+def _make_step_body(loss_fn: Callable, cfg, weight_decay, use_kernel,
+                    lr_schedule, group=None):
+    """The step of :func:`make_train_step`; under an active ``group`` it
+    emits its k local losses as ``local_loss_per_replica``."""
     gbuf, mbuf = GradBuffer(), GradBuffer()   # (n, M) grads, (M,) mean
     cdt = cfg.compute_dtype()
+    group = active(group)
 
     def step(state: ElasticState, batch):
         gdt = cdt
@@ -122,33 +134,74 @@ def make_train_step(loss_fn: Callable, cfg, weight_decay: float = 0.0,
                                gbuf.like(state.x, gdt), weight_decay, state.x)
         new_state = update(state, gbuf.buf, cfg, use_kernel=use_kernel,
                            lr_scale=schedule_scale(lr_schedule, state.step),
-                           xbar=mbuf.like(state.ref))
-        return new_state, {"loss": losses.mean(), "loss_per_replica": losses,
-                           "rho": new_state.scopes.rho,
-                           "step": new_state.step}
+                           xbar=mbuf.like(state.ref), group=group)
+        if group is None:
+            metrics = {"loss": losses.mean(), "loss_per_replica": losses}
+        else:
+            metrics = {"local_loss_per_replica": losses}
+        return new_state, dict(metrics, rho=new_state.scopes.rho,
+                               step=new_state.step)
 
     return step
 
 
+def make_train_step(loss_fn: Callable, cfg, weight_decay: float = 0.0,
+                    use_kernel: bool = False, lr_schedule=None):
+    """loss_fn(params, batch) -> (scalar, aux); ``batch`` leaves carry a
+    leading replica axis of size n.  ``lr_schedule``: step -> multiplier
+    on cfg.lr.  Returns step(state, batch) -> (state, metrics); the step
+    consumes ``state`` (its buffers are updated in place)."""
+    return _make_step_body(loss_fn, cfg, weight_decay, use_kernel,
+                           lr_schedule)
+
+
+def make_sharded_train_step(loss_fn: Callable, cfg, group,
+                            weight_decay: float = 0.0,
+                            use_kernel: bool = False, lr_schedule=None):
+    """Distributed Elastic-SGD over the ranks of ``group``: workers are
+    the rank's k local rows, ref is whole on every rank (each applies the
+    identical (7b) update).  One model-size all-reduce per step — L times
+    Parle's traffic per step — plus the gather of the per-replica
+    losses."""
+    return make_sharded_step_fn(
+        _make_step_body(loss_fn, cfg, weight_decay, use_kernel, lr_schedule,
+                        group), group, cfg.n_replicas)
+
+
 def make_round_fn(loss_fn: Callable, cfg, weight_decay: float = 0.0,
-                  use_kernel: bool = False, lr_schedule=None):
+                  use_kernel: bool = False, lr_schedule=None, group=None):
     """cfg.L steps per call.  Elastic-SGD couples on every step, so a
     round is just the step loop (it equals L calls of the train step bit
     for bit).  ``batches`` leaves: (L, n, B, ...).  Metrics: the
-    round-mean ``loss``, the per-step ``losses`` (L,), ``rho``, ``step``."""
-    step_fn = make_train_step(loss_fn, cfg, weight_decay, use_kernel,
-                              lr_schedule)
+    round-mean ``loss``, the per-step ``losses`` (L,), ``rho``, ``step``.
+    ``group``: see :func:`make_sharded_round_fn`."""
+    group = active(group)
+    step_fn = _make_step_body(loss_fn, cfg, weight_decay, use_kernel,
+                              lr_schedule, group)
 
     def round_fn(state: ElasticState, batches):
         losses = []
         for i in range(cfg.L):
             state, m = step_fn(state, {k: v[i] for k, v in batches.items()})
-            losses.append(m["loss"])
-        losses = torch.stack(losses)
+            losses.append(m["loss"] if group is None
+                          else m["local_loss_per_replica"])
+        losses = (torch.stack(losses) if group is None
+                  else group.replica_means(torch.stack(losses, 1)))
         return state, {"loss": losses.mean(), "losses": losses,
                        "rho": state.scopes.rho, "step": state.step}
 
     return round_fn
+
+
+def make_sharded_round_fn(loss_fn: Callable, cfg, group,
+                          weight_decay: float = 0.0,
+                          use_kernel: bool = False, lr_schedule=None):
+    """Distributed fused round: L steps, each with its model-size
+    all-reduce (that O(2nN) wire cost is the point of the baseline), and
+    one gather of the (k, L) step losses."""
+    check_divisible(cfg.n_replicas, group.world, group.axis)
+    return make_round_fn(loss_fn, cfg, weight_decay, use_kernel, lr_schedule,
+                         group=group)
 
 
 def average_model(state: ElasticState) -> dict:

@@ -1,8 +1,10 @@
 """Parle (Chaudhari et al., 2017) — Eq. (8a)-(8d) — for PyTorch.  Port of
 ``repro/core/parle.py``: the local-replica path, with the compressed
 (``sync_compress`` bf16 / int8, error feedback) and the staleness-1
-overlapped (``sync_overlap``) sync.  Meshes and the async half are not
-ported yet (ROADMAP.md queue 1 items 6 and 7).
+overlapped (``sync_overlap``) sync, in one process or with the replica
+axis over the ranks of a ``torch.distributed`` group (the sharded
+factories, the reference's ``shard_map`` over its ``pod`` / ``replica``
+axis).  The async half is not ported yet (ROADMAP.md queue 1 item 4).
 
 State layout: each of x, y, z, v_y, v_x is ONE ``(n, M)`` buffer, row a
 holding replica a's whole param tree in the flat layout of
@@ -47,6 +49,15 @@ rounds with rotated boundaries (bit for bit here).  With ``use_kernel``
 and int8 the head after the first is the kernel K6 (apply + quantize in
 one pass).
 
+Across ranks (``sharding/partition.py::ReplicaGroup``): each rank holds
+only its k = n / W rows of every buffer, the inner steps cross no process
+boundary, and the sync's Eq. (8d) mean is one model-size all-reduce of
+the local row sums (``mean_rows``), or, compressed, one all-gather of the
+payloads in rank order, so K5 and the dequantized mean read the n rows in
+the single-process order.  The per-step losses of a round meet in one
+small all-gather after its inner steps.  A group of one rank takes the
+single-process path.
+
 Per-replica grads come from a Python loop over the replicas
 (:func:`replica_grads`, shared with Elastic-SGD and SGD: only one
 replica's activations are alive at a time; each replica is independent,
@@ -62,6 +73,8 @@ import torch
 
 from repro_torch.core import compress
 from repro_torch.core.scoping import Scopes, init_scopes, update_scopes
+from repro_torch.sharding.partition import (active, check_divisible,
+                                            make_sharded_step_fn)
 from repro_torch.utils.pytree import FlatLayout, tree_map
 
 
@@ -106,12 +119,14 @@ def _sync_compress(cfg) -> str:
     return method
 
 
-def init(params, cfg) -> ParleState:
-    """``params``: single-model param tree; replicated n_replicas times.
-    All replicas start at the same point."""
+def init(params, cfg, group=None) -> ParleState:
+    """``params``: single-model param tree; replicated n_replicas times
+    (under a ``group``, only the rank's k local rows are made).  All
+    replicas start at the same point."""
     layout = FlatLayout(params)
     row = layout.flatten(params)
-    return _state_from_x(row.expand(cfg.n_replicas, -1).clone(), layout, cfg)
+    k = cfg.n_replicas if active(group) is None else group.local
+    return _state_from_x(row.expand(k, -1).clone(), layout, cfg)
 
 
 def init_from_replicas(replica_params, cfg) -> ParleState:
@@ -242,11 +257,17 @@ def consensus_step(state: ParleState, xbar, cfg, *,
     else:
         mu, inv_rho = kw["mu"], kw["inv_rho"]
         lr, gamma_scale = _f32(kw["lr"]), _f32(kw["gamma_scale"])
+        # in place, one op at a time (each rounds as its out-of-place
+        # form would): at most two row-sized temporaries alive
         for a in range(state.x.shape[0]):
             x, v = state.x[a], state.v_x[a]
-            g_x = gamma_scale * (x - state.z[a]) + inv_rho * (x - xbar)  # (8c)
-            v.copy_(mu * v + g_x)
-            x.copy_(x - lr * (g_x + mu * v))
+            g_x = torch.sub(x, state.z[a]).mul_(gamma_scale)
+            t = torch.sub(x, xbar).mul_(inv_rho)
+            g_x.add_(t)                       # (8c): g_x
+            del t
+            v.mul_(mu).add_(g_x)              # v' = mu v + g_x
+            g_x.add_(torch.mul(v, mu))        # g_x + mu v'
+            x.sub_(g_x.mul_(lr))              # x' = x - lr (g_x + mu v')
             del g_x
             if fused_y:
                 state.y[a].copy_(x)
@@ -284,39 +305,47 @@ def _compress_payload(state: ParleState, method: str, use_kernel: bool):
     return q, s
 
 
-def _sync_stats(state: ParleState, cfg, use_kernel: bool, out=None):
+def _sync_stats(state: ParleState, cfg, use_kernel: bool, out=None,
+                group=None):
     """The Eq. (8d) replica mean of the (optionally compressed) ``x+e``
     payload — the reduction half of the sync, shared by the barrier sync
     and the overlapped head; updates ``e`` in place.  Returns (xbar,
     payload): with ``use_kernel`` and int8, (None, (q, s)) for K5;
-    otherwise (the (M,) mean, written into ``out`` when given, None)."""
+    otherwise (the (M,) mean, written into ``out`` when given, None).
+    Under a ``group`` the mean is over all n replicas: the local rows'
+    all-reduce, or the local payloads' all-gather (the collective)."""
+    group = active(group)
     method = _sync_compress(cfg)
     if method == "none":
+        if group is not None:
+            return group.mean_rows(state.x, out=out), None
         return replica_mean(state.x, out=out), None
     q, s = _compress_payload(state, method, use_kernel)
+    if group is not None:
+        q, s = compress.gather_payload(q, s, group)
     if use_kernel and method == "int8":
         return None, (q, s)
     return compress.dequantize_mean(q, s, method, out=out), None
 
 
 def sync_step(state: ParleState, cfg, use_kernel: bool = False,
-              lr_scale=1.0) -> ParleState:
+              lr_scale=1.0, group=None) -> ParleState:
     """(8d) with eta'' = rho/n: the reference IS the replica mean; one
     (M,) buffer (or, under K5, the payloads) shared by every replica's
     update."""
-    xbar, payload = _sync_stats(state, cfg, use_kernel)
+    xbar, payload = _sync_stats(state, cfg, use_kernel, group=group)
     return consensus_step(state, xbar, cfg, use_kernel=use_kernel,
                           lr_scale=lr_scale, payload=payload)
 
 
 def fused_step(state: ParleState, grads, cfg, use_kernel: bool = False,
-               lr_scale=1.0) -> ParleState:
+               lr_scale=1.0, group=None) -> ParleState:
     """One Parle step: inner update + conditional sync (k/L integer)."""
     state = inner_step(state, grads, cfg, use_kernel=use_kernel,
                        lr_scale=lr_scale)
     if int(state.step) % cfg.L == 0:
         state = sync_step(state, cfg, use_kernel=use_kernel,
-                          lr_scale=lr_scale)
+                          lr_scale=lr_scale, group=group)
     return state
 
 
@@ -329,7 +358,7 @@ def fused_step(state: ParleState, grads, cfg, use_kernel: bool = False,
 # ------------------------------------------------------------------
 
 def overlap_head(state: ParleState, cfg, use_kernel: bool = False,
-                 lr_scale=1.0) -> ParleState:
+                 lr_scale=1.0, group=None) -> ParleState:
     """The overlapped round's head: (1) apply the carried consensus
     ``state.c`` (when step > 0 — the first round has nothing in flight),
     (2) compress the new x+e as the next payload, update the residual,
@@ -337,18 +366,20 @@ def overlap_head(state: ParleState, cfg, use_kernel: bool = False,
     apply's outer-lr multiplier — schedule(step - 1), the value the
     barrier sync it replays would have used."""
     if use_kernel and _sync_compress(cfg) == "int8":
-        return _overlap_head_fused(state, cfg, lr_scale)
+        return _overlap_head_fused(state, cfg, lr_scale, group)
     if int(state.step) > 0:
         state = consensus_step(state, state.c, cfg, use_kernel=use_kernel,
                                lr_scale=lr_scale)
-    _sync_stats(state, cfg, use_kernel, out=state.c)
+    _sync_stats(state, cfg, use_kernel, out=state.c, group=group)
     return state
 
 
-def _overlap_head_fused(state: ParleState, cfg, lr_scale) -> ParleState:
+def _overlap_head_fused(state: ParleState, cfg, lr_scale,
+                        group=None) -> ParleState:
     """The ``use_kernel`` int8 head: the consensus apply and the next
     payload's int8 quantize + EF in ONE memory pass (K6); the first round
-    (nothing in flight) quantizes the initial x + e with K4."""
+    (nothing in flight) quantizes the initial x + e with K4.  Under a
+    ``group`` the local payloads are gathered before the mean."""
     from repro_torch.kernels import ops as kops
     if int(state.step) > 0:
         _, _, _, q, s, _ = kops.parle_apply_consensus_quantize(
@@ -358,6 +389,8 @@ def _overlap_head_fused(state: ParleState, cfg, lr_scale) -> ParleState:
         state = _reset_inner_loop(state, cfg)
     else:
         q, s = _compress_payload(state, "int8", use_kernel=True)
+    if active(group) is not None:
+        q, s = compress.gather_payload(q, s, group)
     compress.dequantize_mean(q, s, "int8", out=state.c)
     return state
 
@@ -393,28 +426,37 @@ def replica_grads(loss_fn: Callable, layout: FlatLayout, rows, batch, out,
     a of ``batch`` (leaves with the leading replica axis), plus
     ``weight_decay * decay_rows[a]`` when ``weight_decay`` is set.  ``out``
     is an (n, M) buffer that receives each grad in its row, or an (M,)
-    buffer that receives their sum.  Returns the (n,) losses."""
+    buffer that receives their sum; the gaps between its leaves must be
+    zero (``GradBuffer`` makes them so) and stay untouched.  Each leaf's
+    grad is written into ``out`` as autograd hands it back, so no
+    row-shaped grad is ever made beside ``out``.  Returns the (n,)
+    losses."""
     losses = []
     for a, r in enumerate(rows):
         row = r.detach().requires_grad_(True)
-        loss, _ = loss_fn(layout.split(row),
-                          {k: v[a] for k, v in batch.items()})
-        g, = torch.autograd.grad(loss, row)
-        if weight_decay:
-            g = g + weight_decay * decay_rows[a]
-        if out.dim() == 2:
-            out[a].copy_(g)
-        elif a == 0:
-            out.copy_(g)
-        else:
-            out.add_(g)
+        params, leaves = layout.split_leaves(row)
+        loss, _ = loss_fn(params, {k: v[a] for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        dst = layout.views(out[a] if out.dim() == 2 else out)
+        decay = layout.views(decay_rows[a]) if weight_decay else None
+        for i, (d, g) in enumerate(zip(dst, grads)):
+            if g is None:                     # a leaf the loss never read
+                g = torch.zeros_like(leaves[i])
+            if weight_decay:
+                g = g + weight_decay * decay[i]
+            if out.dim() == 2 or a == 0:
+                d.copy_(g)
+            else:
+                d.add_(g)
+        del grads, g
         losses.append(loss.detach())
     return torch.stack(losses)
 
 
 class GradBuffer:
-    """The grad buffer of a step/round factory, allocated at its first
-    use and reused by every later step."""
+    """The grad buffer of a step/round factory, allocated (zero, so the
+    gaps between leaves stay zero) at its first use and reused by every
+    later step."""
 
     def __init__(self):
         self.buf = None
@@ -425,13 +467,39 @@ class GradBuffer:
         dtype = dtype or t.dtype
         if (self.buf is None or self.buf.shape != t.shape
                 or self.buf.dtype != dtype or self.buf.device != t.device):
-            self.buf = torch.empty_like(t, dtype=dtype)
+            self.buf = torch.zeros_like(t, dtype=dtype)
         return self.buf
 
 
 def schedule_scale(lr_schedule, step):
     """The lr multiplier at ``step`` (1.0 without a schedule)."""
     return lr_schedule(step) if lr_schedule is not None else 1.0
+
+
+def _make_step_body(loss_fn: Callable, cfg, weight_decay, use_kernel,
+                    lr_schedule, group=None):
+    """The step of :func:`make_train_step`; under an active ``group`` it
+    emits its k local losses as ``local_loss_per_replica`` (the sharded
+    wrapper gathers them)."""
+    _sync_compress(cfg)
+    gbuf = GradBuffer()
+    group = active(group)
+
+    def step(state: ParleState, batch):
+        losses = _grads_at_y(loss_fn, state, batch, gbuf, weight_decay)
+        new_state = fused_step(state, gbuf.buf, cfg, use_kernel=use_kernel,
+                               lr_scale=schedule_scale(lr_schedule,
+                                                       state.step),
+                               group=group)
+        if group is None:
+            metrics = {"loss": losses.mean(), "loss_per_replica": losses}
+        else:
+            metrics = {"local_loss_per_replica": losses}
+        return new_state, dict(metrics, gamma=new_state.scopes.gamma,
+                               rho=new_state.scopes.rho,
+                               step=new_state.step)
+
+    return step
 
 
 def make_train_step(loss_fn: Callable, cfg, weight_decay: float = 0.0,
@@ -443,20 +511,23 @@ def make_train_step(loss_fn: Callable, cfg, weight_decay: float = 0.0,
     where ``batch`` leaves carry a leading replica axis of size n.
     ``lr_schedule``: step -> multiplier on BOTH cfg.lr and cfg.lr_inner.
     The step consumes ``state`` (its buffers are updated in place)."""
-    _sync_compress(cfg)
-    gbuf = GradBuffer()
+    return _make_step_body(loss_fn, cfg, weight_decay, use_kernel,
+                           lr_schedule)
 
-    def step(state: ParleState, batch):
-        losses = _grads_at_y(loss_fn, state, batch, gbuf, weight_decay)
-        new_state = fused_step(state, gbuf.buf, cfg, use_kernel=use_kernel,
-                               lr_scale=schedule_scale(lr_schedule,
-                                                       state.step))
-        return new_state, {
-            "loss": losses.mean(), "loss_per_replica": losses,
-            "gamma": new_state.scopes.gamma, "rho": new_state.scopes.rho,
-            "step": new_state.step}
 
-    return step
+def make_sharded_train_step(loss_fn: Callable, cfg, group,
+                            weight_decay: float = 0.0,
+                            use_kernel: bool = False, lr_schedule=None):
+    """Distributed variant of :func:`make_train_step` over the ranks of
+    ``group`` (a ``ReplicaGroup``): the state (from ``init(..., group)``)
+    and the batch hold the rank's k local replicas.  The inner steps make
+    no collective; the sync's replica mean is one all-reduce of the model
+    size (or one all-gather of the compressed payloads); the per-replica
+    losses are gathered each step into the global (n,)
+    ``loss_per_replica`` and its mean ``loss``."""
+    return make_sharded_step_fn(
+        _make_step_body(loss_fn, cfg, weight_decay, use_kernel, lr_schedule,
+                        group), group, cfg.n_replicas)
 
 
 def _grads_at_y(loss_fn, state: ParleState, batch, gbuf, weight_decay):
@@ -473,8 +544,10 @@ def _round_entry(state: ParleState, cfg):
 
 
 def _inner_steps(loss_fn, state: ParleState, batches, cfg, gbuf,
-                 weight_decay, use_kernel, lr_schedule):
-    """The round's L inner steps (8a-8b); returns (state, (L,) losses)."""
+                 weight_decay, use_kernel, lr_schedule, group=None):
+    """The round's L inner steps (8a-8b); returns (state, (L,) losses).
+    Under an active ``group`` each step keeps its k local losses, and
+    one gather after the L steps makes the means over all n."""
     step_losses = []
     for i in range(cfg.L):
         losses = _grads_at_y(loss_fn, state,
@@ -482,7 +555,9 @@ def _inner_steps(loss_fn, state: ParleState, batches, cfg, gbuf,
                              weight_decay)
         state = inner_step(state, gbuf.buf, cfg, use_kernel=use_kernel,
                            lr_scale=schedule_scale(lr_schedule, state.step))
-        step_losses.append(losses.mean())
+        step_losses.append(losses if group is not None else losses.mean())
+    if group is not None:
+        return state, group.replica_means(torch.stack(step_losses, 1))
     return state, torch.stack(step_losses)
 
 
@@ -493,7 +568,7 @@ def _round_metrics(state: ParleState, losses) -> dict:
 
 
 def make_round_fn(loss_fn: Callable, cfg, weight_decay: float = 0.0,
-                  use_kernel: bool = False, lr_schedule=None):
+                  use_kernel: bool = False, lr_schedule=None, group=None):
     """One whole Parle round per call: the L = cfg.L inner steps (8a-8b)
     followed by the sync (8c-8d) — Python enters once per round, and no
     per-step ``k % L`` test sits in the loop.
@@ -504,24 +579,44 @@ def make_round_fn(loss_fn: Callable, cfg, weight_decay: float = 0.0,
     calls of the train step bit for bit: the per-step lr_scale is taken
     at the same counters, and the sync uses the lr_scale of the round's
     last inner step (schedule(step - 1)).  Metrics: the round-mean
-    ``loss`` plus the per-step ``losses`` (L,)."""
+    ``loss`` plus the per-step ``losses`` (L,).  ``group``: see
+    :func:`make_sharded_round_fn`."""
     _sync_compress(cfg)
     gbuf = GradBuffer()
+    group = active(group)
 
     def round_fn(state: ParleState, batches):
         _round_entry(state, cfg)
         state, losses = _inner_steps(loss_fn, state, batches, cfg, gbuf,
-                                     weight_decay, use_kernel, lr_schedule)
+                                     weight_decay, use_kernel, lr_schedule,
+                                     group)
         state = sync_step(state, cfg, use_kernel=use_kernel,
                           lr_scale=schedule_scale(lr_schedule,
-                                                  state.step - 1))
+                                                  state.step - 1),
+                          group=group)
         return state, _round_metrics(state, losses)
 
     return round_fn
 
 
-def make_overlap_round_fn(loss_fn: Callable, cfg, weight_decay: float = 0.0,
+def make_sharded_round_fn(loss_fn: Callable, cfg, group,
+                          weight_decay: float = 0.0,
                           use_kernel: bool = False, lr_schedule=None):
+    """Distributed fused round over the ranks of ``group``: the L inner
+    steps on the rank's k rows with no collective, then the sync — one
+    model-size all-reduce of the local row sums (or one all-gather of the
+    compressed payloads) — and one gather of the (k, L) step losses.
+    With one replica a rank it equals the single-process round bit for
+    bit; with more, the sync mean sums the rows in another grouping
+    (ulps), as the reference's pmean of local means does."""
+    check_divisible(cfg.n_replicas, group.world, group.axis)
+    return make_round_fn(loss_fn, cfg, weight_decay, use_kernel, lr_schedule,
+                         group=group)
+
+
+def make_overlap_round_fn(loss_fn: Callable, cfg, weight_decay: float = 0.0,
+                          use_kernel: bool = False, lr_schedule=None,
+                          group=None):
     """One staleness-1 overlapped round per call: :func:`overlap_head`
     (apply the carried consensus, take this round's payload) then the L
     inner steps.  Same entry invariants and metrics as
@@ -531,22 +626,41 @@ def make_overlap_round_fn(loss_fn: Callable, cfg, weight_decay: float = 0.0,
     :func:`make_flush_fn`)."""
     _sync_compress(cfg)
     gbuf = GradBuffer()
+    group = active(group)
 
     def round_fn(state: ParleState, batches):
         _round_entry(state, cfg)
         state = overlap_head(state, cfg, use_kernel=use_kernel,
                              lr_scale=schedule_scale(lr_schedule,
-                                                     state.step - 1))
+                                                     state.step - 1),
+                             group=group)
         state, losses = _inner_steps(loss_fn, state, batches, cfg, gbuf,
-                                     weight_decay, use_kernel, lr_schedule)
+                                     weight_decay, use_kernel, lr_schedule,
+                                     group)
         return state, _round_metrics(state, losses)
 
     return round_fn
 
 
-def average_model(state: ParleState) -> dict:
+def make_sharded_overlap_round_fn(loss_fn: Callable, cfg, group,
+                                  weight_decay: float = 0.0,
+                                  use_kernel: bool = False,
+                                  lr_schedule=None):
+    """Distributed overlapped round: the head's collective (the
+    all-reduce, or the payload all-gather) comes first, then the L inner
+    steps; the carried ``c`` is the same on every rank, and
+    :func:`make_flush_fn` needs no collective."""
+    check_divisible(cfg.n_replicas, group.world, group.axis)
+    return make_overlap_round_fn(loss_fn, cfg, weight_decay, use_kernel,
+                                 lr_schedule, group=group)
+
+
+def average_model(state: ParleState, group=None) -> dict:
     """The deployable single model: mean of replicas (what the paper
-    evaluates after scoping collapses the ensemble)."""
+    evaluates after scoping collapses the ensemble); under a ``group``,
+    of all n (one all-reduce)."""
+    if active(group) is not None:
+        return state.layout.tree(group.mean_rows(state.x))
     return state.layout.tree(replica_mean(state.x))
 
 

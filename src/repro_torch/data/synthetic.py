@@ -107,35 +107,41 @@ class TeacherTask:
 
 
 def replica_batches(task_or_stream, step: int, batch_size: int,
-                    n_replicas: int, split: bool = False) -> dict:
+                    n_replicas: int, split: bool = False,
+                    rows: slice = slice(None)) -> dict:
     """Per-replica batches stacked along a leading replica axis.
 
     split=False: every replica draws from the full data (paper §4), its
     shard index decorrelating the draws; split=True: replica a draws
-    only from shard a (paper §5)."""
+    only from shard a (paper §5).  ``rows``: the replicas to draw (a rank
+    of a ``ReplicaGroup`` draws its own); each row equals that row of
+    the full draw bit for bit, since every replica's draw is its own."""
+    idx = range(n_replicas)[rows]
     if isinstance(task_or_stream, TeacherTask):
         outs = [task_or_stream.train_batch(
             step if split else step * n_replicas + a, batch_size,
             (a, n_replicas) if split else (0, 1))
-            for a in range(n_replicas)]
+            for a in idx]
     else:
         s = task_or_stream
         outs = [_token_batch(step, a, n_replicas, s.seed, batch_size,
                              s.seq_len, s.vocab_size, split, s.device,
                              s.num_codebooks)
-                for a in range(n_replicas)]
+                for a in idx]
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
 def make_round_batch_fn(stream: TokenStream, L: int, batch_size: int,
-                        n_replicas: int, split: bool = False):
+                        n_replicas: int, split: bool = False,
+                        rows: slice = slice(None)):
     """Staging for whole rounds: ``stage(start_step)`` returns the L x n
     batches of a round as (L, n, B, T) leaves, equal to stacking
-    :func:`replica_batches` per step."""
+    :func:`replica_batches` per step (``rows``: only those replicas)."""
 
     def stage(start_step: int) -> dict:
         steps = [replica_batches(stream, start_step + i, batch_size,
-                                 n_replicas, split=split) for i in range(L)]
+                                 n_replicas, split=split, rows=rows)
+                 for i in range(L)]
         return {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
 
     return stage

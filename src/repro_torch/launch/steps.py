@@ -6,9 +6,10 @@
    registered algorithm (parle, entropy_sgd, elastic_sgd, sgd) by name,
    via ``repro_torch.core.registry``, fronting the runtime's
    :func:`~repro_torch.runtime.policy_for` (barrier or overlap, from
-   ``pcfg.sync_overlap``).  ``make_algorithm_sharded_step`` and a
-   ``mesh`` raise: the replica axis across devices is ROADMAP.md queue 1
-   item 6.
+   ``pcfg.sync_overlap``).  ``make_algorithm_sharded_step`` and
+   ``make_algorithm_round(mesh=...)`` put the replica axis over the ranks
+   of a ``torch.distributed`` group: ``mesh`` is a ``ReplicaGroup``
+   (``sharding/partition.py``; ``launch/mesh.py::group_from_spec``).
  * ``make_parle_steps`` — the Parle step decomposed into inner_step
    (8a-8b), sync_step (8c-8d) and their fused step.
  * ``make_prefill_step`` / ``make_decode_step`` — serving programs.
@@ -28,9 +29,6 @@ from repro_torch.core import registry
 from repro_torch.models.model import build_model
 from repro_torch.runtime import policy_for
 
-_MESH_NOT_PORTED = ("the replica axis across devices (mesh / sharded "
-                    "steps) is not ported yet (ROADMAP.md queue 1, item 6)")
-
 
 def make_loss_fn(cfg, use_flash: bool = False):
     return build_model(cfg, use_flash=use_flash).loss
@@ -47,21 +45,27 @@ def make_algorithm_step(algo_name: str, cfg, pcfg, weight_decay: float = 0.0,
         lr_schedule=lr_schedule)
 
 
-def make_algorithm_sharded_step(algo_name: str, cfg, pcfg, mesh, **kw):
-    """The reference's shard_map variant (replica axis over a mesh)."""
-    raise NotImplementedError(_MESH_NOT_PORTED)
+def make_algorithm_sharded_step(algo_name: str, cfg, pcfg, mesh,
+                                weight_decay: float = 0.0,
+                                use_flash: bool = False,
+                                use_kernel: bool = False, lr_schedule=None):
+    """The step with the replica axis over the ranks of ``mesh`` (a
+    ``ReplicaGroup``): ``batch`` leaves carry the rank's k replicas."""
+    return policy_for(pcfg).make_step_fn(
+        registry.get(algo_name), make_loss_fn(cfg, use_flash), pcfg,
+        mesh=mesh, weight_decay=weight_decay, use_kernel=use_kernel,
+        lr_schedule=lr_schedule)
 
 
 def make_algorithm_round(algo_name: str, cfg, pcfg, mesh=None,
                          weight_decay: float = 0.0, use_flash: bool = False,
                          use_kernel: bool = False, lr_schedule=None):
     """The fused L-step round for any registered algo: round(state,
-    batches) -> (state, metrics) with batches leaves (L, n, B, ...)."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_NOT_PORTED)
+    batches) -> (state, metrics) with batches leaves (L, n, B, ...)
+    (with ``mesh``, a ``ReplicaGroup``: (L, k, B, ...))."""
     return policy_for(pcfg).make_round_fn(
         registry.get(algo_name), make_loss_fn(cfg, use_flash), pcfg,
-        weight_decay=weight_decay, use_kernel=use_kernel,
+        mesh=mesh, weight_decay=weight_decay, use_kernel=use_kernel,
         lr_schedule=lr_schedule)
 
 

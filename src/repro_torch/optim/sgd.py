@@ -1,8 +1,8 @@
 """SGD with Nesterov momentum — the paper's baseline optimizer (§4) — plus
 step-decay learning-rate schedules of the form the paper uses ("dropped
-by a factor of 5-10 at epochs [...]").  Port of ``repro/optim/sgd.py``
-(the local path; the sharded functions come with the replica axis across
-processes, ROADMAP.md queue 1 item 6).
+by a factor of 5-10 at epochs [...]").  Port of ``repro/optim/sgd.py``,
+in one process or with the data shards over the ranks of a
+``torch.distributed`` group (the sharded step and round).
 
 The state keeps params and v as ONE ``(M,)`` row each, in the flat layout
 of ``utils/pytree.py::FlatLayout``, and the updates run IN PLACE.  The
@@ -11,7 +11,10 @@ each shard's grad is taken at the one param row (its compute copy under
 ``precision="bf16"``), the n grads are summed into one float32 (M,)
 buffer and divided by n, and one Nesterov step follows.  There is no
 kernel: the reference ignores ``use_kernel`` for SGD, and so does the
-port.
+port.  Across ranks (``sharding/partition.py::ReplicaGroup``) each rank
+takes the grads of its k shards, and their sum is all-reduced (one
+model-size all-reduce a step) before the division by n, so every rank
+keeps the same params.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ from typing import Callable, NamedTuple, Sequence
 import torch
 
 from repro_torch.core.parle import GradBuffer, replica_grads, schedule_scale
+from repro_torch.sharding.partition import (active, check_divisible,
+                                            make_sharded_step_fn)
 from repro_torch.utils.pytree import FlatLayout
 
 
@@ -92,43 +97,82 @@ def make_train_step(loss_fn: Callable, lr_schedule, momentum: float = 0.9,
 # parallelism — per-shard grads are averaged every step.
 # ------------------------------------------------------------------
 
+def _make_step_body(loss_fn: Callable, cfg, weight_decay, lr_schedule,
+                    group=None):
+    """The step of :func:`make_replica_train_step`; under an active
+    ``group`` the shard grads' sum is all-reduced and the step emits its
+    k local losses as ``local_loss_per_replica``."""
+    gbuf = GradBuffer()
+    cdt = cfg.compute_dtype()
+    group = active(group)
+
+    def step(state: SGDState, batch):
+        k = next(iter(batch.values())).shape[0]
+        row = state.params.to(cdt)
+        losses = replica_grads(loss_fn, state.layout, [row] * k, batch,
+                               gbuf.like(state.params))
+        if group is None:
+            grads = gbuf.buf.div_(k)              # the mean over the shards
+        else:
+            grads = group.all_reduce_(gbuf.buf).div_(group.n)
+        lr = cfg.lr * schedule_scale(lr_schedule, state.step)
+        new_state = update(state, grads, lr, cfg.momentum, weight_decay)
+        if group is None:
+            return new_state, {"loss": losses.mean(), "lr": lr}
+        return new_state, {"local_loss_per_replica": losses, "lr": lr}
+
+    return step
+
+
 def make_replica_train_step(loss_fn: Callable, cfg, weight_decay: float = 0.0,
                             lr_schedule=None):
     """Protocol-shaped SGD step: ``batch`` leaves carry a leading shard
     axis of size cfg.n_replicas; grads are averaged across shards every
     step (one model copy, an n-times-larger effective batch).
     ``lr_schedule``: step -> multiplier applied to cfg.lr."""
-    gbuf = GradBuffer()
-    cdt = cfg.compute_dtype()
+    return _make_step_body(loss_fn, cfg, weight_decay, lr_schedule)
 
-    def step(state: SGDState, batch):
-        n = next(iter(batch.values())).shape[0]
-        row = state.params.to(cdt)
-        losses = replica_grads(loss_fn, state.layout, [row] * n, batch,
-                               gbuf.like(state.params))
-        grads = gbuf.buf.div_(n)                  # the mean over the shards
-        lr = cfg.lr * schedule_scale(lr_schedule, state.step)
-        new_state = update(state, grads, lr, cfg.momentum, weight_decay)
-        return new_state, {"loss": losses.mean(), "lr": lr}
 
-    return step
+def make_sharded_train_step(loss_fn: Callable, cfg, group,
+                            weight_decay: float = 0.0, lr_schedule=None):
+    """Data-parallel SGD over the ranks of ``group``: each rank's batch
+    holds its k shards; params and momentum are whole on every rank, and
+    the grad mean is one model-size all-reduce per step — the O(2nN)
+    baseline of §4.1."""
+    return make_sharded_step_fn(
+        _make_step_body(loss_fn, cfg, weight_decay, lr_schedule, group),
+        group, cfg.n_replicas)
 
 
 def make_round_fn(loss_fn: Callable, cfg, weight_decay: float = 0.0,
-                  lr_schedule=None):
+                  lr_schedule=None, group=None):
     """cfg.L steps per call (SGD has no sync boundary; the round length
     mirrors the Parle family's).  ``batches`` leaves are (L, n, B, ...).
     Metrics: the round-mean ``loss``, the per-step ``losses`` (L,), the
-    last step's ``lr`` and ``step``."""
-    step_fn = make_replica_train_step(loss_fn, cfg, weight_decay, lr_schedule)
+    last step's ``lr`` and ``step``.  ``group``: see
+    :func:`make_sharded_round_fn`."""
+    group = active(group)
+    step_fn = _make_step_body(loss_fn, cfg, weight_decay, lr_schedule, group)
 
     def round_fn(state: SGDState, batches):
         losses = []
         for i in range(cfg.L):
             state, m = step_fn(state, {k: v[i] for k, v in batches.items()})
-            losses.append(m["loss"])
-        losses = torch.stack(losses)
+            losses.append(m["loss"] if group is None
+                          else m["local_loss_per_replica"])
+        losses = (torch.stack(losses) if group is None
+                  else group.replica_means(torch.stack(losses, 1)))
         return state, {"loss": losses.mean(), "losses": losses,
                        "lr": m["lr"], "step": state.step}
 
     return round_fn
+
+
+def make_sharded_round_fn(loss_fn: Callable, cfg, group,
+                          weight_decay: float = 0.0, lr_schedule=None):
+    """Data-parallel fused round over the ranks of ``group``: L steps,
+    each with its model-size all-reduce, and one gather of the (k, L)
+    step losses."""
+    check_divisible(cfg.n_replicas, group.world, group.axis)
+    return make_round_fn(loss_fn, cfg, weight_decay, lr_schedule,
+                         group=group)

@@ -8,8 +8,10 @@
   end-of-training flush applies the last one.
 
 Both delegate to the Algorithm object (``algo.make_round_fn`` keys off
-``pcfg.sync_overlap``).  ``async`` (elastic pods, ROADMAP.md queue 1
-item 7) exits naming the item that ports it.
+``pcfg.sync_overlap``), in one process or, with ``mesh=`` (a
+``ReplicaGroup``, ``sharding/partition.py``), with the replica axis over
+the ranks of a ``torch.distributed`` group.  ``async`` (elastic pods,
+ROADMAP.md queue 1 item 7) exits naming the item that ports it.
 """
 from __future__ import annotations
 
@@ -22,14 +24,21 @@ class SyncPolicy:
 
     name = "barrier"
 
-    def make_step_fn(self, algo, loss_fn, pcfg, *, weight_decay=0.0,
-                     use_kernel=False, lr_schedule=None):
-        return algo.make_step(loss_fn, pcfg, weight_decay=weight_decay,
-                              use_kernel=use_kernel, lr_schedule=lr_schedule)
+    def make_step_fn(self, algo, loss_fn, pcfg, *, mesh=None,
+                     weight_decay=0.0, use_kernel=False, lr_schedule=None):
+        """The per-step program; with ``mesh`` the algorithm's sharded
+        step."""
+        kw = dict(weight_decay=weight_decay, use_kernel=use_kernel,
+                  lr_schedule=lr_schedule)
+        if mesh is not None:
+            return algo.make_sharded_step(loss_fn, pcfg, mesh, **kw)
+        return algo.make_step(loss_fn, pcfg, **kw)
 
-    def make_round_fn(self, algo, loss_fn, pcfg, *, weight_decay=0.0,
-                      use_kernel=False, lr_schedule=None):
-        return algo.make_round_fn(loss_fn, pcfg, weight_decay=weight_decay,
+    def make_round_fn(self, algo, loss_fn, pcfg, *, mesh=None,
+                      weight_decay=0.0, use_kernel=False, lr_schedule=None):
+        """The fused L-step round program."""
+        return algo.make_round_fn(loss_fn, pcfg, mesh=mesh,
+                                  weight_decay=weight_decay,
                                   use_kernel=use_kernel,
                                   lr_schedule=lr_schedule)
 

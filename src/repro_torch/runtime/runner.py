@@ -5,8 +5,11 @@ It owns batch staging, spans, obs counters/histograms, progress
 emission and checkpointing, namespaced per entry point (``train.*`` metric
 series); the caller injects what differs through small hooks
 (``batch_fn`` / ``stage_fn``, ``progress``, ``pre_round`` /
-``on_round``), and the overlap policy's ``flush_fn``.  The reference's
-other hooks serve its multi-process pods, which are not ported yet.
+``on_round``, ``pre_step`` / ``on_step``), and the overlap policy's
+``flush_fn``.  Under a ``ReplicaGroup`` of ranks (``group=``) every rank
+runs the loop and counts the tokens of its own replicas, and only rank 0
+prints progress.  The reference's ``post_round`` hook serves its async
+pods, which are not ported yet.
 
 Spans end on ``torch.cuda.synchronize`` (``Span.block``), the
 counterpart of the reference's ``block_until_ready``.  There is no AOT
@@ -36,10 +39,17 @@ class RoundRunner:
     every metric series."""
 
     def __init__(self, obs, ns: str = "train",
-                 checkpoint: Optional[CheckpointSpec] = None):
+                 checkpoint: Optional[CheckpointSpec] = None, group=None):
         self.obs = obs
         self.ns = ns
         self.checkpoint = checkpoint
+        self.prints = group is None or group.rank == 0
+
+    def _report(self, progress, *args, history):
+        rec = progress(*args)
+        if self.prints:
+            print(json.dumps(rec), flush=True)
+        history.append(rec)
 
     # -- checkpointing --------------------------------------------
     def _save(self, state, gstep: int):
@@ -56,16 +66,23 @@ class RoundRunner:
     # -- per-step loop --------------------------------------------
     def run_steps(self, state, step_fn, batch_fn: Callable[[int], Any], *,
                   start: int, steps: int, L: int, tokens_per_step: int,
-                  progress_every: int = 0, progress=None):
+                  span_cat: str = "", progress_every: int = 0, progress=None,
+                  on_step=None, pre_step=None):
         """The per-step loop.  ``progress(step, round, state, metrics)``
         -> record is invoked every ``progress_every`` steps and on the
-        first step, printed, and collected into the returned history."""
+        first step, printed, and collected into the returned history.
+        ``pre_step(i)`` runs before step i; ``on_step(i, metrics, sp)``
+        inside its span, before the span blocks on the metrics."""
         obs, ns = self.obs, self.ns
         history = []
         for i in range(start, start + steps):
-            with obs.tracer.span("step", step=i + 1) as sp:
+            if pre_step is not None:
+                pre_step(i)
+            with obs.tracer.span("step", cat=span_cat, step=i + 1) as sp:
                 batch = batch_fn(i)
                 state, metrics = step_fn(state, batch)
+                if on_step is not None:
+                    on_step(i, metrics, sp)
                 sp.block(metrics)
             obs.registry.counter(f"{ns}.steps").inc()
             obs.registry.counter(f"{ns}.tokens").inc(tokens_per_step)
@@ -76,9 +93,8 @@ class RoundRunner:
                     sp.dur_s * 1e3)
             if progress is not None and ((i + 1) % progress_every == 0
                                          or i == start):
-                rec = progress(i + 1, (i + 1) // L, state, metrics)
-                print(json.dumps(rec), flush=True)
-                history.append(rec)
+                self._report(progress, i + 1, (i + 1) // L, state, metrics,
+                             history=history)
             if self._ckpt_enabled() and (i + 1) % self.checkpoint.every == 0:
                 self._save(state, i + 1)
         return state, history
@@ -118,9 +134,8 @@ class RoundRunner:
                 on_round(r, gstep, metrics)
             if progress is not None and ((r + 1) % progress_every == 0
                                          or r == 0):
-                rec = progress(gstep, r + 1, state, metrics)
-                print(json.dumps(rec), flush=True)
-                history.append(rec)
+                self._report(progress, gstep, r + 1, state, metrics,
+                             history=history)
             # a round advances L steps at once: checkpoint whenever it
             # CROSSES a checkpoint_every boundary
             if (self._ckpt_enabled()
@@ -142,12 +157,14 @@ class RoundRunner:
         return state, history
 
 
-def emit_progress(obs, algo, state, metrics, step, rnd, t0):
+def emit_progress(obs, algo, state, metrics, step, rnd, t0, group=None):
     """ONE schema for every progress emit site: kind=train_progress
     with the same key set — ``round`` is the number of completed Eq. 8
     rounds.  Per-replica losses (when the step emits them) land as
-    labeled gauges."""
-    diag = {k: round(v, 4) for k, v in algo.diagnostics(state).items()}
+    labeled gauges.  ``group``: the ranks' ReplicaGroup (the diagnostics
+    then leave out what would gather the model)."""
+    diag = {k: round(v, 4)
+            for k, v in algo.diagnostics(state, group=group).items()}
     rec = obs.emit("train_progress", step=step, round=rnd,
                    loss=round(float(metrics["loss"]), 4),
                    wall_s=round(time.time() - t0, 1), diag=diag)

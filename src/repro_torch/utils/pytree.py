@@ -97,7 +97,14 @@ class FlatLayout:
         the form to differentiate through: its backward is ONE ``cat``
         into a row-shaped grad, where per-leaf slicing would write a
         zero-filled full row per leaf."""
+        return self.split_leaves(row)[0]
+
+    def split_leaves(self, row):
+        """(:meth:`split`'s tree, its leaves in layout order): asking
+        autograd for the grads of those leaves gives each leaf's grad
+        with no row-shaped ``cat`` (the caller writes them into its own
+        row, whose gaps stay zero)."""
         pieces = torch.split(row, self._chunks)
-        return tree_from_paths(
-            (path, pieces[2 * i].view(shape))
-            for i, (path, shape) in enumerate(zip(self.paths, self.shapes)))
+        leaves = [pieces[2 * i].view(shape)
+                  for i, shape in enumerate(self.shapes)]
+        return tree_from_paths(zip(self.paths, leaves)), leaves

@@ -243,10 +243,18 @@ def test_training_step_with_flash_fails_as_the_reference_does(dense_params):
 
 
 def test_mesh_factories_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        steps.make_algorithm_sharded_step("parle", CFG, ParleConfig(), None)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        steps.make_algorithm_round("parle", CFG, ParleConfig(), mesh=object())
+    """The sharded factories take a ReplicaGroup (the replica axis across
+    processes is ported); a mesh with an axis inside a replica still
+    names its ROADMAP item."""
+    from repro_torch.launch.mesh import group_from_spec
+    from repro_torch.sharding.partition import ReplicaGroup
+    pc = ParleConfig(n_replicas=2)
+    assert callable(steps.make_algorithm_sharded_step("parle", CFG, pc,
+                                                      ReplicaGroup(2)))
+    assert callable(steps.make_algorithm_round("parle", CFG, pc,
+                                               mesh=ReplicaGroup(2)))
+    with pytest.raises(ValueError, match="item 6"):
+        group_from_spec("pod:1,model:2")
 
 
 @pytest.fixture

@@ -137,14 +137,15 @@ def assert_close(port, ref, tol, what=""):
     return err
 
 
-def ref_rounds(model_cfg, np_params, batches, use_kernel, **pcfg_kw):
-    """The reference's Parle rounds on numpy params and round batches
-    (then its flush, under ``sync_overlap``): (final state, per-step
-    losses as one numpy vector)."""
+def ref_rounds(model_cfg, np_params, batches, use_kernel, algo="parle",
+               **pcfg_kw):
+    """The reference's rounds of ``algo`` (Parle by default) on numpy
+    params and round batches (then its flush, under ``sync_overlap``):
+    (final state, per-step losses as one numpy vector)."""
     from repro.configs.base import ParleConfig
     from repro.core import parle, registry
     pcfg = ParleConfig(**pcfg_kw)
-    algo = registry.get("parle")
+    algo = registry.get(algo)
     st = parle.dealias_state(algo.init(jax.tree.map(jnp.asarray, np_params),
                                        pcfg))
     rnd = algo.make_round_fn(ref_build_model(model_cfg).loss, pcfg,

@@ -1,0 +1,151 @@
+"""Rank-side helpers of the port's distributed tests (not a test module).
+
+It imports no JAX, so a spawned rank starts quickly: :func:`spawn` runs a
+function in W processes (spawn, never fork) that join one gloo
+``torch.distributed`` world through a ``FileStore``, each on one torch
+thread, and returns their results in rank order.  :func:`run_case` runs
+one training case of the port — Parle, Elastic-SGD or SGD, rounds or
+steps — on a ``ReplicaGroup``'s rows (or, with the trivial group, all of
+them in one process) and returns what the tests compare.
+"""
+from __future__ import annotations
+
+import queue
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+TIMEOUT_S = 240
+
+
+def _rank_main(fn, rank, world, store_path, out_q, args):
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", store=dist.FileStore(store_path,
+                                                             world),
+                                rank=rank, world_size=world)
+        out_q.put((rank, fn(rank, world, *args), None))
+    except BaseException:          # reported to the parent, then re-raised
+        out_q.put((rank, None, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn(fn, world: int, store_path: str, *args, timeout=TIMEOUT_S):
+    """``fn(rank, world, *args)`` in ``world`` spawned ranks of one gloo
+    world; returns their results in rank order, or raises with the first
+    failing rank's traceback.  Every rank is ended before it returns."""
+    ctx = mp.get_context("spawn")
+    out_q = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main,
+                         args=(fn, r, world, store_path, out_q, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    try:
+        for _ in range(world):       # drain before joining
+            rank, res, err = out_q.get(timeout=timeout)
+            if err is not None:
+                errors.append(f"rank {rank}:\n{err}")
+                break
+            results[rank] = res
+    except queue.Empty:
+        errors.append(f"ranks timed out after {timeout} s")
+    finally:
+        for p in procs:
+            p.join(timeout=5 if errors else timeout)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if errors:
+        raise AssertionError("\n".join(errors))
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    return [results[r] for r in range(world)]
+
+
+FIELDS = {"parle": ("x", "e", "c"), "entropy_sgd": ("x",),
+          "elastic_sgd": ("x", "v", "ref"), "sgd": ("params", "v")}
+
+
+def run_case(case: dict, group, cfg_fields: dict, np_params, batches):
+    """One case on ``group``'s rows: ``case`` names the algo, n, L,
+    sync_compress, sync_overlap, use_kernel and the mode ("round" or
+    "step"); ``batches``: numpy (R, L, n, B, T) token batches.  Returns
+    the per-step losses, the state's fields as numpy (local rows), the
+    gathered per-replica losses of step mode, and the group's collective
+    counts after each round (or step)."""
+    from repro_torch.configs import ParleConfig
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import registry
+    from repro_torch.core.parle import dealias_state
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.model import build_model
+
+    model = build_model(ModelConfig(**cfg_fields))
+    algo = registry.get(case["algo"])
+    pcfg = algo.canonicalize_cfg(ParleConfig(
+        n_replicas=case["n"], L=case["L"], lr=0.05, lr_inner=0.05,
+        batches_per_epoch=1, sync_compress=case.get("compress", "none"),
+        sync_overlap=case.get("overlap", False)))
+    mesh = None if group.trivial else group
+    state = dealias_state(algo.init(params_from_numpy(np_params, "cpu"),
+                                    pcfg, mesh))
+    rows = group.rows
+    take = lambda b: {"tokens": torch.from_numpy(np.ascontiguousarray(b)),
+                      "labels": torch.from_numpy(np.ascontiguousarray(b))}
+    losses, per_replica, counts = [], [], []
+    if case.get("mode", "round") == "round":
+        fn = algo.make_round_fn(model.loss, pcfg, mesh=mesh,
+                                use_kernel=case.get("use_kernel", False))
+        for b in batches:
+            state, m = fn(state, take(b[:, rows]))
+            losses.append(m["losses"].numpy())
+            counts.append(group.counts())
+        flush = algo.make_round_flush_fn(pcfg)
+        if flush is not None:
+            state = flush(state)
+    else:
+        kw = dict(use_kernel=case.get("use_kernel", False))
+        fn = (algo.make_step(model.loss, pcfg, **kw) if mesh is None
+              else algo.make_sharded_step(model.loss, pcfg, mesh, **kw))
+        for b in batches.reshape((-1,) + batches.shape[2:]):
+            state, m = fn(state, take(b[rows]))
+            losses.append(m["loss"].reshape(1).numpy())
+            per_replica.append(m["loss_per_replica"].numpy())
+            counts.append(group.counts())
+    fields = {f: getattr(state, f).numpy().copy()
+              for f in FIELDS[case["algo"]] if getattr(state, f) is not None}
+    return {"losses": np.concatenate(losses), "fields": fields,
+            "per_replica": per_replica, "counts": counts}
+
+
+def run_cases(rank, world, cases, cfg_fields, np_params, batches_by_n):
+    """The rank side of a pod: every case on this rank's rows."""
+    from repro_torch.sharding.partition import ReplicaGroup
+    return [run_case(c, ReplicaGroup(c["n"], rank, world), cfg_fields,
+                     np_params, batches_by_n[c["n"]]) for c in cases]
+
+
+def gather_orders(rank, world):
+    """``all_gather_rows`` of f32, bf16 and int8 rows in one collective,
+    and ``mean_rows`` / ``replica_means``: values that name their rank and
+    row, so the test can read the order back."""
+    from repro_torch.sharding.partition import ReplicaGroup
+    group = ReplicaGroup(2 * world, rank, world)
+    base = torch.arange(2 * rank, 2 * rank + 2, dtype=torch.float32)
+    f32 = base[:, None] * 10 + torch.arange(3.0)
+    b16 = f32.to(torch.bfloat16)
+    i8 = f32.to(torch.int8)
+    g = group.all_gather_rows(f32, b16, i8)
+    mean = group.mean_rows(f32)
+    means = group.replica_means(f32)
+    return {"gathered": [t.float().numpy() for t in g],
+            "mean": mean.numpy(), "means": means.numpy(),
+            "counts": group.counts(), "rows": (group.rows.start,
+                                               group.rows.stop)}
