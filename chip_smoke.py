@@ -178,7 +178,27 @@ itself and, in order:
    ends ``bitwise_equal``; round walls, each collective's bytes and its
    d2h / gloo / h2d times, peak memory a rank and the phase wall are
    printed (two ranks time-slicing one card over loopback: not a
-   multi-card figure).
+   multi-card figure);
+11. (run right after phase 10) the async / elastic pod: (11a) the async
+   policy with one worker in this process at phase 6's cell — each
+   round's inner steps through K1 (8 launches, K2 none), the consensus
+   math of the coordinator on the host (the contribution, its
+   dequantized mean, the staleness-weighted mean of one worker, the
+   consensus row, the plain apply) — equal to phase 6's barrier run bit
+   for bit (8 losses, sha256 of each final row of x), with the host
+   seconds of each part; (11b) ``dist_run --sync-policy async --device
+   cuda`` at phase 6's config, 2 workers of one replica with int8
+   contributions through the wire, its consensus checkpointed at round
+   2, then resumed as ONE worker (f32): the checkpoint's digest echoed,
+   base round 2, the first consensus L2 within 1e-5 of the checkpoint's,
+   ``pod.steps`` 16 then 24, no missing worker; each exchange's wall,
+   the largest frame's bytes, staleness, round wall and peak device
+   memory a worker and the pod parent's peak RSS printed with the card;
+   (11c) the reference's chaos plan (a crash, a hang past a 0.5 s
+   liveness deadline, a NaN-poisoned round, a corrupt frame, a
+   coordinator kill) on a 4-worker smoke-width pod beside its
+   fault-free twin: both end at round 5, final consensus L2 within
+   1e-3, every fault class counted and announced.
 
 Nothing is caught: a failing phase exits non-zero and prints no device
 line.  Without a CUDA card it exits 2 before doing anything.
@@ -191,6 +211,7 @@ import gc
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -211,8 +232,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
-from repro_torch.core import parle  # noqa: E402
-from repro_torch.data.synthetic import replica_batches  # noqa: E402
+from repro_torch.core import parle, registry  # noqa: E402
+from repro_torch.data.synthetic import (TokenStream,  # noqa: E402
+                                        make_round_batch_fn,
+                                        replica_batches)
 from repro_torch.examples import common as paper  # noqa: E402
 from repro_torch.examples import (fig1_overlap, quickstart,  # noqa: E402
                                   serve_batched, split_data,
@@ -229,7 +252,11 @@ from repro_torch.models import mamba2  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
-from repro_torch.obs import Obs, Registry  # noqa: E402
+from repro_torch.obs import (Obs, Registry, read_events,  # noqa: E402
+                             snapshot_summaries)
+from repro_torch.runtime import (AsyncElasticPolicy,  # noqa: E402
+                                 consensus_digest, load_consensus)
+from repro_torch.runtime.coordinator import _np_dequant  # noqa: E402
 from repro_torch.runtime.precision import pin_float32  # noqa: E402
 from repro_torch.serving.engine import _bucket_len  # noqa: E402
 from repro_torch.sharding.partition import collective_counts  # noqa: E402
@@ -250,8 +277,11 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+T_IMPORT = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name}  [{time.perf_counter() - T_IMPORT:.1f} s]", flush=True)
 
 
 def paged_inputs(seed, B, P, H, KV, hd, ps, M, lengths, device):
@@ -2468,14 +2498,7 @@ def train_profile_phase(device, round_wall_s) -> dict:
     _, walls, state, _, prof = _train_once(device, train_argv(steps=4),
                                            profile=True)
     del state
-    rows = []
-    for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA"):
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        rows.append((us, e.key, e.count))
-    rows.sort(reverse=True)
+    rows = _device_rows(prof)
     busy_s = sum(us for us, _, _ in rows) / 1e6
     share = {k: sum(us for us, key, _ in rows if k in key) / 1e6
              for k in ("parle_inner_kernel", "parle_sync_kernel")}
@@ -2740,6 +2763,430 @@ def pod_phase(device, refs, smi) -> dict:
     return out
 
 
+# ------------------------------------------------------------------
+# phase 11: the async / elastic pod
+# ------------------------------------------------------------------
+
+ASYNC_POD_TIMEOUT_S = 420
+# the pod parent, run as `python -c`: dist_run's own entry point, then
+# the parent's peak RSS (the coordinator's host memory; its workers are
+# processes of their own), sampled every 0.1 s from /proc/self/statm
+# (getrusage's ru_maxrss survives the exec, so a process forked from
+# this one reports this one's RSS when it is larger; the card machine's
+# /proc has no VmHWM); null where there is no statm
+ASYNC_POD_MAIN = (
+    "import json, os, sys, threading, time\n"
+    "peak = [None]\n"
+    "def sample():\n"
+    "    page = os.sysconf('SC_PAGE_SIZE')\n"
+    "    while True:\n"
+    "        with open('/proc/self/statm') as f:\n"
+    "            rss = int(f.read().split()[1]) * page\n"
+    "        peak[0] = max(peak[0] or 0, rss)\n"
+    "        time.sleep(0.1)\n"
+    "threading.Thread(target=sample, daemon=True).start()\n"
+    "from repro_torch.launch import dist_run\n"
+    "rc = dist_run.main(sys.argv[1:])\n"
+    "print(json.dumps({'parent_peak_rss_gib':\n"
+    "                  peak[0] and peak[0] / 2 ** 30}), flush=True)\n"
+    "sys.exit(rc)\n")
+# 11c: the reference's chaos acceptance plan (tests/test_faults.py)
+CHAOS_PLAN = {"seed": 11, "faults": [
+    {"kind": "crash", "worker": 3, "round": 3},
+    {"kind": "hang", "worker": 2, "round": 2, "ms": 2500},
+    {"kind": "poison", "worker": 1, "round": 2},
+    {"kind": "corrupt_frame", "worker": 0, "round": 4},
+    {"kind": "coordinator_kill", "round": 5, "down_ms": 300},
+]}
+
+
+def async_single_phase(device, ref) -> dict:
+    """11a: the async policy with one worker, in this process, at phase
+    6's cell (its ParleConfig, params and batches): each round's L inner
+    steps through K1 (``AsyncElasticPolicy.make_round_fn(use_kernel=
+    True)``), then the coordinator's math on the host with no socket
+    (a (2, M) f32 payload is above the frame's 4 GiB): the contribution,
+    its dequantized mean and the staleness-weighted mean (one worker:
+    its own mean), the consensus row and the plain apply.  The 8 losses
+    and the sha256 of each final row of x equal phase 6's barrier run
+    bit for bit; K1 launched 8 times, K2 never."""
+    phase(f"11a. async policy, one worker in process: full-width "
+          f"qwen2.5-3b cut to {TRAIN_LAYERS} layers, parle n=2 L=4, 8 "
+          "steps, inner rounds through K1, the consensus on the host")
+    _release()
+    torch.use_deterministic_algorithms(True)
+    t_phase = time.perf_counter()
+    args = train.parse_args(train_argv())
+    cfg = train_cfg()
+    model = build_model(cfg)
+    algo = registry.get(args.algo)
+    pcfg = train.parle_config(args, algo)
+    n, L = pcfg.n_replicas, pcfg.L
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                         batch_size=args.batch, seed=args.seed,
+                         device=str(device))
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    state = parle.dealias_state(algo.init(model.init(gen), pcfg))
+    stage = make_round_batch_fn(stream, L, args.batch, n)
+    round_fn = AsyncElasticPolicy(None, pcfg, Obs(), worker=0).make_round_fn(
+        algo, model.loss, pcfg, use_kernel=True)
+    apply_fn = parle.make_async_apply_fn(pcfg)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    losses, host_s = [], []
+    for r in range(args.steps // L):
+        state, metrics = round_fn(state, stage(r * L))
+        losses.append(metrics["losses"].detach().cpu())
+        t0 = time.perf_counter()
+        payload, _ = parle.async_contribution(state, pcfg)
+        t1 = time.perf_counter()
+        means = [_np_dequant(p["q"], p["scales"], "none").mean(axis=0)
+                 for p in payload]
+        del payload
+        xbar = parle.staleness_weighted_mean([means], [n], [r])
+        t2 = time.perf_counter()
+        state = apply_fn(state, parle.consensus_from_flat(xbar, state))
+        torch.cuda.synchronize(device)
+        t3 = time.perf_counter()
+        del means, xbar
+        host_s.append({"contribution_s": round(t1 - t0, 3),
+                       "mean_s": round(t2 - t1, 3),
+                       "apply_s": round(t3 - t2, 3)})
+    launches = launch_counts(parle_inner_update=8)
+    peak = torch.cuda.max_memory_allocated(device)
+    losses = torch.cat(losses).tolist()
+    check(losses == ref["losses"], f"async (one worker) losses {losses} "
+          f"!= phase 6's {ref['losses']}")
+    check(row_digests(state.x) == ref["digests"]["x"],
+          "async (one worker): final x differs from phase 6's bit for bit")
+    del state
+    _release()
+    torch.use_deterministic_algorithms(False)
+    out = {"launches": launches, "host_s": host_s,
+           "peak_memory_gib": round(peak / 2 ** 30, 3),
+           "phase_wall_s": round(time.perf_counter() - t_phase, 1)}
+    print(f"async one worker == phase 6's barrier run bit for bit (8 "
+          f"losses, final x); launches {launches}", flush=True)
+    print(json.dumps({"async_single": out}), flush=True)
+    return out
+
+
+def _frame_bytes(obj) -> int:
+    """The bytes of the coordinator's frame for ``obj`` (header + the
+    pickle), counted without holding the pickle."""
+    import pickle
+
+    class Count:
+        n = 8                                  # the !II header
+
+        def write(self, b):
+            self.n += memoryview(b).nbytes
+
+    sink = Count()
+    pickle.dump(obj, sink, protocol=pickle.HIGHEST_PROTOCOL)
+    return sink.n
+
+
+def _start_async_pod(argv, env):
+    """One async pod through dist_run's entry point in a process of its
+    own (this one holds a CUDA context; the pod's parent never touches
+    the card)."""
+    return (subprocess.Popen([sys.executable, "-c", ASYNC_POD_MAIN, *argv],
+                             env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True),
+            time.time())
+
+
+def _finish_async_pod(started, tag) -> dict:
+    """Wait for a pod of :func:`_start_async_pod`: its JSON lines,
+    DISTLOSS records, stderr, start (epoch s), wall until collected and
+    the parent's peak RSS."""
+    proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=ASYNC_POD_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:        # timed out: no pod outlives the phase
+            proc.kill()
+            proc.communicate()
+    wall = time.time() - t0
+    check(proc.returncode == 0,
+          f"async pod {tag} exited {proc.returncode}:\n"
+          f"{stdout[-3000:]}\n{stderr[-3000:]}")
+    out = {"stderr": stderr, "wall_s": round(wall, 1), "started": t0,
+           "losses": [json.loads(line[len("DISTLOSS "):])
+                      for line in stdout.splitlines()
+                      if line.startswith("DISTLOSS ")]}
+    for line in stdout.splitlines():
+        if line.startswith("{"):
+            out.update(json.loads(line))
+    return out
+
+
+def _run_async_pod(argv, env, tag) -> dict:
+    return _finish_async_pod(_start_async_pod(argv, env), tag)
+
+
+def _pod_metrics(mpath, nproc) -> dict:
+    """The pod's merged record, its counters, and each worker's final
+    snapshot summaries and pod_step losses."""
+    merged = [e for e in read_events(mpath, tolerate_torn_tail=True)
+              if e["kind"] == "pod_merged"][-1]
+    workers = {}
+    for i in range(nproc):
+        path = f"{mpath}.worker{i}"
+        if not os.path.exists(path):
+            continue
+        evs = read_events(path, tolerate_torn_tail=True)
+        snap = [e for e in evs if e["kind"] == "metrics_snapshot"]
+        workers[i] = {
+            "losses": [e["loss"] for e in evs if e["kind"] == "pod_step"],
+            "faults": [(e["fault"], e["worker"]) for e in evs
+                       if e["kind"] == "fault_injected"],
+            "series": snapshot_summaries(snap[-1]["snapshot"])
+            if snap else {}}
+    return {"merged": merged, "workers": workers,
+            "counters": {c["name"]: c["total"]
+                         for c in merged["snapshot"]["counters"]}}
+
+
+def _pod_report(run, metrics, smi) -> dict:
+    """What 11b prints of one pod: each worker's exchange walls, round
+    wall, staleness and peak device memory, the parent's peak RSS."""
+    rss = run.get("parent_peak_rss_gib")
+    rep = {"wall_s": run["wall_s"],
+           "parent_peak_rss_gib": None if rss is None else round(rss, 3)}
+    for i, w in metrics["workers"].items():
+        s = w["series"]
+        wait = s.get(f"pod.sync_wait_ms{{worker={i}}}", {})
+        rnd = s.get(f"pod.round_wall_ms{{worker={i}}}", {})
+        rep[f"worker{i}"] = {
+            "exchanges": wait.get("count"),
+            "sync_wait_ms": {k: wait.get(k) for k in ("min", "max", "mean")},
+            "round_wall_ms": {k: rnd.get(k) for k in ("count", "min",
+                                                       "max")},
+            "round_ms": {k: s.get("pod.round_ms", {}).get(k)
+                         for k in ("min", "max")},
+            "staleness_last": s.get("pod.staleness", {}).get("value"),
+            "peak_device_memory_gib": round(s.get(
+                f"pod.peak_device_memory_bytes{{worker={i}}}",
+                {}).get("value", 0) / 2 ** 30, 3)}
+    rep["card"] = smi
+    return rep
+
+
+def _pod_env(**extra) -> dict:
+    env = dict(os.environ, **extra)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    return env
+
+
+def _start_chaos_pods(tmp) -> dict:
+    """11c's two pods, started side by side: the reference's chaos plan
+    and its fault-free twin (each fault is on the host, and the twin's
+    30 s liveness window is not the chaos pod's 0.5 s)."""
+    started = {}
+    for tag, plan in (("clean", None), ("chaos", CHAOS_PLAN)):
+        argv = ["--sync-policy", "async", "--device", "cuda", "--smoke",
+                "--nproc", "4", "--replicas", "8", "--steps", "15",
+                "--L", "3", "--checkpoint-out",
+                os.path.join(tmp, f"ck_{tag}.npz"), "--metrics-out",
+                os.path.join(tmp, f"{tag}.jsonl"), "--port",
+                str(free_port()), "--coord-port", str(free_port())]
+        if plan is not None:
+            argv += ["--fault-plan", json.dumps(plan), "--liveness-s", "0.5"]
+        started[tag] = _start_async_pod(argv, _pod_env())
+    return started
+
+
+def _finish_chaos_pods(started, tmp, smi) -> dict:
+    """11c's gates (the reference's tests/test_faults.py acceptance pod):
+    both pods end at round 5, the chaos pod's final consensus L2 within
+    1e-3 of the twin's, every fault class counted and announced, the
+    twin clean."""
+    res = {}
+    for tag in ("clean", "chaos"):
+        mpath = os.path.join(tmp, f"{tag}.jsonl")
+        run = _finish_async_pod(started.pop(tag), tag)
+        vectors, rnd, _ = load_consensus(os.path.join(tmp, f"ck_{tag}.npz"))
+        res[tag] = {"run": run, "metrics": _pod_metrics(mpath, 4),
+                    "round": rnd, "l2": parle.contribution_norm(vectors),
+                    "events": [e["kind"] for e in read_events(
+                        mpath, tolerate_torn_tail=True)]}
+    clean, chaos = res["clean"], res["chaos"]
+    c = chaos["metrics"]["counters"]
+    check(chaos["round"] == clean["round"] == 5,
+          f"rounds: chaos {chaos['round']}, clean {clean['round']}")
+    check(abs(chaos["l2"] - clean["l2"]) <= 1e-3 * clean["l2"],
+          f"chaos consensus L2 {chaos['l2']} vs the twin's {clean['l2']}")
+    check(c.get("pod.quarantined_updates", 0) >= 1
+          and c["pod.evicted_workers"] >= 1
+          and c["pod.coordinator_restarts"] == 1
+          and c["pod.worker_crashes"] == 1 and c["pod.corrupt_frames"] >= 1,
+          f"chaos counters {c}")
+    check(chaos["metrics"]["merged"]["missing_workers"] == 1
+          and chaos["metrics"]["merged"]["evicted_workers"] >= 1,
+          "chaos merged record: missing "
+          f"{chaos['metrics']['merged']['missing_workers']}, evicted "
+          f"{chaos['metrics']['merged']['evicted_workers']}")
+    fired = {tuple(f) for w in chaos["metrics"]["workers"].values()
+             for f in w["faults"]}
+    check({("crash", 3), ("hang", 2), ("poison", 1),
+           ("corrupt_frame", 0)} <= fired, f"fault_injected records {fired}")
+    for kind in ("coordinator_restart", "worker_quarantined",
+                 "worker_evicted"):
+        check(kind in chaos["events"], f"no {kind} event")
+    check("worker 3 crashed per fault plan (rc=57)" in chaos["run"]["stderr"]
+          and "coordinator restarted" in chaos["run"]["stderr"],
+          "the parent's stderr lacks the crash / restart lines")
+    cc = clean["metrics"]["counters"]
+    check(cc["pod.coordinator_restarts"] == 0
+          and cc.get("pod.quarantined_updates", 0) == 0
+          and clean["metrics"]["merged"]["missing_workers"] == 0,
+          f"the fault-free twin: {cc}")
+    out = {"rounds": {"clean": clean["round"], "chaos": chaos["round"]},
+           "l2": {"clean": clean["l2"], "chaos": chaos["l2"]},
+           "rel_l2": abs(chaos["l2"] - clean["l2"]) / clean["l2"],
+           "counters": {k: v for k, v in c.items()
+                        if k not in ("pod.steps", "pod.tokens")},
+           # each pod's own wall: start to its merged record (they are
+           # collected after 11b's resumed pod)
+           "wall_s": {t: round(res[t]["metrics"]["merged"]["ts"]
+                               - res[t]["run"]["started"], 1) for t in res},
+           "card": smi}
+    print(json.dumps({"async_chaos": out}), flush=True)
+    return out
+
+
+def async_pods_phase(device, smi) -> dict:
+    """11b: the async pod at full width through the wire, two workers
+    of one replica each on the card (``dist_run --sync-policy async
+    --device cuda``, phase 6's config: Qwen2.5-3B cut to 4 layers), int8
+    contributions, 2 rounds of L = 4, its consensus checkpointed; then
+    the pod resumed from that checkpoint as ONE worker (the pod shrinks,
+    f32 contributions: its first consensus is the checkpoint's, so its
+    L2 is held at rtol 1e-5 — an int8 contribution would move it by the
+    codec's error).  Gates: the reference's elastic-resume contract
+    (tests/test_runtime_async.py::test_async_elastic_resume_grow_and_
+    shrink).
+
+    11c, started beside the resumed pod (one full-width worker leaves
+    the card room): the reference's chaos acceptance pod
+    (tests/test_faults.py) at smoke width — four workers of two
+    replicas, 5 rounds of L = 3; worker 3 crashes at round 3, worker 2
+    hangs 2.5 s past a 0.5 s liveness deadline at round 2, worker 1 is
+    NaN-poisoned at round 2, worker 0 sends a corrupt frame at round 4,
+    and the coordinator is killed at round 5 (300 ms down) — and its
+    fault-free twin.  Smoke width: four workers of two full-width
+    replicas would exceed 80 GB, and every fault is on the host."""
+    phase("11b. the async pod at full width: dist_run --sync-policy async "
+          "--device cuda, 2 workers x 1 replica, int8, 8 steps L=4, "
+          "checkpoint; resumed as 1 worker")
+    _release()
+    t_phase = time.perf_counter()
+    print(f"async pod: free device memory before the workers "
+          f"{torch.cuda.mem_get_info(device)[0] / 2 ** 30:.3f} GiB",
+          flush=True)
+    cfg = train_cfg()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_async_")
+    env = _pod_env(PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    base = ["--sync-policy", "async", "--device", "cuda", "--arch",
+            "qwen2.5-3b", "--steps", "8", "--L", "4", "--batch", "2",
+            "--seq", "256", "--seed", "0",
+            "--_config", json.dumps(dataclasses.asdict(cfg))]
+    ck = os.path.join(tmp, "ck.npz")
+    started = {}
+    try:
+        m_a = os.path.join(tmp, "a.jsonl")
+        a = _run_async_pod(base + [
+            "--nproc", "2", "--replicas", "2", "--sync-compress", "int8",
+            "--checkpoint-out", ck, "--metrics-out", m_a,
+            "--port", str(free_port()), "--coord-port", str(free_port())],
+            env, "a")
+        m_b = os.path.join(tmp, "b.jsonl")
+        started["b"] = _start_async_pod(base + [
+            "--nproc", "1", "--replicas", "1", "--sync-compress", "none",
+            "--resume", ck, "--metrics-out", m_b,
+            "--port", str(free_port()), "--coord-port", str(free_port())],
+            env)
+        phase("11c. the chaos pod on the card (smoke width): 4 workers, "
+              "crash + hang + poison + corrupt frame + coordinator kill, "
+              "beside its fault-free twin (and 11b's resumed pod)")
+        t_chaos = time.perf_counter()
+        started.update(_start_chaos_pods(tmp))
+
+        # the first pod's checks while the others run
+        pa = _pod_metrics(m_a, 2)
+        t0 = time.perf_counter()
+        vectors, rnd, meta = load_consensus(ck)
+        load_s = time.perf_counter() - t0
+        ck_l2 = parle.contribution_norm(vectors)
+        reply_bytes = _frame_bytes({"consensus": vectors, "staleness": 0,
+                                    "n_active": 2})
+        digest = consensus_digest(vectors)
+        del vectors
+        gc.collect()
+        check(a["round"] == rnd == 2, f"checkpoint round {rnd} / "
+              f"{a['round']}, expected 2")
+        check(digest == meta["digest"] == a["consensus_digest"],
+              f"checkpoint digest {digest} != {meta['digest']} / "
+              f"{a['consensus_digest']}")
+        check(reply_bytes < 2 ** 32, f"a reply frame of {reply_bytes} B")
+        check(pa["counters"]["pod.steps"] == 2 * 8
+              and pa["merged"]["missing_workers"] == 0,
+              f"pod a: counters {pa['counters']}, merged "
+              f"{ {k: v for k, v in pa['merged'].items() if k != 'snapshot'} }")
+        losses_a = [v for w in pa["workers"].values() for v in w["losses"]]
+        check(len(losses_a) == 16 and all(np.isfinite(losses_a)),
+              f"pod a losses {losses_a}")
+
+        b = _finish_async_pod(started.pop("b"), "b")
+        pb = _pod_metrics(m_b, 1)
+        check(b["consensus_digest"] == digest and b["base_round"] == 2,
+              f"resumed pod: echo {b['consensus_digest']} / base round "
+              f"{b['base_round']}")
+        check(abs(b["first_consensus_l2"] - ck_l2) <= 1e-5 * ck_l2,
+              f"resumed pod's first consensus L2 {b['first_consensus_l2']}"
+              f" vs the checkpoint's {ck_l2}")
+        check(pb["counters"]["pod.steps"] == 2 * 8 + 8
+              and pb["merged"]["missing_workers"] == 0,
+              f"pod b: counters {pb['counters']}")
+        losses_b = pb["workers"][0]["losses"]
+        check(len(losses_b) == 8 and all(np.isfinite(losses_b)),
+              f"pod b losses {losses_b}")
+        pod = {"grow_shrink": "2 -> 1 workers", "checkpoint_round": rnd,
+               "checkpoint_l2": ck_l2,
+               "resumed_first_l2": b["first_consensus_l2"],
+               "reply_frame_bytes": reply_bytes,
+               "checkpoint_load_s": round(load_s, 1),
+               "a": _pod_report(a, pa, smi), "b": _pod_report(b, pb, smi),
+               "losses": {"a_worker0": [r["loss"] for r in a["losses"]],
+                          "b": [r["loss"] for r in b["losses"]]},
+               "phase_wall_s": round(time.perf_counter() - t_phase, 1)}
+        print(json.dumps({"async_pod": pod}), flush=True)
+        chaos = _finish_chaos_pods(started, tmp, smi)
+        chaos["phase_wall_s"] = round(time.perf_counter() - t_chaos, 1)
+    finally:
+        for proc, _ in started.values():     # a pod left by a failure
+            proc.kill()
+            proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"pod": pod, "chaos": chaos}
+
+
+def async_phase(device, ref, smi) -> dict:
+    """Phase 11: the async / elastic pod (11a, then 11b with 11c beside
+    its resumed pod)."""
+    t0 = time.perf_counter()
+    out = {"single": async_single_phase(device, ref),
+           **async_pods_phase(device, smi)}
+    out["phase_wall_s"] = round(time.perf_counter() - t0, 1)
+    print(json.dumps({"async_phase_wall_s": out["phase_wall_s"],
+                      "card": smi}), flush=True)
+    return out
+
+
 def main_path_phase(device) -> dict:
     """Serve the main path through K8, decoding through the engine's CUDA
     graph, then the gather path on the same params, captured and eager;
@@ -2857,15 +3304,17 @@ def replay_prefills_without_sync(engine, device) -> None:
 
 def _device_rows(prof):
     """(device us, name, calls) of every kernel row the profiler saw,
-    largest first."""
-    rows = []
-    for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA"):
+    largest first: the device events' durations summed by name, read
+    from the profiler's raw events (``key_averages`` builds a Python
+    object for each event of the trace first, a minute for the eager
+    serve run's)."""
+    rows = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        rows.append((us, e.key, e.count))
-    return sorted(rows, reverse=True)
+        us, n = rows.get(e.name(), (0.0, 0))
+        rows[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    return sorted(((us, k, n) for k, (us, n) in rows.items()), reverse=True)
 
 
 BUSY_STEPS = 2             # engine steps a busy-share window profiles
@@ -2931,10 +3380,14 @@ def _profile_run(device, cfg, params, requests, args, graphs):
     with torch.profiler.profile(activities=acts) as prof:
         _, engine, rep = serve.engine_serve(cfg, params, requests, args,
                                             Obs(), device, graphs=graphs)
+        t1 = time.perf_counter()
+    t2 = time.perf_counter()
     rows = _device_rows(prof)
     busy_s = sum(us for us, _, _ in rows) / 1e6
     return {"profiled_wall_s": rep["wall_s"], "device_busy_s": busy_s,
             "profile_phase_s": round(time.perf_counter() - t0, 1),
+            "trace_stop_s": round(t2 - t1, 1),
+            "rows_s": round(time.perf_counter() - t2, 1),
             "decode_steps": engine.stats["decode_steps"],
             "names_k8": any("paged_attention" in k for _, k, _ in rows),
             "top_kernels": [{"name": k[:90], "device_ms": us / 1e3,
@@ -3177,7 +3630,9 @@ def main() -> int:
     mamba = mamba2_phase(device)
     families = families_phase(device)
     trained = train_phase(device)
-    pod = pod_phase(device, trained.pop("pod_refs"), smi)
+    refs = trained.pop("pod_refs")
+    pod = pod_phase(device, refs, smi)
+    async_res = async_phase(device, refs["none"], smi)
     main_errs = parle_main_shape_phase(device, trained["replicas"],
                                        trained["elements_per_replica"])
 
@@ -3225,6 +3680,12 @@ def main() -> int:
         "pod": {k: (pod[k] if k.endswith("_s") else {
             kk: pod[k][kk] for kk in ("round_wall_s", "peak_memory_gib")})
             for k in (*POD_JOBS, "phase_wall_s", "ranks_wall_s")},
+        "async": {"single_host_s": async_res["single"]["host_s"],
+                  "pod": {k: async_res["pod"][k] for k in (
+                      "a", "b", "reply_frame_bytes", "phase_wall_s")},
+                  "chaos": {k: async_res["chaos"][k] for k in (
+                      "rel_l2", "wall_s", "phase_wall_s")},
+                  "phase_wall_s": async_res["phase_wall_s"]},
         "flash_prefill": {k: run["flash_prefill"][k] for k in (
             "max_logit_err", "max_kv_cache_err", "prefill_wall_s")},
         "mamba2": {"max_logit_err": mamba["max_logit_err"],
@@ -3292,6 +3753,10 @@ def main() -> int:
             "pod_launches_per_rank": {
                 job: pod[job]["launches_per_rank"][name] for job in POD_JOBS
                 if name in pod[job]["launches_per_rank"]},
+            # the async policy's inner rounds (11a); its apply is plain
+            **({"async_launches": async_res["single"]["launches"][name]}
+               if name in ("parle_inner_update", "parle_sync_update")
+               else {}),
             "max_abs_err": max(parle_errs[name], main_errs[name]),
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
             "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],

@@ -275,6 +275,18 @@ def restore(path: str, like: Any, algo: str | None = None) -> Any:
     return like
 
 
+def load_flat(path: str) -> dict:
+    """Template-free load: the raw {path key: ndarray} mapping as written
+    (bf16 leaves stay uint16 bit patterns), for a reader whose structure
+    differs from the writer's — an elastic async pod resuming with
+    another worker count reads the consensus vectors with no ``like``
+    state.  Digest-verified when the sidecar carries one."""
+    path = _npz(path)
+    verify(path)
+    with np.load(path) as data:
+        return {k: data[k] for k in data.files}
+
+
 def latest_step(path: str) -> int:
     with open(_npz(path) + ".json") as f:
         return json.load(f)["step"]

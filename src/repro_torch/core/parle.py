@@ -4,7 +4,10 @@
 overlapped (``sync_overlap``) sync, in one process or with the replica
 axis over the ranks of a ``torch.distributed`` group (the sharded
 factories, the reference's ``shard_map`` over its ``pod`` / ``replica``
-axis).  The async half is not ported yet (ROADMAP.md queue 1 item 4).
+axis), and the async half: the inner-only round, the contribution a
+worker pushes to the host-side coordinator and the apply of the
+staleness-weighted consensus it pulls back (``runtime/coordinator.py``,
+the async policy of ``runtime/policies.py``).
 
 State layout: each of x, y, z, v_y, v_x is ONE ``(n, M)`` buffer, row a
 holding replica a's whole param tree in the flat layout of
@@ -69,6 +72,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import compress
@@ -195,15 +199,20 @@ def inner_step(state: ParleState, grads, cfg, use_kernel: bool = False,
     else:
         # f32 scalars, and 1 - alpha taken in f32, as the kernel does
         lr, alpha = _f32(lr), _f32(alpha)
+        one_minus_alpha = 1.0 - alpha
+        # in place, one op at a time (each rounds as its out-of-place
+        # form would): two row-sized temporaries alive at most
         for a in range(state.x.shape[0]):
             y, z, v = state.y[a], state.z[a], state.v_y[a]
-            yf = y.float()
-            g_y = grads[a].float() + inv_gamma * (yf - state.x[a])  # (8a)
-            v.copy_(mu * v + g_y)                                   # Nesterov
-            y_new = yf - lr * (g_y + mu * v)
+            yf = y.float()                     # y itself when f32
+            g_y = torch.sub(yf, state.x[a]).mul_(inv_gamma).add_(
+                grads[a].float())                                   # (8a)
+            v.mul_(mu).add_(g_y)                                    # Nesterov
+            yf.sub_(g_y.add_(torch.mul(v, mu)).mul_(lr))            # y'
             del g_y
-            z.copy_(alpha * z + (1.0 - alpha) * y_new)              # (8b)
-            y.copy_(y_new)
+            z.mul_(alpha).add_(torch.mul(yf, one_minus_alpha))      # (8b)
+            if yf is not y:
+                y.copy_(yf)
     return state._replace(step=state.step + 1)
 
 
@@ -653,6 +662,190 @@ def make_sharded_overlap_round_fn(loss_fn: Callable, cfg, group,
     check_divisible(cfg.n_replicas, group.world, group.axis)
     return make_overlap_round_fn(loss_fn, cfg, weight_decay, use_kernel,
                                  lr_schedule, group=group)
+
+
+# ------------------------------------------------------------------
+# Asynchronous / elastic consensus (the runtime "async" sync policy):
+# each worker runs rounds at its own pace, pushes its (optionally
+# quantized) x+e contribution to a host-side coordinator when ITS round
+# ends, and pulls back a staleness-weighted mean — no barrier.  The math
+# halves are here; the wire/coordination halves are in
+# runtime/coordinator.py.  The coordinator's half runs in numpy on the
+# host, in the reference's operation order, so a consensus is the
+# reference's bit for bit for the same contributions.
+# ------------------------------------------------------------------
+
+def staleness_weighted_mean(means, counts, rounds, decay=0.5):
+    """The async Eq. (8d): a staleness-weighted average of per-worker
+    replica means.  ``means``: one list of flat f32 numpy vectors per
+    worker (its ``counts[a]`` replicas' mean, leaf by leaf); ``rounds``:
+    each worker's completed-round index.  A worker ``r_max - r_a``
+    rounds behind the freshest weighs
+
+        w_a = counts[a] * decay ** (r_max - r_a)
+        xbar = sum_a w_a * mean_a / sum_a w_a
+
+    With every worker at one round this is the count-weighted mean (the
+    barrier path's replica mean); a single worker's consensus is its own
+    mean, returned untouched (no float round trip)."""
+    if not means:
+        raise ValueError("staleness_weighted_mean of zero contributions")
+    if len(means) == 1:
+        return means[0]
+    r_max = max(rounds)
+    ws = [float(c) * float(decay) ** (r_max - r)
+          for c, r in zip(counts, rounds)]
+    tot = sum(ws)
+
+    def leaf(*vals):
+        # the reference's operations in its order, in place (the same
+        # roundings): one model-size accumulator, not one per operation
+        acc = ws[0] * vals[0]
+        for w, v in zip(ws[1:], vals[1:]):
+            acc += w * v
+        acc /= tot
+        return acc.astype(vals[0].dtype, copy=False)
+
+    return [leaf(*vals) for vals in zip(*means)]
+
+
+def contribution_norm(means) -> float:
+    """L2 norm of a worker's dequantized contribution (flat per-leaf
+    vectors), accumulated in float64 on the host.  NaN/Inf anywhere
+    propagates into the result — the quarantine keys off exactly that."""
+    total = 0.0
+    for v in means:
+        a = np.asarray(v, np.float64).ravel()
+        total += float(np.dot(a, a))
+    return float(np.sqrt(total))
+
+
+def should_quarantine(norm: float, trailing, k: float = 10.0,
+                      min_history: int = 3):
+    """Poisoned-update gate at the coordinator's ingest: quarantine a
+    contribution whose norm is non-finite, or, once ``min_history``
+    accepted contributions make a baseline, more than ``k`` x the
+    trailing median norm (a diverged-but-finite replica).  Returns
+    ``(quarantine, reason)``; a quarantined norm never enters the
+    trailing window."""
+    if not np.isfinite(norm):
+        return True, "nonfinite"
+    hist = list(trailing)
+    if len(hist) >= min_history:
+        med = float(np.median(np.asarray(hist, np.float64)))
+        if med > 0.0 and norm > k * med:
+            return True, (f"norm {norm:.3e} exceeds {k:g}x trailing "
+                          f"median {med:.3e}")
+    return False, ""
+
+
+def reseed_from_consensus(state: ParleState, xbar) -> ParleState:
+    """Recovery of a quarantined worker: every local replica restarts
+    from the consensus ``xbar`` ((M,), :func:`consensus_from_flat`) — x,
+    y and z become xbar (written in place, so they stay distinct
+    buffers), both momenta and the residual ``e`` zero; ``step`` and the
+    scopes are kept, so the annealing schedule is undisturbed."""
+    for f in ("x", "y", "z"):
+        getattr(state, f).copy_(xbar.expand_as(state.x))
+    for f in ("v_y", "v_x", "e"):
+        if getattr(state, f) is not None:
+            getattr(state, f).zero_()
+    return state
+
+
+def make_inner_round_fn(loss_fn: Callable, cfg, weight_decay: float = 0.0,
+                        use_kernel: bool = False, lr_schedule=None):
+    """The async round's compute half: the L = cfg.L inner steps (8a-8b)
+    with NO sync (each a launch of K1 with ``use_kernel``); the worker
+    then pushes :func:`async_contribution` to the coordinator and applies
+    the consensus it gets back with :func:`make_async_apply_fn`.  Entry
+    invariants and metrics as :func:`make_round_fn`; x only changes at
+    the consensus apply, so the payload is the same whether taken before
+    or after the inner steps."""
+    _sync_compress(cfg)
+    gbuf = GradBuffer()
+
+    def round_fn(state: ParleState, batches):
+        _round_entry(state, cfg)
+        state, losses = _inner_steps(loss_fn, state, batches, cfg, gbuf,
+                                     weight_decay, use_kernel, lr_schedule)
+        return state, _round_metrics(state, losses)
+
+    return round_fn
+
+
+def _host(t) -> np.ndarray:
+    """A contiguous CPU copy of ``t`` (never a view of it) as numpy; bf16
+    as its uint16 bit patterns."""
+    t = torch.empty(t.shape, dtype=t.dtype).copy_(t)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def async_contribution(state: ParleState, cfg):
+    """The async worker's push payload: each LOCAL replica's sync
+    contribution ``c_a = x_a + e_a``, compressed per ``cfg.sync_compress``
+    with the plain codec (``core/compress.py``), as the barrier sync
+    compresses it, so the wire carries the quantized bytes.
+
+    Returns ``(payload, e_new)``.  ``payload`` is a list in the
+    reference's leaf order (``tree_flatten`` of x: the layout's sorted
+    paths) of ``{"q": (r, M_leaf) ndarray, "scales": ndarray | None}`` on
+    the host: for "none" the leaf's f32 values, unpadded; for bf16 /
+    int8 its codes padded to the 8192-element chunk edge (the layout's
+    gap), bf16 as uint16 bit patterns, int8 with one f32 scale a 1024
+    chunk.  ``e_new`` is the refreshed residual — ``state.e``, written
+    in place — or None without compression.  The leaves come out of the
+    flat buffers at ``layout.offsets``; a leaf's padded span there is the
+    reference's padded leaf (zeros in the gap), so the payload is the
+    reference's bit for bit."""
+    method = _sync_compress(cfg)
+    lay = state.layout
+    if method == "none":
+        return [{"q": _host(state.x[:, o:o + n]), "scales": None}
+                for o, n in zip(lay.offsets, lay.sizes)], None
+    e = state.e
+    e.add_(state.x)                        # c = x + e, in place
+    payload = []
+    for o, n in zip(lay.offsets, lay.sizes):
+        # leaf by leaf, as the reference pads and quantizes: the codec's
+        # temporaries stay a leaf's size
+        padded = -(-n // compress.PAD_MULTIPLE) * compress.PAD_MULTIPLE
+        c = e[:, o:o + padded]
+        q, s, res = compress.quantize_ef(c, method)
+        c.copy_(res)
+        payload.append({"q": _host(q),
+                        "scales": None if s is None else _host(s)})
+    return payload, e
+
+
+def consensus_from_flat(vectors, like: ParleState) -> torch.Tensor:
+    """The (M,) f32 consensus row on ``like``'s device from the
+    coordinator's flat vectors (one per leaf of the layout, in its
+    order; each may carry codec padding past the leaf's size, which is
+    trimmed), zeros in the layout's gaps."""
+    lay = like.layout
+    out = torch.zeros(lay.numel, dtype=torch.float32, device=like.x.device)
+    for v, o, n in zip(vectors, lay.offsets, lay.sizes):
+        leaf = np.require(np.asarray(v)[:n], np.float32, ["C", "W"])
+        out[o:o + n].copy_(torch.from_numpy(leaf))
+    return out
+
+
+def make_async_apply_fn(cfg, lr_schedule=None):
+    """``apply(state, xbar) -> state``: the Eq. (8c)-(8d) consensus update
+    against a coordinator-supplied staleness-weighted mean (an (M,) row),
+    at the outer-lr scale the barrier sync would use (schedule(step -
+    1)).  The plain update, as in the reference (no kernel); ``e`` passes
+    through (:func:`async_contribution` refreshed it in place)."""
+
+    def apply(state: ParleState, xbar) -> ParleState:
+        return consensus_step(state, xbar, cfg,
+                              lr_scale=schedule_scale(lr_schedule,
+                                                      state.step - 1))
+
+    return apply
 
 
 def average_model(state: ParleState, group=None) -> dict:

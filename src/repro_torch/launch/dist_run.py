@@ -1,6 +1,9 @@
 """Multi-process pod launcher: N real worker processes on one machine,
-each a rank of a ``torch.distributed`` world on gloo.  Port of the
-barrier half of ``repro/launch/dist_run.py``:
+under either of two runtime sync policies.  Port of
+``repro/launch/dist_run.py``.
+
+``--sync-policy barrier`` (default) — each worker a rank of a
+``torch.distributed`` world on gloo:
 
     PYTHONPATH=src python -m repro_torch.launch.dist_run --nproc 2 \\
         --smoke --steps 6 --L 3 --device cpu
@@ -25,11 +28,27 @@ and the reference run, trains under
 cross-entropy backwards accumulate with atomics, and no two runs (pod
 or not) are bit for bit equal.
 
-``--sync-policy async`` (elastic pods with the consensus coordinator)
-is not ported yet (ROADMAP.md queue 1, item 4).  The parent hands the
-workers its resolved model config as JSON (``--_config``), so
-:func:`main` can run a pod at any config, such as a full-width model
-cut in depth.
+``--sync-policy async`` — asynchronous/ELASTIC replica execution: no
+process group, no barrier.  Each worker owns replicas [i k, (i + 1) k)
+of the fleet (k = replicas / nproc), runs inner-only rounds (Eq. 8a-8b)
+at its own pace, and after ITS round pushes its quantized ``x+e``
+contribution to the parent's consensus ``Coordinator``
+(``runtime/coordinator.py``), pulling back the staleness-weighted mean
+(``core/parle.py::staleness_weighted_mean``).  A straggler delays
+nobody: the only wait is the exchange RPC, measured per worker as
+``pod.sync_wait_ms``.  Workers may join and leave mid-run (a dead
+worker is an implicit leave); ``--checkpoint-out`` / ``--resume`` let a
+pod stop and resume with a DIFFERENT worker count, and ``--fault-plan``
+replays a seeded chaos script (``runtime/faults.py``):
+
+    PYTHONPATH=src python -m repro_torch.launch.dist_run --nproc 3 \\
+        --sync-policy async --smoke --steps 9 --L 3 --device cpu \\
+        --straggle-ms 300 --straggle-worker 2
+
+The parent never touches the card (the coordinator is numpy on the
+host); the workers run on ``--device``.  The parent hands the workers
+its resolved model config as JSON (``--_config``), so :func:`main` can
+run a pod at any config, such as a full-width model cut in depth.
 """
 from __future__ import annotations
 
@@ -37,9 +56,11 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -48,19 +69,30 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import ParleConfig, get_config, smoke_variant
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import registry
+from repro_torch.core import parle, registry
 from repro_torch.core.algorithm import validate_replicas
 from repro_torch.core.parle import dealias_state
-from repro_torch.data.synthetic import TokenStream, replica_batches
+from repro_torch.data.synthetic import (TokenStream, make_round_batch_fn,
+                                        replica_batches)
 from repro_torch.launch.mesh import group_from_spec, mesh_size, replica_axis
 from repro_torch.models.model import build_model
 from repro_torch.obs import EventSink, Obs, merge_snapshots, read_events
-from repro_torch.runtime import RoundRunner
+from repro_torch.runtime import (CRASH_RC, AsyncElasticPolicy,
+                                 CoordinatorClient, CoordinatorSupervisor,
+                                 FaultPlan, RoundRunner, consensus_digest,
+                                 load_consensus)
 from repro_torch.runtime.precision import pin_float32
 
 LOSS_TAG = "DISTLOSS "
+START_WINDOW_S = 120.0      # async: how long a worker waits for its peers
+# async: seconds of the coordinator's host work an exchange per GB of the
+# f32 consensus (receive, dequantize, norm, fold, checkpoint, reply):
+# 8.7 measured on an H100 host at Qwen2.5-3B cut to 4 layers
+# (tools/coordinator_timing.py, PERF.md §5), with a third more for noise
+EXCHANGE_S_PER_GB = 12.0
 SRC = str(Path(__file__).resolve().parents[2])     # the port's src/ dir
 
 
@@ -90,7 +122,44 @@ def build_argparser():
     ap.add_argument("--sync-policy", default="barrier",
                     choices=("barrier", "async"),
                     help="barrier: bulk-synchronous pod (bit for bit vs "
-                         "the single-process run); async is not ported yet")
+                         "the single-process run); async: elastic "
+                         "per-worker rounds + staleness-weighted "
+                         "consensus via the host coordinator")
+    ap.add_argument("--sync-compress", default="none",
+                    choices=("none", "bf16", "int8"),
+                    help="async contribution codec (the x+e payload "
+                         "each worker pushes; error feedback rides the "
+                         "worker state)")
+    ap.add_argument("--decay", type=float, default=0.5,
+                    help="async staleness decay: a contribution r rounds "
+                         "behind the freshest weighs count * decay**r")
+    ap.add_argument("--coord-port", type=int, default=0,
+                    help="consensus coordinator port (async; default "
+                         "--port + 1)")
+    ap.add_argument("--straggle-ms", type=float, default=0.0,
+                    help="inject this per-round delay into "
+                         "--straggle-worker (straggler-tolerance probe)")
+    ap.add_argument("--straggle-worker", type=int, default=-1)
+    ap.add_argument("--checkpoint-out", default="",
+                    help="async: checkpoint the final consensus (+ "
+                         "per-worker contribution stamps) here")
+    ap.add_argument("--resume", default="",
+                    help="async: resume the consensus from a "
+                         "--checkpoint-out file OR a checkpoint "
+                         "directory (resolves to its newest valid "
+                         "checkpoint; a corrupt file falls back to the "
+                         "newest valid sibling); the worker count may "
+                         "differ from the writing pod's")
+    ap.add_argument("--fault-plan", default="",
+                    help="chaos harness: a seeded FaultPlan as inline "
+                         "JSON or @file (runtime/faults.py) — scripted "
+                         "worker crash/hang/drop/corrupt/poison/jitter "
+                         "faults plus coordinator kills, replayed "
+                         "deterministically from the plan seed")
+    ap.add_argument("--liveness-s", type=float, default=30.0,
+                    help="async: coordinator heartbeat-liveness "
+                         "deadline; a worker silent this long is "
+                         "evicted from the consensus table")
     ap.add_argument("--no-compare", action="store_true",
                     help="skip the single-process reference run")
     ap.add_argument("--tol", type=float, default=0.0,
@@ -208,6 +277,9 @@ def run_worker(args) -> list:
     def pre_step(i):
         if i % args.L:
             return
+        # round boundary: injected straggle, then the sync-wait probe
+        if args.straggle_ms > 0 and proc == args.straggle_worker:
+            time.sleep(args.straggle_ms / 1e3)
         if probe is not None:
             t = time.perf_counter()
             probe()
@@ -248,6 +320,151 @@ def run_worker(args) -> list:
     return records
 
 
+def _run_async_worker(args) -> list:
+    """One process of the async/elastic pod: a plain process (no
+    process group: a fixed-size world cannot be elastic) owning
+    replicas [offset, offset + local_n) of the fleet.  Rounds are the
+    inner-only round; the consensus is the AsyncElasticPolicy exchange
+    after each round."""
+    if args.algo != "parle":
+        raise SystemExit("--sync-policy async implements the Parle Eq. 8 "
+                         f"consensus; --algo {args.algo} has no round "
+                         "contribution to push")
+    proc = args._worker
+    _maybe_fail_for_test(proc)
+    n_total = args.replicas or args.nproc
+    if n_total % args.nproc:
+        raise SystemExit(f"--replicas {n_total} not divisible by --nproc "
+                         f"{args.nproc} (each async worker owns an equal "
+                         "replica block)")
+    local_n = n_total // args.nproc
+    offset = proc * local_n
+    if args.device == "cuda":
+        # cuBLAS reads this once, at its first use (still ahead)
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.use_deterministic_algorithms(True)
+    pin_float32()
+
+    obs = Obs(args.metrics_out, args.trace_out, pid=proc,
+              process_name=f"pod-worker{proc}")
+    cfg = _model_config(args)
+    model = build_model(cfg)
+    algo = registry.get(args.algo)
+    pcfg = algo.canonicalize_cfg(ParleConfig(
+        n_replicas=local_n, L=args.L, lr=args.lr, lr_inner=args.lr,
+        batches_per_epoch=max(args.steps // 4, 1),
+        sync_compress=args.sync_compress))
+
+    wfaults = (FaultPlan.from_spec(args.fault_plan).worker_faults(proc)
+               if args.fault_plan else None)
+    # heartbeat a few times per liveness window so only a TRUE hang
+    # (frozen beater included) crosses the eviction deadline
+    client = CoordinatorClient(
+        args.coord_port or args.port + 1, worker=f"worker{proc}",
+        count=local_n,
+        heartbeat_s=min(max(args.liveness_s / 3.0, 0.05), 1.0))
+    hello = client.join()
+    base_round = hello["round"]
+    # every worker of the launch joins before any exchanges, so all of
+    # them start at the pod's round (bounded: a worker that never comes
+    # is absent, which an elastic pod survives)
+    client.wait_for_peers(args.nproc, timeout_s=START_WINDOW_S)
+
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    state = algo.init(model.init(gen), pcfg)
+    if hello["consensus"] is not None:
+        # join an in-flight / resumed consensus: every replica starts AT
+        # it (a fresh state's momenta and residual are zero already)
+        state = parle.reseed_from_consensus(
+            state, parle.consensus_from_flat(hello["consensus"], state))
+    del hello
+    state = dealias_state(state)          # the updates run in place
+    # the coordinator's host work grows with the model: one exchange
+    # takes ~9 s a GB of consensus on an H100 host (PERF.md §5), and
+    # each of the pod's exchanges may be queued ahead of this one
+    gb = 4 * state.layout.numel / 1e9
+    client.recv_timeout_s = 30.0 + EXCHANGE_S_PER_GB * args.nproc * gb
+    client.rpc_timeout_s = 2 * client.recv_timeout_s
+
+    policy = AsyncElasticPolicy(client, pcfg, obs, worker=proc,
+                                faults=wfaults)
+    round_fn = policy.make_round_fn(algo, model.loss, pcfg)
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                         batch_size=args.batch, seed=args.seed,
+                         device=str(device))
+    stage = make_round_batch_fn(stream, args.L, args.batch, n_total,
+                                rows=slice(offset, offset + local_n))
+    rounds = args.steps // args.L
+    start = base_round * args.L
+
+    rec0 = obs.emit("mesh", mesh={"async": args.nproc},
+                    replica_axis="replica", n_total=n_total,
+                    local_replicas=local_n, replica_offset=offset,
+                    base_round=base_round, device=str(device))
+    if proc == 0:
+        print(json.dumps(rec0), flush=True)
+
+    records = []
+    round_t = {"t": time.perf_counter()}
+
+    def pre_round(r):
+        if args.straggle_ms > 0 and proc == args.straggle_worker:
+            time.sleep(args.straggle_ms / 1e3)
+        if wfaults is not None:
+            # the fault "round" is the GLOBAL consensus round this local
+            # round's exchange will carry (base_round + r + 1)
+            wfaults.pre_round(base_round + r + 1, client=client, obs=obs)
+
+    def post_round(state, r, gstep, metrics):
+        return policy.exchange(state, base_round + r, gstep, metrics)
+
+    def on_round(r, gstep, metrics):
+        losses = metrics["losses"].detach().cpu().reshape(-1).tolist()
+        for j, lv in enumerate(losses):
+            stepno = gstep - args.L + j + 1
+            rec = {"step": stepno, "loss_hex": float(lv).hex(),
+                   "loss": round(float(lv), 6)}
+            obs.emit("pod_step", step=stepno, loss=rec["loss"], proc=proc,
+                     loss_hex=rec["loss_hex"])
+            records.append(rec)
+            if proc == 0:
+                print(LOSS_TAG + json.dumps(rec), flush=True)
+        if obs.enabled:
+            obs.registry.gauge("pod.loss").set(round(float(losses[-1]), 6))
+            now = time.perf_counter()
+            # steady state only: the first round's wall includes the
+            # first launches (kernel loads, allocator warm-up)
+            if r > 0:
+                obs.registry.histogram("pod.round_wall_ms", worker=proc) \
+                   .observe((now - round_t["t"]) * 1e3)
+            round_t["t"] = now
+        if r == 0 and proc == 0 and policy.last_reply is not None:
+            # continuity markers for an elastic resume: the first pulled
+            # consensus, as a digest and an order-free L2 norm (the same
+            # contributions folded in another arrival order can differ
+            # in the last ulp, so the norm is the robust comparison)
+            vecs = policy.last_reply["consensus"]
+            print(json.dumps({"first_consensus_digest":
+                              consensus_digest(vecs),
+                              "first_consensus_l2":
+                              round(parle.contribution_norm(vecs), 6)}), flush=True)
+
+    runner = RoundRunner(obs, ns="pod")
+    runner.run_rounds(
+        state, round_fn, stage, start=start, rounds=rounds, L=args.L,
+        tokens_per_round=args.L * args.batch * args.seq * local_n,
+        progress_every=0, progress=None, pre_round=pre_round,
+        post_round=post_round, on_round=on_round)
+    client.leave()
+    if obs.enabled and device.type == "cuda":
+        obs.registry.gauge("pod.peak_device_memory_bytes", worker=proc) \
+           .set(torch.cuda.max_memory_allocated(device))
+    obs.finalize()
+    return records
+
+
 def _spawn(worker_args, env_extra=None):
     """One worker process, leading its own process group / session so a
     wedged pod can be killed as a unit (workers + any children)."""
@@ -265,7 +482,7 @@ def _losses(output: str) -> list:
             for line in output.splitlines() if line.startswith(LOSS_TAG)]
 
 
-def _wait_workers(procs):
+def _wait_workers(procs, tolerate=frozenset()):
     """Reap the pod, draining all pipes concurrently (a failed worker
     can fill its pipe with a long traceback while its peers block in a
     collective — a serial read would deadlock the launcher).
@@ -274,7 +491,10 @@ def _wait_workers(procs):
     survivors are wedged (their next collective waits on a corpse):
     kill each survivor's whole process group and report the FAILING
     worker — the first seen to fail — not the -9s we inflicted.
-    Returns (outputs, failed_index_or_None, n_killed)."""
+    ``tolerate`` names the workers a chaos plan crashes on purpose:
+    exactly those, at exactly :data:`CRASH_RC`, are not failures (an
+    elastic pod outlives a dead member).  Returns (outputs,
+    failed_index_or_None, n_killed)."""
     pool = ThreadPoolExecutor(max_workers=len(procs))
     futs = [pool.submit(p.communicate) for p in procs]
     failed, killed = None, 0
@@ -282,7 +502,8 @@ def _wait_workers(procs):
         codes = [p.poll() for p in procs]
         if failed is None:
             for i, rc in enumerate(codes):
-                if rc not in (None, 0):
+                if rc not in (None, 0) and not (i in tolerate
+                                                and rc == CRASH_RC):
                     failed = i
                     break
         if failed is not None and any(c is None for c in codes):
@@ -311,13 +532,20 @@ def _fail_pod(procs, outs, failed, killed):
     return rc if rc else 1
 
 
-def _merge_pod_obs(args):
+def _merge_pod_obs(args, sink=None, extra_counters=None,
+                   evicted_workers=0):
     """Fold every worker's final registry snapshot into one pod view
     (the merge is associative) and concatenate the worker traces into
     one Chrome trace, one pid lane per process.  A worker whose
-    ``<path>.worker<i>`` file is missing or holds no final snapshot is
-    logged as a ``note`` and counted in ``missing_workers``.  Returns
-    the merged snapshot (or None without --metrics-out)."""
+    ``<path>.worker<i>`` file is missing or holds no final snapshot (it
+    crashed mid-run) is logged as a ``note`` and counted in
+    ``missing_workers``; a crashed worker's surviving events still fold
+    in (torn final line tolerated).  ``evicted_workers`` (the
+    coordinator's heartbeat evictions: hung but alive, a different
+    failure) is its own field; ``extra_counters`` (fault counters, a
+    checkpoint's counter stamp) fold in, so pod counters stay monotonic
+    across elastic resumes.  Returns the merged snapshot (or None
+    without --metrics-out)."""
     merged = None
     if args.metrics_out:
         snaps, missing = [], []
@@ -333,17 +561,27 @@ def _merge_pod_obs(args):
                 snaps.append(final[-1]["snapshot"])
             else:
                 missing.append(i)
-        sink = EventSink(args.metrics_out)
+        own_sink = sink is None
+        if own_sink:
+            sink = EventSink(args.metrics_out)
         for i in missing:
             sink.emit("note", msg=f"pod merge: no metrics snapshot from "
                       f"worker {i} ({args.metrics_out}.worker{i})")
         merged = merge_snapshots(*snaps)
+        if extra_counters:
+            merged = merge_snapshots(
+                merged, {"counters": list(extra_counters), "gauges": [],
+                         "hists": []})
         rec = sink.emit("pod_merged", processes=len(snaps),
-                        missing_workers=len(missing), snapshot=merged)
-        sink.close()
+                        missing_workers=len(missing),
+                        evicted_workers=int(evicted_workers),
+                        snapshot=merged)
+        if own_sink:
+            sink.close()
         print(json.dumps({"pod_merged": args.metrics_out,
                           "processes": rec["processes"],
-                          "missing_workers": rec["missing_workers"]}),
+                          "missing_workers": rec["missing_workers"],
+                          "evicted_workers": rec["evicted_workers"]}),
               flush=True)
     if args.trace_out:
         events = []
@@ -361,7 +599,8 @@ def _merge_pod_obs(args):
 
 def _worker_flags(args, i):
     """Per-worker flags the reference run must NOT inherit."""
-    flags = []
+    flags = ["--straggle-ms", str(args.straggle_ms),
+             "--straggle-worker", str(args.straggle_worker)]
     if args.metrics_out:
         flags += ["--metrics-out", f"{args.metrics_out}.worker{i}"]
     if args.trace_out:
@@ -397,17 +636,116 @@ def verdict(dist_recs: list, ref_recs: list) -> dict:
             "mismatches": mismatches[:5]}
 
 
+def _run_async_pod(args, cfg) -> int:
+    """Async-pod parent: host the consensus coordinator (behind its
+    kill/restart supervisor), spawn the elastic workers, merge their
+    telemetry, and checkpoint the consensus for an elastic resume when
+    asked.  With ``--fault-plan`` the parent fires the plan's
+    coordinator kills and tolerates exactly the worker crashes the plan
+    scripts; the merged snapshot carries the pod-lifetime fault
+    counters (quarantines, evictions, restarts, corrupt frames)."""
+    plan = (FaultPlan.from_spec(args.fault_plan) if args.fault_plan
+            else FaultPlan())
+    kills = plan.coordinator_kills()
+    tolerate = plan.crash_workers()
+    sink = EventSink(args.metrics_out) if args.metrics_out else None
+    consensus, start_round, extra_counters = None, 0, None
+    if args.resume:
+        args.resume = ckpt.resolve(args.resume)   # dir / corrupt fallback
+        consensus, start_round, meta = load_consensus(args.resume)
+        extra_counters = ckpt.saved_metrics(args.resume)
+        print(json.dumps({"async_resume": args.resume, "round": start_round,
+                          "consensus_digest": meta.get("digest", "")}),
+              flush=True)
+    # periodic crash-recovery checkpoints: the restart source of
+    # scripted coordinator kills, kept next to --checkpoint-out when one
+    # is asked for (a temporary directory otherwise, removed at the end)
+    ck_dir, tmp_ck = "", ""
+    if args.checkpoint_out:
+        ck_dir = args.checkpoint_out + ".d"
+    elif kills:
+        ck_dir = tmp_ck = tempfile.mkdtemp(prefix="repro_async_ck_")
+    sup = CoordinatorSupervisor(
+        args.coord_port or args.port + 1, kills=kills, sink=sink,
+        method=args.sync_compress, decay=args.decay, consensus=consensus,
+        start_round=start_round, liveness_s=args.liveness_s,
+        ck_dir=ck_dir)
+    del consensus
+    print(json.dumps({"launch": "dist_run", "mode": "async",
+                      "nproc": args.nproc, "coord_port": sup.port,
+                      "replicas": args.replicas or args.nproc,
+                      "rounds": args.steps // args.L,
+                      "faults": len(plan.faults), "device": args.device}),
+          flush=True)
+
+    base = _base_args(args, cfg) + [
+        "--sync-policy", "async", "--sync-compress", args.sync_compress,
+        "--decay", str(args.decay), "--coord-port", str(sup.port),
+        "--liveness-s", str(args.liveness_s)]
+    if args.fault_plan:
+        base += ["--fault-plan", plan.to_json()]
+    try:
+        procs = [_spawn(base + ["--nproc", str(args.nproc),
+                                "--_worker", str(i)]
+                        + _worker_flags(args, i))
+                 for i in range(args.nproc)]
+        outs, failed, killed = _wait_workers(procs, tolerate=tolerate)
+        if failed is not None:
+            return _fail_pod(procs, outs, failed, killed)
+        crashed = [i for i, p in enumerate(procs) if p.returncode]
+        for i in crashed:
+            sys.stderr.write(f"worker {i} crashed per fault plan "
+                             f"(rc={procs[i].returncode}); pod "
+                             f"continued without it\n")
+        sys.stdout.write(outs[0])
+        if not _losses(outs[0]) and 0 not in crashed:
+            sys.stderr.write("worker 0 produced no loss records\n"
+                             + outs[0])
+            return 1
+        fault_counters = [
+            {"name": "pod.evicted_workers", "labels": {},
+             "total": sup.counter("evictions")},
+            {"name": "pod.coordinator_restarts", "labels": {},
+             "total": sup.restarts},
+            {"name": "pod.worker_crashes", "labels": {},
+             "total": len(crashed)},
+            {"name": "pod.corrupt_frames", "labels": {},
+             "total": sup.counter("corrupt_frames")},
+            {"name": "pod.duplicate_exchanges", "labels": {},
+             "total": sup.counter("duplicates")},
+        ]
+        merged = _merge_pod_obs(
+            args, sink=sink,
+            extra_counters=fault_counters + list(extra_counters or []),
+            evicted_workers=sup.counter("evictions"))
+        if args.checkpoint_out:
+            sup.save(args.checkpoint_out,
+                     metrics=(merged or {}).get("counters"))
+            print(json.dumps({"async_checkpoint": args.checkpoint_out,
+                              "round": sup.round,
+                              "consensus_digest": sup.digest()}),
+                  flush=True)
+        return 0
+    finally:
+        sup.close()
+        if sink is not None:
+            sink.close()
+        if tmp_ck:
+            shutil.rmtree(tmp_ck, ignore_errors=True)
+
+
 def main(argv=None, cfg=None) -> int:
     """Run the pod (or, with ``--_worker``, one of its workers).
     ``cfg``: the model config (default: ``--arch`` / ``--smoke``)."""
     args = build_argparser().parse_args(argv)
-    if args.sync_policy == "async":
-        raise SystemExit("--sync-policy async (elastic pods with the "
-                         "consensus coordinator) is not ported yet "
-                         "(ROADMAP.md queue 1, item 4)")
     if args._worker >= 0:
-        run_worker(args)
+        if args.sync_policy == "async":
+            _run_async_worker(args)
+        else:
+            run_worker(args)
         return 0
+    if args.sync_policy == "async":
+        return _run_async_pod(args, cfg or _model_config(args))
 
     spec = _mesh_spec(args)
     axis, size = replica_axis(spec)

@@ -48,11 +48,12 @@ start one; ``pod:1`` is the single-process run.
 Params are drawn from a ``torch.Generator`` seeded by ``--seed`` on the
 training device, and so are the batches: neither is the reference's
 threefry stream.  Every rank draws the same params, and the batches of
-its own replicas.  Not ported yet, each exiting with the ROADMAP.md
-item that ports it: axes inside a replica in ``--mesh`` (queue 1 item
-6), ``--checkpoint-dir`` / ``--resume`` under more than one rank (item
-3a), ``--sync-policy async`` (item 7); ``--host-devices`` is the
-reference's XLA CPU mesh and has no counterpart.  The vlm and audio families need
+its own replicas.  ``--sync-policy async`` exits pointing at the pod
+launcher (``launch/dist_run.py``), as the reference's does.  Not ported
+yet, each exiting with the ROADMAP.md item that ports it: axes inside a
+replica in ``--mesh`` (queue 1 item 6), ``--checkpoint-dir`` /
+``--resume`` under more than one rank (item 3a); ``--host-devices`` is
+the reference's XLA CPU mesh and has no counterpart.  The vlm and audio families need
 batches with ``patch_embeds`` / ``cond``, which the token stream does
 not draw (as in the reference's CLI): they train through the Algorithm
 API with their own batches.
@@ -128,8 +129,8 @@ def build_argparser():
     ap.add_argument("--sync-policy", default="",
                     choices=("", "barrier", "overlap", "async"),
                     help="consensus schedule: 'barrier' (the default), "
-                         "'overlap' (= --sync-overlap); 'async' is not "
-                         "ported yet")
+                         "'overlap' (= --sync-overlap); 'async' is a "
+                         "multi-process pod mode (launch/dist_run.py)")
     ap.add_argument("--sync-overlap", action="store_true",
                     help="staleness-1 overlapped sync (parle/entropy_sgd "
                          "with --round-fused): take each round's Eq. 8d "

@@ -5,11 +5,11 @@ It owns batch staging, spans, obs counters/histograms, progress
 emission and checkpointing, namespaced per entry point (``train.*`` metric
 series); the caller injects what differs through small hooks
 (``batch_fn`` / ``stage_fn``, ``progress``, ``pre_round`` /
-``on_round``, ``pre_step`` / ``on_step``), and the overlap policy's
+``on_round``, ``pre_step`` / ``on_step``), the async policy's
+``post_round`` (its coordinator exchange) and the overlap policy's
 ``flush_fn``.  Under a ``ReplicaGroup`` of ranks (``group=``) every rank
 runs the loop and counts the tokens of its own replicas, and only rank 0
-prints progress.  The reference's ``post_round`` hook serves its async
-pods, which are not ported yet.
+prints progress.
 
 Spans end on ``torch.cuda.synchronize`` (``Span.block``), the
 counterpart of the reference's ``block_until_ready``.  There is no AOT
@@ -103,11 +103,13 @@ class RoundRunner:
     def run_rounds(self, state, round_fn, stage_fn: Callable[[int], Any], *,
                    start: int, rounds: int, L: int, tokens_per_round: int,
                    progress_every: int = 1, progress=None, on_round=None,
-                   pre_round=None, flush_fn=None):
+                   pre_round=None, post_round=None, flush_fn=None):
         """One ``round_fn`` call per L steps; the next round's batches
         are staged right after the round is enqueued, before the round
         span blocks on its results.  ``pre_round(r)`` runs before round
-        r is enqueued, ``on_round(r, gstep, metrics)`` after its span.
+        r is enqueued; ``post_round(state, r, gstep, metrics) -> state``
+        after its span (the async policy's coordinator exchange), then
+        ``on_round(r, gstep, metrics)``.
         ``flush_fn(state) -> state`` (the overlap policy's) runs once
         after the last round, as a ``sync_flush`` span with a
         ``staleness_flush`` event."""
@@ -130,6 +132,8 @@ class RoundRunner:
             if obs.enabled:
                 obs.registry.histogram(f"{ns}.round_ms").observe(
                     sp.dur_s * 1e3)
+            if post_round is not None:
+                state = post_round(state, r, gstep, metrics)
             if on_round is not None:
                 on_round(r, gstep, metrics)
             if progress is not None and ((r + 1) % progress_every == 0

@@ -51,9 +51,21 @@ def test_verdict_reports_the_first_mismatches():
     assert 0 < v["max_rel_diff"] < 1e-14
 
 
-def test_async_policy_and_wrong_world_name_their_fix():
-    with pytest.raises(SystemExit, match="queue 1, item 4"):
-        dist_run.main(["--sync-policy", "async"])
+def test_async_policy_and_wrong_world_name_their_fix(tmp_path, capsys):
+    """The async policy dispatches to the elastic pod (no replica-axis
+    check: a worker is not a rank): one worker, one round, its consensus
+    checkpointed; the barrier pod's wrong world still names its fix."""
+    ck = str(tmp_path / "ck.npz")
+    assert dist_run.main(
+        ["--sync-policy", "async", "--nproc", "1", "--mesh", "pod:4",
+         "--smoke", "--device", "cpu", "--steps", "2", "--L", "2",
+         "--seq", "16", "--port", str(_free_port()),
+         "--coord-port", str(_free_port()), "--checkpoint-out", ck]) == 0
+    text = capsys.readouterr().out
+    out = [json.loads(line) for line in text.splitlines()
+           if line.startswith("{")]
+    assert out[0]["mode"] == "async" and out[-1]["round"] == 1
+    assert [r["step"] for r in _losses(text)] == [1, 2]
     with pytest.raises(SystemExit, match="spans 4 ranks, --nproc is 2"):
         dist_run.main(["--nproc", "2", "--mesh", "pod:4"])
 

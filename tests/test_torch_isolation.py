@@ -48,7 +48,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.examples.train_llm_parle, "
             "repro_torch.examples.serve_batched, "
             "repro_torch.sharding.partition, repro_torch.launch.mesh, "
-            "repro_torch.launch.dist_run, repro_torch.core.entropy_sgd\n"
+            "repro_torch.launch.dist_run, repro_torch.core.entropy_sgd, "
+            "repro_torch.runtime.coordinator, repro_torch.runtime.faults\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

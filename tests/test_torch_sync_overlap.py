@@ -245,7 +245,7 @@ def test_policy_resolution_and_guards():
         resolve_train_policy(_args(sync_overlap=True, round_fused=False))
     with pytest.raises(SystemExit, match="no round-level sync"):
         resolve_train_policy(_args(sync_overlap=True, algo="elastic_sgd"))
-    with pytest.raises(SystemExit, match="item 7"):
+    with pytest.raises(SystemExit, match="multi-process pod mode"):
         resolve_train_policy(_args(sync_policy="async"))
 
 

@@ -320,7 +320,8 @@ def test_train_wants_cuda_unless_told_cpu(monkeypatch):
     (["--sync-overlap"], SystemExit, "requires --round-fused"),
     (["--sync-overlap", "--round-fused", "--algo", "elastic_sgd"],
      SystemExit, "no round-level sync"),
-    (["--sync-policy", "async"], SystemExit, "item 7"),
+    # the async policy is the pod launcher's, as in the reference
+    (["--sync-policy", "async"], SystemExit, "multi-process pod mode"),
 ])
 def test_train_cli_names_what_is_not_ported(argv, exc, match):
     with pytest.raises(exc, match=match):
