@@ -173,12 +173,12 @@ itself and, in order:
    overlap (K4 / K6 and the flush) runs, and Elastic-SGD through K7 —
    and each rank's 8 losses, eval loss and final rows (x; e, c; v, ref)
    equal phase 6's bit for bit (sha256 of each row), with each kernel's
-   launches a rank and each collective a rank counted; then the pod
-   launcher (``launch/dist_run.py --nproc 2 --smoke --device cuda``)
-   ends ``bitwise_equal``; round walls, each collective's bytes and its
-   d2h / gloo / h2d times, peak memory a rank and the phase wall are
-   printed (two ranks time-slicing one card over loopback: not a
-   multi-card figure);
+   launches a rank and each collective a rank counted; beside the
+   ranks, the pod launcher (``launch/dist_run.py --nproc 2 --smoke
+   --device cuda``) ends ``bitwise_equal``; round walls, each
+   collective's bytes and its d2h / gloo / h2d times, peak memory a rank
+   and the phase wall are printed (two ranks time-slicing one card over
+   loopback: not a multi-card figure);
 11. (run right after phase 10) the async / elastic pod: (11a) the async
    policy with one worker in this process at phase 6's cell — each
    round's inner steps through K1 (8 launches, K2 none), the consensus
@@ -189,16 +189,39 @@ itself and, in order:
    seconds of each part; (11b) ``dist_run --sync-policy async --device
    cuda`` at phase 6's config, 2 workers of one replica with int8
    contributions through the wire, its consensus checkpointed at round
-   2, then resumed as ONE worker (f32): the checkpoint's digest echoed,
-   base round 2, the first consensus L2 within 1e-5 of the checkpoint's,
-   ``pod.steps`` 16 then 24, no missing worker; each exchange's wall,
+   2, then resumed as ONE worker (f32) for one round: the checkpoint's
+   digest echoed, base round 2, the first consensus L2 within 1e-5 of the
+   checkpoint's, ``pod.steps`` 16 then 20, no missing worker; each
+   exchange's wall,
    the largest frame's bytes, staleness, round wall and peak device
    memory a worker and the pod parent's peak RSS printed with the card;
    (11c) the reference's chaos plan (a crash, a hang past a 0.5 s
    liveness deadline, a NaN-poisoned round, a corrupt frame, a
    coordinator kill) on a 4-worker smoke-width pod beside its
    fault-free twin: both end at round 5, final consensus L2 within
-   1e-3, every fault class counted and announced.
+   1e-3, every fault class counted and announced;
+12. (12a in phase 10's world, 12b and 12c after phase 11) (12a)
+   checkpoint and resume across ranks: full-width Mamba2-1.3B cut to 2
+   layers, Parle n = 2 over the two ranks (``--mesh pod:2 --use-kernel
+   --round-fused --sync-compress int8 --sync-overlap``, L = 2, 6 steps,
+   a checkpoint at step 4, each rank's rows gathered to rank 0, which
+   writes the one file, under /dev/shm when it has room), then resumed
+   from step 4 under pod:2 and, in this process beside the ranks, under
+   pod:1: both
+   equal the uninterrupted run bit for bit (losses of steps 5-6,
+   eval loss, sha256 of each final row of x, e and of c), K1 / K4 / K6
+   launched as counted (the flush is plain), one gather a rank a
+   checkpoint; the file's bytes, the gather, save and restore seconds
+   and peak memory a rank printed; (12b) remat: full-width Qwen2.5-3B
+   cut to 4 layers, n = 2, batch 1 x 2048, one round (L = 2) of
+   ``steps.make_algorithm_round(..., use_kernel=True, remat=r)`` through
+   K1 / K2 for r in (False, True, "dots") under deterministic
+   algorithms: losses and final x rows equal bit for bit, peak memory
+   and round wall of each; (12c) the reference's token stream drawn on
+   the card equals the CPU's bit for bit at the training cell's shapes
+   (interleaved, split, a staged round), and
+   ``repro_torch.examples.obs_report`` accepts 12a's rank-0 metrics and
+   trace.
 
 Nothing is caught: a failing phase exits non-zero and prints no device
 line.  Without a CUDA card it exits 2 before doing anything.
@@ -230,13 +253,14 @@ import torch.multiprocessing as mp  # noqa: E402
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 from repro_torch import resolve_device  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ParleConfig, get_config  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
 from repro_torch.core import parle, registry  # noqa: E402
 from repro_torch.data.synthetic import (TokenStream,  # noqa: E402
                                         make_round_batch_fn,
                                         replica_batches)
 from repro_torch.examples import common as paper  # noqa: E402
+from repro_torch.examples import obs_report  # noqa: E402
 from repro_torch.examples import (fig1_overlap, quickstart,  # noqa: E402
                                   serve_batched, split_data,
                                   table1_baselines, table2_split_data,
@@ -2594,11 +2618,12 @@ def _pod_job(device, algo, extra, fields) -> dict:
             "peak_memory_gib": round(peak / 2 ** 30, 3)}
 
 
-def pod_rank_main(rank, world, port, out_q):
+def pod_rank_main(rank, world, port, out_q, ckpt_dir):
     """One rank of phase 10, a spawned process (a fresh interpreter that
     imported this file; the parent built the kernels): join the gloo
     world, run every POD_JOBS job on this rank's replica under
-    deterministic algorithms, and put the results on ``out_q``."""
+    deterministic algorithms, then phase 12a's checkpoint jobs (files in
+    ``ckpt_dir``), and put the results on ``out_q``."""
     import traceback
     # two ranks of ~33 GB each share the card: no reserved-but-free blocks
     # (the allocator reads this at its first allocation, still ahead)
@@ -2612,6 +2637,7 @@ def pod_rank_main(rank, world, port, out_q):
                                 rank=rank, world_size=world)
         res = {name: _pod_job(device, algo, extra, fields)
                for name, (algo, extra, _, fields, _) in POD_JOBS.items()}
+        res["ckpt"] = ckpt_rank_jobs(device, rank, ckpt_dir)
         out_q.put((rank, res, None))
     except BaseException:            # reported to the parent, then raised
         out_q.put((rank, None, traceback.format_exc()))
@@ -2628,21 +2654,25 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _run_pod_ranks() -> dict:
+def _run_pod_ranks(ckpt_dir, beside=None) -> dict:
     """Spawn the POD_WORLD ranks (spawn, never fork: this process has a
     live CUDA context) and collect their results; a failing rank fails
-    the phase, and no rank outlives it."""
+    the phase, and no rank outlives it.  ``beside(procs)``, when given,
+    runs in this process while the ranks run (it may watch them) and its
+    result is returned beside theirs: (results, beside's)."""
     import queue
     ctx = mp.get_context("spawn")
     out_q = ctx.Queue()
     port = free_port()
     procs = [ctx.Process(target=pod_rank_main,
-                         args=(r, POD_WORLD, port, out_q))
+                         args=(r, POD_WORLD, port, out_q, ckpt_dir))
              for r in range(POD_WORLD)]
     for p in procs:
         p.start()
-    results, err = {}, None
+    results, err, extra = {}, None, None
     try:
+        if beside is not None:
+            extra = beside(procs)
         for _ in range(POD_WORLD):       # drain before joining
             rank, res, tb = out_q.get(timeout=POD_TIMEOUT_S)
             if tb is not None:
@@ -2660,7 +2690,7 @@ def _run_pod_ranks() -> dict:
     check(err is None, str(err))
     check(all(p.exitcode == 0 for p in procs),
           f"pod rank exit codes {[p.exitcode for p in procs]}")
-    return results
+    return results, extra
 
 
 def pod_phase(device, refs, smi) -> dict:
@@ -2672,19 +2702,33 @@ def pod_phase(device, refs, smi) -> dict:
     phase 6's argv plus ``--mesh pod:2``.  Every rank's losses and eval
     loss equal phase 6's run and its final rows (and c, ref) hash to
     phase 6's rows bit for bit; each rank launches each kernel as
-    counted, and makes exactly its collectives.  Then the pod launcher's
-    CLI at smoke size on the card: bitwise_equal.  Times: two ranks
-    time-slicing one card over loopback gloo, not a multi-card figure."""
+    counted, and makes exactly its collectives.  Beside the ranks, the
+    pod launcher's CLI at smoke size on the card (bitwise_equal) and,
+    once the ranks have written 12a's checkpoint, 12a's one-process
+    resume.  Times: two ranks time-slicing one card over loopback gloo,
+    not a multi-card figure."""
     phase("10. the replica axis across processes: two ranks on the one "
           "card over gloo (pinned host staging), parle n=2 L=4 8 steps "
           "through K1/K2, int8 through K4/K5 and K4/K6, elastic_sgd "
-          "through K7; then dist_run --device cuda")
+          "through K7, then 12a's checkpoint jobs; dist_run --device "
+          "cuda beside them")
     t0 = time.perf_counter()
     _release()
     free = torch.cuda.mem_get_info(device)[0]
     print(f"pod: free device memory before the ranks "
           f"{free / 2 ** 30:.3f} GiB", flush=True)
-    results = _run_pod_ranks()
+    ckpt_dir, where = ckpt_directory()
+    beside = {}
+    try:
+        results, _ = _run_pod_ranks(ckpt_dir, beside=lambda procs: (
+            pod_beside(device, ckpt_dir, procs, beside)))
+        files = ckpt_files(ckpt_dir)
+    finally:
+        launcher = beside.get("launcher")
+        if launcher is not None and launcher.poll() is None:
+            launcher.kill()
+            launcher.wait()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     out = {}
     for name, (_, _, want, fields, calls) in POD_JOBS.items():
         ref = refs[name]
@@ -2733,27 +2777,19 @@ def pod_phase(device, refs, smi) -> dict:
               f"eval, final {', '.join(fields)}); launches a rank "
               f"{out[name]['launches_per_rank']}", flush=True)
     ranks_s = time.perf_counter() - t0
+    out["ckpt"] = ckpt_phase_report(results, beside.get("pod1"), files,
+                                    where, smi)
 
-    t1 = time.perf_counter()
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")]
-        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dist_run", "--nproc", "2",
-         "--smoke", "--steps", "6", "--L", "3", "--device", "cuda",
-         "--port", str(free_port())],
-        env=env, capture_output=True, text=True, timeout=300)
-    check(proc.returncode == 0,
-          f"dist_run exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
-          f"{proc.stderr[-3000:]}")
-    verdict = json.loads(proc.stdout.strip().splitlines()[-1])
+    check("rc" in beside, "dist_run did not run beside the ranks")
+    stdout, stderr = beside["stdout"], beside["stderr"]
+    check(beside["rc"] == 0, f"dist_run exited {beside['rc']}:\n"
+          f"{stdout[-3000:]}\n{stderr[-3000:]}")
+    verdict = json.loads(stdout.strip().splitlines()[-1])
     check(verdict["bitwise_equal"] is True
           and verdict["compared_steps"] == 6, f"dist_run: {verdict}")
     print(f"dist_run --nproc 2 --smoke --device cuda: {json.dumps(verdict)}",
           flush=True)
-    out["dist_run"] = {"verdict": verdict,
-                       "wall_s": round(time.perf_counter() - t1, 1)}
+    out["dist_run"] = {"verdict": verdict, "wall_s": beside["wall_s"]}
     out["ranks_wall_s"] = round(ranks_s, 1)
     out["phase_wall_s"] = round(time.perf_counter() - t0, 1)
     print(json.dumps({"pod_phase_wall_s": out["phase_wall_s"],
@@ -3064,7 +3100,8 @@ def async_pods_phase(device, smi) -> dict:
     of one replica each on the card (``dist_run --sync-policy async
     --device cuda``, phase 6's config: Qwen2.5-3B cut to 4 layers), int8
     contributions, 2 rounds of L = 4, its consensus checkpointed; then
-    the pod resumed from that checkpoint as ONE worker (the pod shrinks,
+    the pod resumed from that checkpoint as ONE worker for one round
+    (its gates read the first consensus; the pod shrinks,
     f32 contributions: its first consensus is the checkpoint's, so its
     L2 is held at rtol 1e-5 — an int8 contribution would move it by the
     codec's error).  Gates: the reference's elastic-resume contract
@@ -3082,7 +3119,7 @@ def async_pods_phase(device, smi) -> dict:
     replicas would exceed 80 GB, and every fault is on the host."""
     phase("11b. the async pod at full width: dist_run --sync-policy async "
           "--device cuda, 2 workers x 1 replica, int8, 8 steps L=4, "
-          "checkpoint; resumed as 1 worker")
+          "checkpoint; resumed as 1 worker for one round")
     _release()
     t_phase = time.perf_counter()
     print(f"async pod: free device memory before the workers "
@@ -3095,6 +3132,8 @@ def async_pods_phase(device, smi) -> dict:
             "qwen2.5-3b", "--steps", "8", "--L", "4", "--batch", "2",
             "--seq", "256", "--seed", "0",
             "--_config", json.dumps(dataclasses.asdict(cfg))]
+    base_b = [("4" if i and base[i - 1] == "--steps" else a)
+              for i, a in enumerate(base)]
     ck = os.path.join(tmp, "ck.npz")
     started = {}
     try:
@@ -3105,7 +3144,8 @@ def async_pods_phase(device, smi) -> dict:
             "--port", str(free_port()), "--coord-port", str(free_port())],
             env, "a")
         m_b = os.path.join(tmp, "b.jsonl")
-        started["b"] = _start_async_pod(base + [
+        # one round resumed: the gates read its first consensus
+        started["b"] = _start_async_pod(base_b + [
             "--nproc", "1", "--replicas", "1", "--sync-compress", "none",
             "--resume", ck, "--metrics-out", m_b,
             "--port", str(free_port()), "--coord-port", str(free_port())],
@@ -3149,11 +3189,11 @@ def async_pods_phase(device, smi) -> dict:
         check(abs(b["first_consensus_l2"] - ck_l2) <= 1e-5 * ck_l2,
               f"resumed pod's first consensus L2 {b['first_consensus_l2']}"
               f" vs the checkpoint's {ck_l2}")
-        check(pb["counters"]["pod.steps"] == 2 * 8 + 8
+        check(pb["counters"]["pod.steps"] == 2 * 8 + 4
               and pb["merged"]["missing_workers"] == 0,
               f"pod b: counters {pb['counters']}")
         losses_b = pb["workers"][0]["losses"]
-        check(len(losses_b) == 8 and all(np.isfinite(losses_b)),
+        check(len(losses_b) == 4 and all(np.isfinite(losses_b)),
               f"pod b losses {losses_b}")
         pod = {"grow_shrink": "2 -> 1 workers", "checkpoint_round": rnd,
                "checkpoint_l2": ck_l2,
@@ -3184,6 +3224,363 @@ def async_phase(device, ref, smi) -> dict:
     out["phase_wall_s"] = round(time.perf_counter() - t0, 1)
     print(json.dumps({"async_phase_wall_s": out["phase_wall_s"],
                       "card": smi}), flush=True)
+    return out
+
+
+# ------------------------------------------------------------------
+# phase 12: checkpoint across ranks, remat, the reference's stream
+# ------------------------------------------------------------------
+
+# 12a: full-width Mamba2-1.3B cut to 2 layers (1.03 GB of float32 a
+# copy), Parle n = 2 over two ranks, int8 + overlap through K1 / K4 / K6,
+# L = 2, 6 steps, one checkpoint (step 4).  The train CLI's scoping
+# schedule takes its epoch from --steps (batches_per_epoch = steps // 4,
+# as the reference's), so the resumed run (2 steps) continues the
+# uninterrupted one bit for bit only where steps // 4 agree: 6 and 2 do,
+# 8 and 4 would not
+CKPT_ARCH, CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY = "mamba2-1.3b", 2, 6, 4
+CKPT_FIELDS = ("x", "e", "c")
+CKPT_STARTED = "12a_started"     # rank 0's mark: the ranks reached 12a
+# a file holds six (n, M) row fields and c: 13 copies
+CKPT_COPIES, SHM_SPARE = 13, 4 * 2 ** 30
+CKPT_LAUNCHES = {     # run: K1, K4 (the first head), K6 (every later head)
+    "full": dict(parle_inner_update=6, quantize_ef=1,
+                 parle_apply_quantize=2),
+    "resumed": dict(parle_inner_update=2, parle_apply_quantize=1)}
+
+
+def ckpt_cfg():
+    return dataclasses.replace(get_config(CKPT_ARCH), num_layers=CKPT_LAYERS)
+
+
+def ckpt_argv(steps, mesh, extra=()) -> list:
+    return ["--arch", CKPT_ARCH, "--device", "cuda", "--replicas", "2",
+            "--L", "2", "--steps", str(steps), "--batch", "2", "--seq",
+            "256", "--round-fused", "--use-kernel", "--sync-compress",
+            "int8", "--sync-overlap", "--log-every", "2", "--seed", "0",
+            "--mesh", mesh, *extra]
+
+
+def ckpt_directory():
+    """(a new directory for 12a's checkpoint, "shm" or "tmp"): under
+    /dev/shm when it has room for the file and 4 GiB more, else in the
+    default temporary directory."""
+    cfg = ckpt_cfg()
+    per_copy = 4 * (2 * cfg.vocab_size * cfg.d_model + CKPT_LAYERS * (
+        cfg.d_model * (2 * cfg.ssm_inner + 2 * cfg.ssm_state
+                       + cfg.ssm_num_heads) + cfg.ssm_inner * cfg.d_model))
+    need = CKPT_STEPS // CKPT_EVERY * CKPT_COPIES * per_copy + SHM_SPARE
+    if os.path.isdir("/dev/shm"):
+        st = os.statvfs("/dev/shm")
+        if st.f_bavail * st.f_frsize >= need:
+            return tempfile.mkdtemp(prefix="chip_smoke_ckpt_",
+                                    dir="/dev/shm"), "shm"
+    return tempfile.mkdtemp(prefix="chip_smoke_ckpt_"), "tmp"
+
+
+def _span_s(events, name) -> list:
+    return [round(e["dur"] / 1e6, 3) for e in events if e["name"] == name]
+
+
+def _ckpt_job(device, argv, obs) -> dict:
+    """One 12a run of the train CLI's run() on ckpt_cfg(): its losses,
+    eval loss, row digests, launches, peak memory and the seconds of its
+    checkpoints (gather, whole save) and of its restore."""
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    losses, walls, state, eval_loss, _ = _train_once(device, argv,
+                                                     cfg=ckpt_cfg(), obs=obs)
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(mod, attr)
+                for name, (mod, attr) in COUNTERS.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    digests = field_digests(state, CKPT_FIELDS)
+    del state
+    _release()
+    ev = obs.tracer.events
+    gathers = [e["args"] for e in ev if e["name"] == "pod.gather"]
+    return {"losses": losses.tolist(), "eval_loss": eval_loss,
+            "digests": digests, "launches": launches, "round_wall_s": walls,
+            "wall_s": round(wall, 3),
+            "peak_memory_gib": round(peak / 2 ** 30, 3),
+            "checkpoint_s": _span_s(ev, "checkpoint"),
+            "gather_s": [g["gather_s"] for g in gathers],
+            "gather_bytes": [g["bytes"] for g in gathers],
+            "restore_s": _span_s(ev, "restore")}
+
+
+def ckpt_rank_jobs(device, rank, ckpt_dir) -> dict:
+    """12a on one rank of phase 10's world: the uninterrupted pod:2 run
+    (a checkpoint at step 4; rank 0 writes its metrics and trace for
+    12c's report), then the pod:2 run resumed from step 4."""
+    t0 = time.perf_counter()
+    if rank == 0:           # the parent starts what runs beside 12a
+        open(os.path.join(ckpt_dir, CKPT_STARTED), "w").close()
+    files = (dict(metrics_out=os.path.join(ckpt_dir, "m.jsonl"),
+                  trace_out=os.path.join(ckpt_dir, "t.json"))
+             if rank == 0 else dict(trace_out=os.devnull))
+    obs = Obs(**files, pid=rank, process_name="train")
+    out = {"full": _ckpt_job(device, ckpt_argv(
+        CKPT_STEPS, f"pod:{POD_WORLD}", ["--checkpoint-dir", ckpt_dir,
+                                          "--checkpoint-every",
+                                          str(CKPT_EVERY)]), obs)}
+    obs.finalize()
+    out["pod2"] = _ckpt_job(device, ckpt_argv(
+        CKPT_STEPS - CKPT_EVERY, f"pod:{POD_WORLD}",
+        ["--resume", ckpt_path(ckpt_dir)]), Obs(trace_out=os.devnull))
+    out["wall_s"] = round(time.perf_counter() - t0, 1)
+    return out
+
+
+def ckpt_path(ckpt_dir) -> str:
+    return os.path.join(ckpt_dir, f"step{CKPT_EVERY:06d}.npz")
+
+
+def _wait_for(path, procs) -> bool:
+    """Poll for ``path`` while every rank lives; False when a rank ended
+    first or POD_TIMEOUT_S passed (the ranks' results say why)."""
+    deadline = time.perf_counter() + POD_TIMEOUT_S
+    while not os.path.exists(path):
+        if (time.perf_counter() > deadline
+                or not all(p.is_alive() for p in procs)):
+            return False
+        time.sleep(0.5)
+    return True
+
+
+def pod_beside(device, ckpt_dir, procs, out) -> None:
+    """What this process runs while phase 10's ranks run, once they
+    reach 12a (their full-width jobs done, the card has room): the pod
+    launcher's CLI at smoke size (``dist_run --nproc 2 --smoke --device
+    cuda``) and, once the ranks' checkpoint is written, 12a's one-process
+    resume.  Fills ``out``: the launcher's rc, output and wall, and
+    "pod1"."""
+    if not _wait_for(os.path.join(ckpt_dir, CKPT_STARTED), procs):
+        return
+    t0 = time.perf_counter()
+    logs = [tempfile.TemporaryFile("w+") for _ in range(2)]
+    out["launcher"] = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dist_run", "--nproc", "2",
+         "--smoke", "--steps", "6", "--L", "3", "--device", "cuda",
+         "--port", str(free_port())],
+        env=_pod_env(), stdout=logs[0], stderr=logs[1], text=True)
+    out["pod1"] = ckpt_resume_beside(device, ckpt_dir, procs)
+    out["rc"] = out["launcher"].wait(timeout=300)
+    out["wall_s"] = round(time.perf_counter() - t0, 1)
+    for key, f in zip(("stdout", "stderr"), logs):
+        f.seek(0)
+        out[key] = f.read()
+        f.close()
+
+
+def ckpt_resume_beside(device, ckpt_dir, procs) -> dict:
+    """12a's one-process resume (pod:1, both replicas), in this process
+    beside the ranks' pod:2 resume: it waits for the ranks' checkpoint
+    (its sidecar is written last), then runs under deterministic
+    algorithms.  None when a rank ends first (its failure is reported)."""
+    if not _wait_for(ckpt_path(ckpt_dir) + ".json", procs):
+        return None
+    _release()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return _ckpt_job(device, ckpt_argv(
+            CKPT_STEPS - CKPT_EVERY, "pod:1",
+            ["--resume", ckpt_path(ckpt_dir)]), Obs(trace_out=os.devnull))
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def ckpt_files(ckpt_dir) -> dict:
+    """The checkpoints' bytes, and 12a's metrics and trace moved to a
+    directory of their own (12c reads them; the checkpoints go)."""
+    keep = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    moved = {}
+    for name in ("m.jsonl", "t.json"):
+        moved[name] = shutil.move(os.path.join(ckpt_dir, name), keep)
+    return {"bytes": {f: os.path.getsize(os.path.join(ckpt_dir, f))
+                      for f in sorted(os.listdir(ckpt_dir))
+                      if f.endswith(".npz")},
+            "metrics": moved["m.jsonl"], "trace": moved["t.json"],
+            "keep": keep}
+
+
+def ckpt_phase_report(results, pod1, files, where, smi) -> dict:
+    """12a's gates: resumed from step 4 under pod:2 (each rank) and in
+    one process (pod:1), the run equals the uninterrupted pod:2 run bit
+    for bit — the losses of steps 5-6, the eval loss and the sha256 of
+    each final row of x, e and of c — and each run launched K1, K4 and K6
+    as counted (the flush is plain); one gather a rank a checkpoint."""
+    phase(f"12a. checkpoint across ranks: full-width {CKPT_ARCH} cut to "
+          f"{CKPT_LAYERS} layers, parle n=2 --mesh pod:{POD_WORLD}, int8 "
+          f"+ overlap, L=2, {CKPT_STEPS} steps, checkpoints every "
+          f"{CKPT_EVERY}; resumed from step {CKPT_EVERY} under pod:2 and "
+          "pod:1 (in phase 10's world; pod:1 beside the ranks)")
+    check(pod1 is not None, "12a: the one-process resume did not run")
+    ranks = [results[r]["ckpt"] for r in range(POD_WORLD)]
+    full = [r["full"] for r in ranks]
+    for rank, r in enumerate(ranks):
+        for run in ("pod2",) + (("pod1",) if rank == 0 else ()):
+            got = r[run] if run == "pod2" else pod1
+            check(got["losses"] == full[0]["losses"][CKPT_EVERY:]
+                  and got["eval_loss"] == full[0]["eval_loss"],
+                  f"12a {run} rank {rank}: losses {got['losses']} / eval "
+                  f"{got['eval_loss']} != the uninterrupted run's "
+                  f"{full[0]['losses'][CKPT_EVERY:]} / "
+                  f"{full[0]['eval_loss']}")
+            want = (full[rank]["digests"] if run == "pod2" else {
+                f: (sum((fr["digests"][f] for fr in full), [])
+                    if f != "c" else full[0]["digests"][f])
+                for f in CKPT_FIELDS})
+            check(got["digests"] == want, f"12a {run} rank {rank}: final "
+                  "rows differ from the uninterrupted run's")
+            expected = {k: CKPT_LAUNCHES["resumed"].get(k, 0)
+                        for k in COUNTERS}
+            check(got["launches"] == expected, f"12a {run} rank {rank}: "
+                  f"launches {got['launches']}, expected {expected}")
+        expected = {k: CKPT_LAUNCHES["full"].get(k, 0) for k in COUNTERS}
+        check(r["full"]["launches"] == expected, f"12a full rank {rank}: "
+              f"launches {r['full']['launches']}, expected {expected}")
+        check(r["full"]["losses"] == full[0]["losses"],
+              f"12a: rank {rank}'s losses differ from rank 0's")
+        check(len(r["full"]["gather_s"]) == CKPT_STEPS // CKPT_EVERY,
+              f"12a rank {rank}: {len(r['full']['gather_s'])} gathers")
+    out = {"where": where, "file_bytes": files["bytes"],
+           "gather_s": [r["full"]["gather_s"] for r in ranks],
+           "gather_bytes_per_rank": full[0]["gather_bytes"],
+           "checkpoint_s": [r["full"]["checkpoint_s"] for r in ranks],
+           # rank 0: the whole save less its gather (its own copies and
+           # gloo calls): the write, digest and sidecar
+           "write_s": [round(c - g, 3) for c, g in zip(
+               full[0]["checkpoint_s"], full[0]["gather_s"])],
+           "restore_s": {"pod2": [r["pod2"]["restore_s"] for r in ranks],
+                         "pod1": pod1["restore_s"]},
+           "run_wall_s": {**{k: [r[k]["wall_s"] for r in ranks]
+                             for k in ("full", "pod2")},
+                          "pod1": pod1["wall_s"]},
+           "peak_memory_gib": {**{k: [r[k]["peak_memory_gib"]
+                                      for r in ranks]
+                                  for k in ("full", "pod2")},
+                               "pod1": pod1["peak_memory_gib"]},
+           "launches": {k: {n: v for n, v in run["launches"].items() if v}
+                        for k, run in (("full", ranks[0]["full"]),
+                                       ("pod2", ranks[0]["pod2"]),
+                                       ("pod1", pod1))},
+           "wall_s": [r["wall_s"] for r in ranks], "card": smi}
+    print(json.dumps({"ckpt_across_ranks": out}), flush=True)
+    print(f"12a: resumed under pod:2 and pod:1 == the uninterrupted run bit "
+          f"for bit (losses of steps {CKPT_EVERY + 1}-{CKPT_STEPS}, eval, "
+          "final x, e, c)", flush=True)
+    out["obs"] = {k: files[k] for k in ("metrics", "trace", "keep")}
+    return out
+
+
+# 12b: full-width Qwen2.5-3B cut to 4 layers, n = 2, batch 1 x 2048
+REMAT_LAYERS, REMAT_SEQ = 4, 2048
+REMAT_MODES = (False, True, "dots")
+
+
+def remat_phase(device, smi) -> dict:
+    """12b: one Parle round (L = 2) from ``steps.make_algorithm_round(...,
+    use_kernel=True, remat=r)`` through K1 / K2 for r in (False, True,
+    "dots"), under deterministic algorithms, from the same params and
+    batches: losses and the sha256 of each final x row equal bit for bit
+    across the three; peak device memory and round wall of each."""
+    phase(f"12b. remat: full-width qwen2.5-3b cut to {REMAT_LAYERS} "
+          f"layers, parle n=2, batch 1 x {REMAT_SEQ}, one round L=2 "
+          "through K1/K2, remat False / True / dots")
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                              num_layers=REMAT_LAYERS)
+    algo = registry.get("parle")
+    pcfg = algo.canonicalize_cfg(ParleConfig(
+        n_replicas=2, L=2, lr=0.1, lr_inner=0.1, batches_per_epoch=1))
+    params = build_model(cfg).init(torch.Generator(device=device)
+                                   .manual_seed(0))
+    batches = make_round_batch_fn(TokenStream(
+        cfg.vocab_size, REMAT_SEQ, 1, seed=0, device=str(device)),
+        pcfg.L, 1, pcfg.n_replicas)(0)
+    torch.use_deterministic_algorithms(True)
+    runs = {}
+    for r in REMAT_MODES:
+        state = parle.dealias_state(algo.init(params, pcfg))
+        rnd = steps.make_algorithm_round("parle", cfg, pcfg, remat=r,
+                                         use_kernel=True)
+        _release()
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        t = time.perf_counter()
+        state, m = rnd(state, batches)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t
+        runs[str(r)] = {
+            "losses": m["losses"].cpu().tolist(),
+            "digests": row_digests(state.x),
+            "round_wall_s": round(wall, 3),
+            "peak_memory_gib": round(torch.cuda.max_memory_allocated(device)
+                                     / 2 ** 30, 3),
+            "launches": {k: v for k, v in launch_counts(
+                parle_inner_update=pcfg.L, parle_sync_update=1).items()
+                if v}}
+        del state, m, rnd
+    torch.use_deterministic_algorithms(False)
+    del params, batches
+    _release()
+    base = runs["False"]
+    for r, got in runs.items():
+        check(got["losses"] == base["losses"]
+              and got["digests"] == base["digests"],
+              f"12b remat={r}: losses {got['losses']} / final x differ from "
+              f"remat=False's {base['losses']}")
+    out = {"runs": {r: {k: v for k, v in got.items() if k != "digests"}
+                    for r, got in runs.items()},
+           "phase_wall_s": round(time.perf_counter() - t0, 1), "card": smi}
+    print(json.dumps({"remat": out}), flush=True)
+    print("12b: remat True / dots == False bit for bit (losses, final x)",
+          flush=True)
+    return out
+
+
+def stream_report_phase(device, obs_files, smi) -> dict:
+    """12c: the token stream drawn on the card equals the same stream on
+    the CPU bit for bit at the training cell's shapes (interleaved and
+    split replica batches, a staged round; the CPU stream is held to the
+    reference's in tests/test_torch_stream.py), and the port's telemetry
+    report exits 0 on 12a's rank-0 metrics and trace."""
+    phase("12c. the reference's token stream on the card == on the CPU; "
+          "obs_report on 12a's artifacts")
+    t0 = time.perf_counter()
+    shapes = {"vocab": 151936, "seq": 256, "batch": 2, "n": 2, "L": 4}
+    draws = 0
+    for split in (False, True):
+        on = [TokenStream(shapes["vocab"], shapes["seq"], shapes["batch"],
+                          seed=0, device=dev) for dev in ("cpu", str(device))]
+        pairs = [[replica_batches(st, s, shapes["batch"], shapes["n"],
+                                  split=split) for st in on]
+                 for s in (0, 1, 2 ** 20 + 3)]
+        pairs.append([make_round_batch_fn(st, shapes["L"], shapes["batch"],
+                                          shapes["n"], split=split)(8)
+                      for st in on])
+        for cpu, gpu in pairs:
+            for k in cpu:
+                check(gpu[k].device.type == "cuda"
+                      and torch.equal(gpu[k].cpu(), cpu[k]),
+                      f"12c: the stream's {k} on the card != on the CPU "
+                      f"(split={split})")
+                draws += cpu[k].numel()
+    stream_s = time.perf_counter() - t0
+    try:
+        rc = obs_report.main(["--metrics", obs_files["metrics"],
+                              "--trace", obs_files["trace"]])
+    finally:
+        shutil.rmtree(obs_files["keep"], ignore_errors=True)
+    check(rc == 0, f"12c: obs_report exited {rc}")
+    out = {"stream_tokens_compared": draws, "stream_bytes": 4 * draws,
+           "stream_s": round(stream_s, 3),
+           "obs_report_rc": rc,
+           "phase_wall_s": round(time.perf_counter() - t0, 1), "card": smi}
+    print(json.dumps({"stream_report": out}), flush=True)
     return out
 
 
@@ -3633,6 +4030,8 @@ def main() -> int:
     refs = trained.pop("pod_refs")
     pod = pod_phase(device, refs, smi)
     async_res = async_phase(device, refs["none"], smi)
+    remat = remat_phase(device, smi)
+    stream = stream_report_phase(device, pod["ckpt"]["obs"], smi)
     main_errs = parle_main_shape_phase(device, trained["replicas"],
                                        trained["elements_per_replica"])
 
@@ -3686,6 +4085,15 @@ def main() -> int:
                   "chaos": {k: async_res["chaos"][k] for k in (
                       "rel_l2", "wall_s", "phase_wall_s")},
                   "phase_wall_s": async_res["phase_wall_s"]},
+        "phase12": {
+            "ckpt": {k: pod["ckpt"][k] for k in (
+                "where", "file_bytes", "gather_s", "checkpoint_s",
+                "write_s", "restore_s", "peak_memory_gib", "wall_s")},
+            "remat": {r: {k: v[k] for k in ("round_wall_s",
+                                            "peak_memory_gib")}
+                      for r, v in remat["runs"].items()},
+            "remat_phase_wall_s": remat["phase_wall_s"],
+            "stream_report_phase_wall_s": stream["phase_wall_s"]},
         "flash_prefill": {k: run["flash_prefill"][k] for k in (
             "max_logit_err", "max_kv_cache_err", "prefill_wall_s")},
         "mamba2": {"max_logit_err": mamba["max_logit_err"],
@@ -3756,6 +4164,16 @@ def main() -> int:
             # the async policy's inner rounds (11a); its apply is plain
             **({"async_launches": async_res["single"]["launches"][name]}
                if name in ("parle_inner_update", "parle_sync_update")
+               else {}),
+            # phase 12: 12a's uninterrupted pod:2 run (a rank), 12b's
+            # remat=False round
+            **({"phase12_launches": {
+                "ckpt_pod2_per_rank": pod["ckpt"]["launches"]["full"].get(
+                    name, 0),
+                "remat_round": remat["runs"]["False"]["launches"].get(
+                    name, 0)}}
+               if name in ("parle_inner_update", "parle_sync_update",
+                           "quantize_ef", "parle_apply_quantize")
                else {}),
             "max_abs_err": max(parle_errs[name], main_errs[name]),
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],

@@ -16,16 +16,36 @@ package restores into the other.
   npz before sidecar, so a sidecar that names a digest always describes
   a complete npz.  :func:`resolve` turns a directory (or a corrupt file)
   into the newest checkpoint that verifies.
+* The npz is written one member at a time in one sequential pass (each
+  member's CRC and sizes in a data descriptor after its data, as a zip
+  written to a stream has them), and its sha1 is taken from the bytes as
+  they go, in a thread: no second pass over the file.  ``np.load`` and
+  the reference read it as any npz.  :func:`restore` finds each
+  member's bytes from the headers and reads them (a rank: only its
+  rows) straight into a host buffer, pinned for a device state.
 
 :func:`restore` writes the checkpoint's values INTO the leaves of the
 ``like`` state (its device buffers) and returns it.
+
+Across the ranks of a ``ReplicaGroup`` the file is the same one: the
+state's prefix tree of replica axes (``Algorithm.state_pspecs``) says
+which fields carry the n replica rows.  :func:`save_rows` gathers those
+rows leaf by leaf to rank 0's host (``ReplicaGroup.gather_rows``), rank
+0 writes the one npz, and every rank passes a barrier; :func:`restore`
+with ``group=`` reads each such leaf's rows of the rank into its local
+(k, ...) template.  So a file written under any rank count, or by the
+reference, restores under any count that divides its n.
 """
 from __future__ import annotations
 
 import hashlib
 import json
 import os
+import queue
+import struct
+import threading
 import warnings
+import zipfile
 from typing import Any
 
 import numpy as np
@@ -34,6 +54,7 @@ import torch
 from repro_torch.utils.pytree import tree_leaves_with_paths
 
 SEP = "/"
+WRITE_CHUNK = 64 << 20     # bytes handed to the zip writer at a time
 
 
 class CheckpointCorruptError(ValueError):
@@ -68,9 +89,96 @@ def to_numpy(leaf) -> np.ndarray:
 def _file_digest(path: str) -> str:
     h = hashlib.sha1()
     with open(path, "rb") as f:
-        for block in iter(lambda: f.read(1 << 20), b""):
+        for block in iter(lambda: f.read(16 << 20), b""):
             h.update(block)
     return h.hexdigest()
+
+
+class _HashedStream:
+    """A write-only, non-seekable file over ``f`` that hashes every byte
+    written (sha1, in a thread of its own, so the digest costs no second
+    pass over the file).  Non-seekable, a ``zipfile`` writes each member
+    in one sequential pass (sizes and CRC in a data descriptor after its
+    data), so the bytes hashed are the file's.  The hash thread reads the
+    writer's buffers in place: :meth:`drain` before a buffer changes."""
+
+    def __init__(self, f):
+        self.f, self.n = f, 0
+        self.sha1 = hashlib.sha1()
+        self.q: queue.Queue = queue.Queue()
+        self.thread = threading.Thread(target=self._hash, daemon=True)
+        self.thread.start()
+
+    def _hash(self):
+        while (b := self.q.get()) is not None:
+            self.sha1.update(b)
+            self.q.task_done()
+        self.q.task_done()
+
+    def write(self, b) -> int:
+        self.f.write(b)
+        self.q.put(b)
+        n = memoryview(b).nbytes
+        self.n += n
+        return n
+
+    def drain(self):
+        """Wait until every byte written so far is hashed."""
+        self.q.join()
+
+    def tell(self) -> int:
+        return self.n
+
+    def seek(self, *args):
+        raise OSError("not seekable")
+
+    def flush(self):
+        self.f.flush()
+
+    def hexdigest(self) -> str:
+        self.q.put(None)
+        self.thread.join()
+        return self.sha1.hexdigest()
+
+
+class _NpzWriter:
+    """An npz written one array at a time (the members ``np.savez``
+    writes: ``<key>.npy``, stored, zip64) to ``<path>.tmp.<pid>``,
+    hashed as it goes; :meth:`close` fsyncs it and returns (tmp path,
+    sha1 digest)."""
+
+    def __init__(self, path: str):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self.tmp = f"{path}.tmp.{os.getpid()}"
+        self.f = open(self.tmp, "wb")
+        self.stream = _HashedStream(self.f)
+        self.zf = zipfile.ZipFile(self.stream, mode="w",
+                                  compression=zipfile.ZIP_STORED,
+                                  allowZip64=True)
+        self.keys = []
+
+    def add(self, key: str, arr: np.ndarray):
+        """One member: the .npy header (format 1.0, as ``np.save`` writes
+        it) and the array's bytes, straight from its buffer."""
+        arr = np.asarray(arr)
+        if not arr.flags.c_contiguous:
+            arr = arr.copy(order="C")
+        data = memoryview(arr.reshape(-1)).cast("B")
+        with self.zf.open(key + ".npy", "w", force_zip64=True) as fid:
+            np.lib.format.write_array_header_1_0(
+                fid, np.lib.format.header_data_from_array_1_0(arr))
+            for i in range(0, len(data), WRITE_CHUNK):
+                fid.write(data[i:i + WRITE_CHUNK])
+        self.stream.drain()         # the caller may reuse arr's buffer
+        self.keys.append(key)
+
+    def close(self):
+        self.zf.close()
+        digest = self.stream.hexdigest()
+        self.f.flush()
+        os.fsync(self.f.fileno())
+        self.f.close()
+        return self.tmp, digest
 
 
 def save(path: str, tree: Any, step: int = 0, meta: dict | None = None,
@@ -80,19 +188,55 @@ def save(path: str, tree: Any, step: int = 0, meta: dict | None = None,
     counter stamp (``Registry.counter_stamp()``), read back with
     :func:`saved_metrics`."""
     path = _npz(path)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    flat = {k: to_numpy(v) for k, v in _flat_leaves(tree).items()}
-    tmp = f"{path}.tmp.{os.getpid()}"
-    with open(tmp, "wb") as f:
-        np.savez(f, **flat)
-        f.flush()
-        os.fsync(f.fileno())
-    digest = _file_digest(tmp)
+    w = _NpzWriter(path)
+    for k, v in _flat_leaves(tree).items():
+        w.add(k, to_numpy(v))
+    _finish(path, w, step, meta, algo, metrics)
+
+
+def _is_row_key(key: str, pspecs: dict) -> bool:
+    return pspecs.get(key.split(SEP)[0]) is not None
+
+
+def save_rows(path: str, state: Any, group, pspecs: dict, step: int = 0,
+              meta: dict | None = None, algo: str | None = None,
+              metrics=None):
+    """:func:`save` of a state held across the ranks of ``group``: the
+    leaves of each field that ``pspecs`` gives a replica axis are
+    gathered to rank 0's host one at a time and written as they arrive,
+    the others are rank 0's own (every rank holds them whole), and rank
+    0 alone writes the file :func:`save` would write for the whole
+    state.  ``metrics``: a callable giving rank 0's counter stamp, read
+    after the gather.  Every rank returns after the file is complete."""
+    path = _npz(path)
+    leaves = _flat_leaves(state)
+    rows = [k for k in leaves if _is_row_key(k, pspecs)]
+    w = None
+    if group.rank == 0:
+        w = _NpzWriter(path)
+        for k, v in leaves.items():
+            if not _is_row_key(k, pspecs):
+                w.add(k, to_numpy(v))
+    if rows:                    # SGD has no row field: nothing to gather
+        group.gather_rows([leaves[k] for k in rows],
+                          each=None if w is None else
+                          lambda i, t: w.add(rows[i], to_numpy(t)))
+    if w is not None:
+        _finish(path, w, step, meta, algo,
+                metrics() if metrics is not None else None)
+    group.barrier()
+
+
+def _finish(path: str, w: _NpzWriter, step, meta, algo, metrics):
+    """Close ``w``, move its npz into place, then write the sidecar (tmp
+    -> fsync -> ``os.replace``), so a sidecar naming a digest always
+    describes a complete npz."""
+    tmp, digest = w.close()
     os.replace(tmp, path)
     meta = dict(meta or {})
     if algo is not None:
         meta["algo"] = algo
-    sidecar = {"step": int(step), "keys": sorted(flat.keys()),
+    sidecar = {"step": int(step), "keys": sorted(w.keys),
                "digest": digest, "meta": meta}
     if metrics:
         sidecar["metrics"] = metrics
@@ -216,63 +360,116 @@ _NP_DTYPES = {torch.float32: np.float32, torch.int32: np.int32,
               torch.int64: np.int64, torch.float64: np.float64}
 
 
-def restore(path: str, like: Any, algo: str | None = None) -> Any:
+def _members(path: str) -> dict:
+    """{key: (byte offset of its data, shape, dtype)} of every
+    ``<key>.npy`` member of the npz at ``path`` (stored, not compressed,
+    by either package's writer), read from the zip's and the .npy
+    headers alone."""
+    out = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        for info in zf.infolist():
+            if not info.filename.endswith(".npy"):
+                continue
+            if info.compress_type != zipfile.ZIP_STORED:
+                raise ValueError(f"checkpoint {path!r}: member "
+                                 f"{info.filename!r} is compressed")
+            f.seek(info.header_offset)
+            name_len, extra_len = struct.unpack("<HH", f.read(30)[26:30])
+            f.seek(info.header_offset + 30 + name_len + extra_len)
+            version = np.lib.format.read_magic(f)
+            read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                    else np.lib.format.read_array_header_2_0)
+            shape, fortran, dtype = read(f)
+            if fortran and len(shape) > 1:
+                raise ValueError(f"checkpoint {path!r}: member "
+                                 f"{info.filename!r} is in Fortran order")
+            out[info.filename[:-4]] = (f.tell(), tuple(shape), dtype)
+    return out
+
+
+def restore(path: str, like: Any, algo: str | None = None, group=None,
+            pspecs: dict | None = None, resolved: bool = False) -> Any:
     """Restore into ``like`` (a state with ``tree()``, or a nested dict
     of tensors): every leaf is validated by shape and dtype against the
-    checkpoint, naming the offending key, then overwritten IN PLACE.
-    Returns ``like``.
+    checkpoint, naming the offending key, then overwritten IN PLACE, one
+    leaf at a time (host memory holds one leaf's copy).  Returns
+    ``like``.
 
-    The path goes through :func:`resolve` first.  ``algo``: expected
-    algorithm name; raises ValueError when the sidecar was stamped by a
-    different algorithm."""
-    path = resolve(path)
+    The path goes through :func:`resolve` first, unless ``resolved``
+    (the caller resolved it).  ``algo``: expected algorithm name; raises
+    ValueError when the sidecar was stamped by a different algorithm.
+    ``group`` (a ``ReplicaGroup`` of several ranks) and ``pspecs`` (the
+    algorithm's ``state_pspecs``): ``like`` holds the rank's k rows of
+    each field with a replica axis, and gets rows ``group.rows`` of the
+    checkpoint's n (which must be ``group.n``); only those rows are
+    read."""
+    if not resolved:
+        path = resolve(path)
     if algo is not None:
         stamped = saved_meta(path).get("algo")
         if stamped is not None and stamped != algo:
             raise ValueError(
                 f"checkpoint {path!r} was written by algo {stamped!r}; "
                 f"refusing to restore it as {algo!r}")
-    data = np.load(path)
+    rows = group is not None and not group.trivial
     leaves = _flat_leaves(like)
-    for key in leaves:
-        if key not in data:
-            raise KeyError(f"checkpoint missing key {key}")
-    loaded = {}
+    members = _members(path)
+    spans = {}                  # key: (byte offset, bytes) to read
     for key, leaf in leaves.items():
-        arr = data[key]
-        if leaf.dtype == torch.bfloat16:
-            if arr.dtype != np.uint16:
-                raise ValueError(
-                    f"checkpoint leaf {key!r} has dtype {arr.dtype} but the "
-                    f"restore template expects bfloat16 (stored as uint16 "
-                    f"bits); restore with a matching-precision state")
-            src = torch.from_numpy(
-                np.array(arr, copy=True).view(np.int16)).view(torch.bfloat16)
-        else:
-            if arr.dtype == np.uint16:
-                raise ValueError(
-                    f"checkpoint leaf {key!r} was saved as bfloat16 bits "
-                    f"but the restore template expects {leaf.dtype}; "
-                    "restore with a matching-precision state (e.g. "
-                    "--precision bf16)")
-            want = _NP_DTYPES.get(leaf.dtype)
-            if arr.dtype != want:
-                raise ValueError(
-                    f"checkpoint leaf {key!r} has dtype {arr.dtype} but the "
-                    f"restore template expects {leaf.dtype}; restore with a "
-                    f"matching-precision state (a float32 checkpoint does "
-                    f"not restore into a --precision bf16 template)")
-            src = torch.from_numpy(np.array(arr, copy=True))
-        if tuple(src.shape) != tuple(leaf.shape):
-            raise ValueError(
-                f"checkpoint leaf {key!r} has shape {tuple(src.shape)} "
-                f"but the restore template expects {tuple(leaf.shape)} — "
-                f"checkpoint from a different --arch/--replicas/config?")
-        loaded[key] = src
-    with torch.no_grad():
+        if key not in members:
+            raise KeyError(f"checkpoint missing key {key}")
+        off, shape, dtype = members[key]
+        want_shape = tuple(leaf.shape)
+        nbytes = leaf.numel() * leaf.element_size()
+        if rows and _is_row_key(key, pspecs):
+            want_shape = (group.n,) + want_shape[1:]
+            off += group.rows.start * nbytes // group.local
+        _check_leaf(key, leaf, shape, dtype, want_shape)
+        spans[key] = (off, nbytes)
+    # each leaf's bytes (a rank's rows: one contiguous range) read
+    # straight into one host buffer, pinned for a device template
+    cuda = any(t.device.type != "cpu" for t in leaves.values())
+    stage = torch.empty(max([n for _, n in spans.values()] + [1]),
+                        dtype=torch.uint8, pin_memory=cuda)
+    with open(path, "rb") as f, torch.no_grad():
         for key, leaf in leaves.items():
-            leaf.copy_(loaded[key])
+            off, nbytes = spans[key]
+            f.seek(off)
+            if f.readinto(stage[:nbytes].numpy()) != nbytes:
+                raise CheckpointCorruptError(
+                    f"checkpoint {path!r}: leaf {key!r} is truncated")
+            leaf.copy_(stage[:nbytes].view(leaf.dtype).view(leaf.shape))
     return like
+
+
+def _check_leaf(key, leaf, shape, dtype, want_shape):
+    """Raise naming ``key`` when the checkpoint's (shape, dtype) does not
+    fit the template leaf (``want_shape``: its shape in the file)."""
+    if leaf.dtype == torch.bfloat16:
+        if dtype != np.uint16:
+            raise ValueError(
+                f"checkpoint leaf {key!r} has dtype {dtype} but the "
+                f"restore template expects bfloat16 (stored as uint16 "
+                f"bits); restore with a matching-precision state")
+    else:
+        if dtype == np.uint16:
+            raise ValueError(
+                f"checkpoint leaf {key!r} was saved as bfloat16 bits "
+                f"but the restore template expects {leaf.dtype}; "
+                "restore with a matching-precision state (e.g. "
+                "--precision bf16)")
+        want = _NP_DTYPES.get(leaf.dtype)
+        if dtype != want:
+            raise ValueError(
+                f"checkpoint leaf {key!r} has dtype {dtype} but the "
+                f"restore template expects {leaf.dtype}; restore with a "
+                f"matching-precision state (a float32 checkpoint does "
+                f"not restore into a --precision bf16 template)")
+    if shape != want_shape:
+        raise ValueError(
+            f"checkpoint leaf {key!r} has shape {shape} "
+            f"but the restore template expects {want_shape} — "
+            f"checkpoint from a different --arch/--replicas/config?")
 
 
 def load_flat(path: str) -> dict:

@@ -27,6 +27,12 @@ n=1, §2.1/§3), ``elastic_sgd`` (Eq. 7, coupled every step) and ``sgd``
                              -> flush(state) -> state, the end-of-training
                                 apply of the in-flight consensus; None
                                 unless cfg.sync_overlap
+  state_pspecs(replica_axis="pod", cfg=None)
+                             -> a prefix tree of the state (its top-level
+                                fields, as in ``state.tree()``): the
+                                replica axis's name for a field that
+                                carries it (a rank holds its rows), None
+                                for one every rank holds whole
   deployable(state, group=None)
                              -> the single servable param tree (Parle:
                                 the mean over every rank's rows)
@@ -136,6 +142,19 @@ class ParleAlgorithm:
         return parle.make_flush_fn(
             cfg, lr_schedule=resolve_lr_schedule(cfg, lr_schedule))
 
+    def state_pspecs(self, replica_axis: str = "pod", cfg=None) -> dict:
+        """x, y, z, both momenta and the residual ``e`` carry the replica
+        axis; the step, the scopes and the in-flight consensus ``c`` do
+        not (``repro/sharding/partition.py::parle_state_pspecs``)."""
+        specs = {f: replica_axis for f in ("x", "y", "z", "v_y", "v_x")}
+        specs.update(step=None, scopes=None)
+        if cfg is not None and getattr(cfg, "sync_compress",
+                                       "none") != "none":
+            specs["e"] = replica_axis
+        if cfg is not None and getattr(cfg, "sync_overlap", False):
+            specs["c"] = None
+        return specs
+
     def deployable(self, state, group=None):
         return parle.average_model(state, group)
 
@@ -224,6 +243,13 @@ class ElasticSGDAlgorithm:
         del cfg, lr_schedule    # per-step coupling: nothing in flight
         return None
 
+    def state_pspecs(self, replica_axis: str = "pod", cfg=None) -> dict:
+        """The workers and their momentum carry the replica axis; the
+        reference variable does not (``elastic_state_pspecs``)."""
+        del cfg
+        return {"x": replica_axis, "v": replica_axis, "ref": None,
+                "step": None, "scopes": None}
+
     def deployable(self, state, group=None):
         del group           # ref is whole on every rank
         return elastic_sgd.average_model(state)
@@ -274,6 +300,12 @@ class SGDAlgorithm:
     def make_round_flush_fn(self, cfg, *, lr_schedule=None):
         del cfg, lr_schedule    # grads averaged every step: no sync debt
         return None
+
+    def state_pspecs(self, replica_axis: str = "pod", cfg=None) -> dict:
+        """Nothing carries the replica axis: every rank holds the one
+        model (``sgd_state_pspecs``)."""
+        del replica_axis, cfg
+        return {"params": None, "v": None, "step": None}
 
     def deployable(self, state, group=None):
         del group

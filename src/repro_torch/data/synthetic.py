@@ -9,12 +9,13 @@ batch equal the reference's bit for bit; the tensors live on the task's
 device.
 
 The same deterministic Markov structure: next token = (prev * 31 + 7)
-% V half the time, a uniform draw otherwise.  The draws come from a
-``torch.Generator`` on the stream's device, seeded per (step, shard) as
-the reference keys its threefry PRNG — so batches are deterministic and
-made on the device, but they are NOT the reference's numbers (threefry
-is not reproduced; the parity tests feed the reference's batches
-through numpy).
+% V half the time, a uniform draw otherwise.  The draws are the
+reference's own: threefry-2x32 keyed per (step, shard) as
+``jax.random.PRNGKey(seed * 100003 + base_idx)``, then ``randint`` and
+``bernoulli(fold_in(key, 1), 0.5)`` (``data/threefry.py``), made on the
+stream's device in integer arithmetic — so every batch, split or
+interleaved, and every staged round equal the reference's bit for bit,
+on the CPU and on the card.
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from repro_torch.data import threefry
 
 
 @dataclass
@@ -47,12 +50,12 @@ def _token_batch(step, idx, cnt, seed, batch_size, seq_len, vocab_size,
     block; split=False interleaves all shards through the full stream.
     ``num_codebooks`` K > 0 gives (B, K, T) tokens and labels."""
     base_idx = idx * (1 << 20) + step if split else step * cnt + idx
-    gen = torch.Generator(device=device).manual_seed(seed * 100003 + base_idx)
+    key = threefry.prng_key(seed * 100003 + base_idx, device)
     shape = ((batch_size, num_codebooks, seq_len + 1) if num_codebooks
              else (batch_size, seq_len + 1))
-    base = torch.randint(0, vocab_size, shape, generator=gen, device=device)
+    base = threefry.randint(key, shape, 0, vocab_size)
     nxt = (base[..., :-1] * 31 + 7) % vocab_size
-    coin = torch.rand(nxt.shape, generator=gen, device=device) < 0.5
+    coin = threefry.bernoulli(threefry.fold_in(key, 1), 0.5, nxt.shape)
     seq = torch.cat([base[..., :1], torch.where(coin, nxt, base[..., 1:])],
                     dim=-1)
     return {"tokens": seq[..., :-1].to(torch.int32),

@@ -20,12 +20,15 @@ replica average; for Elastic-SGD, the reference variable ``ref``; for
 SGD, its ``params``.  A fresh Parle state's replicas all equal the init,
 so its average is taken over the init broadcast to ``--replicas`` rows
 without building the n-replica state; a fresh Elastic-SGD ``ref`` and a
-fresh SGD ``params`` are the init itself.  Prompts come from a numpy
-generator seeded by ``--seed``; a vlm request's patch embeddings and an
-audio request's conditioning frames from a second numpy generator
-(seeded by ``(--seed, 1)``), so they never share a stream with the
-prompts or the params, as the reference splits its keys.  Audio prompts
-are (K, T) over the config's codebooks.
+fresh SGD ``params`` are the init itself.  Prompts are the reference's:
+step 0 of the token stream (``TokenStream(vocab, max(lens), requests,
+--seed, K).batch(0)``, threefry, ``data/threefry.py``), each request
+its row cut to its length, so both packages serve the same prompts.  A
+vlm request's patch embeddings and an audio request's conditioning
+frames are float draws (``jax.random.normal`` in the reference, which
+the port does not reproduce): they come from a numpy generator seeded
+by ``(--seed, 1)``, never a stream of the prompts or the params.  Audio
+prompts are (K, T) over the config's codebooks.
 
 Modes:
 
@@ -59,6 +62,7 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import ParleConfig, get_config, smoke_variant
 from repro_torch.core import parle, registry
+from repro_torch.data.synthetic import TokenStream
 from repro_torch.models.model import build_model, cache_positions
 from repro_torch.obs import Obs
 from repro_torch.runtime.precision import pin_float32
@@ -82,15 +86,14 @@ def prompt_lengths(args):
 
 
 def make_requests(cfg, args):
-    """Per-request prompts drawn from ``np.random.default_rng(--seed)``,
-    plus the vlm / audio conditioning from ``default_rng((--seed, 1))``
-    (standard normal, float32)."""
+    """Per-request prompts from step 0 of the token stream (the
+    reference's ``_make_requests``), plus the vlm / audio conditioning
+    from ``default_rng((--seed, 1))`` (standard normal, float32)."""
     lens = prompt_lengths(args)
-    rng = np.random.default_rng(args.seed)
-    lead = ((args.requests, cfg.num_codebooks) if cfg.family == "audio"
-            else (args.requests,))
-    toks = rng.integers(0, cfg.vocab_size, size=lead + (max(lens),),
-                        dtype=np.int32)
+    toks = TokenStream(vocab_size=cfg.vocab_size, seq_len=max(lens),
+                       batch_size=args.requests, seed=args.seed,
+                       num_codebooks=cfg.num_codebooks).batch(0)[
+        "tokens"].numpy()
     cond_rng = np.random.default_rng((args.seed, 1))
     out = []
     for i, T in enumerate(lens):

@@ -14,6 +14,9 @@
    (8a-8b), sync_step (8c-8d) and their fused step.
  * ``make_prefill_step`` / ``make_decode_step`` — serving programs.
 
+``remat`` (False, True or "dots") recomputes each block of the training
+forward in the backward (``models/transformer.py::_remat``): less
+activation memory for more compute, the same values bit for bit.
 ``use_flash=True`` routes full causal attention (the dense, moe, hybrid,
 vlm and audio families) through the flash-attention kernel K3.  It is forward only, as in the
 reference: ``make_prefill_step`` and ``Model.apply`` run it, and a
@@ -30,41 +33,42 @@ from repro_torch.models.model import build_model
 from repro_torch.runtime import policy_for
 
 
-def make_loss_fn(cfg, use_flash: bool = False):
-    return build_model(cfg, use_flash=use_flash).loss
+def make_loss_fn(cfg, use_flash: bool = False, remat=False):
+    return build_model(cfg, use_flash=use_flash, remat=remat).loss
 
 
 def make_algorithm_step(algo_name: str, cfg, pcfg, weight_decay: float = 0.0,
-                        use_flash: bool = False, use_kernel: bool = False,
-                        lr_schedule=None):
+                        use_flash: bool = False, remat=False,
+                        use_kernel: bool = False, lr_schedule=None):
     """step(state, batch) -> (state, metrics) for any registered algo.
     ``batch`` leaves carry a leading replica axis of pcfg.n_replicas."""
     return policy_for(pcfg).make_step_fn(
-        registry.get(algo_name), make_loss_fn(cfg, use_flash), pcfg,
+        registry.get(algo_name), make_loss_fn(cfg, use_flash, remat), pcfg,
         weight_decay=weight_decay, use_kernel=use_kernel,
         lr_schedule=lr_schedule)
 
 
 def make_algorithm_sharded_step(algo_name: str, cfg, pcfg, mesh,
                                 weight_decay: float = 0.0,
-                                use_flash: bool = False,
+                                use_flash: bool = False, remat=False,
                                 use_kernel: bool = False, lr_schedule=None):
     """The step with the replica axis over the ranks of ``mesh`` (a
     ``ReplicaGroup``): ``batch`` leaves carry the rank's k replicas."""
     return policy_for(pcfg).make_step_fn(
-        registry.get(algo_name), make_loss_fn(cfg, use_flash), pcfg,
+        registry.get(algo_name), make_loss_fn(cfg, use_flash, remat), pcfg,
         mesh=mesh, weight_decay=weight_decay, use_kernel=use_kernel,
         lr_schedule=lr_schedule)
 
 
 def make_algorithm_round(algo_name: str, cfg, pcfg, mesh=None,
                          weight_decay: float = 0.0, use_flash: bool = False,
-                         use_kernel: bool = False, lr_schedule=None):
+                         remat=False, use_kernel: bool = False,
+                         lr_schedule=None):
     """The fused L-step round for any registered algo: round(state,
     batches) -> (state, metrics) with batches leaves (L, n, B, ...)
     (with ``mesh``, a ``ReplicaGroup``: (L, k, B, ...))."""
     return policy_for(pcfg).make_round_fn(
-        registry.get(algo_name), make_loss_fn(cfg, use_flash), pcfg,
+        registry.get(algo_name), make_loss_fn(cfg, use_flash, remat), pcfg,
         mesh=mesh, weight_decay=weight_decay, use_kernel=use_kernel,
         lr_schedule=lr_schedule)
 
@@ -80,10 +84,11 @@ def make_algorithm_round_flush(algo_name: str, pcfg, lr_schedule=None):
 
 
 def make_parle_steps(cfg, pcfg, weight_decay: float = 0.0,
-                     use_flash: bool = False, use_kernel: bool = False):
+                     use_flash: bool = False, remat=False,
+                     use_kernel: bool = False):
     """(inner_step, sync_step, fused_step) of Parle over its flat state;
     inner_step and fused_step take batches with a leading replica axis."""
-    loss_fn = make_loss_fn(cfg, use_flash)
+    loss_fn = make_loss_fn(cfg, use_flash, remat)
     gbuf = parle_mod.GradBuffer()
 
     def grads(state, batch):

@@ -46,17 +46,25 @@ Without a world, ``--mesh`` with an axis above 1 exits saying how to
 start one; ``pod:1`` is the single-process run.
 
 Params are drawn from a ``torch.Generator`` seeded by ``--seed`` on the
-training device, and so are the batches: neither is the reference's
-threefry stream.  Every rank draws the same params, and the batches of
-its own replicas.  ``--sync-policy async`` exits pointing at the pod
-launcher (``launch/dist_run.py``), as the reference's does.  Not ported
-yet, each exiting with the ROADMAP.md item that ports it: axes inside a
-replica in ``--mesh`` (queue 1 item 6), ``--checkpoint-dir`` /
-``--resume`` under more than one rank (item 3a); ``--host-devices`` is
-the reference's XLA CPU mesh and has no counterpart.  The vlm and audio families need
-batches with ``patch_embeds`` / ``cond``, which the token stream does
-not draw (as in the reference's CLI): they train through the Algorithm
-API with their own batches.
+training device (not the reference's init: its float draws go through
+XLA's ``erf_inv``).  The batches are the reference's token stream bit
+for bit (threefry, ``data/threefry.py``), drawn on the device.  Every
+rank draws the same params, and the batches of its own replicas.
+
+``--checkpoint-dir`` / ``--resume`` work under ``--mesh`` too: a
+checkpoint gathers the rows of the fields that carry the replica axis
+(``Algorithm.state_pspecs``) to rank 0, which writes the one file of the
+reference's format; a resume resolves one file for every rank (rank 0
+resolves, then broadcasts) and each rank restores its own rows.  The
+same file resumes under any rank count that divides its replicas, in one
+process, and in the reference.  ``--sync-policy async`` exits pointing
+at the pod launcher (``launch/dist_run.py``), as the reference's does.
+Not ported yet, exiting with the ROADMAP.md item that ports it: axes
+inside a replica in ``--mesh`` (queue 1 item 6); ``--host-devices`` is
+the reference's XLA CPU mesh and has no counterpart.  The vlm and audio
+families need batches with ``patch_embeds`` / ``cond``, which the token
+stream does not draw (as in the reference's CLI): they train through the
+Algorithm API with their own batches.
 """
 from __future__ import annotations
 
@@ -82,6 +90,7 @@ from repro_torch.obs import Obs
 from repro_torch.runtime import (CheckpointSpec, RoundRunner, emit_progress,
                                  resolve_train_policy)
 from repro_torch.runtime.precision import pin_float32
+from repro_torch.sharding.partition import active
 
 
 def build_argparser():
@@ -175,12 +184,6 @@ def parse_args(argv=None):
     return args
 
 
-CHECKPOINT_ACROSS_RANKS = (
-    "--checkpoint-dir / --resume under a --mesh of more than one rank: "
-    "the checkpoint holds all n replica rows, which would gather to one "
-    "rank; not ported yet (ROADMAP.md queue 1, item 3a)")
-
-
 def parle_config(args, algo) -> ParleConfig:
     drops = tuple(int(s) for s in args.lr_drop_steps.split(",") if s)
     default_n = 3
@@ -214,9 +217,25 @@ def make_group(args, pcfg, obs):
         group = mesh_mod.group_from_spec(args.mesh, pcfg.n_replicas, obs)
     except RuntimeError as e:
         raise SystemExit(str(e)) from None
-    if group.world > 1 and (args.checkpoint_dir or args.resume):
-        raise SystemExit(CHECKPOINT_ACROSS_RANKS)
     return group
+
+
+def resolve_resume(path: str, group) -> str:
+    """``ckpt.resolve`` of ``--resume``; under a group of several ranks
+    rank 0 resolves it and broadcasts the file (or its error), so a
+    corrupt-newest fallback picks the same file for every rank."""
+    if active(group) is None:
+        return ckpt.resolve(path)
+    got = [None]
+    if group.rank == 0:
+        try:
+            got[0] = ckpt.resolve(path)
+        except (FileNotFoundError, ckpt.CheckpointCorruptError) as e:
+            got[0] = e
+    dist.broadcast_object_list(got, src=0, group=group.pg)
+    if isinstance(got[0], Exception):
+        raise got[0]
+    return got[0]
 
 
 def run(args, cfg, device, obs, pre_round=None, on_round=None):
@@ -239,9 +258,12 @@ def run(args, cfg, device, obs, pre_round=None, on_round=None):
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = algo.init(model.init(gen), pcfg, group)
     start = 0
+    pspecs = algo.state_pspecs(group.axis if group else "pod", pcfg)
     if args.resume:
-        args.resume = ckpt.resolve(args.resume)
-        state = ckpt.restore(args.resume, state, algo=args.algo)
+        with obs.tracer.span("restore", cat="io"):
+            args.resume = resolve_resume(args.resume, group)
+            state = ckpt.restore(args.resume, state, algo=args.algo,
+                                 group=group, pspecs=pspecs, resolved=True)
         try:                    # continue the stream + checkpoint numbering
             start = ckpt.latest_step(args.resume)
         except FileNotFoundError:       # sidecar-less foreign checkpoint
@@ -252,7 +274,7 @@ def run(args, cfg, device, obs, pre_round=None, on_round=None):
     t0 = time.time()
     runner = RoundRunner(obs, ns="train", checkpoint=CheckpointSpec(
         dir=args.checkpoint_dir, every=args.checkpoint_every,
-        algo=args.algo, arch=cfg.name), group=group)
+        algo=args.algo, arch=cfg.name, pspecs=pspecs), group=group)
     if group is not None:
         rec = obs.emit("mesh", mesh=mesh_mod.parse_mesh_spec(args.mesh),
                        replica_axis=group.axis, in_replica_axes=[],

@@ -63,23 +63,24 @@ def _zero_trick(params, x):
     return zero_tokens, x - params["embed"][0][zero_tokens]
 
 
-def forward_hidden(params, cfg, tokens, cond=None, use_flash=False):
+def forward_hidden(params, cfg, tokens, cond=None, use_flash=False,
+                   remat=False):
     """Returns final-normed hidden over the token region: (B, T, d)."""
     B, K, T = tokens.shape
     x = _with_cond(_embed(params, tokens), cond)
     Tt = x.shape[1]
     h, aux = transformer.stack_forward(
         params, cfg, x, transformer._positions(B, Tt, x.device),
-        use_flash=use_flash)
+        use_flash=use_flash, remat=remat)
     return rms_norm(h[:, -T:], params["ln_f"], cfg.norm_eps), aux
 
 
-def forward(params, cfg, tokens, cond=None, use_flash=False):
+def forward(params, cfg, tokens, cond=None, use_flash=False, remat=False):
     """tokens: (B, K, T); cond: (B, cond_len, d).
     Returns logits (B, T, K, V) over the token region only."""
     B, K, T = tokens.shape
     h, aux = forward_hidden(params, cfg, tokens, cond=cond,
-                            use_flash=use_flash)
+                            use_flash=use_flash, remat=remat)
     return (h @ params["head"]).reshape(B, T, K, cfg.vocab_size), aux
 
 

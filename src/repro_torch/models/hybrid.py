@@ -27,7 +27,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
 from repro_torch.models.layers import (dense_init, device_index, embed_init,
                                        rms_norm, swiglu)
-from repro_torch.models.transformer import _positions, layer_params
+from repro_torch.models.transformer import _positions, _remat, layer_params
 
 
 class HybridCache(NamedTuple):
@@ -92,25 +92,31 @@ def _logits(params, cfg, x):
     return rms_norm(x, params["ln_f"], cfg.norm_eps) @ params["head"]
 
 
-def forward_hidden(params, cfg, tokens, use_flash=False, use_kernel=False):
-    """Returns (final-normed hidden (B, T, d), aux_loss = 0)."""
+def forward_hidden(params, cfg, tokens, remat=False, use_flash=False,
+                   use_kernel=False):
+    """Returns (final-normed hidden (B, T, d), aux_loss = 0).  ``remat``
+    recomputes the SSM blocks in the backward, not the shared attention
+    block (as the reference)."""
     B, T = tokens.shape
     x = params["embed"][tokens]
     positions = _positions(B, T, x.device)
     sp = params["shared_attn"]
+    ssm_body = _remat(lambda lp, h: mamba2.ssm_block_forward(
+        lp, cfg, h, use_kernel=use_kernel)[0], remat)
     for _, group in _groups(params, cfg):
         for _, lp in group:
-            x, _ = mamba2.ssm_block_forward(lp, cfg, x, use_kernel=use_kernel)
+            x = ssm_body(lp, x)
         x = _shared_block(sp, cfg, x, lambda u: attn.attn_forward(
             sp["attn"], cfg, u, positions, use_flash=use_flash))
     return (rms_norm(x, params["ln_f"], cfg.norm_eps),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def forward(params, cfg, tokens, use_flash=False, use_kernel=False):
+def forward(params, cfg, tokens, remat=False, use_flash=False,
+            use_kernel=False):
     """tokens: (B, T) -> logits (B, T, V), aux_loss."""
-    h, aux = forward_hidden(params, cfg, tokens, use_flash=use_flash,
-                            use_kernel=use_kernel)
+    h, aux = forward_hidden(params, cfg, tokens, remat=remat,
+                            use_flash=use_flash, use_kernel=use_kernel)
     return h @ params["head"], aux
 
 

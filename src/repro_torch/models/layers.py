@@ -9,6 +9,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def dense_init(generator: torch.Generator, shape, in_axis=-2,
@@ -67,6 +68,17 @@ def rope_frequencies(head_dim: int, theta: float, device=None):
     return 1.0 / (theta ** exps)
 
 
+def _chunk_nll_sum(hc, head_w, lc, num_streams: int):
+    """Summed next-token NLL of one T-chunk: its logits, logsumexp minus
+    the gold logit."""
+    logits = (hc @ head_w).float()
+    if num_streams:
+        logits = logits.reshape(*logits.shape[:2], num_streams, -1)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lc[..., None].long())[..., 0]
+    return (lse - gold).sum()
+
+
 def chunked_cross_entropy(h, head_w, labels, chunk: int = 512,
                           num_streams: int = 0):
     """Mean next-token CE computed in T-chunks so the (B, T, V) logits
@@ -74,23 +86,21 @@ def chunked_cross_entropy(h, head_w, labels, chunk: int = 512,
 
     h: (B, T, d); head_w: (d, V) or (d, K*V); labels: (B, T) int, or
     (B, T, K) with ``num_streams=K`` for multi-codebook (audio) heads.
-    The reference rematerializes each chunk in the backward
-    (``jax.checkpoint``); here autograd keeps each chunk's logits for the
-    backward — one chunk is B x chunk x V floats (311 MB at B 2, T 256,
-    V 151936), and the single-chunk case (T not a multiple of ``chunk``)
-    has nothing to recompute anyway."""
+    Each chunk runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint``): the backward recomputes one chunk's logits at a
+    time, so it holds O(B x chunk x V) floats (311 MB at B 1, chunk 512,
+    V 151936), not the whole (B, T, V); the recompute runs the same ops,
+    so the values and grads are those of the saved forward bit for bit.
+    The single-chunk case (T not a multiple of ``chunk``) recomputes its
+    one chunk too."""
     B, T, d = h.shape
     if T % chunk:
         chunk = T                       # degenerate: single chunk
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, T, chunk):
-        logits = (h[:, i:i + chunk] @ head_w).float()
-        if num_streams:
-            logits = logits.reshape(*logits.shape[:2], num_streams, -1)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, labels[:, i:i + chunk, ..., None].long())[
-            ..., 0]
-        total = total + (lse - gold).sum()
+        total = total + checkpoint(_chunk_nll_sum, h[:, i:i + chunk], head_w,
+                                   labels[:, i:i + chunk], num_streams,
+                                   use_reentrant=False)
     return total / (B * T * (num_streams or 1))
 
 

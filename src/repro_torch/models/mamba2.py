@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.models.layers import (dense_init, device_index, embed_init,
                                        rms_norm, silu, softplus)
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import _remat, layer_params
 
 
 class SSMCache(NamedTuple):
@@ -291,18 +291,22 @@ def _logits(params, cfg, x):
     return rms_norm(x, params["ln_f"], cfg.norm_eps) @ params["head"]
 
 
-def forward_hidden(params, cfg, tokens, use_kernel=False):
-    """Returns (final-normed hidden (B, T, d), aux_loss = 0)."""
+def forward_hidden(params, cfg, tokens, remat=False, use_kernel=False):
+    """Returns (final-normed hidden (B, T, d), aux_loss = 0).  ``remat``:
+    each SSM block recomputed in the backward (``transformer._remat``)."""
+    body = _remat(lambda lp, h: ssm_block_forward(
+        lp, cfg, h, use_kernel=use_kernel)[0], remat)
     x = params["embed"][tokens]
     for lp in _layers(params, cfg):
-        x, _ = ssm_block_forward(lp, cfg, x, use_kernel=use_kernel)
+        x = body(lp, x)
     return (rms_norm(x, params["ln_f"], cfg.norm_eps),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def forward(params, cfg, tokens, use_kernel=False):
+def forward(params, cfg, tokens, remat=False, use_kernel=False):
     """tokens: (B, T) -> logits (B, T, V), aux_loss."""
-    h, aux = forward_hidden(params, cfg, tokens, use_kernel=use_kernel)
+    h, aux = forward_hidden(params, cfg, tokens, remat=remat,
+                            use_kernel=use_kernel)
     return h @ params["head"], aux
 
 

@@ -146,9 +146,12 @@ def _audio_loss(hidden_fn, cfg):
     return loss
 
 
-def build_model(cfg, use_flash: bool = False,
+def build_model(cfg, use_flash: bool = False, remat=False,
                 use_paged_kernel: bool = False) -> Model:
-    """``use_flash`` sends full causal attention (``apply``, ``loss`` and,
+    """``remat`` (False, True or "dots"; ``transformer._remat``) recomputes
+    each block of the training forward in the backward; it reaches
+    ``loss`` and ``apply`` only, as in the reference.  ``use_flash``
+    sends full causal attention (``apply``, ``loss`` and,
     where the reference passes it, ``prefill``) through the
     flash-attention kernel (K3; forward only, as the reference);
     ``use_paged_kernel`` sends paged decode attention through the
@@ -163,14 +166,14 @@ def build_model(cfg, use_flash: bool = False,
             init=lambda generator, dtype=torch.float32:
                 tfm.init_params(generator, cfg, dtype),
             apply=lambda p, b: tfm.forward(p, cfg, b["tokens"],
-                                           use_flash=use_flash),
+                                           use_flash=use_flash, remat=remat),
             init_cache=lambda p, bs, ml, dtype=torch.float32:
                 tfm.init_cache(p, cfg, bs, ml, dtype),
             prefill=lambda p, b, c, valid=None:
                 tfm.prefill(p, cfg, b["tokens"], c, use_flash=use_flash),
             decode=lambda p, b, c: tfm.decode_step(p, cfg, b["tokens"], c),
             loss=_lm_loss(lambda p, b: tfm.forward_hidden(
-                p, cfg, b["tokens"], use_flash=use_flash), cfg),
+                p, cfg, b["tokens"], use_flash=use_flash, remat=remat), cfg),
             init_paged_cache=lambda p, bs, np_, ps, mp, dtype=torch.float32:
                 tfm.init_paged_cache(p, cfg, bs, np_, ps, mp, dtype),
             prefill_chunk=lambda p, b, c, slot, frontier, valid, total:
@@ -187,7 +190,8 @@ def build_model(cfg, use_flash: bool = False,
             cfg=cfg,
             init=lambda generator, dtype=torch.float32:
                 ssm_mod.init_params(generator, cfg, dtype),
-            apply=lambda p, b: ssm_mod.forward(p, cfg, b["tokens"]),
+            apply=lambda p, b: ssm_mod.forward(p, cfg, b["tokens"],
+                                               remat=remat),
             init_cache=lambda p, bs, ml, dtype=torch.float32:
                 ssm_mod.init_cache(cfg, bs, dtype,
                                    device=p["embed"].device),
@@ -196,7 +200,7 @@ def build_model(cfg, use_flash: bool = False,
             decode=lambda p, b, c: ssm_mod.decode_step(p, cfg, b["tokens"],
                                                        c),
             loss=_lm_loss(lambda p, b: ssm_mod.forward_hidden(
-                p, cfg, b["tokens"]), cfg),
+                p, cfg, b["tokens"], remat=remat), cfg),
             init_paged_cache=lambda p, bs, np_, ps, mp, dtype=torch.float32:
                 ssm_mod.init_paged_cache(p, cfg, bs, np_, ps, mp, dtype),
             prefill_chunk=lambda p, b, c, slot, frontier, valid, total:
@@ -213,6 +217,7 @@ def build_model(cfg, use_flash: bool = False,
             init=lambda generator, dtype=torch.float32:
                 hybrid_mod.init_params(generator, cfg, dtype),
             apply=lambda p, b: hybrid_mod.forward(p, cfg, b["tokens"],
+                                                  remat=remat,
                                                   use_flash=use_flash),
             init_cache=lambda p, bs, ml, dtype=torch.float32:
                 hybrid_mod.init_cache(cfg, bs, ml, dtype,
@@ -223,7 +228,7 @@ def build_model(cfg, use_flash: bool = False,
             decode=lambda p, b, c: hybrid_mod.decode_step(p, cfg,
                                                           b["tokens"], c),
             loss=_lm_loss(lambda p, b: hybrid_mod.forward_hidden(
-                p, cfg, b["tokens"], use_flash=use_flash), cfg),
+                p, cfg, b["tokens"], remat=remat, use_flash=use_flash), cfg),
             init_paged_cache=lambda p, bs, np_, ps, mp, dtype=torch.float32:
                 hybrid_mod.init_paged_cache(p, cfg, bs, np_, ps, mp, dtype),
             prefill_chunk=lambda p, b, c, slot, frontier, valid, total:
@@ -242,7 +247,8 @@ def build_model(cfg, use_flash: bool = False,
                 vlm_mod.init_params(generator, cfg, dtype),
             apply=lambda p, b: vlm_mod.forward(p, cfg, b["tokens"],
                                                b["patch_embeds"],
-                                               use_flash=use_flash),
+                                               use_flash=use_flash,
+                                               remat=remat),
             init_cache=lambda p, bs, ml, dtype=torch.float32:
                 vlm_mod.init_cache(p, cfg, bs, ml, dtype),
             prefill=lambda p, b, c, valid=None:
@@ -251,7 +257,7 @@ def build_model(cfg, use_flash: bool = False,
                                                        c),
             loss=_lm_loss(lambda p, b: vlm_mod.forward_hidden(
                 p, cfg, b["tokens"], b["patch_embeds"],
-                use_flash=use_flash), cfg),
+                use_flash=use_flash, remat=remat), cfg),
             init_paged_cache=lambda p, bs, np_, ps, mp, dtype=torch.float32:
                 vlm_mod.init_paged_cache(p, cfg, bs, np_, ps, mp, dtype),
             prefill_chunk=lambda p, b, c, slot, frontier, valid, total:
@@ -270,7 +276,8 @@ def build_model(cfg, use_flash: bool = False,
                 audio_mod.init_params(generator, cfg, dtype),
             apply=lambda p, b: audio_mod.forward(p, cfg, b["tokens"],
                                                  b.get("cond"),
-                                                 use_flash=use_flash),
+                                                 use_flash=use_flash,
+                                                 remat=remat),
             init_cache=lambda p, bs, ml, dtype=torch.float32:
                 audio_mod.init_cache(p, cfg, bs, ml, dtype),
             prefill=lambda p, b, c, valid=None:
@@ -278,8 +285,8 @@ def build_model(cfg, use_flash: bool = False,
             decode=lambda p, b, c: audio_mod.decode_step(p, cfg,
                                                          b["tokens"], c),
             loss=_audio_loss(lambda p, b: audio_mod.forward_hidden(
-                p, cfg, b["tokens"], b.get("cond"), use_flash=use_flash),
-                cfg),
+                p, cfg, b["tokens"], b.get("cond"), use_flash=use_flash,
+                remat=remat), cfg),
             init_paged_cache=lambda p, bs, np_, ps, mp, dtype=torch.float32:
                 audio_mod.init_paged_cache(p, cfg, bs, np_, ps, mp, dtype),
             prefill_chunk=lambda p, b, c, slot, frontier, valid, total:

@@ -10,10 +10,21 @@ tensors (so reference params load without reshaping), taken by one
 ``unbind(0)`` per leaf: its backward is one ``stack``, where indexing
 each layer out would write a zero-filled copy of the whole stacked leaf
 per layer.  Caches are written in place (see attention.py).
+
+``remat`` (the training forward's ``remat=`` argument, as the
+reference's ``_remat``) recomputes each block in the backward through
+``torch.utils.checkpoint``: ``True`` keeps nothing of a block, ``"dots"``
+keeps its products without batch dims (the projections' ``mm``) and
+recomputes the rest.  A checkpointed block takes its layer's views as
+inputs, so the one ``unbind`` above still serves every layer.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -72,6 +83,31 @@ def layer_params(blocks, num_layers: int) -> list:
     return per_layer
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the products with no batch dims (``mm`` / ``addmm``: every ``x @ w``
+    of a projection), recompute everything else (the batched ``bmm`` of
+    Q·Kᵀ and P·V among it)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(body, remat):
+    """``body`` recomputed in the backward: remat=True keeps nothing of
+    it, remat="dots" keeps its unbatched products (cheaper recompute at
+    more live memory); remat=False returns ``body`` as it is.  Non-
+    reentrant, so gradients taken with ``torch.autograd.grad`` pass
+    through it."""
+    if not remat:
+        return body
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return lambda *args: checkpoint(body, *args, use_reentrant=False, **kw)
+
+
 def _mlp(bp, cfg, u):
     """(MLP output, the MoE's aux loss or None)."""
     if cfg.family == "moe":
@@ -100,11 +136,13 @@ def block_forward(bp, cfg, x, positions, use_flash=False):
     return x, aux
 
 
-def stack_forward(params, cfg, x, positions, use_flash=False):
+def stack_forward(params, cfg, x, positions, use_flash=False, remat=False):
     """Loop over the stacked blocks.  Returns (hidden, total_aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    body = _remat(lambda bp, h: block_forward(bp, cfg, h, positions,
+                                              use_flash=use_flash), remat)
     for bp in layer_params(params["blocks"], cfg.num_layers):
-        x, a = block_forward(bp, cfg, x, positions, use_flash=use_flash)
+        x, a = body(bp, x)
         aux = aux + a
     return x, aux
 
@@ -124,12 +162,12 @@ def _embed(params, tokens, extra_embeds):
     return x if extra_embeds is None else x + extra_embeds
 
 
-def forward_hidden(params, cfg, tokens, use_flash=False):
+def forward_hidden(params, cfg, tokens, use_flash=False, remat=False):
     """Returns (final-normed hidden (B, T, d), aux_loss)."""
     B, T = tokens.shape
     x = params["embed"][tokens]
     h, aux = stack_forward(params, cfg, x, _positions(B, T, x.device),
-                           use_flash=use_flash)
+                           use_flash=use_flash, remat=remat)
     return rms_norm(h, params["ln_f"], cfg.norm_eps), aux
 
 
@@ -138,12 +176,12 @@ def logits_from_hidden(params, cfg, h):
     return h @ head_matrix(params, cfg)
 
 
-def forward(params, cfg, tokens, use_flash=False):
+def forward(params, cfg, tokens, use_flash=False, remat=False):
     """tokens: (B, T) -> logits (B, T, V)."""
     B, T = tokens.shape
     x = params["embed"][tokens]
     h, aux = stack_forward(params, cfg, x, _positions(B, T, x.device),
-                           use_flash=use_flash)
+                           use_flash=use_flash, remat=remat)
     return logits_from_hidden(params, cfg, h), aux
 
 

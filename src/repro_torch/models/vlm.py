@@ -39,19 +39,20 @@ def _merge(params, cfg, tokens, patch_embeds):
     return extra, mask
 
 
-def forward_hidden(params, cfg, tokens, patch_embeds, use_flash=False):
+def forward_hidden(params, cfg, tokens, patch_embeds, use_flash=False,
+                   remat=False):
     B, T = tokens.shape
     extra, mask = _merge(params, cfg, tokens, patch_embeds)
     x = params["embed"][tokens] * mask + extra
     h, aux = transformer.stack_forward(
         params, cfg, x, transformer._positions(B, T, x.device),
-        use_flash=use_flash)
+        use_flash=use_flash, remat=remat)
     return rms_norm(h, params["ln_f"], cfg.norm_eps), aux
 
 
-def forward(params, cfg, tokens, patch_embeds, use_flash=False):
+def forward(params, cfg, tokens, patch_embeds, use_flash=False, remat=False):
     h, aux = forward_hidden(params, cfg, tokens, patch_embeds,
-                            use_flash=use_flash)
+                            use_flash=use_flash, remat=remat)
     return h @ transformer.head_matrix(params, cfg), aux
 
 

@@ -8,8 +8,9 @@ series); the caller injects what differs through small hooks
 ``on_round``, ``pre_step`` / ``on_step``), the async policy's
 ``post_round`` (its coordinator exchange) and the overlap policy's
 ``flush_fn``.  Under a ``ReplicaGroup`` of ranks (``group=``) every rank
-runs the loop and counts the tokens of its own replicas, and only rank 0
-prints progress.
+runs the loop and counts the tokens of its own replicas, only rank 0
+prints progress, and a checkpoint gathers the ranks' rows into the one
+file rank 0 writes.
 
 Spans end on ``torch.cuda.synchronize`` (``Span.block``), the
 counterpart of the reference's ``block_until_ready``.  There is no AOT
@@ -23,15 +24,19 @@ import time
 from typing import Any, Callable, NamedTuple, Optional
 
 from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.sharding.partition import active
 
 
 class CheckpointSpec(NamedTuple):
     """Where/when the runner checkpoints, and how the sidecar is
-    stamped.  ``every`` <= 0 or an empty ``dir`` disables saving."""
+    stamped.  ``every`` <= 0 or an empty ``dir`` disables saving.
+    ``pspecs``: the algorithm's ``state_pspecs`` (which fields carry the
+    replica axis), needed under a group of several ranks."""
     dir: str = ""
     every: int = 0
     algo: str = ""
     arch: str = ""
+    pspecs: Optional[dict] = None
 
 
 class RoundRunner:
@@ -43,6 +48,7 @@ class RoundRunner:
         self.obs = obs
         self.ns = ns
         self.checkpoint = checkpoint
+        self.group = active(group)
         self.prints = group is None or group.rank == 0
 
     def _report(self, progress, *args, history):
@@ -53,10 +59,21 @@ class RoundRunner:
 
     # -- checkpointing --------------------------------------------
     def _save(self, state, gstep: int):
+        """One checkpoint, in a ``checkpoint`` span.  Under a group of
+        several ranks every rank takes part (its rows are gathered), rank
+        0 writes the file with its counter stamp, and every rank leaves
+        once it is written."""
         ck = self.checkpoint
         path = f"{ck.dir}/step{gstep:06d}.npz"
-        ckpt.save(path, state, step=gstep, meta={"arch": ck.arch},
-                  algo=ck.algo, metrics=self.obs.registry.counter_stamp())
+        reg = self.obs.registry
+        with self.obs.tracer.span("checkpoint", cat="io", step=gstep):
+            if self.group is None:
+                ckpt.save(path, state, step=gstep, meta={"arch": ck.arch},
+                          algo=ck.algo, metrics=reg.counter_stamp())
+            else:
+                ckpt.save_rows(path, state, self.group, ck.pspecs,
+                               step=gstep, meta={"arch": ck.arch},
+                               algo=ck.algo, metrics=reg.counter_stamp)
         self.obs.emit("checkpoint", step=gstep, path=path)
 
     def _ckpt_enabled(self) -> bool:

@@ -21,6 +21,11 @@ ranks goes through the group's three operations:
   the inner steps never wait on the host), from one all-gather, so each
   mean reduces the n values in the single-process order.
 
+A checkpoint adds a fourth, :meth:`ReplicaGroup.gather_rows`: every
+rank's rows of each state leaf, gathered leaf by leaf into rank 0's host
+memory (``dist.gather``) and handed to the writer there, counted as
+``op="gather"``; no rank's device holds another's rows.
+
 The backend is gloo, on the CPU and on the card alike (two ranks can
 share one card, where NCCL refuses them).  A CUDA tensor is staged
 through pinned host memory, one buffer per shape and dtype, made at its
@@ -185,6 +190,53 @@ class ReplicaGroup:
             lambda: dist.all_gather(list(recv.unbind(0)), send,
                                          group=self.pg), h2d)
         return outs[0] if len(outs) == 1 else tuple(outs)
+
+    def gather_rows(self, leaves, each=None) -> None:
+        """Each local (k, ...) leaf -> every rank's rows in rank order, an
+        (n, ...) host tensor on rank 0, handed to ``each(i, rows)`` there
+        (in a buffer the next leaf reuses: ``each`` consumes it before it
+        returns).  One ``dist.gather`` a leaf through host buffers of the
+        largest leaf's bytes (pinned for CUDA leaves), never through the
+        device, so no rank's device memory grows with n.  Counted once,
+        as one ``gather`` of the bytes of this rank's rows, in one
+        ``pod.gather`` span whose ``gather_s`` is the time of the copies
+        and the gloo calls (``each`` excluded)."""
+        reg, tracer = self.obs.registry, self.obs.tracer
+        sizes = [t.numel() * t.element_size() for t in leaves]
+        reg.counter("pod.collectives", op="gather").inc()
+        reg.counter("pod.collective_bytes", op="gather").inc(sum(sizes))
+        cuda = {t.device for t in leaves if t.device.type != "cpu"}
+        send = (self._host("ckpt_send", max(sizes), torch.uint8) if cuda
+                else torch.empty(max(sizes), dtype=torch.uint8))
+        recv = (torch.empty(self.world * max(sizes),
+                            dtype=torch.uint8) if self.rank == 0 else None)
+        spent = 0.0
+        with tracer.span("pod.gather", cat="sync", op="gather",
+                         bytes=sum(sizes)) as sp:
+            for dev in cuda:
+                torch.cuda.current_stream(dev).synchronize()
+            for i, (t, sz) in enumerate(zip(leaves, sizes)):
+                t0 = time.perf_counter()
+                send[:sz].view(t.dtype).view(t.shape).copy_(t)
+                parts = (None if recv is None else
+                         list(recv[:self.world * sz].view(self.world, sz)
+                              .unbind(0)))
+                dist.gather(send[:sz], gather_list=parts, dst=0,
+                            group=self.pg)
+                spent += time.perf_counter() - t0
+                if each is not None:
+                    each(i, recv[:self.world * sz].view(t.dtype).view(
+                        (self.n,) + tuple(t.shape[1:])))
+            sp.set(gather_s=round(spent, 3))
+        if self.obs.enabled:
+            reg.histogram("pod.collective_ms", op="gather").observe(
+                spent * 1e3)
+
+    def barrier(self) -> None:
+        """Every rank waits for every other (not counted: it moves no
+        data)."""
+        if not self.trivial:
+            dist.barrier(group=self.pg)
 
     def counts(self) -> dict:
         """{op: (calls, bytes)} of this rank's collectives so far."""

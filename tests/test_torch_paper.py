@@ -287,7 +287,8 @@ NARROW = RefModelConfig(name="t-e2e", family="dense", num_layers=2,
 
 def test_train_llm_parle_loop_matches_reference_and_resumes(tmp_path):
     """The example's loop (Parle n=2, L=10, lr 0.05, weight decay 1e-4)
-    on the reference's params and token batches: per-step losses within
+    on the reference's params, each package on its own token stream (the
+    same batches bit for bit): per-step losses within
     TRAJ_TOL over 12 steps (one sync), then the checkpoint restores into
     a fresh state that takes the same next step bit for bit."""
     steps, n = 12, 2
@@ -310,11 +311,17 @@ def test_train_llm_parle_loop_matches_reference_and_resumes(tmp_path):
 
     to_torch = lambda b: {k: torch.from_numpy(np.array(v))  # noqa: E731
                           for k, v in b.items()}
+    # the port's own stream: the reference's batches bit for bit
+    own = TokenStream(vocab_size=NARROW.vocab_size, seq_len=16, batch_size=2)
+    for i in (0, steps):
+        mine = replica_batches(own, i, 2, n)
+        for k, v in batches[i].items():
+            np.testing.assert_array_equal(mine[k].numpy(), v)
     port_model = build_model(port_config(NARROW))
     port_pcfg = train_llm_parle.parle_cfg(n, 10)
     state, losses, progress = train_llm_parle.train(
         port_model, params_from_numpy(np_params, "cpu"), port_pcfg,
-        lambda i: to_torch(batches[i]), steps)
+        lambda i: replica_batches(own, i, 2, n), steps)
     assert_close(losses, np.array(want), TRAJ_TOL, "e2e losses")
     assert [r["step"] for r in progress] == list(range(1, steps + 1))
     assert int(state.step) == steps and float(state.scopes.rho) < 1.0

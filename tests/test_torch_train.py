@@ -35,6 +35,7 @@ from repro.obs.events import KINDS as REF_KINDS
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import ARCHS, ParleConfig, smoke_variant
 from repro_torch.core import registry
+from repro_torch.data.synthetic import TokenStream, make_round_batch_fn
 from repro_torch.launch import train
 from repro_torch.models.convert import (params_from_numpy, state_from_numpy,
                                         state_to_numpy)
@@ -131,11 +132,20 @@ def test_layer_views_come_from_one_unbind():
 
 @pytest.mark.parametrize("use_kernel", [False, True])
 def test_two_rounds_match_reference(np_params, use_kernel):
+    """Each package on its own stream's staged rounds (the port's equal
+    the reference's bit for bit)."""
     batches = _ref_batches()
+    stage = make_round_batch_fn(TokenStream(CFG.vocab_size, T, B, seed=0),
+                                L, B, N)
+    own = [{k: v.numpy() for k, v in stage(r * L).items()}
+           for r in range(2)]
+    for mine, theirs in zip(own, batches):
+        for k in theirs:
+            np.testing.assert_array_equal(mine[k], theirs[k])
     kw = dict(n_replicas=N, L=L, batches_per_epoch=1)
     ref_state, ref_losses = ref_rounds(RCFG, np_params, batches, use_kernel,
                                        **kw)
-    st, losses = port_rounds(CFG, np_params, batches, use_kernel, **kw)
+    st, losses = port_rounds(CFG, np_params, own, use_kernel, **kw)
     assert_close(losses, ref_losses, TRAJ_TOL,
                  f"per-step losses use_kernel={use_kernel}")
     for path, p, r in leaf_pairs(state_to_numpy(st)["x"], ref_state.x):

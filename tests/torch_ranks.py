@@ -149,3 +149,33 @@ def gather_orders(rank, world):
             "mean": mean.numpy(), "means": means.numpy(),
             "counts": group.counts(), "rows": (group.rows.start,
                                                group.rows.stop)}
+
+
+def train_cli(argv):
+    """One run of the train CLI's ``run()`` (smoke width, on the CPU) in
+    this process, under the ``--mesh`` of ``argv``: each round's per-step
+    losses, the eval loss, the final state's fields as numpy (this rank's
+    rows; ``c``, ``ref`` and SGD's whole on every rank) and the rank's
+    collective counts."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.launch import train
+    from repro_torch.obs import Obs
+    from repro_torch.sharding.partition import collective_counts
+    args = train.parse_args(argv)
+    obs = Obs()
+    losses = []
+    state, _, eval_loss = train.run(
+        args, smoke_variant(get_config(args.arch)), torch.device("cpu"),
+        obs, on_round=lambda r, gstep, m: losses.append(
+            m["losses"].detach().clone()))
+    fields = {f: getattr(state, f).numpy().copy()
+              for f in ("x", "e", "c", "v", "ref", "params")
+              if isinstance(getattr(state, f, None), torch.Tensor)}
+    return {"losses": torch.cat(losses).numpy(), "eval_loss": eval_loss,
+            "fields": fields, "counts": collective_counts(obs.registry)}
+
+
+def train_cli_jobs(rank, world, jobs):
+    """The rank side of a pod of train CLI runs: {name: train_cli(argv)}
+    in the order of ``jobs`` ({name: argv})."""
+    return {name: train_cli(argv) for name, argv in jobs.items()}
