@@ -96,9 +96,9 @@ itself and, in order:
    with host synchronisation forbidden) and paged eagerly, with equal
    tokens; then
    (phases 5f-5i) the four remaining
-   families at full width and depth, float32, random params (seed 0),
-   each freed before the next is built — Qwen1.5-MoE-A2.7B (14.3 B
-   params), Zamba2-1.2B, InternVL2-1B (256 patch embeddings a request)
+   families at full width and half depth, float32, random params (seed 0),
+   each freed before the next is built — Qwen1.5-MoE-A2.7B (7.5 B at 12
+   of 24 layers), Zamba2-1.2B, InternVL2-1B (256 patch embeddings a request)
    and MusicGen-large (64 cond frames, 4 codebooks): 8 requests, 32
    greedy tokens each, 4 slots, page size 16, through the paged engine
    prefilling and decoding (K8) through its CUDA graphs (launches =
@@ -187,7 +187,8 @@ itself and, in order:
    consensus row, the plain apply) — equal to phase 6's barrier run bit
    for bit (8 losses, sha256 of each final row of x), with the host
    seconds of each part; (11b) ``dist_run --sync-policy async --device
-   cuda`` at phase 6's config, 2 workers of one replica with int8
+   cuda`` at 12a's model (Mamba2-1.3B cut to 2 layers; phase 6's L, steps
+   and batch), 2 workers of one replica with int8
    contributions through the wire, its consensus checkpointed at round
    2, then resumed as ONE worker (f32) for one round: the checkpoint's
    digest echoed, base round 2, the first consensus L2 within 1e-5 of the
@@ -221,7 +222,22 @@ itself and, in order:
    the card equals the CPU's bit for bit at the training cell's shapes
    (interleaved, split, a staged round), and
    ``repro_torch.examples.obs_report`` accepts 12a's rank-0 metrics and
-   trace.
+   trace;
+13. (after 12c) axes inside a replica: the one-process references
+   (full-width Qwen2.5-3B cut to 2 layers, Parle n = 2, L = 2, 4 steps of
+   2 x 256 through the kernels, f32 and int8 barrier, deterministic
+   algorithms), then four spawned gloo ranks on the one card, each
+   holding half of one replica's state as the sharding planner assigns
+   it (``sharding/partition.py::MeshGroups``): 13a ``--mesh
+   replica:2,model:2`` (f32, K1 4 / K2 2 a rank) — each rank's 4 losses,
+   eval loss and the sha256 of its blocks of the final x row equal the
+   one-process run bit for bit; 13b ``--mesh replica:2,data:2`` (int8,
+   K1 4 / K4 2 / K5 2 a rank) — losses within rtol 2e-5 of the
+   one-process int8 run, the replica axis moving a shard's int8 payload
+   and its scales a sync; each collective's bytes by axis, its d2h /
+   gloo / h2d seconds, the step wall, peak memory a rank and the phase
+   wall printed (four ranks time-slicing one card over loopback, not a
+   multi-card figure).
 
 Nothing is caught: a failing phase exits non-zero and prints no device
 line.  Without a CUDA card it exits 2 before doing anything.
@@ -283,8 +299,11 @@ from repro_torch.runtime import (AsyncElasticPolicy,  # noqa: E402
 from repro_torch.runtime.coordinator import _np_dequant  # noqa: E402
 from repro_torch.runtime.precision import pin_float32  # noqa: E402
 from repro_torch.serving.engine import _bucket_len  # noqa: E402
-from repro_torch.sharding.partition import collective_counts  # noqa: E402
-from repro_torch.utils.pytree import tree_map  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
+from repro_torch.sharding import partition, planner  # noqa: E402
+from repro_torch.sharding.partition import (  # noqa: E402
+    collective_counts, collective_counts_by_axis)
+from repro_torch.utils.pytree import ShardedLayout, tree_map  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 SOURCES = ("paged_attention.cu", "parle_update.cu", "flash_attention.cu",
@@ -2071,10 +2090,16 @@ def family_forward_phase(device, cfg, params, label) -> dict:
 FAMILY_MODES = ("paged_kernel", "paged_kernel_eager", "gather")
 FAMILY_ARCHS = (("qwen2-moe-a2.7b", "5f"), ("zamba2-1.2b", "5g"),
                 ("internvl2-1b", "5h"), ("musicgen-large", "5i"))
+# each family at full width and half its depth (24, 38, 24 and 48
+# layers; Zamba2's 18 keep three sites of its shared block): the
+# script's time limit
+FAMILY_LAYERS = {"qwen2-moe-a2.7b": 12, "zamba2-1.2b": 18,
+                 "internvl2-1b": 12, "musicgen-large": 24}
 
 
 def families_phase(device) -> dict:
-    """Each of the four families at full width and depth, float32,
+    """Each of the four families at full width and half depth
+    (FAMILY_LAYERS), float32,
     random params from torch.Generator seed 0: served through K8 (and
     the gather path), then the 2 x 1024 prefill (moe) or forward through
     K3 (and K9 in the hybrid).  Each model is freed before the next is
@@ -2082,7 +2107,8 @@ def families_phase(device) -> dict:
     out = {}
     for arch, label in FAMILY_ARCHS:
         _release()
-        cfg = get_config(arch)
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=FAMILY_LAYERS[arch])
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats(device)
         args = serve.parse_args(["--arch", arch] + FAMILY_SERVE_ARGV)
@@ -2587,7 +2613,8 @@ def _sync_records(events) -> list:
     """Each collective's d2h, gloo and h2d times from its three spans."""
     parts = [e for e in events
              if e["name"] in ("pod.d2h", "pod.collective", "pod.h2d")]
-    return [{"op": c["args"]["op"], "bytes": c["args"]["bytes"],
+    return [{"op": c["args"]["op"], "axis": c["args"].get("axis", "pod"),
+             "bytes": c["args"]["bytes"],
              "d2h_ms": round(d["dur"] / 1e3, 3),
              "collective_ms": round(c["dur"] / 1e3, 3),
              "h2d_ms": round(h["dur"] / 1e3, 3)}
@@ -2654,33 +2681,34 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _run_pod_ranks(ckpt_dir, beside=None) -> dict:
-    """Spawn the POD_WORLD ranks (spawn, never fork: this process has a
-    live CUDA context) and collect their results; a failing rank fails
-    the phase, and no rank outlives it.  ``beside(procs)``, when given,
-    runs in this process while the ranks run (it may watch them) and its
-    result is returned beside theirs: (results, beside's)."""
+def _run_ranks(target, world, timeout, *args, beside=None):
+    """Spawn ``world`` ranks of ``target(rank, world, port, out_q,
+    *args)`` (spawn, never fork: this process has a live CUDA context)
+    and collect their results; a failing rank fails the phase, and no
+    rank outlives it.  ``beside(procs)``, when given, runs in this
+    process while the ranks run (it may watch them) and its result is
+    returned beside theirs: (results, beside's)."""
     import queue
     ctx = mp.get_context("spawn")
     out_q = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=pod_rank_main,
-                         args=(r, POD_WORLD, port, out_q, ckpt_dir))
-             for r in range(POD_WORLD)]
+    procs = [ctx.Process(target=target,
+                         args=(r, world, port, out_q, *args))
+             for r in range(world)]
     for p in procs:
         p.start()
     results, err, extra = {}, None, None
     try:
         if beside is not None:
             extra = beside(procs)
-        for _ in range(POD_WORLD):       # drain before joining
-            rank, res, tb = out_q.get(timeout=POD_TIMEOUT_S)
+        for _ in range(world):           # drain before joining
+            rank, res, tb = out_q.get(timeout=timeout)
             if tb is not None:
-                err = f"pod rank {rank} failed:\n{tb}"
+                err = f"rank {rank} failed:\n{tb}"
                 break
             results[rank] = res
     except queue.Empty:
-        err = f"pod ranks gave no result within {POD_TIMEOUT_S} s"
+        err = f"ranks gave no result within {timeout} s"
     finally:
         for p in procs:
             p.join(timeout=5 if err else 120)
@@ -2689,8 +2717,14 @@ def _run_pod_ranks(ckpt_dir, beside=None) -> dict:
                 p.join()
     check(err is None, str(err))
     check(all(p.exitcode == 0 for p in procs),
-          f"pod rank exit codes {[p.exitcode for p in procs]}")
+          f"rank exit codes {[p.exitcode for p in procs]}")
     return results, extra
+
+
+def _run_pod_ranks(ckpt_dir, beside=None) -> dict:
+    """Phase 10's POD_WORLD ranks (:func:`pod_rank_main`)."""
+    return _run_ranks(pod_rank_main, POD_WORLD, POD_TIMEOUT_S, ckpt_dir,
+                      beside=beside)
 
 
 def pod_phase(device, refs, smi) -> dict:
@@ -3098,8 +3132,9 @@ def _finish_chaos_pods(started, tmp, smi) -> dict:
 def async_pods_phase(device, smi) -> dict:
     """11b: the async pod at full width through the wire, two workers
     of one replica each on the card (``dist_run --sync-policy async
-    --device cuda``, phase 6's config: Qwen2.5-3B cut to 4 layers), int8
-    contributions, 2 rounds of L = 4, its consensus checkpointed; then
+    --device cuda``, 12a's model: Mamba2-1.3B cut to 2 layers, 1.03 GB a
+    f32 copy — an exchange is host work over the consensus's bytes),
+    int8 contributions, 2 rounds of L = 4, its consensus checkpointed; then
     the pod resumed from that checkpoint as ONE worker for one round
     (its gates read the first consensus; the pod shrinks,
     f32 contributions: its first consensus is the checkpoint's, so its
@@ -3117,19 +3152,20 @@ def async_pods_phase(device, smi) -> dict:
     and the coordinator is killed at round 5 (300 ms down) — and its
     fault-free twin.  Smoke width: four workers of two full-width
     replicas would exceed 80 GB, and every fault is on the host."""
-    phase("11b. the async pod at full width: dist_run --sync-policy async "
-          "--device cuda, 2 workers x 1 replica, int8, 8 steps L=4, "
-          "checkpoint; resumed as 1 worker for one round")
+    phase(f"11b. the async pod at full width: dist_run --sync-policy async "
+          f"--device cuda, {CKPT_ARCH} cut to {CKPT_LAYERS} layers, 2 "
+          "workers x 1 replica, int8, 8 steps L=4, checkpoint; resumed as "
+          "1 worker for one round")
     _release()
     t_phase = time.perf_counter()
     print(f"async pod: free device memory before the workers "
           f"{torch.cuda.mem_get_info(device)[0] / 2 ** 30:.3f} GiB",
           flush=True)
-    cfg = train_cfg()
+    cfg = ckpt_cfg()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_async_")
     env = _pod_env(PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     base = ["--sync-policy", "async", "--device", "cuda", "--arch",
-            "qwen2.5-3b", "--steps", "8", "--L", "4", "--batch", "2",
+            CKPT_ARCH, "--steps", "8", "--L", "4", "--batch", "2",
             "--seq", "256", "--seed", "0",
             "--_config", json.dumps(dataclasses.asdict(cfg))]
     base_b = [("4" if i and base[i - 1] == "--steps" else a)
@@ -3584,6 +3620,253 @@ def stream_report_phase(device, obs_files, smi) -> dict:
     return out
 
 
+# ------------------------------------------------------------------
+# phase 13: axes inside a replica, four ranks on the one card
+# ------------------------------------------------------------------
+
+# full-width Qwen2.5-3B cut to 2 layers (776.6 M params, 3.11 GB of
+# float32 a copy); Parle n = 2, L = 2, 4 steps of 2 x 256 through the
+# kernels, over four gloo ranks: a rank holds half a replica's fields
+SHARD_LAYERS, SHARD_WORLD, SHARD_TIMEOUT_S = 2, 4, 600
+# job: (mesh, extra flags, K launches a rank, the replica axis's bytes a
+# sync as a function of the rank's shard numel)
+SHARD_JOBS = {
+    "13a": ("replica:2,model:2", [],
+            dict(parle_inner_update=4, parle_sync_update=2)),
+    "13b": ("replica:2,data:2", ["--sync-compress", "int8"],
+            dict(parle_inner_update=4, quantize_ef=2,
+                 parle_sync_dequant=2)),
+}
+# 13b against the one-process int8 run: the data split sums each grad as
+# two halves of the batch (the reference's composed-mesh loss bound)
+SHARD_RTOL = 2e-5
+
+
+def shard_cfg():
+    return dataclasses.replace(get_config("qwen2.5-3b"),
+                               num_layers=SHARD_LAYERS)
+
+
+def shard_argv(extra=()) -> list:
+    return ["--arch", "qwen2.5-3b", "--device", "cuda", "--replicas", "2",
+            "--L", "2", "--steps", "4", "--batch", "2", "--seq", "256",
+            "--use-kernel", "--round-fused", "--log-every", "2", "--seed",
+            "0", *extra]
+
+
+def _digest(t) -> str:
+    return hashlib.sha256(
+        t.detach().cpu().contiguous().view(torch.uint8).numpy()).hexdigest()
+
+
+def shard_block_digests(x, cfg, inner) -> dict:
+    """{(replica, in-replica index): sha256} of the blocks of each final
+    x row that each rank of the mesh holds, from the one-process state
+    (the rank's flat shard buffer: its blocks, zeros in the gaps)."""
+    params = planner.meta_params(build_model(cfg))
+    ctx = planner.ShardContext(inner)
+    coords = [dict(zip(inner, idx)) for idx in
+              np.ndindex(*inner.values())]
+    out = {}
+    for i in range(len(coords)):
+        lay = ShardedLayout(params, ctx, coords, i)
+        buf = torch.zeros(lay.numel, device=x.device)
+        for r in range(x.shape[0]):
+            out[(r, i)] = _digest(lay.blocks_of(x[r], i, buf))
+    return out
+
+
+def shard_reference_phase(device) -> dict:
+    """13's one-process references at the same cell: the f32 and the int8
+    barrier runs through the kernels under deterministic algorithms —
+    their losses and eval losses, and (f32) the digest of every rank's
+    blocks of the final x rows under 13a's mesh."""
+    phase(f"13. one-process references: full-width qwen2.5-3b cut to "
+          f"{SHARD_LAYERS} layers, parle n=2 L=2, 4 steps, f32 and int8")
+    torch.use_deterministic_algorithms(True)
+    refs = {}
+    for name, (spec, extra, want) in SHARD_JOBS.items():
+        losses, walls, state, eval_loss, peak = _train_measured(
+            device, shard_argv(extra), cfg=shard_cfg())
+        launch_counts(**want)
+        refs[name] = {"losses": losses.tolist(), "eval_loss": eval_loss,
+                      "round_wall_s": walls,
+                      "peak_memory_gib": round(peak, 3),
+                      "params": sum(state.layout.sizes)}
+        if name == "13a":
+            refs[name]["blocks"] = shard_block_digests(
+                state.x, shard_cfg(), mesh_mod.inner_axes(spec))
+        del state
+        _release()
+    torch.use_deterministic_algorithms(False)
+    print(json.dumps({"shard_refs": {k: {kk: v[kk] for kk in (
+        "losses", "eval_loss", "round_wall_s", "peak_memory_gib")}
+        for k, v in refs.items()}}), flush=True)
+    return refs
+
+
+def _shard_job(device, rank, spec, extra) -> dict:
+    """One job of a phase-13 rank: the train CLI's run() under ``--mesh
+    spec``; what the parent compares and prints."""
+    obs = Obs(trace_out=os.devnull)    # spans kept in memory, never saved
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    losses, walls, state, eval_loss, _ = _train_once(
+        device, shard_argv(extra) + ["--mesh", spec], cfg=shard_cfg(),
+        obs=obs)
+    launches = {name: getattr(mod, attr)
+                for name, (mod, attr) in COUNTERS.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    lay = state.layout
+    out = {"losses": losses.tolist(), "eval_loss": eval_loss,
+           "round_wall_s": walls, "launches": launches,
+           "coords": partition.mesh_coords(mesh_mod.parse_mesh_spec(spec),
+                                           rank),
+           "index": lay.index,
+           "x_digest": _digest(state.x[0]), "numel": lay.numel,
+           "live": sum(lay.sizes), "full_numel": lay.full.numel,
+           "by_axis": collective_counts_by_axis(obs.registry),
+           "syncs": _sync_records(obs.tracer.events),
+           "peak_memory_gib": round(peak / 2 ** 30, 3)}
+    del state
+    _release()
+    return out
+
+
+def shard_rank_main(rank, world, port, out_q):
+    """One rank of phase 13, a spawned process: join the gloo world of
+    four, run both SHARD_JOBS under deterministic algorithms, and put the
+    results on ``out_q``."""
+    import traceback
+    # four ranks of ~16-19 GB each share the card
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        torch.use_deterministic_algorithms(True)
+        pin_float32()
+        device = resolve_device("cuda")
+        dist.init_process_group("gloo",
+                                init_method=f"tcp://127.0.0.1:{port}",
+                                rank=rank, world_size=world)
+        res = {name: _shard_job(device, rank, spec, extra)
+               for name, (spec, extra, _) in SHARD_JOBS.items()}
+        out_q.put((rank, res, None))
+    except BaseException:            # reported to the parent, then raised
+        out_q.put((rank, None, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _seconds_by_axis(syncs) -> dict:
+    out = {}
+    for s in syncs:
+        a = out.setdefault(s["axis"], {"d2h_s": 0.0, "collective_s": 0.0,
+                                       "h2d_s": 0.0, "calls": 0})
+        a["calls"] += 1
+        for k in ("d2h", "collective", "h2d"):
+            a[f"{k}_s"] = round(a[f"{k}_s"] + s[f"{k}_ms"] / 1e3, 3)
+    return out
+
+
+def shard_phase(device, smi) -> dict:
+    """Phase 13: Parle with axes inside a replica over four gloo ranks on
+    the one card (each rank a spawned process holding half of one
+    replica's state as the sharding planner assigns it; its replica's
+    weights gathered for the forward, its grads reduce-scattered, every
+    collective staged through pinned host memory).  13a (replica:2,
+    model:2, f32, K1 / K2): each rank's 4 losses, eval loss and the
+    sha256 of its blocks of the final x row equal the one-process run bit
+    for bit.  13b (replica:2, data:2, int8, K1 / K4 / K5): the losses
+    within SHARD_RTOL of the one-process int8 run; the replica axis moves
+    a shard's int8 payload plus its scales a sync.  Times: four ranks
+    time-slicing one card over loopback gloo, not a multi-card figure."""
+    t0 = time.perf_counter()
+    _release()
+    refs = shard_reference_phase(device)
+    phase(f"13. axes inside a replica: four gloo ranks on the one card, "
+          f"13a {SHARD_JOBS['13a'][0]} f32 through K1/K2, 13b "
+          f"{SHARD_JOBS['13b'][0]} int8 through K1/K4/K5")
+    free = torch.cuda.mem_get_info(device)[0]
+    print(f"shard: free device memory before the ranks "
+          f"{free / 2 ** 30:.3f} GiB", flush=True)
+    t_ranks = time.perf_counter()
+    results, _ = _run_ranks(shard_rank_main, SHARD_WORLD, SHARD_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t_ranks
+    out = {}
+    for name, (spec, _, want) in SHARD_JOBS.items():
+        ref = refs[name]
+        expected = {k: want.get(k, 0) for k in COUNTERS}
+        errs = []
+        for rank in range(SHARD_WORLD):
+            r = results[rank][name]
+            check(r["launches"] == expected, f"{name} rank {rank}: "
+                  f"launches {r['launches']}, expected {expected}")
+            rep_syncs = [s for s in r["syncs"] if s["axis"] == "replica"
+                         and s["bytes"] > 64]
+            if name == "13a":
+                check(r["losses"] == ref["losses"]
+                      and r["eval_loss"] == ref["eval_loss"],
+                      f"13a rank {rank}: losses {r['losses']} / eval "
+                      f"{r['eval_loss']} != one process's {ref['losses']}"
+                      f" / {ref['eval_loss']}")
+                key = (r["coords"]["replica"], r["index"])
+                check(r["x_digest"] == ref["blocks"][key],
+                      f"13a rank {rank}: its blocks of the final x differ "
+                      "from the one-process run's bit for bit")
+                want_bytes = 4 * r["live"]
+                syncs = [s for s in rep_syncs if s["op"] == "all_reduce"]
+            else:
+                err = max(abs(a / b - 1)
+                          for a, b in zip(r["losses"], ref["losses"]))
+                errs.append(err)
+                check(err <= SHARD_RTOL, f"13b rank {rank}: losses "
+                      f"{r['losses']} vs one process's {ref['losses']}: "
+                      f"max rel err {err:.3e} > {SHARD_RTOL}")
+                want_bytes = r["numel"] + r["numel"] // 256
+                syncs = [s for s in rep_syncs if s["op"] == "all_gather"]
+            # two syncs and the eval's mean (13a), two syncs (13b)
+            check(len(syncs) >= 2 and all(s["bytes"] == want_bytes
+                                         for s in syncs[:2]),
+                  f"{name} rank {rank}: replica-axis syncs "
+                  f"{[s['bytes'] for s in syncs]}, expected {want_bytes}")
+            print(json.dumps({
+                "shard_job": name, "rank": rank, "coords": r["coords"],
+                "round_wall_s": r["round_wall_s"],
+                "step_wall_s": [w / 2 for w in r["round_wall_s"]],
+                "collective_bytes_by_axis": r["by_axis"],
+                "seconds_by_axis": _seconds_by_axis(r["syncs"]),
+                "shard_numel": r["numel"], "full_numel": r["full_numel"],
+                "peak_memory_gib": r["peak_memory_gib"],
+                "card": smi}), flush=True)
+        r0 = results[0][name]
+        out[name] = {
+            "launches_per_rank": {k: v for k, v in r0["launches"].items()
+                                  if v},
+            "round_wall_s": [results[r][name]["round_wall_s"]
+                             for r in range(SHARD_WORLD)],
+            "peak_memory_gib": [results[r][name]["peak_memory_gib"]
+                                for r in range(SHARD_WORLD)],
+            "by_axis": r0["by_axis"],
+            "seconds_by_axis": _seconds_by_axis(r0["syncs"])}
+        if errs:
+            out[name]["max_rel_loss_err"] = max(errs)
+        print(f"shard {name} ({spec}): every rank "
+              + ("== one process bit for bit (4 losses, eval, its x "
+                 "blocks)" if name == "13a" else
+                 f"within {max(errs):.3e} of one process's losses")
+              + f"; launches a rank {out[name]['launches_per_rank']}",
+              flush=True)
+    out["ranks_wall_s"] = round(ranks_s, 1)
+    out["phase_wall_s"] = round(time.perf_counter() - t0, 1)
+    print(json.dumps({"shard_phase_wall_s": out["phase_wall_s"],
+                      "ranks_wall_s": out["ranks_wall_s"],
+                      "note": "four ranks time-slicing one card over "
+                              "loopback gloo, not a multi-card figure",
+                      "card": smi}), flush=True)
+    return out
+
+
 def main_path_phase(device) -> dict:
     """Serve the main path through K8, decoding through the engine's CUDA
     graph, then the gather path on the same params, captured and eager;
@@ -4032,6 +4315,7 @@ def main() -> int:
     async_res = async_phase(device, refs["none"], smi)
     remat = remat_phase(device, smi)
     stream = stream_report_phase(device, pod["ckpt"]["obs"], smi)
+    shard = shard_phase(device, smi)
     main_errs = parle_main_shape_phase(device, trained["replicas"],
                                        trained["elements_per_replica"])
 
@@ -4094,6 +4378,10 @@ def main() -> int:
                       for r, v in remat["runs"].items()},
             "remat_phase_wall_s": remat["phase_wall_s"],
             "stream_report_phase_wall_s": stream["phase_wall_s"]},
+        "phase13": {k: (shard[k] if k.endswith("_s") else {
+            kk: shard[k][kk] for kk in ("round_wall_s", "peak_memory_gib",
+                                        "by_axis")})
+            for k in (*SHARD_JOBS, "phase_wall_s", "ranks_wall_s")},
         "flash_prefill": {k: run["flash_prefill"][k] for k in (
             "max_logit_err", "max_kv_cache_err", "prefill_wall_s")},
         "mamba2": {"max_logit_err": mamba["max_logit_err"],
@@ -4174,6 +4462,14 @@ def main() -> int:
                     name, 0)}}
                if name in ("parle_inner_update", "parle_sync_update",
                            "quantize_ef", "parle_apply_quantize")
+               else {}),
+            # phase 13: 13a's f32 run (replica:2,model:2) and 13b's int8
+            # run (replica:2,data:2), a rank
+            **({"phase13_launches_per_rank": {
+                job: shard[job]["launches_per_rank"].get(name, 0)
+                for job in SHARD_JOBS}}
+               if name in ("parle_inner_update", "parle_sync_update",
+                           "quantize_ef", "parle_sync_dequant")
                else {}),
             "max_abs_err": max(parle_errs[name], main_errs[name]),
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],

@@ -27,12 +27,15 @@ n=1, §2.1/§3), ``elastic_sgd`` (Eq. 7, coupled every step) and ``sgd``
                              -> flush(state) -> state, the end-of-training
                                 apply of the in-flight consensus; None
                                 unless cfg.sync_overlap
-  state_pspecs(replica_axis="pod", cfg=None)
+  state_pspecs(replica_axis="pod", cfg=None, params=None,
+               axis_sizes=None)
                              -> a prefix tree of the state (its top-level
                                 fields, as in ``state.tree()``): the
                                 replica axis's name for a field that
                                 carries it (a rank holds its rows), None
-                                for one every rank holds whole
+                                for one every rank holds whole; with
+                                ``params``, the planner form (a Spec
+                                tree a field, ``sharding/partition.py``)
   deployable(state, group=None)
                              -> the single servable param tree (Parle:
                                 the mean over every rank's rows)
@@ -57,7 +60,8 @@ import dataclasses
 from repro_torch.core import elastic_sgd, ensemble, parle
 from repro_torch.core.registry import register
 from repro_torch.optim import sgd
-from repro_torch.sharding.partition import active
+from repro_torch.sharding import partition
+from repro_torch.sharding.partition import distributed, replica_group
 
 
 def resolve_lr_schedule(cfg, lr_schedule=None):
@@ -73,7 +77,7 @@ def resolve_lr_schedule(cfg, lr_schedule=None):
 
 
 def _replica_diagnostics(flat, group=None) -> dict:
-    if active(group) is not None:
+    if distributed(group):
         return {}
     return {"overlap": float(ensemble.replica_overlap(flat)),
             "spread": float(ensemble.replica_spread(flat))}
@@ -142,10 +146,15 @@ class ParleAlgorithm:
         return parle.make_flush_fn(
             cfg, lr_schedule=resolve_lr_schedule(cfg, lr_schedule))
 
-    def state_pspecs(self, replica_axis: str = "pod", cfg=None) -> dict:
+    def state_pspecs(self, replica_axis: str = "pod", cfg=None,
+                     params=None, axis_sizes=None) -> dict:
         """x, y, z, both momenta and the residual ``e`` carry the replica
         axis; the step, the scopes and the in-flight consensus ``c`` do
-        not (``repro/sharding/partition.py::parle_state_pspecs``)."""
+        not (``repro/sharding/partition.py::parle_state_pspecs``).  With
+        ``params``: the planner form."""
+        if params is not None:
+            return partition.parle_state_pspecs(replica_axis, params,
+                                                axis_sizes, cfg)
         specs = {f: replica_axis for f in ("x", "y", "z", "v_y", "v_x")}
         specs.update(step=None, scopes=None)
         if cfg is not None and getattr(cfg, "sync_compress",
@@ -197,6 +206,7 @@ class EntropySGDAlgorithm(ParleAlgorithm):
     def _single_replica(mesh):
         """A replica axis above size 1 has nothing to shard at n = 1 (the
         reference's message)."""
+        mesh = replica_group(mesh)
         if mesh.world != 1:
             raise ValueError(
                 "entropy_sgd runs a single replica (Parle n=1), so a "
@@ -243,16 +253,21 @@ class ElasticSGDAlgorithm:
         del cfg, lr_schedule    # per-step coupling: nothing in flight
         return None
 
-    def state_pspecs(self, replica_axis: str = "pod", cfg=None) -> dict:
+    def state_pspecs(self, replica_axis: str = "pod", cfg=None,
+                     params=None, axis_sizes=None) -> dict:
         """The workers and their momentum carry the replica axis; the
-        reference variable does not (``elastic_state_pspecs``)."""
+        reference variable does not (``elastic_state_pspecs``).  With
+        ``params``: the planner form."""
         del cfg
+        if params is not None:
+            return partition.elastic_state_pspecs(replica_axis, params,
+                                                  axis_sizes)
         return {"x": replica_axis, "v": replica_axis, "ref": None,
                 "step": None, "scopes": None}
 
     def deployable(self, state, group=None):
-        del group           # ref is whole on every rank
-        return elastic_sgd.average_model(state)
+        # ref is on every rank (its blocks, inside a replica)
+        return elastic_sgd.average_model(state, group)
 
     def diagnostics(self, state, group=None) -> dict:
         return {"rho": float(state.scopes.rho),
@@ -271,8 +286,8 @@ class SGDAlgorithm:
         return dataclasses.replace(cfg, mode=self.name)
 
     def init(self, params, cfg, group=None) -> sgd.SGDState:
-        del cfg, group      # one model, whole on every rank
-        return sgd.init(params)
+        del cfg             # one model on every rank (its blocks, inside
+        return sgd.init(params, group)      # a replica)
 
     def make_step(self, loss_fn, cfg, *, weight_decay=0.0, use_kernel=False,
                   lr_schedule=None):
@@ -301,15 +316,18 @@ class SGDAlgorithm:
         del cfg, lr_schedule    # grads averaged every step: no sync debt
         return None
 
-    def state_pspecs(self, replica_axis: str = "pod", cfg=None) -> dict:
+    def state_pspecs(self, replica_axis: str = "pod", cfg=None,
+                     params=None, axis_sizes=None) -> dict:
         """Nothing carries the replica axis: every rank holds the one
-        model (``sgd_state_pspecs``)."""
+        model (``sgd_state_pspecs``).  With ``params``: the planner form
+        (FSDP x TP over the in-replica axes)."""
         del replica_axis, cfg
+        if params is not None:
+            return partition.sgd_state_pspecs(params, axis_sizes)
         return {"params": None, "v": None, "step": None}
 
     def deployable(self, state, group=None):
-        del group
-        return state.layout.tree(state.params)
+        return parle.full_tree(state.params, state.layout, group)
 
     def diagnostics(self, state, group=None) -> dict:
         del state, group

@@ -30,6 +30,13 @@ one model-size all-reduce of the local row sums every step
 (``mean_rows``), so every rank applies the same (7b) update to its ref
 and K7 reads the same ref on every rank.  A round's step losses meet in
 one small all-gather after its L steps.
+
+Inside a replica (a ``MeshGroups``) each rank holds its blocks of its
+workers' rows and of ref (``utils/pytree.py::ShardedLayout``): a
+worker's grads gather its blocks into one full row and reduce-scatter
+the full grad row back (``core/parle.py::ShardGrads``), K7 runs on the
+shard buffers, and (7b)'s mean is the all-reduce of the shard rows over
+the replica subgroup.
 """
 from __future__ import annotations
 
@@ -38,12 +45,13 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core.parle import (GradBuffer, dealias_state,  # noqa: F401
-                                    replica_grads, replica_mean,
-                                    schedule_scale)
+                                    shard_grads_for, full_tree, replica_grads,
+                                    replica_mean, schedule_scale)
 from repro_torch.core.scoping import Scopes, init_scopes, update_scopes
 from repro_torch.sharding.partition import (active, check_divisible,
-                                            make_sharded_step_fn)
-from repro_torch.utils.pytree import FlatLayout
+                                            layout_for,
+                                            make_sharded_step_fn,
+                                            replica_group)
 
 
 class ElasticState(NamedTuple):
@@ -70,8 +78,8 @@ class ElasticState(NamedTuple):
 def init(params, cfg, group=None) -> ElasticState:
     """``params``: single-model param tree; every worker and the
     reference start at it (under a ``group``, only the rank's k worker
-    rows are made)."""
-    layout = FlatLayout(params)
+    rows are made; under axes inside a replica, its blocks of them)."""
+    layout = layout_for(params, group)
     ref = layout.flatten(params)
     k = cfg.n_replicas if active(group) is None else group.local
     x = ref.expand(k, -1).clone()
@@ -106,7 +114,8 @@ def update(state: ElasticState, grads, cfg, use_kernel: bool = False,
 
     # (7b): ref <- ref - lr (ref - mean_a x^a)   [plain lr, not lr/rho]
     xbar = (replica_mean(state.x, out=xbar) if active(group) is None
-            else group.mean_rows(state.x, out=xbar))
+            else active(group).mean_rows(state.x, out=xbar,
+                                         segments=state.layout.segments))
     diff = torch.sub(state.ref, xbar, out=xbar)
     state.ref.sub_(diff.mul_(lr))
 
@@ -122,6 +131,8 @@ def _make_step_body(loss_fn: Callable, cfg, weight_decay, use_kernel,
     """The step of :func:`make_train_step`; under an active ``group`` it
     emits its k local losses as ``local_loss_per_replica``."""
     gbuf, mbuf = GradBuffer(), GradBuffer()   # (n, M) grads, (M,) mean
+    shard = shard_grads_for(group)
+    grads_fn = shard if shard is not None else replica_grads
     cdt = cfg.compute_dtype()
     group = active(group)
 
@@ -129,9 +140,9 @@ def _make_step_body(loss_fn: Callable, cfg, weight_decay, use_kernel,
         gdt = cdt
         if weight_decay:    # g + wd * x with an f32 x is f32 (as jnp's)
             gdt = torch.promote_types(cdt, state.x.dtype)
-        losses = replica_grads(loss_fn, state.layout,
-                               (row.to(cdt) for row in state.x), batch,
-                               gbuf.like(state.x, gdt), weight_decay, state.x)
+        losses = grads_fn(loss_fn, state.layout,
+                          (row.to(cdt) for row in state.x), batch,
+                          gbuf.like(state.x, gdt), weight_decay, state.x)
         new_state = update(state, gbuf.buf, cfg, use_kernel=use_kernel,
                            lr_scale=schedule_scale(lr_schedule, state.step),
                            xbar=mbuf.like(state.ref), group=group)
@@ -175,9 +186,9 @@ def make_round_fn(loss_fn: Callable, cfg, weight_decay: float = 0.0,
     for bit).  ``batches`` leaves: (L, n, B, ...).  Metrics: the
     round-mean ``loss``, the per-step ``losses`` (L,), ``rho``, ``step``.
     ``group``: see :func:`make_sharded_round_fn`."""
-    group = active(group)
     step_fn = _make_step_body(loss_fn, cfg, weight_decay, use_kernel,
                               lr_schedule, group)
+    group = active(group)
 
     def round_fn(state: ElasticState, batches):
         losses = []
@@ -199,11 +210,13 @@ def make_sharded_round_fn(loss_fn: Callable, cfg, group,
     """Distributed fused round: L steps, each with its model-size
     all-reduce (that O(2nN) wire cost is the point of the baseline), and
     one gather of the (k, L) step losses."""
-    check_divisible(cfg.n_replicas, group.world, group.axis)
+    rg = replica_group(group)
+    check_divisible(cfg.n_replicas, rg.world, rg.axis)
     return make_round_fn(loss_fn, cfg, weight_decay, use_kernel, lr_schedule,
                          group=group)
 
 
-def average_model(state: ElasticState) -> dict:
-    """The deployable model: the reference variable."""
-    return state.layout.tree(state.ref)
+def average_model(state: ElasticState, group=None) -> dict:
+    """The deployable model: the reference variable (its blocks gathered
+    into full leaves under axes inside a replica)."""
+    return full_tree(state.ref, state.layout, group)

@@ -61,6 +61,20 @@ the single-process order.  The per-step losses of a round meet in one
 small all-gather after its inner steps.  A group of one rank takes the
 single-process path.
 
+Inside a replica (``sharding/partition.py::MeshGroups``, ``--mesh
+replica:R,data:D,model:M``) each rank holds only its blocks of each
+leaf of its replicas' rows (``utils/pytree.py::ShardedLayout``, as the
+sharding planner assigns them), so every buffer is shard-sized and the
+kernels run on the rank's flat shard buffers unchanged (int8 chunks
+follow the shard layout).  A replica's grads (:class:`ShardGrads`)
+gather its y blocks into ONE reused full row, take the grads there on
+the rank's rows of the batch, and reduce-scatter them back to the shard
+(a SUM over "data", then a division by D; over "model" each rank takes
+its own blocks).  The Eq. (8d) sync rides the replica
+subgroup at shard size.  With ``data:1`` every rank computes the whole
+replica on the same full row as one process does, so the f32 trajectory
+is the single-process one bit for bit.
+
 Per-replica grads come from a Python loop over the replicas
 (:func:`replica_grads`, shared with Elastic-SGD and SGD: only one
 replica's activations are alive at a time; each replica is independent,
@@ -78,7 +92,9 @@ import torch
 from repro_torch.core import compress
 from repro_torch.core.scoping import Scopes, init_scopes, update_scopes
 from repro_torch.sharding.partition import (active, check_divisible,
-                                            make_sharded_step_fn)
+                                            in_replica, layout_for,
+                                            make_sharded_step_fn,
+                                            replica_group)
 from repro_torch.utils.pytree import FlatLayout, tree_map
 
 
@@ -125,9 +141,10 @@ def _sync_compress(cfg) -> str:
 
 def init(params, cfg, group=None) -> ParleState:
     """``params``: single-model param tree; replicated n_replicas times
-    (under a ``group``, only the rank's k local rows are made).  All
-    replicas start at the same point."""
-    layout = FlatLayout(params)
+    (under a ``group``, only the rank's k local rows are made; under a
+    ``MeshGroups`` with axes inside a replica, only the rank's blocks of
+    them).  All replicas start at the same point."""
+    layout = layout_for(params, group)
     row = layout.flatten(params)
     k = cfg.n_replicas if active(group) is None else group.local
     return _state_from_x(row.expand(k, -1).clone(), layout, cfg)
@@ -327,7 +344,8 @@ def _sync_stats(state: ParleState, cfg, use_kernel: bool, out=None,
     method = _sync_compress(cfg)
     if method == "none":
         if group is not None:
-            return group.mean_rows(state.x, out=out), None
+            return group.mean_rows(state.x, out=out,
+                                   segments=state.layout.segments), None
         return replica_mean(state.x, out=out), None
     q, s = _compress_payload(state, method, use_kernel)
     if group is not None:
@@ -473,11 +491,76 @@ class GradBuffer:
     def like(self, t, dtype=None) -> torch.Tensor:
         """A buffer of ``t``'s shape and device, and of ``dtype`` (default
         ``t``'s)."""
-        dtype = dtype or t.dtype
-        if (self.buf is None or self.buf.shape != t.shape
-                or self.buf.dtype != dtype or self.buf.device != t.device):
-            self.buf = torch.zeros_like(t, dtype=dtype)
+        return self.get(t.shape, dtype or t.dtype, t.device)
+
+    def get(self, shape, dtype, device) -> torch.Tensor:
+        """A buffer of ``shape``, ``dtype`` and ``device``."""
+        if (self.buf is None or self.buf.shape != tuple(shape)
+                or self.buf.dtype != dtype or self.buf.device != device):
+            self.buf = None             # the old one first: peak memory
+            self.buf = torch.zeros(tuple(shape), dtype=dtype, device=device)
         return self.buf
+
+
+class ShardGrads:
+    """:func:`replica_grads` under axes inside a replica (``mesh``, a
+    ``MeshGroups``): ``rows`` are the shard rows of the rank's local
+    replicas (``layout``, a ``ShardedLayout``), ``batch`` each replica's
+    whole batch (leaves (k, B, ...)), ``out`` their shard grad rows (k,
+    numel), or for SGD (``out`` (numel,)) the sum of the k rows' grads at
+    the one row ``rows[0]``.
+
+    For each replica: its blocks are gathered into ONE reused full row
+    (the FlatLayout of ``layout.full``, so the forward reads the same
+    leaf views as one process), the grads are taken there on the rank's
+    rows of the batch (``MeshGroups.data_rows``: its 1/D over "data"
+    when D divides B, else all of them), and autograd's leaf grads go
+    straight to the shard: summed over the data ranks and divided by D
+    when they took different rows, else the rank's own blocks.
+    ``weight_decay * decay_rows[a]`` is added on the shard.  Returns the
+    (k,) losses, averaged over the data ranks when they took different
+    rows.  The full row is the only model-size buffer beside autograd's
+    grads (SGD sums its k grads in one full grad row); no full params
+    stay resident between calls of the forward."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.row, self.grad = GradBuffer(), GradBuffer()
+
+    def __call__(self, loss_fn, layout, rows, batch, out,
+                 weight_decay: float = 0.0, decay_rows=None):
+        mesh = self.mesh
+        k, size = next(iter(batch.values())).shape[:2]
+        sel = mesh.data_rows(size)
+        split = sel != slice(None)
+        batch = {name: v[:, sel] for name, v in batch.items()}
+        rows = list(rows)
+        full = self.row.get((layout.full.numel,), rows[0].dtype,
+                            rows[0].device)
+        if out.dim() == 1:                  # SGD: k shards at one row
+            gfull = self.grad.get((layout.full.numel,), out.dtype,
+                                  out.device)
+            mesh.gather_blocks(rows[0], full, layout)
+            losses = replica_grads(loss_fn, layout.full, [full] * k, batch,
+                                   gfull)
+            mesh.reduce_grads(gfull, out, layout, split)
+            return mesh.data_mean_(losses, split)
+        losses = []
+        for a, r in enumerate(rows):
+            mesh.gather_blocks(r, full, layout)
+            row = full.detach().requires_grad_(True)
+            params, leaves = layout.full.split_leaves(row)
+            loss, _ = loss_fn(params, {name: v[a]
+                                       for name, v in batch.items()})
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [torch.zeros_like(l) if g is None else g
+                     for l, g in zip(leaves, grads)]
+            mesh.reduce_grads(grads, out[a], layout, split)
+            del grads, params, leaves, row
+            if weight_decay:
+                out[a].add_(weight_decay * decay_rows[a])
+            losses.append(loss.detach())
+        return mesh.data_mean_(torch.stack(losses), split)
 
 
 def schedule_scale(lr_schedule, step):
@@ -491,11 +574,12 @@ def _make_step_body(loss_fn: Callable, cfg, weight_decay, use_kernel,
     emits its k local losses as ``local_loss_per_replica`` (the sharded
     wrapper gathers them)."""
     _sync_compress(cfg)
-    gbuf = GradBuffer()
+    gbuf, shard = GradBuffer(), shard_grads_for(group)
     group = active(group)
 
     def step(state: ParleState, batch):
-        losses = _grads_at_y(loss_fn, state, batch, gbuf, weight_decay)
+        losses = _grads_at_y(loss_fn, state, batch, gbuf, weight_decay,
+                             shard)
         new_state = fused_step(state, gbuf.buf, cfg, use_kernel=use_kernel,
                                lr_scale=schedule_scale(lr_schedule,
                                                        state.step),
@@ -539,11 +623,21 @@ def make_sharded_train_step(loss_fn: Callable, cfg, group,
                         group), group, cfg.n_replicas)
 
 
-def _grads_at_y(loss_fn, state: ParleState, batch, gbuf, weight_decay):
-    """grad f(y^a) of every replica into the (n, M) buffer of ``gbuf``;
-    returns the (n,) losses."""
-    return replica_grads(loss_fn, state.layout, state.y, batch,
-                         gbuf.like(state.y), weight_decay, state.y)
+def shard_grads_for(group) -> Optional[ShardGrads]:
+    """The grads of a factory under ``group``: a :class:`ShardGrads` when
+    it has axes inside a replica, else None (:func:`replica_grads`)."""
+    mesh = in_replica(group)
+    return ShardGrads(mesh) if mesh is not None else None
+
+
+def _grads_at_y(loss_fn, state: ParleState, batch, gbuf, weight_decay,
+                shard=None):
+    """grad f(y^a) of every replica into the (n, M) buffer of ``gbuf``
+    (through ``shard``, a :class:`ShardGrads`, under axes inside a
+    replica); returns the (n,) losses."""
+    grads = shard if shard is not None else replica_grads
+    return grads(loss_fn, state.layout, state.y, batch, gbuf.like(state.y),
+                 weight_decay, state.y)
 
 
 def _round_entry(state: ParleState, cfg):
@@ -553,7 +647,8 @@ def _round_entry(state: ParleState, cfg):
 
 
 def _inner_steps(loss_fn, state: ParleState, batches, cfg, gbuf,
-                 weight_decay, use_kernel, lr_schedule, group=None):
+                 weight_decay, use_kernel, lr_schedule, group=None,
+                 shard=None):
     """The round's L inner steps (8a-8b); returns (state, (L,) losses).
     Under an active ``group`` each step keeps its k local losses, and
     one gather after the L steps makes the means over all n."""
@@ -561,7 +656,7 @@ def _inner_steps(loss_fn, state: ParleState, batches, cfg, gbuf,
     for i in range(cfg.L):
         losses = _grads_at_y(loss_fn, state,
                              {k: v[i] for k, v in batches.items()}, gbuf,
-                             weight_decay)
+                             weight_decay, shard)
         state = inner_step(state, gbuf.buf, cfg, use_kernel=use_kernel,
                            lr_scale=schedule_scale(lr_schedule, state.step))
         step_losses.append(losses if group is not None else losses.mean())
@@ -588,17 +683,17 @@ def make_round_fn(loss_fn: Callable, cfg, weight_decay: float = 0.0,
     calls of the train step bit for bit: the per-step lr_scale is taken
     at the same counters, and the sync uses the lr_scale of the round's
     last inner step (schedule(step - 1)).  Metrics: the round-mean
-    ``loss`` plus the per-step ``losses`` (L,).  ``group``: see
-    :func:`make_sharded_round_fn`."""
+    ``loss`` plus the per-step ``losses`` (L,).
+    ``group``: see :func:`make_sharded_round_fn`."""
     _sync_compress(cfg)
-    gbuf = GradBuffer()
+    gbuf, shard = GradBuffer(), shard_grads_for(group)
     group = active(group)
 
     def round_fn(state: ParleState, batches):
         _round_entry(state, cfg)
         state, losses = _inner_steps(loss_fn, state, batches, cfg, gbuf,
                                      weight_decay, use_kernel, lr_schedule,
-                                     group)
+                                     group, shard)
         state = sync_step(state, cfg, use_kernel=use_kernel,
                           lr_scale=schedule_scale(lr_schedule,
                                                   state.step - 1),
@@ -617,8 +712,11 @@ def make_sharded_round_fn(loss_fn: Callable, cfg, group,
     compressed payloads) — and one gather of the (k, L) step losses.
     With one replica a rank it equals the single-process round bit for
     bit; with more, the sync mean sums the rows in another grouping
-    (ulps), as the reference's pmean of local means does."""
-    check_divisible(cfg.n_replicas, group.world, group.axis)
+    (ulps), as the reference's pmean of local means does.  ``group``
+    may be a ``MeshGroups``: the rank's shards of its replicas, the sync
+    over the replica subgroup at shard size."""
+    rg = replica_group(group)
+    check_divisible(cfg.n_replicas, rg.world, rg.axis)
     return make_round_fn(loss_fn, cfg, weight_decay, use_kernel, lr_schedule,
                          group=group)
 
@@ -634,7 +732,7 @@ def make_overlap_round_fn(loss_fn: Callable, cfg, weight_decay: float = 0.0,
     state trails it by exactly the in-flight ``c`` (see
     :func:`make_flush_fn`)."""
     _sync_compress(cfg)
-    gbuf = GradBuffer()
+    gbuf, shard = GradBuffer(), shard_grads_for(group)
     group = active(group)
 
     def round_fn(state: ParleState, batches):
@@ -645,7 +743,7 @@ def make_overlap_round_fn(loss_fn: Callable, cfg, weight_decay: float = 0.0,
                              group=group)
         state, losses = _inner_steps(loss_fn, state, batches, cfg, gbuf,
                                      weight_decay, use_kernel, lr_schedule,
-                                     group)
+                                     group, shard)
         return state, _round_metrics(state, losses)
 
     return round_fn
@@ -659,7 +757,8 @@ def make_sharded_overlap_round_fn(loss_fn: Callable, cfg, group,
     all-reduce, or the payload all-gather) comes first, then the L inner
     steps; the carried ``c`` is the same on every rank, and
     :func:`make_flush_fn` needs no collective."""
-    check_divisible(cfg.n_replicas, group.world, group.axis)
+    rg = replica_group(group)
+    check_divisible(cfg.n_replicas, rg.world, rg.axis)
     return make_overlap_round_fn(loss_fn, cfg, weight_decay, use_kernel,
                                  lr_schedule, group=group)
 
@@ -851,10 +950,24 @@ def make_async_apply_fn(cfg, lr_schedule=None):
 def average_model(state: ParleState, group=None) -> dict:
     """The deployable single model: mean of replicas (what the paper
     evaluates after scoping collapses the ensemble); under a ``group``,
-    of all n (one all-reduce)."""
-    if active(group) is not None:
-        return state.layout.tree(group.mean_rows(state.x))
-    return state.layout.tree(replica_mean(state.x))
+    of all n (one all-reduce); under axes inside a replica, the mean's
+    blocks gathered into full leaves on every rank."""
+    rg = active(group)
+    mean = (replica_mean(state.x) if rg is None else
+            rg.mean_rows(state.x, segments=state.layout.segments))
+    return full_tree(mean, state.layout, group)
+
+
+def full_tree(row, layout, group=None) -> dict:
+    """One model row of a state as a param tree of whole leaves: under
+    axes inside a replica (``group`` a ``MeshGroups``) its blocks are
+    gathered from the in-replica ranks (one all-gather) into a new
+    FlatLayout row."""
+    mesh = in_replica(group)
+    if mesh is None:
+        return layout.tree(row)
+    full = row.new_zeros(layout.full.numel)
+    return layout.full.tree(mesh.gather_blocks(row, full, layout))
 
 
 def replica_model(state: ParleState, a: int) -> dict:

@@ -1,6 +1,8 @@
 """Synthetic data streams (offline — no real datasets).  Port of
 ``repro/data/synthetic.py``'s ``TokenStream``, ``TeacherTask``,
-``replica_batches`` and ``make_round_batch_fn``.
+``replica_batches`` and ``make_round_batch_fn``, and :func:`data_rows`,
+a rank's rows of a replica's batch over the "data" axis inside a
+replica.
 
 ``TeacherTask`` (the paper-faithful classification task of
 ``examples/quickstart.py``) draws everything from numpy's
@@ -132,6 +134,18 @@ def replica_batches(task_or_stream, step: int, batch_size: int,
                              s.num_codebooks)
                 for a in idx]
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def data_rows(batch_size: int, data_size: int, index: int) -> slice:
+    """The rows of a replica's batch of ``batch_size`` rows that rank
+    ``index`` of a "data" axis of ``data_size`` ranks computes, as
+    ``sharding/partition.py::batch_pspecs`` places them: its 1/D when D
+    divides the batch, else all of them (replicated: every data rank
+    computes the whole batch)."""
+    if data_size > 1 and batch_size % data_size == 0:
+        per = batch_size // data_size
+        return slice(index * per, (index + 1) * per)
+    return slice(None)
 
 
 def make_round_batch_fn(stream: TokenStream, L: int, batch_size: int,

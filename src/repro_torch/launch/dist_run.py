@@ -77,7 +77,8 @@ from repro_torch.core.algorithm import validate_replicas
 from repro_torch.core.parle import dealias_state
 from repro_torch.data.synthetic import (TokenStream, make_round_batch_fn,
                                         replica_batches)
-from repro_torch.launch.mesh import group_from_spec, mesh_size, replica_axis
+from repro_torch.launch.mesh import (group_from_spec, inner_axes, mesh_size,
+                                     replica_axis)
 from repro_torch.models.model import build_model
 from repro_torch.obs import EventSink, Obs, merge_snapshots, read_events
 from repro_torch.runtime import (CRASH_RC, AsyncElasticPolicy,
@@ -749,6 +750,11 @@ def main(argv=None, cfg=None) -> int:
 
     spec = _mesh_spec(args)
     axis, size = replica_axis(spec)
+    if inner_axes(spec):
+        raise SystemExit(f"mesh {spec!r}: the pod launcher runs the "
+                         "replica axis alone; train with axes inside a "
+                         "replica under python -m torch.distributed.run "
+                         "-m repro_torch.launch.train --mesh ...")
     if size != args.nproc:
         raise SystemExit(f"mesh {spec!r}: its replica axis {axis!r} spans "
                          f"{size} ranks, --nproc is {args.nproc} (one rank "

@@ -1,14 +1,19 @@
 """``--mesh`` specs on a ``torch.distributed`` world.  Port of
-``repro/launch/mesh.py``'s ``parse_mesh_spec``, ``replica_axis_of`` and
-spec checks; the JAX mesh factories have no counterpart.
+``repro/launch/mesh.py``'s ``parse_mesh_spec``, ``replica_axis_of``,
+``make_mesh_from_spec``'s layout and its spec checks; the JAX mesh
+factories have no counterpart.
 
-A spec names axes outermost first ("pod:2", "replica:4,data:1").  Its
-replica axis ("pod", else "replica") maps onto the ranks of the current
-``torch.distributed`` world, one rank per index of the axis
-(:func:`group_from_spec`).  A replica axis of size 1 is the trivial
-group and needs no world.  The axes inside a replica ("data", "model":
-FSDP and tensor parallelism) are ROADMAP.md queue 1 item 6; a spec that
-gives one a size above 1 raises.
+A spec names axes outermost first ("pod:2", "replica:2,data:2,model:2").
+Its ranks are the world's, one for every point of the mesh, laid out in
+the spec's order (rank = the row-major index of its coordinates, as the
+reference reshapes its devices).  A spec whose axes inside a replica
+("data", "model": FSDP and tensor parallelism) all have size 1 is the
+replica axis alone (:func:`group_from_spec`: a ``ReplicaGroup``; size 1
+is the trivial group and needs no world); with one above size 1,
+:func:`groups_from_spec` gives the rank's ``MeshGroups``
+(``sharding/partition.py``).  The world must have exactly as many ranks
+as the spec's sizes multiply to: a mesh that cannot be formed raises, and
+never runs on fewer ranks.
 
 A world is joined from the variables that ``python -m
 torch.distributed.run`` and the pod launcher (``launch/dist_run.py``)
@@ -21,15 +26,17 @@ import os
 
 import torch.distributed as dist
 
-from repro_torch.sharding.partition import ReplicaGroup
+from repro_torch.sharding.partition import (INNER_AXES, MeshGroups,
+                                            ReplicaGroup, replica_axis_of)
 
-REPLICA_AXES = ("pod", "replica")
 LAUNCH_HINT = (
     "--mesh {spec} spans {size} ranks, and no torch.distributed world of "
     "{size} ranks is running: start one with `python -m "
     "torch.distributed.run --nproc-per-node {size} -m "
-    "repro_torch.launch.train --mesh {spec} ...`, or use the pod launcher "
-    "`python -m repro_torch.launch.dist_run --nproc {size} ...`")
+    "repro_torch.launch.train --mesh {spec} ...`")
+# the pod launcher runs the replica axis alone
+POD_HINT = (", or use the pod launcher `python -m "
+            "repro_torch.launch.dist_run --nproc {size} ...`")
 
 
 def parse_mesh_spec(spec: str) -> dict:
@@ -53,15 +60,6 @@ def parse_mesh_spec(spec: str) -> dict:
     return out
 
 
-def replica_axis_of(axes: dict):
-    """The replica axis of a parsed spec ("pod", else "replica"), or
-    None."""
-    for name in REPLICA_AXES:
-        if name in axes:
-            return name
-    return None
-
-
 def mesh_size(spec: str) -> int:
     """The number of devices a spec spans (the product of its sizes)."""
     size = 1
@@ -72,19 +70,19 @@ def mesh_size(spec: str) -> int:
 
 def replica_axis(spec: str):
     """(axis name, size) of the spec's replica axis; raises for a spec
-    without one, or with an axis inside a replica above size 1."""
+    without one."""
     axes = parse_mesh_spec(spec)
     raxis = replica_axis_of(axes)
     if raxis is None:
         raise ValueError(f"--mesh {spec!r} has no replica axis")
-    inner = {a: s for a, s in axes.items() if a != raxis and s > 1}
-    if inner:
-        raise ValueError(
-            f"--mesh {spec!r}: the axes inside a replica ({inner}: FSDP / "
-            "tensor parallelism) are not ported yet (ROADMAP.md queue 1, "
-            "item 6); the replica axis spans the ranks of a "
-            "torch.distributed world")
     return raxis, axes[raxis]
+
+
+def inner_axes(spec: str) -> dict:
+    """{axis: size} of the spec's axes inside a replica above size 1."""
+    axes = parse_mesh_spec(spec)
+    raxis = replica_axis_of(axes)
+    return {a: s for a, s in axes.items() if a != raxis and s > 1}
 
 
 def join_world() -> bool:
@@ -102,19 +100,51 @@ def join_world() -> bool:
     return True
 
 
-def group_from_spec(spec: str, n: int = 0, obs=None) -> ReplicaGroup:
-    """The :class:`ReplicaGroup` of ``spec``'s replica axis over the
-    current world (joined from the environment when needed), holding
-    ``n`` replicas (0: one a rank).  The world must have exactly as many
-    ranks as the axis; an axis of size 1 is the trivial group."""
-    raxis, size = replica_axis(spec)
-    n = n or size
-    if size == 1:
-        return ReplicaGroup(n, axis=raxis, obs=obs)
+def _world_for(spec: str) -> int:
+    """Join the world ``spec`` needs (all its ranks) and return its rank;
+    raises with the launch hint when there is none, and when the world's
+    size is not the spec's."""
+    size = mesh_size(spec)
     if not join_world():
-        raise RuntimeError(LAUNCH_HINT.format(spec=spec, size=size))
+        hint = LAUNCH_HINT + ("" if inner_axes(spec) else POD_HINT)
+        raise RuntimeError(hint.format(spec=spec, size=size))
     world = dist.get_world_size()
     if world != size:
         raise ValueError(f"mesh {spec!r} needs {size} ranks, the "
                          f"torch.distributed world has {world}")
-    return ReplicaGroup(n, dist.get_rank(), world, axis=raxis, obs=obs)
+    return dist.get_rank()
+
+
+def group_from_spec(spec: str, n: int = 0, obs=None) -> ReplicaGroup:
+    """The :class:`ReplicaGroup` of ``spec``'s replica axis over the
+    current world (joined from the environment when needed), holding
+    ``n`` replicas (0: one a rank).  The world must have exactly as many
+    ranks as the axis; an axis of size 1 is the trivial group.  A spec
+    with an axis inside a replica above size 1 needs
+    :func:`groups_from_spec`."""
+    raxis, size = replica_axis(spec)
+    n = n or size
+    if inner_axes(spec):
+        raise ValueError(f"--mesh {spec!r} has axes inside a replica "
+                         f"({inner_axes(spec)}): use groups_from_spec")
+    if size == 1:
+        return ReplicaGroup(n, axis=raxis, obs=obs)
+    rank = _world_for(spec)
+    return ReplicaGroup(n, rank, size, axis=raxis, obs=obs)
+
+
+def groups_from_spec(spec: str, n: int = 0, obs=None):
+    """The rank's groups for ``spec`` over the current world: a
+    :class:`MeshGroups` when an axis inside a replica has more than one
+    rank (the world must have the product of the sizes), else
+    :func:`group_from_spec`'s ReplicaGroup."""
+    inner = inner_axes(spec)
+    if not inner:
+        return group_from_spec(spec, n, obs)
+    raxis, size = replica_axis(spec)
+    bad = sorted(set(inner) - set(INNER_AXES))
+    if bad:
+        raise ValueError(f"--mesh {spec!r}: axes {bad} are not axes the "
+                         f"planner assigns ({', '.join(INNER_AXES)})")
+    rank = _world_for(spec)
+    return MeshGroups(parse_mesh_spec(spec), n or size, rank, obs=obs)

@@ -9,7 +9,9 @@
    ``pcfg.sync_overlap``).  ``make_algorithm_sharded_step`` and
    ``make_algorithm_round(mesh=...)`` put the replica axis over the ranks
    of a ``torch.distributed`` group: ``mesh`` is a ``ReplicaGroup``
-   (``sharding/partition.py``; ``launch/mesh.py::group_from_spec``).
+   (``sharding/partition.py``; ``launch/mesh.py::group_from_spec``), or a
+   ``MeshGroups`` for a mesh with axes inside a replica (each rank then
+   holds its shard of its replicas; ``launch/mesh.py::groups_from_spec``).
  * ``make_parle_steps`` — the Parle step decomposed into inner_step
    (8a-8b), sync_step (8c-8d) and their fused step.
  * ``make_prefill_step`` / ``make_decode_step`` — serving programs.
@@ -53,7 +55,9 @@ def make_algorithm_sharded_step(algo_name: str, cfg, pcfg, mesh,
                                 use_flash: bool = False, remat=False,
                                 use_kernel: bool = False, lr_schedule=None):
     """The step with the replica axis over the ranks of ``mesh`` (a
-    ``ReplicaGroup``): ``batch`` leaves carry the rank's k replicas."""
+    ``ReplicaGroup`` or a ``MeshGroups``): ``batch`` leaves carry the
+    rank's k replicas (each replica's whole batch: under a "data" axis
+    the step takes the rank's rows)."""
     return policy_for(pcfg).make_step_fn(
         registry.get(algo_name), make_loss_fn(cfg, use_flash, remat), pcfg,
         mesh=mesh, weight_decay=weight_decay, use_kernel=use_kernel,
@@ -66,7 +70,8 @@ def make_algorithm_round(algo_name: str, cfg, pcfg, mesh=None,
                          lr_schedule=None):
     """The fused L-step round for any registered algo: round(state,
     batches) -> (state, metrics) with batches leaves (L, n, B, ...)
-    (with ``mesh``, a ``ReplicaGroup``: (L, k, B, ...))."""
+    (with ``mesh``, a ``ReplicaGroup`` or a ``MeshGroups``: (L, k, B,
+    ...))."""
     return policy_for(pcfg).make_round_fn(
         registry.get(algo_name), make_loss_fn(cfg, use_flash, remat), pcfg,
         mesh=mesh, weight_decay=weight_decay, use_kernel=use_kernel,

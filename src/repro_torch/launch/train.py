@@ -15,6 +15,9 @@
     PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \\
         -m repro_torch.launch.train --mesh pod:2 --smoke --device cpu \\
         --L 3 --steps 6 --batch 2 --seq 32 --round-fused
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+        -m repro_torch.launch.train --mesh replica:2,data:2 --smoke \\
+        --device cpu --L 3 --steps 6 --batch 2 --seq 32 --round-fused
 
 Runs any registered algorithm (``repro_torch.core.registry``: parle,
 entropy_sgd, elastic_sgd, sgd) on a dense, moe, ssm (Mamba2) or hybrid
@@ -45,6 +48,20 @@ once a step.  It combines with ``--use-kernel``, ``--round-fused``,
 Without a world, ``--mesh`` with an axis above 1 exits saying how to
 start one; ``pod:1`` is the single-process run.
 
+``--mesh replica:R,data:D,model:M`` adds the axes inside a replica over
+R·D·M ranks (``sharding/partition.py::MeshGroups``): each rank holds its
+shard of every state leaf, as the sharding planner assigns it (the
+reference train CLI's ``fsdp_tp`` policy), gathers a replica's weights
+for its forward and backward and reduce-scatters its grads, its
+replica's batch split over "data" when D divides ``--batch``; the
+kernels run on the shard buffers and the sync rides the replica axis at
+shard size.  Each model rank computes the whole replica (the products
+are not split over "model": ROADMAP.md queue 1 item 6a).  Refused on
+such a mesh, with the ROADMAP.md item that ports them: a moe
+architecture with ``data`` above 1 (its flat dispatch's capacity and aux
+loss are batch-global: item 6a), ``--checkpoint-dir`` / ``--resume``
+(item 6b) and ``--sync-policy async`` (item 6d).
+
 Params are drawn from a ``torch.Generator`` seeded by ``--seed`` on the
 training device (not the reference's init: its float draws go through
 XLA's ``erf_inv``).  The batches are the reference's token stream bit
@@ -59,12 +76,11 @@ resolves, then broadcasts) and each rank restores its own rows.  The
 same file resumes under any rank count that divides its replicas, in one
 process, and in the reference.  ``--sync-policy async`` exits pointing
 at the pod launcher (``launch/dist_run.py``), as the reference's does.
-Not ported yet, exiting with the ROADMAP.md item that ports it: axes
-inside a replica in ``--mesh`` (queue 1 item 6); ``--host-devices`` is
-the reference's XLA CPU mesh and has no counterpart.  The vlm and audio
-families need batches with ``patch_embeds`` / ``cond``, which the token
-stream does not draw (as in the reference's CLI): they train through the
-Algorithm API with their own batches.
+``--host-devices`` is the reference's XLA CPU mesh and has no
+counterpart.  The vlm and audio families need batches with
+``patch_embeds`` / ``cond``, which the token stream does not draw (as in
+the reference's CLI): they train through the Algorithm API with their
+own batches.
 """
 from __future__ import annotations
 
@@ -89,6 +105,7 @@ from repro_torch.models.model import build_model
 from repro_torch.obs import Obs
 from repro_torch.runtime import (CheckpointSpec, RoundRunner, emit_progress,
                                  resolve_train_policy)
+from repro_torch.runtime.policies import ASYNC_IN_REPLICA
 from repro_torch.runtime.precision import pin_float32
 from repro_torch.sharding.partition import active
 
@@ -205,19 +222,42 @@ def _replica_axis(args):
 
 
 def make_group(args, pcfg, obs):
-    """The ReplicaGroup of ``--mesh`` (None without it), after the
-    reference trainer's replica checks; a spec above one rank joins the
-    torch.distributed world of the environment, or exits saying how to
-    start one."""
+    """The ReplicaGroup of ``--mesh`` (a MeshGroups with axes inside a
+    replica; None without it), after the reference trainer's replica
+    checks; a spec above one rank joins the torch.distributed world of
+    the environment, or exits saying how to start one."""
     if not args.mesh:
         return None
     axis, size = _replica_axis(args)
     validate_replicas(args.algo, args.replicas, pcfg.n_replicas, axis, size)
     try:
-        group = mesh_mod.group_from_spec(args.mesh, pcfg.n_replicas, obs)
-    except RuntimeError as e:
+        group = mesh_mod.groups_from_spec(args.mesh, pcfg.n_replicas, obs)
+    except (RuntimeError, ValueError) as e:
         raise SystemExit(str(e)) from None
     return group
+
+
+def check_in_replica(args, cfg):
+    """The paths not ported on a mesh with an axis inside a replica exit
+    naming the ROADMAP.md item that ports them."""
+    inner = mesh_mod.inner_axes(args.mesh) if args.mesh else {}
+    if not inner:
+        return
+    spec = f"--mesh {args.mesh}"
+    if cfg.family == "moe" and inner.get("data", 1) > 1:
+        raise SystemExit(
+            f"{spec}: a moe architecture with a data axis above 1 is not "
+            "ported yet (ROADMAP.md queue 1, item 6a): splitting the batch "
+            "over 'data' changes the flat dispatch's capacity and its "
+            "batch-global aux loss (the grouped dispatch keeps them); "
+            "'model' alone works")
+    if args.checkpoint_dir or args.resume:
+        raise SystemExit(
+            f"{spec}: checkpoints with an axis inside a replica are not "
+            "ported yet (ROADMAP.md queue 1, item 6b); drop "
+            "--checkpoint-dir / --resume, or use the replica axis alone")
+    if args.sync_policy == "async":
+        raise SystemExit(ASYNC_IN_REPLICA.format(axes=",".join(inner)))
 
 
 def resolve_resume(path: str, group) -> str:
@@ -244,6 +284,7 @@ def run(args, cfg, device, obs, pre_round=None, on_round=None):
     go to ``RoundRunner.run_rounds`` (``--round-fused``).  Under
     ``--mesh`` the state holds this rank's replicas."""
     pin_float32()
+    check_in_replica(args, cfg)
     policy = resolve_train_policy(args)
     model = build_model(cfg)
     algo = registry.get(args.algo)
@@ -277,7 +318,9 @@ def run(args, cfg, device, obs, pre_round=None, on_round=None):
         algo=args.algo, arch=cfg.name, pspecs=pspecs), group=group)
     if group is not None:
         rec = obs.emit("mesh", mesh=mesh_mod.parse_mesh_spec(args.mesh),
-                       replica_axis=group.axis, in_replica_axes=[],
+                       replica_axis=group.axis,
+                       in_replica_axes=list(getattr(group, "inner_axes",
+                                                    ())),
                        ranks=group.world, replicas_per_device=group.local)
         if runner.prints:
             print(json.dumps(rec), flush=True)

@@ -14,7 +14,12 @@ kernel: the reference ignores ``use_kernel`` for SGD, and so does the
 port.  Across ranks (``sharding/partition.py::ReplicaGroup``) each rank
 takes the grads of its k shards, and their sum is all-reduced (one
 model-size all-reduce a step) before the division by n, so every rank
-keeps the same params.
+keeps the same params.  Inside a replica (a ``MeshGroups``) a rank
+holds its blocks of params and v (``utils/pytree.py::ShardedLayout``):
+the step gathers them into one full row, takes the k shards' grads there
+and reduce-scatters their sum to the rank's blocks
+(``core/parle.py::ShardGrads``); the all-reduce over the replica
+subgroup then moves shard-size rows.
 """
 from __future__ import annotations
 
@@ -22,10 +27,12 @@ from typing import Callable, NamedTuple, Sequence
 
 import torch
 
-from repro_torch.core.parle import GradBuffer, replica_grads, schedule_scale
+from repro_torch.core.parle import (GradBuffer, shard_grads_for, replica_grads,
+                                    schedule_scale)
 from repro_torch.sharding.partition import (active, check_divisible,
-                                            make_sharded_step_fn)
-from repro_torch.utils.pytree import FlatLayout
+                                            layout_for,
+                                            make_sharded_step_fn,
+                                            replica_group)
 
 
 class SGDState(NamedTuple):
@@ -40,8 +47,10 @@ class SGDState(NamedTuple):
                 "v": self.layout.tree(self.v), "step": self.step}
 
 
-def init(params) -> SGDState:
-    layout = FlatLayout(params)
+def init(params, group=None) -> SGDState:
+    """One model at ``params`` (under axes inside a replica, the rank's
+    blocks of it)."""
+    layout = layout_for(params, group)
     row = layout.flatten(params)
     return SGDState(params=row, v=torch.zeros_like(row),
                     step=torch.zeros((), dtype=torch.int32), layout=layout)
@@ -103,18 +112,21 @@ def _make_step_body(loss_fn: Callable, cfg, weight_decay, lr_schedule,
     ``group`` the shard grads' sum is all-reduced and the step emits its
     k local losses as ``local_loss_per_replica``."""
     gbuf = GradBuffer()
+    shard = shard_grads_for(group)
+    grads_fn = shard if shard is not None else replica_grads
     cdt = cfg.compute_dtype()
     group = active(group)
 
     def step(state: SGDState, batch):
         k = next(iter(batch.values())).shape[0]
         row = state.params.to(cdt)
-        losses = replica_grads(loss_fn, state.layout, [row] * k, batch,
-                               gbuf.like(state.params))
+        losses = grads_fn(loss_fn, state.layout, [row] * k, batch,
+                          gbuf.like(state.params))
         if group is None:
             grads = gbuf.buf.div_(k)              # the mean over the shards
         else:
-            grads = group.all_reduce_(gbuf.buf).div_(group.n)
+            grads = group.all_reduce_(
+                gbuf.buf, state.layout.segments).div_(group.n)
         lr = cfg.lr * schedule_scale(lr_schedule, state.step)
         new_state = update(state, grads, lr, cfg.momentum, weight_decay)
         if group is None:
@@ -151,8 +163,8 @@ def make_round_fn(loss_fn: Callable, cfg, weight_decay: float = 0.0,
     Metrics: the round-mean ``loss``, the per-step ``losses`` (L,), the
     last step's ``lr`` and ``step``.  ``group``: see
     :func:`make_sharded_round_fn`."""
-    group = active(group)
     step_fn = _make_step_body(loss_fn, cfg, weight_decay, lr_schedule, group)
+    group = active(group)
 
     def round_fn(state: SGDState, batches):
         losses = []
@@ -173,6 +185,7 @@ def make_sharded_round_fn(loss_fn: Callable, cfg, group,
     """Data-parallel fused round over the ranks of ``group``: L steps,
     each with its model-size all-reduce, and one gather of the (k, L)
     step losses."""
-    check_divisible(cfg.n_replicas, group.world, group.axis)
+    rg = replica_group(group)
+    check_divisible(cfg.n_replicas, rg.world, rg.axis)
     return make_round_fn(loss_fn, cfg, weight_decay, lr_schedule,
                          group=group)

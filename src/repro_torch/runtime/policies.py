@@ -14,7 +14,8 @@
 Barrier and overlap delegate to the Algorithm object
 (``algo.make_round_fn`` keys off ``pcfg.sync_overlap``), in one process
 or, with ``mesh=`` (a ``ReplicaGroup``, ``sharding/partition.py``), with
-the replica axis over the ranks of a ``torch.distributed`` group.  The
+the replica axis over the ranks of a ``torch.distributed`` group, or (a
+``MeshGroups``) with axes inside a replica too.  The
 async policy's round is consensus-free (inner steps only) and its
 exchange runs after the round as a ``RoundRunner.post_round`` hook.
 """
@@ -24,6 +25,13 @@ import time
 
 from repro_torch.core import parle
 from repro_torch.runtime import faults as faults_mod
+from repro_torch.sharding.partition import in_replica
+
+ASYNC_IN_REPLICA = (
+    "--sync-policy async with an axis inside a replica ({axes}) is not "
+    "ported yet (ROADMAP.md queue 1, item 6d): its workers are "
+    "single-process (the pod launcher's); use --sync-policy barrier or "
+    "overlap on this mesh")
 
 POLICY_NAMES = ("barrier", "overlap", "async")
 
@@ -111,6 +119,9 @@ class AsyncElasticPolicy(SyncPolicy):
 
     def make_round_fn(self, algo, loss_fn, pcfg, *, mesh=None,
                       weight_decay=0.0, use_kernel=False, lr_schedule=None):
+        if in_replica(mesh) is not None:
+            raise SystemExit(ASYNC_IN_REPLICA.format(
+                axes=",".join(mesh.inner_axes)))
         if mesh is not None:
             raise SystemExit("--sync-policy async runs each worker on its "
                              "local devices (no global mesh); drop --mesh")

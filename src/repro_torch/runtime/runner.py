@@ -10,7 +10,9 @@ series); the caller injects what differs through small hooks
 ``flush_fn``.  Under a ``ReplicaGroup`` of ranks (``group=``) every rank
 runs the loop and counts the tokens of its own replicas, only rank 0
 prints progress, and a checkpoint gathers the ranks' rows into the one
-file rank 0 writes.
+file rank 0 writes.  Under a ``MeshGroups`` (axes inside a replica) only
+the world's rank 0 prints; checkpoints there are not ported (the train
+CLI refuses them).
 
 Spans end on ``torch.cuda.synchronize`` (``Span.block``), the
 counterpart of the reference's ``block_until_ready``.  There is no AOT
@@ -49,7 +51,7 @@ class RoundRunner:
         self.ns = ns
         self.checkpoint = checkpoint
         self.group = active(group)
-        self.prints = group is None or group.rank == 0
+        self.prints = group is None or group.rank == 0   # the world's rank
 
     def _report(self, progress, *args, history):
         rec = progress(*args)

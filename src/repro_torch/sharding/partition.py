@@ -1,7 +1,10 @@
-"""The Parle replica axis over the ranks of a ``torch.distributed`` process
-group.  Port of the replica-axis half of ``repro/sharding/partition.py``
-(its PartitionSpec functions serve JAX's ``shard_map`` and have no
-counterpart here).
+"""The Parle replica axis and the axes inside a replica over the ranks of
+a ``torch.distributed`` process group, and the partition specs of the
+sharding planner.  Port of ``repro/sharding/partition.py``: its spec
+functions (:func:`param_pspecs`, :func:`parle_state_pspecs`, ...,
+:func:`batch_pspecs`) give trees of :class:`~repro_torch.sharding.rules.Spec`;
+its ``jit(shard_map)`` wrapper becomes :func:`make_sharded_step_fn`, and
+GSPMD's placement inside a replica becomes :class:`MeshGroups`.
 
 A :class:`ReplicaGroup` gives rank r of a world of W ranks the replica
 rows ``[r k, (r + 1) k)`` of the n replicas (``k = n / W``).  Every
@@ -26,16 +29,36 @@ rank's rows of each state leaf, gathered leaf by leaf into rank 0's host
 memory (``dist.gather``) and handed to the writer there, counted as
 ``op="gather"``; no rank's device holds another's rows.
 
+Axes inside a replica (``--mesh replica:R,data:D,model:M``): a
+:class:`MeshGroups` lays the world's R·D·M ranks out in the spec's axis
+order, outermost first (rank = the row-major index of its coordinates,
+as the reference reshapes its devices into the mesh).  The ranks that
+share an in-replica coordinate form the replica subgroup — the ``pg`` of
+the rank's ReplicaGroup, so the sync above runs unchanged at shard size —
+and the D·M ranks of one replica index form the in-replica group, with
+two operations, each ONE collective:
+
+* :meth:`MeshGroups.gather_blocks` — every rank's blocks of a replica's
+  row, all-gathered and assembled into the full row the forward reads
+  (``utils/pytree.py::ShardedLayout``);
+* :meth:`MeshGroups.reduce_grads` — a full grad row to the rank's shard:
+  over "data" a SUM reduce-scatter (the data ranks took the grads of
+  different batch rows), then the division by D; over "model" no
+  reduction (every model rank computed the same grads: each takes its
+  own blocks).
+
 The backend is gloo, on the CPU and on the card alike (two ranks can
 share one card, where NCCL refuses them).  A CUDA tensor is staged
-through pinned host memory, one buffer per shape and dtype, made at its
-first use: device to host, the gloo call, host to device, each timed and
-in a span (``pod.d2h``, ``pod.collective``, ``pod.h2d``).  Each operation
-counts its calls and the bytes this rank contributes in the ``Obs``
-registry, as ``pod.collectives{op=...}`` and
-``pod.collective_bytes{op=...}`` (and, with the telemetry armed, the
-three times in ``pod.d2h_ms`` / ``pod.collective_ms`` / ``pod.h2d_ms``
-histograms).
+through pinned host memory, one buffer per role, size and dtype, made at
+its first use: device to host, the gloo call, host to device, each timed
+and in a span (``pod.d2h``, ``pod.collective``, ``pod.h2d``).  Each
+operation counts its calls and the bytes this rank contributes in the
+``Obs`` registry, as ``pod.collectives{op=..., axis=...}`` and
+``pod.collective_bytes{op=..., axis=...}`` (and, with the telemetry
+armed, the three times in ``pod.d2h_ms`` / ``pod.collective_ms`` /
+``pod.h2d_ms`` histograms); ``axis`` is the replica axis's name
+("pod" / "replica") or the in-replica axes the collective spans
+("data", "model", "data,model").
 
 A world of one rank is the trivial group: it makes no collective (the
 reference's size-1 replica axis runs with ``axis_name=None``), and the
@@ -43,11 +66,18 @@ algorithms take their single-process path under it.
 """
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.data.synthetic import data_rows
+from repro_torch.sharding import planner as planner_mod
+from repro_torch.sharding.rules import DATA, MODEL, Spec
+from repro_torch.utils.pytree import (FlatLayout, ShardedLayout, tree_map,
+                                      tree_leaves_with_paths)
 
 def check_divisible(n_replicas: int, world: int, axis: str = "pod"):
     """Each rank holds a whole number of replicas (the reference's
@@ -58,7 +88,91 @@ def check_divisible(n_replicas: int, world: int, axis: str = "pod"):
             f"mesh axis {axis!r} of size {world}")
 
 
-class ReplicaGroup:
+class _Staged:
+    """Pinned host staging and the counted, timed collectives of a group
+    of ranks (``axis``: the label its collectives are counted under)."""
+
+    axis = "pod"
+
+    def _init_staging(self, obs):
+        if obs is None:
+            from repro_torch.obs import Obs
+            obs = Obs()
+        self.obs = obs
+        self._pinned: dict = {}
+
+    def _host(self, key, numel: int, dtype) -> torch.Tensor:
+        """A pinned host buffer of ``numel`` elements, made once per
+        (key, numel, dtype)."""
+        k = (key, numel, dtype)
+        if k not in self._pinned:
+            self._pinned[k] = torch.empty(numel, dtype=dtype,
+                                          pin_memory=True)
+        return self._pinned[k]
+
+    def _staging(self, device, key, numel: int, dtype) -> torch.Tensor:
+        """Where a collective's host side lives: a pinned buffer for a CUDA
+        tensor, a fresh one on the CPU."""
+        if device.type == "cpu":
+            return torch.empty(numel, dtype=dtype)
+        return self._host(key, numel, dtype)
+
+    def _collective(self, op: str, nbytes: int, d2h, call, h2d, axis=None):
+        """Run one staged collective: ``d2h()`` -> host buffers, ``call``
+        on them, ``h2d()`` back; count it and time its three parts."""
+        axis = axis or self.axis
+        reg, tracer = self.obs.registry, self.obs.tracer
+        reg.counter("pod.collectives", op=op, axis=axis).inc()
+        reg.counter("pod.collective_bytes", op=op, axis=axis).inc(nbytes)
+        t = [time.perf_counter()]
+        for name, fn in (("pod.d2h", d2h), ("pod.collective", call),
+                         ("pod.h2d", h2d)):
+            with tracer.span(name, cat="sync", op=op, axis=axis,
+                             bytes=nbytes):
+                fn()
+            t.append(time.perf_counter())
+        if self.obs.enabled:
+            for i, k in enumerate(("d2h_ms", "collective_ms", "h2d_ms")):
+                reg.histogram(f"pod.{k}", op=op, axis=axis).observe(
+                    (t[i + 1] - t[i]) * 1e3)
+
+    def _all_reduce(self, buf: torch.Tensor, pg, axis=None,
+                    segments=None) -> torch.Tensor:
+        """SUM-all-reduce the contiguous 1-D ``buf`` in place over ``pg``.
+        ``segments``: the (offset, size) spans that carry data — only they
+        move (packed into one buffer); the rest of ``buf`` is left as it
+        is."""
+        spans = segments if segments is not None else [(0, buf.numel())]
+        total = sum(s for _, s in spans)
+        whole = segments is None and buf.device.type == "cpu"
+        host = (buf if whole else
+                self._staging(buf.device, "reduce", total, buf.dtype))
+
+        def d2h():
+            if whole:
+                return
+            if buf.device.type != "cpu":
+                torch.cuda.current_stream(buf.device).synchronize()
+            at = 0
+            for o, s in spans:
+                host[at:at + s].copy_(buf[o:o + s])
+                at += s
+
+        def h2d():
+            if whole:
+                return
+            at = 0
+            for o, s in spans:
+                buf[o:o + s].copy_(host[at:at + s])
+                at += s
+
+        self._collective("all_reduce", total * buf.element_size(), d2h,
+                         lambda: dist.all_reduce(host, group=pg), h2d,
+                         axis=axis)
+        return buf
+
+
+class ReplicaGroup(_Staged):
     """Rank ``rank`` of ``world`` ranks holding rows ``rows`` of the
     ``n`` replicas.  ``pg``: the ``torch.distributed`` process group
     (None: the default group); ``obs``: the ``Obs`` bundle whose registry
@@ -72,73 +186,30 @@ class ReplicaGroup:
         self.local = n // world
         self.rows = slice(rank * self.local, (rank + 1) * self.local)
         self.pg = pg
-        if obs is None:
-            from repro_torch.obs import Obs
-            obs = Obs()
-        self.obs = obs
-        self._pinned: dict = {}
+        self._init_staging(obs)
 
     @property
     def trivial(self) -> bool:
         return self.world == 1
 
-    # -- staging ------------------------------------------------------
-    def _host(self, key, numel: int, dtype) -> torch.Tensor:
-        """A pinned host buffer of ``numel`` elements, made once per
-        (key, numel, dtype)."""
-        k = (key, numel, dtype)
-        if k not in self._pinned:
-            self._pinned[k] = torch.empty(numel, dtype=dtype,
-                                          pin_memory=True)
-        return self._pinned[k]
-
-    def _collective(self, op: str, nbytes: int, d2h, call, h2d):
-        """Run one staged collective: ``d2h()`` -> host buffers, ``call``
-        on them, ``h2d()`` back; count it and time its three parts."""
-        reg, tracer = self.obs.registry, self.obs.tracer
-        reg.counter("pod.collectives", op=op).inc()
-        reg.counter("pod.collective_bytes", op=op).inc(nbytes)
-        t = [time.perf_counter()]
-        for name, fn in (("pod.d2h", d2h), ("pod.collective", call),
-                         ("pod.h2d", h2d)):
-            with tracer.span(name, cat="sync", op=op, bytes=nbytes):
-                fn()
-            t.append(time.perf_counter())
-        if self.obs.enabled:
-            for i, k in enumerate(("d2h_ms", "collective_ms", "h2d_ms")):
-                reg.histogram(f"pod.{k}", op=op).observe(
-                    (t[i + 1] - t[i]) * 1e3)
-
     # -- operations ---------------------------------------------------
-    def all_reduce_(self, buf: torch.Tensor) -> torch.Tensor:
+    def all_reduce_(self, buf: torch.Tensor, segments=None) -> torch.Tensor:
         """SUM-all-reduce the contiguous ``buf`` in place across the
-        ranks (the trivial group: no collective)."""
+        ranks (the trivial group: no collective).  ``segments``: only
+        these (offset, size) spans of the flat ``buf`` move."""
         if self.trivial:
             return buf
-        if buf.device.type == "cpu":
-            host = buf
-            d2h = h2d = lambda: None
-        else:
-            host = self._host("reduce", buf.numel(), buf.dtype)
-            flat = buf.view(-1)
-
-            def d2h():
-                torch.cuda.current_stream(buf.device).synchronize()
-                host.copy_(flat)
-
-            def h2d():
-                flat.copy_(host)
-        self._collective(
-            "all_reduce", buf.numel() * buf.element_size(), d2h,
-            lambda: dist.all_reduce(host, group=self.pg), h2d)
+        self._all_reduce(buf.view(-1), self.pg, segments=segments)
         return buf
 
-    def mean_rows(self, x_local: torch.Tensor, out=None) -> torch.Tensor:
+    def mean_rows(self, x_local: torch.Tensor, out=None,
+                  segments=None) -> torch.Tensor:
         """(k, M) local rows -> the (M,) mean over all n replicas: the
         local sum, all-reduced with SUM, divided by n.  ``out``: an (M,)
-        buffer to write it into."""
+        buffer to write it into; ``segments``: the spans of a row that
+        carry data (a ``ShardedLayout``'s blocks: the gaps stay zero)."""
         s = torch.sum(x_local, 0, out=out)
-        return self.all_reduce_(s).div_(self.n)
+        return self.all_reduce_(s, segments).div_(self.n)
 
     def replica_means(self, local: torch.Tensor) -> torch.Tensor:
         """``local`` (k, L): this rank's replicas' values of L small
@@ -159,18 +230,14 @@ class ReplicaGroup:
         sizes = [f.numel() for f in flats]
         total = sum(sizes)
         dev = ts[0].device
-        staged = dev.type != "cpu"
-        make = ((lambda key, numel: self._host(key, numel, torch.uint8))
-                if staged else
-                (lambda key, numel: torch.empty(numel, dtype=torch.uint8)))
-        send = make("gather_send", total)
-        recv = make("gather_recv", self.world * total).view(self.world,
-                                                            total)
+        send = self._staging(dev, "gather_send", total, torch.uint8)
+        recv = self._staging(dev, "gather_recv", self.world * total,
+                             torch.uint8).view(self.world, total)
         outs = [torch.empty((self.n,) + tuple(t.shape[1:]), dtype=t.dtype,
                             device=t.device) for t in ts]
 
         def d2h():
-            if staged:
+            if dev.type != "cpu":
                 torch.cuda.current_stream(dev).synchronize()
             off = 0
             for f, sz in zip(flats, sizes):
@@ -203,8 +270,9 @@ class ReplicaGroup:
         and the gloo calls (``each`` excluded)."""
         reg, tracer = self.obs.registry, self.obs.tracer
         sizes = [t.numel() * t.element_size() for t in leaves]
-        reg.counter("pod.collectives", op="gather").inc()
-        reg.counter("pod.collective_bytes", op="gather").inc(sum(sizes))
+        reg.counter("pod.collectives", op="gather", axis=self.axis).inc()
+        reg.counter("pod.collective_bytes", op="gather",
+                    axis=self.axis).inc(sum(sizes))
         cuda = {t.device for t in leaves if t.device.type != "cpu"}
         send = (self._host("ckpt_send", max(sizes), torch.uint8) if cuda
                 else torch.empty(max(sizes), dtype=torch.uint8))
@@ -212,7 +280,7 @@ class ReplicaGroup:
                             dtype=torch.uint8) if self.rank == 0 else None)
         spent = 0.0
         with tracer.span("pod.gather", cat="sync", op="gather",
-                         bytes=sum(sizes)) as sp:
+                         axis=self.axis, bytes=sum(sizes)) as sp:
             for dev in cuda:
                 torch.cuda.current_stream(dev).synchronize()
             for i, (t, sz) in enumerate(zip(leaves, sizes)):
@@ -229,8 +297,8 @@ class ReplicaGroup:
                         (self.n,) + tuple(t.shape[1:])))
             sp.set(gather_s=round(spent, 3))
         if self.obs.enabled:
-            reg.histogram("pod.collective_ms", op="gather").observe(
-                spent * 1e3)
+            reg.histogram("pod.collective_ms", op="gather",
+                          axis=self.axis).observe(spent * 1e3)
 
     def barrier(self) -> None:
         """Every rank waits for every other (not counted: it moves no
@@ -243,31 +311,332 @@ class ReplicaGroup:
         return collective_counts(self.obs.registry)
 
 
-def collective_counts(registry) -> dict:
-    """{op: (calls, bytes)} of the ``pod.collectives`` /
-    ``pod.collective_bytes`` counters of an ``Obs`` registry."""
-    out = {}
+def _counter_series(registry):
     for c in registry.snapshot()["counters"]:
         if c["name"] in ("pod.collectives", "pod.collective_bytes"):
-            out.setdefault(c["labels"]["op"], [0, 0])[
-                c["name"] == "pod.collective_bytes"] = c["total"]
+            yield c, c["name"] == "pod.collective_bytes"
+
+
+def collective_counts(registry) -> dict:
+    """{op: (calls, bytes)} of the ``pod.collectives`` /
+    ``pod.collective_bytes`` counters of an ``Obs`` registry, summed over
+    their ``axis`` labels."""
+    out = {}
+    for c, is_bytes in _counter_series(registry):
+        out.setdefault(c["labels"]["op"], [0, 0])[is_bytes] += c["total"]
     return {k: tuple(v) for k, v in out.items()}
 
 
-def active(group: Optional[ReplicaGroup]) -> Optional[ReplicaGroup]:
-    """``group`` when it spans more than one rank, else None (the trivial
-    group takes the single-process path)."""
+def collective_counts_by_axis(registry) -> dict:
+    """{axis: {op: (calls, bytes)}} of the same counters: what each mesh
+    axis carried."""
+    out: dict = {}
+    for c, is_bytes in _counter_series(registry):
+        lab = c["labels"]
+        out.setdefault(lab.get("axis", "pod"), {}).setdefault(
+            lab["op"], [0, 0])[is_bytes] += c["total"]
+    return {a: {op: tuple(v) for op, v in ops.items()}
+            for a, ops in out.items()}
+
+
+# ------------------------------------------------------------------
+# Axes inside a replica: the composed mesh over the ranks of a world
+# ------------------------------------------------------------------
+
+REPLICA_AXES = ("pod", "replica")
+INNER_AXES = (DATA, MODEL)
+
+
+def replica_axis_of(axes: dict):
+    """The replica axis of a parsed spec ("pod", else "replica"), or
+    None."""
+    for name in REPLICA_AXES:
+        if name in axes:
+            return name
+    return None
+
+
+def mesh_coords(axes: dict, rank: int) -> dict:
+    """{axis: index} of ``rank`` in the mesh of ``axes`` (a parsed spec):
+    the ranks are the row-major indices of their coordinates, in the
+    spec's axis order (the reference's device reshape)."""
+    out, rest = {}, rank
+    for name, size in reversed(list(axes.items())):
+        out[name], rest = rest % size, rest // size
+    return {a: out[a] for a in axes}
+
+
+def mesh_rank(axes: dict, coords: dict) -> int:
+    """Inverse of :func:`mesh_coords` (an axis left out: index 0)."""
+    r = 0
+    for name, size in axes.items():
+        r = r * size + coords.get(name, 0)
+    return r
+
+
+class MeshGroups:
+    """Rank ``rank`` of the R·D·M ranks of a ``--mesh replica:R,data:D,
+    model:M`` world (``axes``: the parsed spec, outermost axis first; the
+    replica axis may be "pod"), holding ``n`` replicas.
+
+    * ``coords``: the rank's index on every axis (rank = their row-major
+      index in the spec's axis order);
+    * ``replica``: the :class:`ReplicaGroup` over the replica subgroup at
+      the rank's in-replica coordinate (its rank: the replica index) —
+      the algorithms' sync and loss gathers run on it unchanged;
+    * the in-replica group (the D·M ranks of the rank's replica index, in
+      rank order) with :meth:`gather_blocks`, and the data group (the D
+      ranks that differ only in "data") with :meth:`reduce_grads`;
+    * :meth:`layout`: the :class:`~repro_torch.utils.pytree.ShardedLayout`
+      of a param tree for this rank (the planner's ``fsdp_tp`` policy,
+      the reference train CLI's).
+
+    Building one is collective: every rank of the world creates every
+    subgroup, in one order.  A group of one rank makes no collective.
+    The state a rank holds is its replicas' blocks; every operation is
+    counted under ``pod.collectives{op, axis}``."""
+
+    def __init__(self, axes: dict, n: int, rank: int = 0, *, obs=None):
+        raxis = replica_axis_of(axes)
+        if raxis is None:
+            raise ValueError(f"mesh {axes} has no replica axis")
+        bad = [a for a, s in axes.items()
+               if a != raxis and a not in INNER_AXES and s > 1]
+        if bad:
+            raise ValueError(f"mesh axes {bad} are not axes the planner "
+                             f"assigns ({', '.join(INNER_AXES)})")
+        self.axes = dict(axes)
+        self.world = 1
+        for s in axes.values():
+            self.world *= s
+        self.rank = rank
+        self.coords = mesh_coords(self.axes, rank)
+        self.inner_sizes = {a: s for a, s in axes.items() if a != raxis}
+        self.inner_axes = planner_mod.in_replica_axes(axes, raxis)
+        self.data_size = axes.get(DATA, 1)
+        self.ctx = planner_mod.ShardContext(self.inner_sizes)
+        R = axes[raxis]
+        inner_coords = [dict(zip(self.inner_sizes, idx)) for idx in
+                        itertools.product(*[range(s) for s in
+                                            self.inner_sizes.values()])]
+        # in-replica group rank order = global rank order
+        inner_coords.sort(key=lambda c: mesh_rank(self.axes, c))
+        self.inner_coords = inner_coords
+        mine = {a: self.coords[a] for a in self.inner_sizes}
+        self.inner_index = inner_coords.index(mine)
+        self.data_index = self.coords.get(DATA, 0)
+
+        # every rank makes every subgroup, in one order
+        replica_pg = inner_pg = data_pg = None
+        for c in inner_coords:
+            pg = self._new_group([mesh_rank(self.axes, {**c, raxis: r})
+                                  for r in range(R)])
+            if c == mine:
+                replica_pg = pg
+        for r in range(R):
+            pg = self._new_group([mesh_rank(self.axes, {**c, raxis: r})
+                                  for c in inner_coords])
+            if r == self.coords[raxis]:
+                inner_pg = pg
+        for r in range(R):
+            for c in inner_coords:
+                if c.get(DATA, 0):
+                    continue
+                ranks = [mesh_rank(self.axes, {**c, raxis: r, DATA: d})
+                         for d in range(self.data_size)]
+                pg = self._new_group(ranks)
+                if self.rank in ranks:
+                    data_pg = pg
+        self.inner_pg, self.data_pg = inner_pg, data_pg
+        self.replica = ReplicaGroup(n, self.coords[raxis], R, axis=raxis,
+                                    pg=replica_pg, obs=obs)
+        self.inner = _InReplica(self, obs=self.replica.obs)
+
+    def _new_group(self, ranks):
+        """A gloo subgroup of ``ranks`` (None for a group of one rank or
+        the whole world: no subgroup needed)."""
+        if len(ranks) == 1 or len(ranks) == self.world:
+            return None
+        return dist.new_group(ranks, backend="gloo")
+
+    # -- what the ReplicaGroup-taking code reads --------------------
+    @property
+    def trivial(self) -> bool:
+        return self.world == 1
+
+    @property
+    def sharded(self) -> bool:
+        """Whether any axis inside a replica has more than one rank."""
+        return bool(self.inner_axes)
+
+    @property
+    def n(self):
+        return self.replica.n
+
+    @property
+    def local(self):
+        return self.replica.local
+
+    @property
+    def rows(self):
+        return self.replica.rows
+
+    @property
+    def axis(self):
+        return self.replica.axis
+
+    @property
+    def obs(self):
+        return self.replica.obs
+
+    def counts(self) -> dict:
+        return collective_counts(self.obs.registry)
+
+    # -- in-replica operations --------------------------------------
+    def layout(self, params) -> ShardedLayout:
+        """This rank's ShardedLayout of the single-model ``params``."""
+        return ShardedLayout(params, self.ctx, self.inner_coords,
+                             self.inner_index)
+
+    def data_rows(self, batch_size: int) -> slice:
+        """This rank's rows of a replica's batch of ``batch_size`` rows:
+        its 1/D over "data" when D divides it (:func:`batch_pspecs`),
+        else all of them."""
+        return data_rows(batch_size, self.data_size, self.data_index)
+
+    def gather_blocks(self, local_row, full_row, layout: ShardedLayout):
+        """Every in-replica rank's ``local_row`` (this rank's blocks of one
+        replica, ``(layout.numel,)``) assembled into ``full_row`` (the
+        FlatLayout row of ``layout.full``): one all-gather."""
+        return self.inner.gather_blocks(local_row, full_row, layout)
+
+    def reduce_grads(self, full_grad, out, layout: ShardedLayout,
+                     split: bool):
+        """A replica's full grads — a FlatLayout row, or the list of its
+        leaf grads — -> this rank's shard grad row ``out``.  ``split``: the data ranks took the grads of different
+        rows of the batch, so their grads are summed (one reduce-scatter
+        over "data") and divided by D; otherwise each rank takes its own
+        blocks (no collective)."""
+        if split and self.data_size > 1:
+            return self.inner.reduce_scatter_grads(full_grad, out, layout)
+        return layout.scatter_grads(full_grad, out)
+
+    def data_mean_(self, values: torch.Tensor, split: bool) -> torch.Tensor:
+        """Per-replica values (losses) of this rank's batch rows -> their
+        mean over the data ranks (a SUM all-reduce over "data", then the
+        division by D), in place; unchanged unless ``split``."""
+        if not split or self.data_size == 1:
+            return values
+        self.inner._all_reduce(values.view(-1), self.data_pg, axis=DATA)
+        return values.div_(torch.full((), float(self.data_size),
+                                      device=values.device))
+
+
+class _InReplica(_Staged):
+    """The collectives of a :class:`MeshGroups` inside one replica."""
+
+    def __init__(self, mesh: MeshGroups, obs):
+        self.mesh = mesh
+        self.axis = ",".join(mesh.inner_axes) or "none"
+        self._init_staging(obs)
+
+    def gather_blocks(self, local_row, full_row, layout: ShardedLayout):
+        m = self.mesh
+        G = len(m.inner_coords)
+        if G == 1:
+            return layout.gather_into(local_row.view(1, -1), full_row)
+        dev, numel = local_row.device, layout.numel
+        send = self._staging(dev, "block_send", numel, local_row.dtype)
+        recv = self._staging(dev, "block_recv", G * numel,
+                             local_row.dtype).view(G, numel)
+
+        def d2h():
+            if dev.type != "cpu":
+                torch.cuda.current_stream(dev).synchronize()
+            send.copy_(local_row)
+
+        # moved as bytes: gloo gathers any dtype that way
+        self._collective(
+            "all_gather", numel * local_row.element_size(), d2h,
+            lambda: dist.all_gather(
+                list(recv.view(torch.uint8).unbind(0)),
+                send.view(torch.uint8), group=m.inner_pg),
+            lambda: layout.gather_into(recv, full_row))
+        return full_row
+
+    def reduce_scatter_grads(self, full_grad, out, layout: ShardedLayout):
+        m = self.mesh
+        D, numel, dev = m.data_size, layout.numel, out.device
+        # rank j of the data group: this rank's coordinate with data = j
+        mine = m.inner_coords[m.inner_index]
+        idx = [m.inner_coords.index({**mine, DATA: j}) for j in range(D)]
+        send = self._staging(dev, "block_recv", D * numel,
+                             out.dtype).view(D, numel)
+        recv = self._staging(dev, "grad_recv", numel, out.dtype)
+
+        def d2h():
+            if dev.type != "cpu":
+                torch.cuda.current_stream(dev).synchronize()
+            for j, c in enumerate(idx):
+                layout.blocks_of(full_grad, c, send[j])
+
+        def call():
+            dist.reduce_scatter_tensor(recv, send.view(-1), group=m.data_pg)
+
+        def h2d():
+            # the blocks only: the gaps of ``out`` stay zero
+            div = torch.full((), float(D), device=out.device)
+            for o, sz in layout.segments:
+                out[o:o + sz].copy_(recv[o:o + sz]).div_(div)
+
+        self._collective("reduce_scatter", D * numel * out.element_size(),
+                         d2h, call, h2d, axis=DATA)
+        return out
+
+
+def replica_group(group) -> Optional[ReplicaGroup]:
+    """The ReplicaGroup of ``group`` (a ReplicaGroup, a MeshGroups or
+    None)."""
+    return group.replica if isinstance(group, MeshGroups) else group
+
+
+def active(group) -> Optional[ReplicaGroup]:
+    """The ReplicaGroup of ``group`` when it spans more than one rank,
+    else None (the trivial group takes the single-process path)."""
+    group = replica_group(group)
     return group if group is not None and not group.trivial else None
 
 
-def make_sharded_step_fn(local_step, group: ReplicaGroup, n_replicas: int):
+def in_replica(group) -> Optional[MeshGroups]:
+    """``group`` when it is a MeshGroups with an axis inside a replica
+    above one rank, else None (whole leaves, the FlatLayout)."""
+    if isinstance(group, MeshGroups) and group.sharded:
+        return group
+    return None
+
+
+def distributed(group) -> bool:
+    """Whether ``group`` spans more than one rank on any axis."""
+    return group is not None and not group.trivial
+
+
+def layout_for(params, group=None):
+    """The flat layout of a state on ``group``: a rank's blocks under
+    axes inside a replica, whole leaves otherwise."""
+    mesh = in_replica(group)
+    return mesh.layout(params) if mesh is not None else FlatLayout(params)
+
+
+def make_sharded_step_fn(local_step, group, n_replicas: int):
     """The one wrapper behind every Algorithm's sharded step (the
     counterpart of the reference's jit(shard_map)): ``n_replicas`` is
     validated against the group so each rank gets a whole number of
     replicas, and a body that emits its per-replica losses as
     ``local_loss_per_replica`` (its k local rows) gets them republished,
     gathered over the ranks, as ``loss_per_replica``, with ``loss`` their
-    mean (the single-process step's reduction on the same (n,) vector)."""
+    mean (the single-process step's reduction on the same (n,) vector).
+    ``group``: a ReplicaGroup or a MeshGroups (its replica subgroup)."""
+    group = replica_group(group)
     check_divisible(n_replicas, group.world, group.axis)
 
     def run(state, batch):
@@ -281,3 +650,139 @@ def make_sharded_step_fn(local_step, group: ReplicaGroup, n_replicas: int):
         return state, metrics
 
     return run
+
+
+# ------------------------------------------------------------------
+# Partition specs (the planner's trees; the replica axis prepended)
+# ------------------------------------------------------------------
+
+def spec_for_path(names, shape) -> Spec:
+    """Core rule table (without stack / replica prefixes) — planner-backed."""
+    _, spec = planner_mod.match_rule_flat(tuple(names), tuple(shape))
+    return spec
+
+
+def param_pspecs(params, policy: str = "fsdp_tp") -> dict:
+    """Spec tree for a (un-replicated) parameter tree, from the sharding
+    planner's rule tables.
+
+    policy:
+      fsdp_tp  — weights sharded over BOTH axes (ZeRO-3 x tensor
+                 parallel). Minimum memory; pays a gather of every
+                 weight over the in-replica axes a step.
+      tp_only  — weights sharded over "model" only, replicated over
+                 "data": D times the weight memory, less to gather.
+      dp_only  — no tensor parallelism: the "model" axis is repurposed
+                 as extra data parallelism; weights ZeRO-shard over the
+                 combined axes where divisible (:func:`sanitize_pspecs`
+                 drops the rest).
+    """
+    return planner_mod.plan_tree(params, policy=policy).pspecs()
+
+
+def prepend_axis(pspec_tree, axis_name: Optional[str]):
+    """Prepend a leading axis (Parle replica dim) to every spec."""
+    return tree_map(lambda s: Spec(axis_name, *s), pspec_tree)
+
+
+def _plan(params, axis_sizes):
+    return planner_mod.plan_tree(params, axis_sizes=axis_sizes)
+
+
+def parle_state_pspecs(replica_axis: str, params=None, axis_sizes=None,
+                       cfg=None) -> dict:
+    """Spec tree of a ParleState, keyed as ``ParleState.tree()``.
+
+    Without ``params`` (prefix form): the five (n, ...) iterate fields
+    shard ONLY their leading replica axis over ``replica_axis``; the
+    step counter and the scoping scalars are replicated.
+
+    With ``params`` (planner form): every iterate leaf gets the composed
+    spec ``Spec(replica_axis, *plan(leaf))`` — FSDP over "data",
+    tensor-parallel over "model", replicas over ``replica_axis`` — so a
+    rank's state is shard-sized.  ``axis_sizes`` sanitizes divisibility.
+
+    ``cfg``: when it enables a compressed sync (cfg.sync_compress !=
+    "none") the state carries the error-feedback residual ``e`` — same
+    shape and spec as ``x``; when it enables the overlapped sync
+    (cfg.sync_overlap) the state carries the in-flight consensus ``c`` —
+    model-shaped with NO replica axis, replicated over the replica axis
+    exactly like elastic's ``ref``.  Specs are dtype-agnostic: under
+    cfg.precision="bf16" ``y`` is bfloat16, with the same specs."""
+    has_e = cfg is not None and getattr(cfg, "sync_compress", "none") != "none"
+    has_c = cfg is not None and getattr(cfg, "sync_overlap", False)
+    if params is None:
+        rep, flat = Spec(replica_axis), Spec()
+    else:
+        plan = _plan(params, axis_sizes)
+        rep, flat = plan.pspecs_with_leading(replica_axis), plan.pspecs()
+    out = {f: rep for f in ("x", "y", "z", "v_y", "v_x")}
+    out.update(step=Spec(), scopes=Spec())
+    if has_e:
+        out["e"] = rep
+    if has_c:
+        out["c"] = flat if params is not None else Spec()
+    return out
+
+
+def elastic_state_pspecs(replica_axis: str, params=None,
+                         axis_sizes=None) -> dict:
+    """Spec tree of an ElasticState: workers and their momentum shard the
+    leading replica axis; the reference variable carries no replica axis
+    (every rank applies the identical Eq. (7b) update to its shard).
+    With ``params``, the planner composes FSDP x TP specs under the
+    replica axis (see :func:`parle_state_pspecs`)."""
+    if params is None:
+        rep = Spec(replica_axis)
+        return {"x": rep, "ref": Spec(), "v": rep, "step": Spec(),
+                "scopes": Spec()}
+    plan = _plan(params, axis_sizes)
+    rep = plan.pspecs_with_leading(replica_axis)
+    return {"x": rep, "ref": plan.pspecs(), "v": rep, "step": Spec(),
+            "scopes": Spec()}
+
+
+def sgd_state_pspecs(params=None, axis_sizes=None) -> dict:
+    """Spec tree of an SGDState: nothing rides the replica axis (grads are
+    averaged over it, so every replica holds the identical model) but
+    with ``params`` the model and its momentum still FSDP x TP shard over
+    the in-replica axes."""
+    if params is None:
+        return {"params": Spec(), "v": Spec(), "step": Spec()}
+    plan = _plan(params, axis_sizes)
+    return {"params": plan.pspecs(), "v": plan.pspecs(), "step": Spec()}
+
+
+def sanitize_pspecs(pspec_tree, shape_tree, axis_sizes: dict) -> dict:
+    """Drop mesh axes that do not evenly divide the corresponding dim (a
+    rank's block must be a whole slice: vocab sizes like 151655 or
+    expert counts like 60 do not divide a 16-wide axis).  Every demotion
+    is logged once per process (logger ``repro_torch.sharding``)."""
+    shapes = dict(tree_leaves_with_paths(shape_tree))
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: walk(v, prefix + (k,)) for k, v in tree.items()}
+        names = planner_mod.path_names(prefix)
+        out, _ = planner_mod._sanitize(tree, tuple(shapes[prefix].shape),
+                                       axis_sizes, names, warn=True)
+        return out
+
+    return walk(pspec_tree, ())
+
+
+def batch_pspecs(batch_shapes, axis_sizes: dict,
+                 replica_axis: Optional[str] = None) -> dict:
+    """Shard the per-replica batch axis over "data" when divisible
+    (``MeshGroups.data_rows``); batch leaves have layout (n?, B, ...)."""
+    data_size = axis_sizes.get(DATA, 1)
+
+    def spec(leaf):
+        shape = tuple(leaf.shape)
+        lead = [replica_axis] if replica_axis is not None else []
+        off = len(lead)
+        b = shape[off] if len(shape) > off else 1
+        bspec = DATA if (b % data_size == 0 and b >= data_size) else None
+        return Spec(*lead, bspec, *([None] * (len(shape) - off - 1)))
+
+    return tree_map(spec, batch_shapes)

@@ -9,10 +9,17 @@ gaps.  An elementwise update is then one launch over the whole state,
 and the zeros stay zero under Parle's updates (every term of Eq. 8 is a
 product or difference of zeros there).  Leaves are laid out in sorted
 key order, the order ``jax.tree_util`` flattens a dict in.
+
+Under axes inside a replica (``--mesh replica:R,data:D,model:M``) a rank
+holds only its shard of each leaf: :class:`ShardedLayout` lays those
+blocks out the same way (each at a multiple of :data:`ALIGN`, zeros in
+the gaps), so the same kernels run on a rank's shard-local buffers, and
+it assembles the D·M ranks' blocks into a :class:`FlatLayout` row for
+the forward.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -49,6 +56,8 @@ def tree_map(fn, tree):
 class FlatLayout:
     """Where each leaf of a single-model param tree lives in a flat
     buffer of ``numel`` elements (a multiple of :data:`ALIGN`)."""
+
+    segments = None     # a reduction moves the whole buffer
 
     def __init__(self, tree):
         self.paths, self.shapes, self.offsets, self.sizes = [], [], [], []
@@ -108,3 +117,122 @@ class FlatLayout:
         leaves = [pieces[2 * i].view(shape)
                   for i, shape in enumerate(self.shapes)]
         return tree_from_paths(zip(self.paths, leaves)), leaves
+
+
+def _padded(size: int) -> int:
+    return -(-size // ALIGN) * ALIGN
+
+
+class ShardedLayout:
+    """Where a rank's block of each leaf of a single-model param tree
+    lives in its flat buffer of ``numel`` elements: the blocks the
+    sharding planner assigns it (``sharding/planner.py::ShardContext``),
+    in the full tree's leaf order, each at a multiple of :data:`ALIGN`
+    elements with zeros in the gaps (the kernels need a multiple of 8192
+    and 16-byte aligned streams, so a block never straddles a leaf).
+
+    ``ctx``: the ShardContext (in-replica axis sizes and policy);
+    ``coords``: the in-replica coordinate ({axis: index}) of every rank of
+    the in-replica group, in that group's rank order; ``index``: this
+    rank's place in it.  Every rank's blocks of a leaf have one shape
+    (the planner only splits a dim its axes divide), so every rank's
+    buffer has the same ``numel``.
+
+    Attributes as :class:`FlatLayout`'s (``paths``, ``shapes`` — the
+    block shapes — ``offsets``, ``sizes``, ``numel``), plus ``full``, the
+    FlatLayout of the whole tree (the forward splits a gathered row
+    through ``full.split_leaves``), and ``segments``, the (offset, size)
+    spans of the blocks (what a reduction over the replica axis moves)."""
+
+    def __init__(self, tree, ctx, coords: Sequence[dict], index: int):
+        self.full = FlatLayout(tree)
+        self.ctx, self.coords, self.index = ctx, list(coords), index
+        self.paths = self.full.paths
+        self.specs = [ctx.leaf_spec(p, s)
+                      for p, s in zip(self.paths, self.full.shapes)]
+        # slices[c][i]: rank c's block of leaf i in the full leaf
+        self.slices = []
+        for coord in self.coords:
+            self.slices.append([ctx.block(spec, shape, coord)[0]
+                                for spec, shape in zip(self.specs,
+                                                       self.full.shapes)])
+        self.shapes = [ctx.block(spec, shape, self.coords[index])[1]
+                       for spec, shape in zip(self.specs, self.full.shapes)]
+        self.offsets, self.sizes = [], []
+        off = 0
+        for shape in self.shapes:
+            size = 1
+            for s in shape:
+                size *= s
+            self.offsets.append(off)
+            self.sizes.append(size)
+            off += _padded(size)
+        self.numel = off
+        self.segments = list(zip(self.offsets, self.sizes))
+        # the first rank holding each distinct block of a leaf: a gather
+        # reads a replicated block from one rank only
+        self._sources = []
+        for i in range(len(self.paths)):
+            seen, src = set(), []
+            for c, sl in enumerate(self.slices):
+                key = tuple((s.start, s.stop) for s in sl[i])
+                if key not in seen:
+                    seen.add(key)
+                    src.append(c)
+            self._sources.append(src)
+
+    def flatten(self, tree, lead=(), dtype=torch.float32, device=None):
+        """A new ``(*lead, numel)`` buffer holding this rank's blocks of
+        ``tree``'s FULL leaves (each of shape ``lead + leaf shape``),
+        zeros in the gaps."""
+        leaves = dict(tree_leaves_with_paths(tree))
+        if device is None:
+            device = leaves[self.paths[0]].device
+        buf = torch.zeros(tuple(lead) + (self.numel,), dtype=dtype,
+                          device=device)
+        nl = len(lead)
+        for path, sl, view in zip(self.paths, self.slices[self.index],
+                                  self.views(buf)):
+            view.copy_(leaves[path][(slice(None),) * nl + sl])
+        return buf
+
+    def views(self, buf) -> list:
+        """Views of each leaf's block in ``buf`` (``(..., numel)``)."""
+        lead = tuple(buf.shape[:-1])
+        return [buf[..., o:o + s].view(lead + shape)
+                for o, s, shape in zip(self.offsets, self.sizes, self.shapes)]
+
+    def tree(self, buf) -> dict:
+        """``buf`` as a nested dict of block views (shared storage)."""
+        return tree_from_paths(zip(self.paths, self.views(buf)))
+
+    def gather_into(self, blocks, full_row):
+        """Assemble the in-replica ranks' blocks into ``full_row`` (a
+        ``full.numel`` row in the FlatLayout, gaps left as they are).
+        ``blocks``: ``(len(coords), numel)``, row c the buffer of rank c
+        (on any device).  A block that several ranks hold is read from
+        the first of them."""
+        full = self.full.views(full_row)
+        for i, (o, s, shape) in enumerate(zip(self.offsets, self.sizes,
+                                              self.shapes)):
+            for c in self._sources[i]:
+                full[i][self.slices[c][i]].copy_(
+                    blocks[c, o:o + s].view(shape))
+        return full_row
+
+    def blocks_of(self, full, c: int, out):
+        """Rank c's blocks of ``full`` — a FlatLayout row, or the list of
+        its whole leaves in layout order — into ``out`` (an ``(numel,)``
+        buffer whose gaps stay untouched)."""
+        if isinstance(full, torch.Tensor):
+            full = self.full.views(full)
+        for i, (o, s, shape) in enumerate(zip(self.offsets, self.sizes,
+                                              self.shapes)):
+            out[o:o + s].view(shape).copy_(full[i][self.slices[c][i]])
+        return out
+
+    def scatter_grads(self, full_grads, out):
+        """This rank's blocks of a full grad row (or of its list of leaf
+        grads) into its shard grad row ``out`` (no reduction: the caller
+        reduces over "data")."""
+        return self.blocks_of(full_grads, self.index, out)

@@ -170,7 +170,14 @@ def test_group_from_spec_rejects_oversubscription(tmp_path, monkeypatch):
 
 
 def test_in_replica_axes_name_their_roadmap_item():
-    with pytest.raises(ValueError, match="queue 1, item 6"):
+    """An axis inside a replica is ported: without a world, a spec with
+    one above size 1 asks for a world of all its ranks (the launch hint
+    for 2 ranks, without the replica-only pod launcher)."""
+    with pytest.raises(RuntimeError, match="spans 2 ranks") as e:
+        mesh.groups_from_spec("pod:1,data:2")
+    assert "--nproc-per-node 2" in str(e.value)
+    assert "dist_run" not in str(e.value)
+    with pytest.raises(ValueError, match="groups_from_spec"):
         mesh.group_from_spec("pod:1,data:2")
     with pytest.raises(ValueError, match="no replica axis"):
         mesh.group_from_spec("data:2")

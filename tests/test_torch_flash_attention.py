@@ -244,17 +244,17 @@ def test_training_step_with_flash_fails_as_the_reference_does(dense_params):
 
 def test_mesh_factories_name_their_roadmap_item():
     """The sharded factories take a ReplicaGroup (the replica axis across
-    processes is ported); a mesh with an axis inside a replica still
-    names its ROADMAP item."""
-    from repro_torch.launch.mesh import group_from_spec
+    processes is ported) and a MeshGroups; a mesh with an axis inside a
+    replica asks for a world of its ranks."""
+    from repro_torch.launch.mesh import groups_from_spec
     from repro_torch.sharding.partition import ReplicaGroup
     pc = ParleConfig(n_replicas=2)
     assert callable(steps.make_algorithm_sharded_step("parle", CFG, pc,
                                                       ReplicaGroup(2)))
     assert callable(steps.make_algorithm_round("parle", CFG, pc,
                                                mesh=ReplicaGroup(2)))
-    with pytest.raises(ValueError, match="item 6"):
-        group_from_spec("pod:1,model:2")
+    with pytest.raises(RuntimeError, match="spans 2 ranks"):
+        groups_from_spec("pod:1,model:2")
 
 
 @pytest.fixture

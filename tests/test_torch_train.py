@@ -324,7 +324,7 @@ def test_train_wants_cuda_unless_told_cpu(monkeypatch):
 
 @pytest.mark.parametrize("argv,exc,match", [
     # without a torch.distributed world, a replica axis of 2 says how to
-    # start one (the axes inside a replica are still item 6)
+    # start one
     (["--mesh", "replica:2"], SystemExit, "torch.distributed.run"),
     # the reference's guards on the overlapped sync, with its messages
     (["--sync-overlap"], SystemExit, "requires --round-fused"),
@@ -341,7 +341,7 @@ def test_train_cli_names_what_is_not_ported(argv, exc, match):
 def test_train_cli_mesh_pod1_is_the_single_process_run(capsys):
     """``--mesh pod:1`` (the trivial group, no world needed) prints the
     same records as the run without ``--mesh``, bit for bit, after its
-    mesh line; an axis inside a replica names its ROADMAP item."""
+    mesh line; an axis inside a replica asks for a world of its ranks."""
     argv = ["--round-fused", "--use-kernel", "--sync-compress", "int8"]
     plain = _cli_records(capsys, argv)
     meshed = _cli_records(capsys, argv + ["--mesh", "pod:1"])
@@ -350,7 +350,7 @@ def test_train_cli_mesh_pod1_is_the_single_process_run(capsys):
                            if k not in ("ts", "wall_s", "total_wall_s")}
                           for r in recs if r["kind"] != "mesh"]
     assert strip(meshed) == strip(plain)
-    with pytest.raises(SystemExit, match="item 6"):
+    with pytest.raises(SystemExit, match="spans 2 ranks"):
         train.main(["--smoke", "--device", "cpu", "--steps", "1", "--mesh",
                     "pod:1,data:2"])
 

@@ -179,3 +179,104 @@ def train_cli_jobs(rank, world, jobs):
     """The rank side of a pod of train CLI runs: {name: train_cli(argv)}
     in the order of ``jobs`` ({name: argv})."""
     return {name: train_cli(argv) for name, argv in jobs.items()}
+
+
+# ------------------------------------------------------------------
+# axes inside a replica (tests/test_torch_fsdp_tp.py)
+# ------------------------------------------------------------------
+
+def run_mesh_case(case: dict, group, cfg_fields: dict, np_params,
+                  stream_kw: dict):
+    """One case of the composed mesh on ``group`` (a ``MeshGroups``, or
+    None: all n replicas in this process): ``case`` names the algo, n, L,
+    steps, mode ("step" or "round"), sync_compress, sync_overlap and
+    use_kernel; the batches are the token stream of ``stream_kw``.
+    Returns the per-step losses, each step's (or round's) collective
+    counts by axis, the final state's model rows gathered into full
+    FlatLayout rows (x of each local replica; SGD's params), the
+    deployable tree as numpy, the layout's sizes and the local block of
+    ``blocks/attn/wq`` in the initial x."""
+    from repro_torch.configs import ParleConfig
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import registry
+    from repro_torch.core.parle import dealias_state
+    from repro_torch.data.synthetic import (TokenStream, make_round_batch_fn,
+                                            replica_batches)
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.partition import (collective_counts_by_axis,
+                                                in_replica)
+    from repro_torch.utils.pytree import tree_leaves_with_paths
+
+    model = build_model(ModelConfig(**cfg_fields))
+    algo = registry.get(case["algo"])
+    pcfg = algo.canonicalize_cfg(ParleConfig(
+        n_replicas=case["n"], L=case["L"], lr=0.1, lr_inner=0.1,
+        batches_per_epoch=5, sync_compress=case.get("compress", "none"),
+        sync_overlap=case.get("overlap", False)))
+    state = dealias_state(algo.init(params_from_numpy(np_params, "cpu"),
+                                    pcfg, group))
+    lay = state.layout
+    model_field = "params" if case["algo"] == "sgd" else "x"
+    first = getattr(state, model_field)
+    wq = [i for i, p in enumerate(lay.paths)
+          if p == ("blocks", "attn", "wq")][0]
+    wq_block = lay.views(first)[wq].numpy().copy()
+    stream = TokenStream(**stream_kw)
+    rows = group.rows if group is not None else slice(None)
+    n, L, kw = case["n"], case["L"], dict(use_kernel=case.get("use_kernel",
+                                                                False))
+    losses, counts = [], []
+    if case.get("mode", "round") == "round":
+        fn = algo.make_round_fn(model.loss, pcfg, mesh=group, **kw)
+        stage = make_round_batch_fn(stream, L, stream.batch_size, n,
+                                    rows=rows)
+        for r in range(case["steps"] // L):
+            state, m = fn(state, stage(r * L))
+            losses.append(m["losses"].numpy())
+            counts.append(collective_counts_by_axis(group.obs.registry)
+                          if group is not None else {})
+        flush = algo.make_round_flush_fn(pcfg)
+        if flush is not None:
+            state = flush(state)
+    else:
+        fn = (algo.make_step(model.loss, pcfg, **kw) if group is None
+              else algo.make_sharded_step(model.loss, pcfg, group, **kw))
+        for i in range(case["steps"]):
+            state, m = fn(state, replica_batches(stream, i,
+                                                 stream.batch_size, n,
+                                                 rows=rows))
+            losses.append(m["loss"].reshape(1).numpy())
+            counts.append(collective_counts_by_axis(group.obs.registry)
+                          if group is not None else {})
+    rows_t = getattr(state, model_field)
+    rows_t = rows_t if rows_t.dim() == 2 else rows_t[None]
+    mesh = in_replica(group)
+    full = []
+    for r in rows_t:
+        if mesh is None:
+            full.append(r.numpy().copy())
+        else:
+            f = r.new_zeros(lay.full.numel)
+            full.append(mesh.gather_blocks(r, f, lay).numpy().copy())
+    deploy = {"/".join(p): t.numpy().copy() for p, t in
+              tree_leaves_with_paths(algo.deployable(state, group))}
+    return {"losses": np.concatenate(losses), "counts": counts,
+            "full_rows": np.stack(full), "deploy": deploy,
+            "numel": lay.numel, "wq_block": wq_block}
+
+
+def fsdp_tp_cases(rank, world, cases, cfg_fields, np_params, stream_kw):
+    """The rank side of the composed-mesh world: every case on a
+    ``MeshGroups`` of its spec (each with a registry of its own)."""
+    from repro_torch.launch.mesh import parse_mesh_spec
+    from repro_torch.obs import Obs
+    from repro_torch.sharding.partition import MeshGroups
+    out = []
+    for c in cases:
+        group = MeshGroups(parse_mesh_spec(c["mesh"]), c["n"], rank,
+                           obs=Obs())
+        res = run_mesh_case(c, group, cfg_fields, np_params, stream_kw)
+        res["coords"] = group.coords
+        out.append(res)
+    return out
