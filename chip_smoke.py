@@ -96,9 +96,10 @@ itself and, in order:
    with host synchronisation forbidden) and paged eagerly, with equal
    tokens; then
    (phases 5f-5i) the four remaining
-   families at full width and half depth, float32, random params (seed 0),
-   each freed before the next is built — Qwen1.5-MoE-A2.7B (7.5 B at 12
-   of 24 layers), Zamba2-1.2B, InternVL2-1B (256 patch embeddings a request)
+   families at full width and a quarter of their depth, float32, random
+   params (seed 0), each freed before the next is built —
+   Qwen1.5-MoE-A2.7B (6 of 24 layers), Zamba2-1.2B, InternVL2-1B (256
+   patch embeddings a request)
    and MusicGen-large (64 cond frames, 4 codebooks): 8 requests, 32
    greedy tokens each, 4 slots, page size 16, through the paged engine
    prefilling and decoding (K8) through its CUDA graphs (launches =
@@ -224,20 +225,31 @@ itself and, in order:
    ``repro_torch.examples.obs_report`` accepts 12a's rank-0 metrics and
    trace;
 13. (after 12c) axes inside a replica: the one-process references
-   (full-width Qwen2.5-3B cut to 2 layers, Parle n = 2, L = 2, 4 steps of
-   2 x 256 through the kernels, f32 and int8 barrier, deterministic
-   algorithms), then four spawned gloo ranks on the one card, each
-   holding half of one replica's state as the sharding planner assigns
-   it (``sharding/partition.py::MeshGroups``): 13a ``--mesh
-   replica:2,model:2`` (f32, K1 4 / K2 2 a rank) — each rank's 4 losses,
-   eval loss and the sha256 of its blocks of the final x row equal the
-   one-process run bit for bit; 13b ``--mesh replica:2,data:2`` (int8,
-   K1 4 / K4 2 / K5 2 a rank) — losses within rtol 2e-5 of the
-   one-process int8 run, the replica axis moving a shard's int8 payload
-   and its scales a sync; each collective's bytes by axis, its d2h /
-   gloo / h2d seconds, the step wall, peak memory a rank and the phase
-   wall printed (four ranks time-slicing one card over loopback, not a
-   multi-card figure).
+   (full-width Mamba2-1.3B cut to 2 layers, Parle n = 2, L = 2, 4 steps
+   of 2 x 256 through the kernels, the int8 barrier; 13c's runs below;
+   deterministic algorithms), then four spawned gloo ranks on the one
+   card, each holding half of one replica's state as the sharding
+   planner assigns it (``sharding/partition.py::MeshGroups``): 13b
+   ``--mesh replica:2,data:2`` (int8, K1 4 / K4 2 / K5 2 a rank) —
+   losses within rtol 2e-5 of the one-process int8 run, the replica axis
+   moving a shard's int8 payload and its scales a sync; 13c, on the same
+   ranks: full-width Mamba2-1.3B cut to 2 layers, Parle n = 2, L = 2, f32
+   through K1 / K2, checkpointed at step 2 under ``--mesh
+   replica:2,model:2`` (each leaf's blocks gathered inside the replica,
+   then the replicas' rows to rank 0, which writes the one file) — its
+   every leaf's sha256 = the one-process state's at step 2 — and resumed
+   for 2 steps under ``replica:2,data:2`` (losses within rtol 2e-5) and,
+   beside the ranks, in this process with no mesh (steps 3-4, eval loss
+   and final x = the uninterrupted run's bit for bit); the save's
+   in-replica gather, replica gather and write seconds, each resume's
+   seconds, the file's bytes and peak memory a rank printed; then 13a
+   through the pod launcher, ``dist_run --nproc 4 --mesh
+   replica:2,model:2 --device cuda --use-kernel`` (f32, K1 4 / K2 2 a
+   rank, from each worker's ``--metrics-out``): its verdict against its
+   own one-process run bit for bit; each collective's bytes by axis, its
+   d2h / gloo / h2d seconds, the step wall, peak memory a rank and the
+   phase wall printed (four ranks time-slicing one card over loopback,
+   not a multi-card figure).
 
 Nothing is caught: a failing phase exits non-zero and prints no device
 line.  Without a CUDA card it exits 2 before doing anything.
@@ -2090,16 +2102,16 @@ def family_forward_phase(device, cfg, params, label) -> dict:
 FAMILY_MODES = ("paged_kernel", "paged_kernel_eager", "gather")
 FAMILY_ARCHS = (("qwen2-moe-a2.7b", "5f"), ("zamba2-1.2b", "5g"),
                 ("internvl2-1b", "5h"), ("musicgen-large", "5i"))
-# each family at full width and half its depth (24, 38, 24 and 48
-# layers; Zamba2's 18 keep three sites of its shared block): the
-# script's time limit
-FAMILY_LAYERS = {"qwen2-moe-a2.7b": 12, "zamba2-1.2b": 18,
-                 "internvl2-1b": 12, "musicgen-large": 24}
+# each family at full width and a quarter of its depth (24, 38, 24 and
+# 48 layers; Zamba2's 12 keep two sites of its shared block, as 6i
+# trains it): the script's time limit
+FAMILY_LAYERS = {"qwen2-moe-a2.7b": 6, "zamba2-1.2b": 12,
+                 "internvl2-1b": 6, "musicgen-large": 12}
 
 
 def families_phase(device) -> dict:
-    """Each of the four families at full width and half depth
-    (FAMILY_LAYERS), float32,
+    """Each of the four families at full width and a quarter of its
+    depth (FAMILY_LAYERS), float32,
     random params from torch.Generator seed 0: served through K8 (and
     the gather path), then the 2 x 1024 prefill (moe) or forward through
     K3 (and K9 in the hybrid).  Each model is freed before the next is
@@ -3297,15 +3309,16 @@ def ckpt_argv(steps, mesh, extra=()) -> list:
             "--mesh", mesh, *extra]
 
 
-def ckpt_directory():
-    """(a new directory for 12a's checkpoint, "shm" or "tmp"): under
-    /dev/shm when it has room for the file and 4 GiB more, else in the
+def ckpt_directory(copies=CKPT_STEPS // CKPT_EVERY * CKPT_COPIES):
+    """(a new directory for checkpoints of ``copies`` f32 copies of
+    ckpt_cfg()'s model in all — 12a's by default —, "shm" or "tmp"):
+    under /dev/shm when it has room for them and 4 GiB more, else in the
     default temporary directory."""
     cfg = ckpt_cfg()
     per_copy = 4 * (2 * cfg.vocab_size * cfg.d_model + CKPT_LAYERS * (
         cfg.d_model * (2 * cfg.ssm_inner + 2 * cfg.ssm_state
                        + cfg.ssm_num_heads) + cfg.ssm_inner * cfg.d_model))
-    need = CKPT_STEPS // CKPT_EVERY * CKPT_COPIES * per_copy + SHM_SPARE
+    need = copies * per_copy + SHM_SPARE
     if os.path.isdir("/dev/shm"):
         st = os.statvfs("/dev/shm")
         if st.f_bavail * st.f_frsize >= need:
@@ -3318,10 +3331,13 @@ def _span_s(events, name) -> list:
     return [round(e["dur"] / 1e6, 3) for e in events if e["name"] == name]
 
 
-def _ckpt_job(device, argv, obs) -> dict:
-    """One 12a run of the train CLI's run() on ckpt_cfg(): its losses,
-    eval loss, row digests, launches, peak memory and the seconds of its
-    checkpoints (gather, whole save) and of its restore."""
+def _ckpt_job(device, argv, obs, fields=CKPT_FIELDS, leaves=False) -> dict:
+    """One run of the train CLI's run() on ckpt_cfg() (12a's, 13c's): its
+    losses, eval loss, the row digests of ``fields``, launches, peak
+    memory and the seconds of its checkpoints (each gather stage with
+    its axis and bytes, whole save, rank 0's writes) and of its restore;
+    with ``leaves``, the sha256 of every leaf of the final state as the
+    checkpoint stores it (:func:`state_leaf_digests`)."""
     torch.cuda.reset_peak_memory_stats(device)
     reset_launches()
     t0 = time.perf_counter()
@@ -3331,18 +3347,24 @@ def _ckpt_job(device, argv, obs) -> dict:
     launches = {name: getattr(mod, attr)
                 for name, (mod, attr) in COUNTERS.items()}
     peak = torch.cuda.max_memory_allocated(device)
-    digests = field_digests(state, CKPT_FIELDS)
+    digests = field_digests(state, fields) if fields else {}
+    out = {"leaf_digests": state_leaf_digests(state)} if leaves else {}
     del state
     _release()
     ev = obs.tracer.events
     gathers = [e["args"] for e in ev if e["name"] == "pod.gather"]
-    return {"losses": losses.tolist(), "eval_loss": eval_loss,
+    return {**out, "losses": losses.tolist(), "eval_loss": eval_loss,
             "digests": digests, "launches": launches, "round_wall_s": walls,
             "wall_s": round(wall, 3),
             "peak_memory_gib": round(peak / 2 ** 30, 3),
             "checkpoint_s": _span_s(ev, "checkpoint"),
+            "write_s": [e["args"]["write_s"] for e in ev
+                        if e["name"] == "checkpoint"
+                        and "write_s" in e["args"]],
             "gather_s": [g["gather_s"] for g in gathers],
             "gather_bytes": [g["bytes"] for g in gathers],
+            "gathers": [{k: g[k] for k in ("axis", "bytes", "gather_s")}
+                        for g in gathers],
             "restore_s": _span_s(ev, "restore")}
 
 
@@ -3624,12 +3646,16 @@ def stream_report_phase(device, obs_files, smi) -> dict:
 # phase 13: axes inside a replica, four ranks on the one card
 # ------------------------------------------------------------------
 
-# full-width Qwen2.5-3B cut to 2 layers (776.6 M params, 3.11 GB of
-# float32 a copy); Parle n = 2, L = 2, 4 steps of 2 x 256 through the
-# kernels, over four gloo ranks: a rank holds half a replica's fields
-SHARD_LAYERS, SHARD_WORLD, SHARD_TIMEOUT_S = 2, 4, 600
-# job: (mesh, extra flags, K launches a rank, the replica axis's bytes a
-# sync as a function of the rank's shard numel)
+# 12a's model, full-width Mamba2-1.3B cut to 2 layers (257.6 M params,
+# 1.03 GB of float32 a copy; full-width Qwen2.5-3B cut to 2 layers, 776.6
+# M params, moves three times the bytes over loopback gloo, past the
+# script's time limit with 13c and the launcher); Parle n = 2, L = 2,
+# 4 steps of 2 x 256 through the kernels, over four gloo ranks: a rank
+# holds half a replica's fields.  13a runs through the pod launcher
+# (dist_run: step by step, its own one-process run the reference), 13b
+# on the spawned ranks
+SHARD_WORLD, SHARD_TIMEOUT_S = 4, 600
+# job: (mesh, extra flags, K launches a rank)
 SHARD_JOBS = {
     "13a": ("replica:2,model:2", [],
             dict(parle_inner_update=4, parle_sync_update=2)),
@@ -3640,68 +3666,92 @@ SHARD_JOBS = {
 # 13b against the one-process int8 run: the data split sums each grad as
 # two halves of the batch (the reference's composed-mesh loss bound)
 SHARD_RTOL = 2e-5
+# 13c: 12a's model (full-width Mamba2-1.3B cut to 2 layers, 1.03 GB of
+# float32 a copy), Parle n = 2, L = 2, f32 through K1 / K2: saved at step
+# 2 (of the uninterrupted run's 4) by four ranks under SHARD_CKPT_SAVE,
+# resumed for 2 steps under SHARD_CKPT_RESUME (four ranks) and in this
+# process with no mesh.  Each 2-step run launches K1 2 / K2 1 (a rank)
+SHARD_CKPT_SAVE, SHARD_CKPT_RESUME = "replica:2,model:2", "replica:2,data:2"
+SHARD_CKPT_LAUNCHES = dict(parle_inner_update=2, parle_sync_update=1)
+SHARD_CKPT_COPIES = 10              # the file: five (n, M) fields, n = 2
 
 
-def shard_cfg():
-    return dataclasses.replace(get_config("qwen2.5-3b"),
-                               num_layers=SHARD_LAYERS)
+def shard_argv(steps=4, extra=()) -> list:
+    """Phase 13's run of ``steps`` steps (13c's scoping epoch, steps //
+    4, is 1 for 2 and 4 steps alike: a resume continues bit for bit)."""
+    return ["--arch", CKPT_ARCH, "--device", "cuda", "--replicas", "2",
+            "--L", "2", "--steps", str(steps), "--batch", "2", "--seq",
+            "256", "--round-fused", "--use-kernel", "--log-every", "2",
+            "--seed", "0", *extra]
 
 
-def shard_argv(extra=()) -> list:
-    return ["--arch", "qwen2.5-3b", "--device", "cuda", "--replicas", "2",
-            "--L", "2", "--steps", "4", "--batch", "2", "--seq", "256",
-            "--use-kernel", "--round-fused", "--log-every", "2", "--seed",
-            "0", *extra]
+def shard_ckpt_path(ckpt_dir) -> str:
+    return os.path.join(ckpt_dir, "step000002.npz")
 
 
-def _digest(t) -> str:
-    return hashlib.sha256(
-        t.detach().cpu().contiguous().view(torch.uint8).numpy()).hexdigest()
+def _sha256_threads(jobs) -> dict:
+    """{key: sha256 hex} of ``jobs`` ({key: callable giving the bytes}),
+    hashed in threads (hashlib releases the GIL over large buffers)."""
+    digest = lambda fn: hashlib.sha256(fn()).hexdigest()
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+        return dict(zip(jobs, ex.map(digest, jobs.values())))
 
 
-def shard_block_digests(x, cfg, inner) -> dict:
-    """{(replica, in-replica index): sha256} of the blocks of each final
-    x row that each rank of the mesh holds, from the one-process state
-    (the rank's flat shard buffer: its blocks, zeros in the gaps)."""
-    params = planner.meta_params(build_model(cfg))
-    ctx = planner.ShardContext(inner)
-    coords = [dict(zip(inner, idx)) for idx in
-              np.ndindex(*inner.values())]
-    out = {}
-    for i in range(len(coords)):
-        lay = ShardedLayout(params, ctx, coords, i)
-        buf = torch.zeros(lay.numel, device=x.device)
-        for r in range(x.shape[0]):
-            out[(r, i)] = _digest(lay.blocks_of(x[r], i, buf))
-    return out
+def state_leaf_digests(state) -> dict:
+    """{checkpoint key: sha256} of every leaf of ``state`` as the
+    checkpoint stores it (``ckpt.to_numpy``'s bytes)."""
+    leaves = ckpt._flat_leaves(state)
+    return _sha256_threads({k: (lambda t=t: ckpt.to_numpy(t).reshape(-1)
+                                .view(np.uint8)) for k, t in leaves.items()})
+
+
+def file_leaf_digests(path) -> dict:
+    """{key: sha256} of every member's data in the npz at ``path``."""
+    def read(off, shape, dtype):
+        n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        with open(path, "rb") as f:
+            f.seek(off)
+            return f.read(n)
+    return _sha256_threads({k: (lambda m=m: read(*m))
+                            for k, m in ckpt._members(path).items()})
 
 
 def shard_reference_phase(device) -> dict:
-    """13's one-process references at the same cell: the f32 and the int8
-    barrier runs through the kernels under deterministic algorithms —
-    their losses and eval losses, and (f32) the digest of every rank's
-    blocks of the final x rows under 13a's mesh."""
-    phase(f"13. one-process references: full-width qwen2.5-3b cut to "
-          f"{SHARD_LAYERS} layers, parle n=2 L=2, 4 steps, f32 and int8")
+    """13's one-process references, under deterministic algorithms: 13b's
+    int8 barrier run (through the kernels) — its losses and eval loss;
+    13c's uninterrupted 4-step run (f32, K1 / K2) — its losses, eval
+    loss and final x rows' digests — and its 2-step run, the sha256 of
+    every leaf of its state (what a one-process checkpoint at step 2
+    holds)."""
+    phase(f"13. one-process references: full-width {CKPT_ARCH} cut to "
+          f"{CKPT_LAYERS} layers, parle n=2 L=2, 4 steps, int8 (13b); "
+          f"f32, 4 steps and 2 steps (13c)")
     torch.use_deterministic_algorithms(True)
-    refs = {}
-    for name, (spec, extra, want) in SHARD_JOBS.items():
-        losses, walls, state, eval_loss, peak = _train_measured(
-            device, shard_argv(extra), cfg=shard_cfg())
-        launch_counts(**want)
-        refs[name] = {"losses": losses.tolist(), "eval_loss": eval_loss,
-                      "round_wall_s": walls,
-                      "peak_memory_gib": round(peak, 3),
-                      "params": sum(state.layout.sizes)}
-        if name == "13a":
-            refs[name]["blocks"] = shard_block_digests(
-                state.x, shard_cfg(), mesh_mod.inner_axes(spec))
-        del state
-        _release()
+    spec, extra, want = SHARD_JOBS["13b"]
+    losses, walls, state, eval_loss, peak = _train_measured(
+        device, shard_argv(extra=extra), cfg=ckpt_cfg())
+    launch_counts(**want)
+    refs = {"13b": {"losses": losses.tolist(), "eval_loss": eval_loss,
+                    "round_wall_s": walls, "peak_memory_gib": round(peak, 3)}}
+    del state
+    _release()
+    t0 = time.perf_counter()
+    full = _ckpt_job(device, shard_argv(4), Obs(), fields=("x",))
+    launch_counts(**{k: 2 * v for k, v in SHARD_CKPT_LAUNCHES.items()})
+    half = _ckpt_job(device, shard_argv(2), Obs(), fields=(),
+                     leaves=True)
+    launch_counts(**SHARD_CKPT_LAUNCHES)
+    check(half["losses"] == full["losses"][:2],
+          f"13c: the 2-step run's losses {half['losses']} != the 4-step "
+          f"run's first two {full['losses'][:2]}")
+    refs["13c"] = {"full": full, "leaf_digests": half["leaf_digests"],
+                   "wall_s": round(time.perf_counter() - t0, 1)}
     torch.use_deterministic_algorithms(False)
-    print(json.dumps({"shard_refs": {k: {kk: v[kk] for kk in (
-        "losses", "eval_loss", "round_wall_s", "peak_memory_gib")}
-        for k, v in refs.items()}}), flush=True)
+    print(json.dumps({"shard_refs": {
+        "13b": refs["13b"],
+        "13c": {k: full[k] for k in ("losses", "eval_loss", "round_wall_s",
+                                     "peak_memory_gib")},
+        "13c_refs_wall_s": refs["13c"]["wall_s"]}}), flush=True)
     return refs
 
 
@@ -3712,7 +3762,7 @@ def _shard_job(device, rank, spec, extra) -> dict:
     torch.cuda.reset_peak_memory_stats(device)
     reset_launches()
     losses, walls, state, eval_loss, _ = _train_once(
-        device, shard_argv(extra) + ["--mesh", spec], cfg=shard_cfg(),
+        device, shard_argv(extra=[*extra, "--mesh", spec]), cfg=ckpt_cfg(),
         obs=obs)
     launches = {name: getattr(mod, attr)
                 for name, (mod, attr) in COUNTERS.items()}
@@ -3722,9 +3772,8 @@ def _shard_job(device, rank, spec, extra) -> dict:
            "round_wall_s": walls, "launches": launches,
            "coords": partition.mesh_coords(mesh_mod.parse_mesh_spec(spec),
                                            rank),
-           "index": lay.index,
-           "x_digest": _digest(state.x[0]), "numel": lay.numel,
-           "live": sum(lay.sizes), "full_numel": lay.full.numel,
+           "numel": lay.numel, "live": sum(lay.sizes),
+           "full_numel": lay.full.numel,
            "by_axis": collective_counts_by_axis(obs.registry),
            "syncs": _sync_records(obs.tracer.events),
            "peak_memory_gib": round(peak / 2 ** 30, 3)}
@@ -3733,10 +3782,23 @@ def _shard_job(device, rank, spec, extra) -> dict:
     return out
 
 
-def shard_rank_main(rank, world, port, out_q):
+def shard_ckpt_rank_jobs(device, ckpt_dir) -> dict:
+    """13c on one rank: 2 steps under SHARD_CKPT_SAVE, checkpointed at
+    step 2 (every rank's blocks gathered, rank 0 writes the file), then
+    that file resumed for 2 steps under SHARD_CKPT_RESUME."""
+    out = {"save": _ckpt_job(device, shard_argv(2, [
+        "--mesh", SHARD_CKPT_SAVE, "--checkpoint-dir", ckpt_dir,
+        "--checkpoint-every", "2"]), Obs(trace_out=os.devnull), fields=())}
+    out["resume"] = _ckpt_job(device, shard_argv(2, [
+        "--mesh", SHARD_CKPT_RESUME, "--resume",
+        shard_ckpt_path(ckpt_dir)]), Obs(trace_out=os.devnull), fields=())
+    return out
+
+
+def shard_rank_main(rank, world, port, out_q, ckpt_dir):
     """One rank of phase 13, a spawned process: join the gloo world of
-    four, run both SHARD_JOBS under deterministic algorithms, and put the
-    results on ``out_q``."""
+    four, run 13b and 13c's jobs under deterministic algorithms, and put
+    the results on ``out_q``."""
     import traceback
     # four ranks of ~16-19 GB each share the card
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
@@ -3747,8 +3809,9 @@ def shard_rank_main(rank, world, port, out_q):
         dist.init_process_group("gloo",
                                 init_method=f"tcp://127.0.0.1:{port}",
                                 rank=rank, world_size=world)
-        res = {name: _shard_job(device, rank, spec, extra)
-               for name, (spec, extra, _) in SHARD_JOBS.items()}
+        spec, extra, _ = SHARD_JOBS["13b"]
+        res = {"13b": _shard_job(device, rank, spec, extra),
+               "13c": shard_ckpt_rank_jobs(device, ckpt_dir)}
         out_q.put((rank, res, None))
     except BaseException:            # reported to the parent, then raised
         out_q.put((rank, None, traceback.format_exc()))
@@ -3756,6 +3819,169 @@ def shard_rank_main(rank, world, port, out_q):
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def shard_ckpt_beside(device, ckpt_dir, procs) -> dict:
+    """While the ranks resume 13c under SHARD_CKPT_RESUME: once their
+    file is complete (its sidecar is written last), the sha256 of its
+    every leaf, then its one-process resume (no mesh, 2 steps) under
+    deterministic algorithms.  None when a rank ends first (its failure
+    is reported)."""
+    path = shard_ckpt_path(ckpt_dir)
+    if not _wait_for(path + ".json", procs):
+        return None
+    t0 = time.perf_counter()
+    digests = file_leaf_digests(path)
+    digest_s = time.perf_counter() - t0
+    _release()
+    torch.use_deterministic_algorithms(True)
+    try:
+        one = _ckpt_job(device, shard_argv(2, ["--resume", path]),
+                        Obs(trace_out=os.devnull), fields=("x",))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return {"leaf_digests": digests, "digest_s": round(digest_s, 1),
+            "bytes": os.path.getsize(path), "one": one}
+
+
+def _kill_workers(port) -> None:
+    """SIGKILL any pod worker whose command line names ``port`` (a
+    launcher killed at its time limit leaves its workers, each in a
+    session of its own)."""
+    import signal
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+        except OSError:
+            continue
+        if b"--_worker" in argv and str(port).encode() in argv:
+            try:
+                os.kill(int(pid), signal.SIGKILL)
+            except OSError:
+                pass
+
+
+def start_shard_launcher() -> dict:
+    """13a's pod launcher, started: ``python -m
+    repro_torch.launch.dist_run --nproc 4 --mesh replica:2,model:2
+    --device cuda --use-kernel`` at 13's cell, step by step, its output in
+    temporary files (it runs beside the spawned ranks)."""
+    spec, _, _ = SHARD_JOBS["13a"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_13a_")
+    port = free_port()
+    argv = ["--nproc", str(SHARD_WORLD), "--mesh", spec, "--device",
+            "cuda", "--use-kernel", "--arch", CKPT_ARCH, "--replicas",
+            "2", "--L", "2", "--steps", "4", "--batch", "2", "--seq",
+            "256", "--seed", "0", "--metrics-out",
+            os.path.join(tmp, "m.jsonl"), "--port", str(port),
+            "--_config", json.dumps(dataclasses.asdict(ckpt_cfg()))]
+    logs = [open(os.path.join(tmp, f), "w+") for f in ("out", "err")]
+    epoch0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dist_run", *argv],
+        env=_pod_env(PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"),
+        stdout=logs[0], stderr=logs[1], text=True)
+    return {"proc": proc, "tmp": tmp, "port": port, "logs": logs,
+            "epoch0": epoch0}
+
+
+def finish_shard_launcher(run, smi) -> dict:
+    """13a's gates, once its launcher (:func:`start_shard_launcher`)
+    ends: its verdict (each of rank 0's 4 losses = its own one-process
+    run's, bit for bit); from each worker's ``--metrics-out`` file, its
+    kernel launches (K1 4 / K2 2), its bytes by axis (the replica axis: 2
+    syncs of its blocks' bytes), its peak device memory and its
+    timeline."""
+    spec, _, want = SHARD_JOBS["13a"]
+    phase(f"13a. the pod launcher over a composed mesh (beside the ranks): "
+          f"dist_run --nproc {SHARD_WORLD} --mesh {spec} --device cuda "
+          f"--use-kernel, full-width {CKPT_ARCH} cut to {CKPT_LAYERS} "
+          "layers, parle n=2 L=2, 4 steps, f32 through K1/K2, against its "
+          "own one-process run")
+    proc, tmp, epoch0 = run["proc"], run["tmp"], run["epoch0"]
+    m = os.path.join(tmp, "m.jsonl")
+    try:
+        try:
+            proc.wait(timeout=SHARD_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:  # timed out: no worker outlives it
+                proc.kill()
+                proc.wait()
+                _kill_workers(run["port"])
+        # the launcher's own wall: its verdict is its last write (it is
+        # collected only after the ranks end)
+        wall = os.path.getmtime(run["logs"][0].name) - epoch0
+        stdout, stderr = [(f.seek(0), f.read())[1] for f in run["logs"]]
+        check(proc.returncode == 0, f"13a: dist_run exited "
+              f"{proc.returncode}:\n{stdout[-3000:]}\n{stderr[-3000:]}")
+        verdict = json.loads(stdout.strip().splitlines()[-1])
+        check(verdict["bitwise_equal"] is True
+              and verdict["compared_steps"] == 4, f"13a: dist_run {verdict}")
+        axes = mesh_mod.parse_mesh_spec(spec)
+        inner = mesh_mod.inner_axes(spec)
+        params = planner.meta_params(build_model(ckpt_cfg()))
+        ctx = planner.ShardContext(inner)
+        coords = [dict(zip(inner, idx)) for idx in
+                  np.ndindex(*inner.values())]
+        expected = {k: want.get(k, 0) for k in pu.launch_counts()}
+        ranks = []
+        for i in range(SHARD_WORLD):
+            evs = read_events(f"{m}.worker{i}")
+            snap = [e for e in evs
+                    if e["kind"] == "metrics_snapshot"][-1]["snapshot"]
+            # the worker's timeline from the launcher's start: its first
+            # record (joined, model and state made), each step, its end
+            at = lambda e: round(e["ts"] - epoch0, 1)
+            timeline = {"ready_s": at(evs[0]),
+                        "step_s": [at(e) for e in evs
+                                   if e["kind"] == "pod_step"],
+                        "end_s": at(evs[-1])}
+            gauges = {(g["name"], g["labels"].get("kernel")): g["value"]
+                      for g in snap["gauges"]}
+            launches = {k: gauges[("pod.kernel_launches", k)]
+                        for k in expected}
+            check(launches == expected, f"13a worker {i}: launches "
+                  f"{launches}, expected {expected}")
+            by_axis = {}
+            for c in snap["counters"]:
+                if c["name"] in ("pod.collectives", "pod.collective_bytes"):
+                    lab = c["labels"]
+                    by_axis.setdefault(lab["axis"], {}).setdefault(
+                        lab["op"], [0, 0])[
+                        c["name"] == "pod.collective_bytes"] += c["total"]
+            c = partition.mesh_coords(axes, i)
+            index = coords.index({a: c[a] for a in inner})
+            live = sum(ShardedLayout(params, ctx, coords, index).sizes)
+            got = by_axis.get("replica", {}).get("all_reduce")
+            check(got == [2, 2 * 4 * live], f"13a worker {i}: replica "
+                  f"all-reduces {got}, expected 2 syncs of {4 * live} B")
+            peak = gauges[("pod.peak_device_memory_bytes", None)]
+            ranks.append({"coords": c, "launches": launches,
+                          "by_axis": by_axis, "live": live,
+                          "peak_memory_gib": round(peak / 2 ** 30, 3),
+                          "timeline": timeline})
+            print(json.dumps({"shard_job": "13a", "rank": i, **ranks[-1],
+                              "card": smi}), flush=True)
+    finally:
+        for f in run["logs"]:
+            f.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"verdict": verdict, "wall_s": round(wall, 1),
+           # after the pod: the launcher's own one-process run
+           "reference_s": round(wall - max(r["timeline"]["end_s"]
+                                           for r in ranks), 1),
+           "launches_per_rank": {k: v for k, v in
+                                 ranks[0]["launches"].items() if v},
+           "peak_memory_gib": [r["peak_memory_gib"] for r in ranks],
+           "by_axis": ranks[0]["by_axis"]}
+    print(f"13a: dist_run --nproc {SHARD_WORLD} --mesh {spec}: "
+          f"{json.dumps(verdict)}; launches a rank "
+          f"{out['launches_per_rank']}; launcher wall {out['wall_s']} s "
+          f"(its one-process run {out['reference_s']} s)", flush=True)
+    return out
 
 
 def _seconds_by_axis(syncs) -> dict:
@@ -3769,98 +3995,191 @@ def _seconds_by_axis(syncs) -> dict:
     return out
 
 
+def shard_13b_report(results, ref, smi) -> dict:
+    """13b's gates: each rank's losses within SHARD_RTOL of the
+    one-process int8 run, K1 / K4 / K5 launched as counted, the replica
+    axis moving a shard's int8 payload and its scales a sync."""
+    spec, _, want = SHARD_JOBS["13b"]
+    expected = {k: want.get(k, 0) for k in COUNTERS}
+    errs = []
+    for rank in range(SHARD_WORLD):
+        r = results[rank]["13b"]
+        check(r["launches"] == expected, f"13b rank {rank}: "
+              f"launches {r['launches']}, expected {expected}")
+        err = max(abs(a / b - 1) for a, b in zip(r["losses"], ref["losses"]))
+        errs.append(err)
+        check(err <= SHARD_RTOL, f"13b rank {rank}: losses {r['losses']} "
+              f"vs one process's {ref['losses']}: max rel err {err:.3e} > "
+              f"{SHARD_RTOL}")
+        want_bytes = r["numel"] + r["numel"] // 256
+        syncs = [s for s in r["syncs"] if s["axis"] == "replica"
+                 and s["bytes"] > 64 and s["op"] == "all_gather"]
+        check(len(syncs) >= 2 and all(s["bytes"] == want_bytes
+                                     for s in syncs[:2]),
+              f"13b rank {rank}: replica-axis syncs "
+              f"{[s['bytes'] for s in syncs]}, expected {want_bytes}")
+        print(json.dumps({
+            "shard_job": "13b", "rank": rank, "coords": r["coords"],
+            "round_wall_s": r["round_wall_s"],
+            "step_wall_s": [w / 2 for w in r["round_wall_s"]],
+            "collective_bytes_by_axis": r["by_axis"],
+            "seconds_by_axis": _seconds_by_axis(r["syncs"]),
+            "shard_numel": r["numel"], "full_numel": r["full_numel"],
+            "peak_memory_gib": r["peak_memory_gib"], "card": smi}),
+            flush=True)
+    r0 = results[0]["13b"]
+    out = {"launches_per_rank": {k: v for k, v in r0["launches"].items()
+                                 if v},
+           "round_wall_s": [results[r]["13b"]["round_wall_s"]
+                            for r in range(SHARD_WORLD)],
+           "peak_memory_gib": [results[r]["13b"]["peak_memory_gib"]
+                               for r in range(SHARD_WORLD)],
+           "by_axis": r0["by_axis"],
+           "seconds_by_axis": _seconds_by_axis(r0["syncs"]),
+           "max_rel_loss_err": max(errs)}
+    print(f"shard 13b ({spec}): every rank within {max(errs):.3e} of one "
+          f"process's losses; launches a rank {out['launches_per_rank']}",
+          flush=True)
+    return out
+
+
+def shard_13c_report(results, beside, ref, where, smi) -> dict:
+    """13c's gates: the file the four ranks wrote under SHARD_CKPT_SAVE
+    holds, leaf for leaf, the bytes of the one-process state at step 2
+    (sha256 of every leaf); resumed in this process it continues the
+    uninterrupted one-process run bit for bit (losses of steps 3-4, eval
+    loss, sha256 of each final x row); resumed under SHARD_CKPT_RESUME
+    every rank's losses are within SHARD_RTOL of it; each run launched K1
+    2 / K2 1 (a rank); each rank made one in-replica gather, and the
+    replica's first rank one replica-axis gather."""
+    phase(f"13c. checkpoint under a composed mesh: full-width {CKPT_ARCH} "
+          f"cut to {CKPT_LAYERS} layers, parle n=2 L=2 f32 through K1/K2, "
+          f"saved at step 2 by four ranks under {SHARD_CKPT_SAVE}, resumed "
+          f"under {SHARD_CKPT_RESUME} (four ranks) and in one process")
+    check(beside is not None, "13c: the one-process resume did not run")
+    full = ref["full"]
+    want_x = full["digests"]["x"]
+    check(beside["leaf_digests"] == ref["leaf_digests"],
+          "13c: the four ranks' file differs from the one-process state at "
+          "step 2: leaves " + str(sorted(
+              k for k in ref["leaf_digests"]
+              if beside["leaf_digests"].get(k) != ref["leaf_digests"][k])))
+    one = beside["one"]
+    check(one["losses"] == full["losses"][2:]
+          and one["eval_loss"] == full["eval_loss"]
+          and one["digests"]["x"] == want_x,
+          f"13c one-process resume: losses {one['losses']} / eval "
+          f"{one['eval_loss']} != the uninterrupted run's "
+          f"{full['losses'][2:]} / {full['eval_loss']} (or its final x)")
+    expected = {k: SHARD_CKPT_LAUNCHES.get(k, 0) for k in COUNTERS}
+    check(one["launches"] == expected, f"13c one-process resume: launches "
+          f"{one['launches']}, expected {expected}")
+    errs, axes = [], mesh_mod.parse_mesh_spec(SHARD_CKPT_SAVE)
+    inner = ",".join(mesh_mod.inner_axes(SHARD_CKPT_SAVE))
+    for rank in range(SHARD_WORLD):
+        save, res = (results[rank]["13c"][k] for k in ("save", "resume"))
+        for name, run in (("save", save), ("resume", res)):
+            check(run["launches"] == expected, f"13c {name} rank {rank}: "
+                  f"launches {run['launches']}, expected {expected}")
+        check(save["losses"] == full["losses"][:2], f"13c save rank {rank}:"
+              f" losses {save['losses']} != one process's "
+              f"{full['losses'][:2]}")
+        err = max(abs(a / b - 1)
+                  for a, b in zip(res["losses"], full["losses"][2:]))
+        errs.append(err)
+        check(err <= SHARD_RTOL, f"13c resume rank {rank}: losses "
+              f"{res['losses']} vs {full['losses'][2:]}: max rel err "
+              f"{err:.3e} > {SHARD_RTOL}")
+        first = all(v == 0 for a, v in partition.mesh_coords(
+            axes, rank).items() if a != "replica")
+        got = sorted(g["axis"] for g in save["gathers"])
+        check(got == sorted([inner] + (["replica"] if first else [])),
+              f"13c save rank {rank}: gathers over {got}")
+    by_rank = lambda run, key: [results[r]["13c"][run][key]
+                                for r in range(SHARD_WORLD)]
+    save0 = results[0]["13c"]["save"]
+    gather_s = {g["axis"]: g["gather_s"] for g in save0["gathers"]}
+    out = {"where": where, "file_bytes": beside["bytes"],
+           "save_s": {"checkpoint_s": save0["checkpoint_s"],
+                      "in_replica_gather_s": gather_s[inner],
+                      "replica_gather_s": gather_s["replica"],
+                      "write_s": save0["write_s"]},
+           "gathers_by_rank": by_rank("save", "gathers"),
+           "checkpoint_s_by_rank": by_rank("save", "checkpoint_s"),
+           "restore_s": {SHARD_CKPT_RESUME: by_rank("resume", "restore_s"),
+                         "one_process": one["restore_s"]},
+           "digest_s": beside["digest_s"],
+           "max_rel_loss_err": max(errs),
+           "peak_memory_gib": {"save": by_rank("save", "peak_memory_gib"),
+                               "resume": by_rank("resume",
+                                                 "peak_memory_gib"),
+                               "one_process": one["peak_memory_gib"]},
+           "round_wall_s": {"save": by_rank("save", "round_wall_s"),
+                            "resume": by_rank("resume", "round_wall_s")},
+           "run_wall_s": {"save": by_rank("save", "wall_s"),
+                          "resume": by_rank("resume", "wall_s"),
+                          "one_process": one["wall_s"]},
+           "launches_per_rank": {k: v for k, v in
+                                 save0["launches"].items() if v},
+           "card": smi}
+    print(json.dumps({"ckpt_composed_mesh": out}), flush=True)
+    print(f"13c: the {SHARD_CKPT_SAVE} file = the one-process state at step "
+          f"2 leaf for leaf (sha256); resumed in one process = the "
+          f"uninterrupted run bit for bit; under {SHARD_CKPT_RESUME} within "
+          f"{max(errs):.3e}", flush=True)
+    return out
+
+
 def shard_phase(device, smi) -> dict:
     """Phase 13: Parle with axes inside a replica over four gloo ranks on
     the one card (each rank a spawned process holding half of one
     replica's state as the sharding planner assigns it; its replica's
     weights gathered for the forward, its grads reduce-scattered, every
-    collective staged through pinned host memory).  13a (replica:2,
-    model:2, f32, K1 / K2): each rank's 4 losses, eval loss and the
-    sha256 of its blocks of the final x row equal the one-process run bit
-    for bit.  13b (replica:2, data:2, int8, K1 / K4 / K5): the losses
-    within SHARD_RTOL of the one-process int8 run; the replica axis moves
-    a shard's int8 payload plus its scales a sync.  Times: four ranks
-    time-slicing one card over loopback gloo, not a multi-card figure."""
+    collective staged through pinned host memory), all on full-width
+    Mamba2-1.3B cut to 2 layers.  13b (replica:2, data:2, int8, K1 / K4
+    / K5): the losses within SHARD_RTOL of the one-process int8 run; the
+    replica axis moves a shard's int8 payload plus its scales a sync.
+    13c, on the same ranks after 13b: a checkpoint written under
+    replica:2,model:2 and resumed under replica:2,data:2 and, beside the
+    ranks, in this process (:func:`shard_13c_report`).  Beside the
+    ranks, 13a (replica:2,model:2, f32, K1 / K2) through the pod
+    launcher (:func:`start_shard_launcher`: its workers' start and its
+    own one-process run hide under the ranks' work).  Times: four ranks time-slicing one
+    card over loopback gloo, not a multi-card figure."""
     t0 = time.perf_counter()
     _release()
     refs = shard_reference_phase(device)
     phase(f"13. axes inside a replica: four gloo ranks on the one card, "
-          f"13a {SHARD_JOBS['13a'][0]} f32 through K1/K2, 13b "
-          f"{SHARD_JOBS['13b'][0]} int8 through K1/K4/K5")
+          f"13b {SHARD_JOBS['13b'][0]} int8 through K1/K4/K5, then 13c's "
+          f"checkpoint under {SHARD_CKPT_SAVE} resumed under "
+          f"{SHARD_CKPT_RESUME} and (beside) in one process; 13a's pod "
+          "launcher beside them")
     free = torch.cuda.mem_get_info(device)[0]
     print(f"shard: free device memory before the ranks "
           f"{free / 2 ** 30:.3f} GiB", flush=True)
+    ckpt_dir, where = ckpt_directory(SHARD_CKPT_COPIES)
     t_ranks = time.perf_counter()
-    results, _ = _run_ranks(shard_rank_main, SHARD_WORLD, SHARD_TIMEOUT_S)
+    launcher = start_shard_launcher()
+    try:
+        results, beside = _run_ranks(
+            shard_rank_main, SHARD_WORLD, SHARD_TIMEOUT_S, ckpt_dir,
+            beside=lambda procs: shard_ckpt_beside(device, ckpt_dir, procs))
+    except BaseException:               # a rank failed: no pod outlives it
+        launcher["proc"].kill()
+        _kill_workers(launcher["port"])
+        raise
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     ranks_s = time.perf_counter() - t_ranks
-    out = {}
-    for name, (spec, _, want) in SHARD_JOBS.items():
-        ref = refs[name]
-        expected = {k: want.get(k, 0) for k in COUNTERS}
-        errs = []
-        for rank in range(SHARD_WORLD):
-            r = results[rank][name]
-            check(r["launches"] == expected, f"{name} rank {rank}: "
-                  f"launches {r['launches']}, expected {expected}")
-            rep_syncs = [s for s in r["syncs"] if s["axis"] == "replica"
-                         and s["bytes"] > 64]
-            if name == "13a":
-                check(r["losses"] == ref["losses"]
-                      and r["eval_loss"] == ref["eval_loss"],
-                      f"13a rank {rank}: losses {r['losses']} / eval "
-                      f"{r['eval_loss']} != one process's {ref['losses']}"
-                      f" / {ref['eval_loss']}")
-                key = (r["coords"]["replica"], r["index"])
-                check(r["x_digest"] == ref["blocks"][key],
-                      f"13a rank {rank}: its blocks of the final x differ "
-                      "from the one-process run's bit for bit")
-                want_bytes = 4 * r["live"]
-                syncs = [s for s in rep_syncs if s["op"] == "all_reduce"]
-            else:
-                err = max(abs(a / b - 1)
-                          for a, b in zip(r["losses"], ref["losses"]))
-                errs.append(err)
-                check(err <= SHARD_RTOL, f"13b rank {rank}: losses "
-                      f"{r['losses']} vs one process's {ref['losses']}: "
-                      f"max rel err {err:.3e} > {SHARD_RTOL}")
-                want_bytes = r["numel"] + r["numel"] // 256
-                syncs = [s for s in rep_syncs if s["op"] == "all_gather"]
-            # two syncs and the eval's mean (13a), two syncs (13b)
-            check(len(syncs) >= 2 and all(s["bytes"] == want_bytes
-                                         for s in syncs[:2]),
-                  f"{name} rank {rank}: replica-axis syncs "
-                  f"{[s['bytes'] for s in syncs]}, expected {want_bytes}")
-            print(json.dumps({
-                "shard_job": name, "rank": rank, "coords": r["coords"],
-                "round_wall_s": r["round_wall_s"],
-                "step_wall_s": [w / 2 for w in r["round_wall_s"]],
-                "collective_bytes_by_axis": r["by_axis"],
-                "seconds_by_axis": _seconds_by_axis(r["syncs"]),
-                "shard_numel": r["numel"], "full_numel": r["full_numel"],
-                "peak_memory_gib": r["peak_memory_gib"],
-                "card": smi}), flush=True)
-        r0 = results[0][name]
-        out[name] = {
-            "launches_per_rank": {k: v for k, v in r0["launches"].items()
-                                  if v},
-            "round_wall_s": [results[r][name]["round_wall_s"]
-                             for r in range(SHARD_WORLD)],
-            "peak_memory_gib": [results[r][name]["peak_memory_gib"]
-                                for r in range(SHARD_WORLD)],
-            "by_axis": r0["by_axis"],
-            "seconds_by_axis": _seconds_by_axis(r0["syncs"])}
-        if errs:
-            out[name]["max_rel_loss_err"] = max(errs)
-        print(f"shard {name} ({spec}): every rank "
-              + ("== one process bit for bit (4 losses, eval, its x "
-                 "blocks)" if name == "13a" else
-                 f"within {max(errs):.3e} of one process's losses")
-              + f"; launches a rank {out[name]['launches_per_rank']}",
-              flush=True)
+    out = {"13b": shard_13b_report(results, refs["13b"], smi),
+           "13c": shard_13c_report(results, beside, refs["13c"], where,
+                                   smi),
+           "13a": finish_shard_launcher(launcher, smi)}
     out["ranks_wall_s"] = round(ranks_s, 1)
     out["phase_wall_s"] = round(time.perf_counter() - t0, 1)
     print(json.dumps({"shard_phase_wall_s": out["phase_wall_s"],
                       "ranks_wall_s": out["ranks_wall_s"],
+                      "launcher_wall_s": out["13a"]["wall_s"],
                       "note": "four ranks time-slicing one card over "
                               "loopback gloo, not a multi-card figure",
                       "card": smi}), flush=True)
@@ -4378,10 +4697,14 @@ def main() -> int:
                       for r, v in remat["runs"].items()},
             "remat_phase_wall_s": remat["phase_wall_s"],
             "stream_report_phase_wall_s": stream["phase_wall_s"]},
-        "phase13": {k: (shard[k] if k.endswith("_s") else {
-            kk: shard[k][kk] for kk in ("round_wall_s", "peak_memory_gib",
-                                        "by_axis")})
-            for k in (*SHARD_JOBS, "phase_wall_s", "ranks_wall_s")},
+        "phase13": {
+            "13a": {k: shard["13a"][k] for k in (
+                "verdict", "wall_s", "peak_memory_gib", "by_axis")},
+            "13b": {k: shard["13b"][k] for k in (
+                "round_wall_s", "peak_memory_gib", "by_axis")},
+            "13c": {k: shard["13c"][k] for k in (
+                "file_bytes", "save_s", "restore_s", "peak_memory_gib")},
+            **{k: shard[k] for k in ("phase_wall_s", "ranks_wall_s")}},
         "flash_prefill": {k: run["flash_prefill"][k] for k in (
             "max_logit_err", "max_kv_cache_err", "prefill_wall_s")},
         "mamba2": {"max_logit_err": mamba["max_logit_err"],
@@ -4463,11 +4786,12 @@ def main() -> int:
                if name in ("parle_inner_update", "parle_sync_update",
                            "quantize_ef", "parle_apply_quantize")
                else {}),
-            # phase 13: 13a's f32 run (replica:2,model:2) and 13b's int8
-            # run (replica:2,data:2), a rank
+            # phase 13: 13a's f32 pod (replica:2,model:2, dist_run),
+            # 13b's int8 run (replica:2,data:2) and 13c's save run
+            # (replica:2,model:2), a rank
             **({"phase13_launches_per_rank": {
                 job: shard[job]["launches_per_rank"].get(name, 0)
-                for job in SHARD_JOBS}}
+                for job in (*SHARD_JOBS, "13c")}}
                if name in ("parle_inner_update", "parle_sync_update",
                            "quantize_ef", "parle_sync_dequant")
                else {}),

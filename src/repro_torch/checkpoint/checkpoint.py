@@ -27,14 +27,19 @@ package restores into the other.
 :func:`restore` writes the checkpoint's values INTO the leaves of the
 ``like`` state (its device buffers) and returns it.
 
-Across the ranks of a ``ReplicaGroup`` the file is the same one: the
-state's prefix tree of replica axes (``Algorithm.state_pspecs``) says
-which fields carry the n replica rows.  :func:`save_rows` gathers those
-rows leaf by leaf to rank 0's host (``ReplicaGroup.gather_rows``), rank
-0 writes the one npz, and every rank passes a barrier; :func:`restore`
-with ``group=`` reads each such leaf's rows of the rank into its local
-(k, ...) template.  So a file written under any rank count, or by the
-reference, restores under any count that divides its n.
+Across the ranks of a ``ReplicaGroup`` or a ``MeshGroups`` the file is
+the same one: the state's prefix tree of replica axes
+(``Algorithm.state_pspecs``) says which fields carry the n replica rows,
+and every leaf is written whole.  :func:`save_rows` gathers those rows
+leaf by leaf to rank 0's host (``ReplicaGroup.gather_rows``); under axes
+inside a replica each leaf's blocks first meet on the replica's first
+in-replica rank, which assembles the whole leaf
+(``MeshGroups.gather_state``).  Rank 0 writes the one npz, and every
+rank passes a barrier.  :func:`restore` with ``group=`` reads each such
+leaf's rows of the rank (one byte range) and copies the rank's blocks
+of them into its template.  So a file written under any mesh shape, in
+one process or by the reference, restores under any mesh shape whose
+replica axis divides its n.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ import os
 import queue
 import struct
 import threading
+import time
 import warnings
 import zipfile
 from typing import Any
@@ -51,6 +57,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.sharding.partition import in_replica
 from repro_torch.utils.pytree import tree_leaves_with_paths
 
 SEP = "/"
@@ -198,33 +205,75 @@ def _is_row_key(key: str, pspecs: dict) -> bool:
     return pspecs.get(key.split(SEP)[0]) is not None
 
 
+def _layout_keys(state) -> dict:
+    """{key: layout index} of the leaves a state holds through its
+    ``layout`` (the views of its flat buffers: not ``step`` or the
+    scopes)."""
+    lay = state.layout
+    names = {SEP.join(p): i for i, p in enumerate(lay.paths)}
+    out = {}
+    for f in state._fields:
+        t = getattr(state, f)
+        if (isinstance(t, torch.Tensor) and t.dim()
+                and t.shape[-1] == lay.numel):
+            out.update({f + SEP + k: i for k, i in names.items()})
+    return out
+
+
 def save_rows(path: str, state: Any, group, pspecs: dict, step: int = 0,
               meta: dict | None = None, algo: str | None = None,
-              metrics=None):
-    """:func:`save` of a state held across the ranks of ``group``: the
-    leaves of each field that ``pspecs`` gives a replica axis are
-    gathered to rank 0's host one at a time and written as they arrive,
-    the others are rank 0's own (every rank holds them whole), and rank
-    0 alone writes the file :func:`save` would write for the whole
-    state.  ``metrics``: a callable giving rank 0's counter stamp, read
-    after the gather.  Every rank returns after the file is complete."""
+              metrics=None) -> dict:
+    """:func:`save` of a state held across the ranks of ``group`` (a
+    ``ReplicaGroup`` or a ``MeshGroups``): rank 0 alone writes the file
+    :func:`save` would write for the whole state, the same keys, whole
+    leaves of shape ``(n, *leaf)`` and dtypes, each leaf as it arrives.
+
+    The leaves of each field that ``pspecs`` gives a replica axis are
+    gathered to rank 0's host one at a time (``ReplicaGroup.
+    gather_rows``); under axes inside a replica every leaf a rank holds
+    as blocks is assembled on its replica's first in-replica rank first,
+    the fields without the replica axis (Parle's ``c``, Elastic-SGD's
+    ``ref``, SGD's model) in replica 0 (``MeshGroups.gather_state``).
+    ``step`` and the scopes are rank 0's own.  ``metrics``: a callable
+    giving rank 0's counter stamp, read after the gather.  Every rank
+    returns after the file is complete; rank 0 returns ``{"write_s": the
+    seconds of its writes, digest and sidecar}``, the others ``{}``."""
     path = _npz(path)
     leaves = _flat_leaves(state)
-    rows = [k for k in leaves if _is_row_key(k, pspecs)]
-    w = None
-    if group.rank == 0:
-        w = _NpzWriter(path)
-        for k, v in leaves.items():
-            if not _is_row_key(k, pspecs):
-                w.add(k, to_numpy(v))
-    if rows:                    # SGD has no row field: nothing to gather
-        group.gather_rows([leaves[k] for k in rows],
-                          each=None if w is None else
-                          lambda i, t: w.add(rows[i], to_numpy(t)))
+    w = _NpzWriter(path) if group.rank == 0 else None
+    spent = [0.0]
+
+    def write(key, t):
+        t0 = time.perf_counter()
+        w.add(key, to_numpy(t))
+        spent[0] += time.perf_counter() - t0
+
+    mesh = in_replica(group)
+    if mesh is not None:
+        index = _layout_keys(state)
+        keys = list(leaves)
+        mesh.gather_state(
+            [(leaves[k], index.get(k), _is_row_key(k, pspecs))
+             for k in keys], state.layout,
+            each=None if w is None else lambda i, t: write(keys[i], t))
+    else:
+        rows = [k for k in leaves if _is_row_key(k, pspecs)]
+        if w is not None:
+            for k, v in leaves.items():
+                if not _is_row_key(k, pspecs):
+                    write(k, v)
+        if rows:                # SGD has no row field: nothing to gather
+            group.gather_rows([leaves[k] for k in rows],
+                              each=None if w is None else
+                              lambda i, t: write(rows[i], t))
+    out = {}
     if w is not None:
+        t0 = time.perf_counter()
         _finish(path, w, step, meta, algo,
                 metrics() if metrics is not None else None)
+        out["write_s"] = round(spent[0] + time.perf_counter() - t0, 3)
     group.barrier()
+    return out
 
 
 def _finish(path: str, w: _NpzWriter, step, meta, algo, metrics):
@@ -398,11 +447,15 @@ def restore(path: str, like: Any, algo: str | None = None, group=None,
     The path goes through :func:`resolve` first, unless ``resolved``
     (the caller resolved it).  ``algo``: expected algorithm name; raises
     ValueError when the sidecar was stamped by a different algorithm.
-    ``group`` (a ``ReplicaGroup`` of several ranks) and ``pspecs`` (the
-    algorithm's ``state_pspecs``): ``like`` holds the rank's k rows of
-    each field with a replica axis, and gets rows ``group.rows`` of the
-    checkpoint's n (which must be ``group.n``); only those rows are
-    read."""
+    ``group`` (a ``ReplicaGroup`` or a ``MeshGroups`` of several ranks)
+    and ``pspecs`` (the algorithm's ``state_pspecs``): ``like`` holds the
+    rank's k rows of each field with a replica axis, and gets rows
+    ``group.rows`` of the checkpoint's n (which must be ``group.n``);
+    only those rows are read, one contiguous byte range a leaf.  Under
+    axes inside a replica ``like`` holds the rank's blocks of each leaf
+    (its ``ShardedLayout``): the rank's rows of the whole leaf are read,
+    and its blocks copied out of them; the gaps stay zero.  Any mesh
+    shape reads a file of any other, or of one process."""
     if not resolved:
         path = resolve(path)
     if algo is not None:
@@ -412,33 +465,41 @@ def restore(path: str, like: Any, algo: str | None = None, group=None,
                 f"checkpoint {path!r} was written by algo {stamped!r}; "
                 f"refusing to restore it as {algo!r}")
     rows = group is not None and not group.trivial
+    mesh = in_replica(group)
+    blocks = _layout_keys(like) if mesh is not None else {}
     leaves = _flat_leaves(like)
     members = _members(path)
-    spans = {}                  # key: (byte offset, bytes) to read
+    spans = {}          # key: (byte offset, bytes, whole shape, layout index)
     for key, leaf in leaves.items():
         if key not in members:
             raise KeyError(f"checkpoint missing key {key}")
         off, shape, dtype = members[key]
-        want_shape = tuple(leaf.shape)
-        nbytes = leaf.numel() * leaf.element_size()
+        b = blocks.get(key)
+        whole = tuple(leaf.shape)
+        if b is not None:
+            lead = whole[:leaf.dim() - len(like.layout.shapes[b])]
+            whole = lead + tuple(like.layout.full.shapes[b])
+        want_shape = whole
+        nbytes = torch.Size(whole).numel() * leaf.element_size()
         if rows and _is_row_key(key, pspecs):
-            want_shape = (group.n,) + want_shape[1:]
+            want_shape = (group.n,) + whole[1:]
             off += group.rows.start * nbytes // group.local
         _check_leaf(key, leaf, shape, dtype, want_shape)
-        spans[key] = (off, nbytes)
+        spans[key] = (off, nbytes, whole, b)
     # each leaf's bytes (a rank's rows: one contiguous range) read
     # straight into one host buffer, pinned for a device template
     cuda = any(t.device.type != "cpu" for t in leaves.values())
-    stage = torch.empty(max([n for _, n in spans.values()] + [1]),
+    stage = torch.empty(max([n for _, n, _, _ in spans.values()] + [1]),
                         dtype=torch.uint8, pin_memory=cuda)
     with open(path, "rb") as f, torch.no_grad():
         for key, leaf in leaves.items():
-            off, nbytes = spans[key]
+            off, nbytes, whole, b = spans[key]
             f.seek(off)
             if f.readinto(stage[:nbytes].numpy()) != nbytes:
                 raise CheckpointCorruptError(
                     f"checkpoint {path!r}: leaf {key!r} is truncated")
-            leaf.copy_(stage[:nbytes].view(leaf.dtype).view(leaf.shape))
+            got = stage[:nbytes].view(leaf.dtype).view(whole)
+            leaf.copy_(got if b is None else like.layout.block_of(b, got))
     return like
 
 

@@ -49,6 +49,17 @@ quantize_launches = 0
 dequant_sync_launches = 0
 apply_quantize_launches = 0
 
+
+def launch_counts() -> dict:
+    """{kernel: launches} of the training path's six kernels (K1, K2,
+    K7, K4, K5, K6) since process start or the caller's reset."""
+    return {"parle_inner_update": inner_launches,
+            "parle_sync_update": sync_launches,
+            "elastic_update": elastic_launches,
+            "quantize_ef": quantize_launches,
+            "parle_sync_dequant": dequant_sync_launches,
+            "parle_apply_quantize": apply_quantize_launches}
+
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -19,6 +19,26 @@ compares the two loss streams BIT FOR BIT (float hex, not allclose):
 with one replica a rank the cross-process all-reduce sums the rows in
 the single-process order, so the pod must reproduce it exactly.
 
+A composed spec runs too, as the reference's does (``--mesh
+pod:2,data:2``, ``replica:2,model:2``): one process a rank, so
+``--nproc`` is the product of the spec's sizes, and each worker joins
+the rank's ``MeshGroups`` (``sharding/partition.py``: its blocks of
+every state leaf, a replica's weights gathered for its forward, its
+grads reduce-scattered over "data").  Under "model" alone (f32) every
+rank computes its replica on the one-process row, so the verdict is bit
+for bit; a "data" axis sums each grad in two halves of the batch, so
+pass ``--tol`` (the reference's composed-mesh bound is 2e-5).  The train
+CLI's refusals on such a mesh hold here: a moe architecture with "data"
+above 1 (ROADMAP.md item 6a) and ``--sync-policy async`` (item 6d).
+
+    PYTHONPATH=src python -m repro_torch.launch.dist_run --nproc 4 \\
+        --mesh replica:2,model:2 --smoke --steps 6 --L 3 --device cpu
+
+``--use-kernel`` runs the updates through the CUDA kernels (K1 / K2,
+Elastic-SGD's K7; their plain versions on the CPU), and each worker's
+``--metrics-out`` then carries its launches of each
+(``pod.kernel_launches{kernel, worker}``) beside its peak device memory.
+
 On CUDA (``--device cuda``, the default, as the train CLI's) the ranks
 share the card or cards of the machine and stage every collective
 through pinned host memory (``sharding/partition.py``).  Each worker,
@@ -77,8 +97,10 @@ from repro_torch.core.algorithm import validate_replicas
 from repro_torch.core.parle import dealias_state
 from repro_torch.data.synthetic import (TokenStream, make_round_batch_fn,
                                         replica_batches)
-from repro_torch.launch.mesh import (group_from_spec, inner_axes, mesh_size,
-                                     replica_axis)
+from repro_torch.kernels import parle_update
+from repro_torch.launch.mesh import (groups_from_spec, inner_axes, mesh_size,
+                                     parse_mesh_spec, replica_axis)
+from repro_torch.launch.train import check_in_replica
 from repro_torch.models.model import build_model
 from repro_torch.obs import EventSink, Obs, merge_snapshots, read_events
 from repro_torch.runtime import (CRASH_RC, AsyncElasticPolicy,
@@ -102,8 +124,9 @@ def build_argparser():
     ap.add_argument("--nproc", type=int, default=2,
                     help="number of processes (ranks) of the pod")
     ap.add_argument("--mesh", default="",
-                    help="mesh spec (default 'pod:<nproc>'); its replica "
-                         "axis must span --nproc ranks")
+                    help="mesh spec (default 'pod:<nproc>'), e.g. "
+                         "'replica:2,model:2'; it must span --nproc "
+                         "ranks, one a process")
     ap.add_argument("--algo", default="parle")
     ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--smoke", action="store_true")
@@ -118,6 +141,10 @@ def build_argparser():
     ap.add_argument("--seq", type=int, default=32)
     ap.add_argument("--lr", type=float, default=0.1)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--use-kernel", action="store_true",
+                    help="barrier: the updates through the CUDA kernels "
+                         "(K1 / K2, Elastic-SGD's K7); the reference run "
+                         "too")
     ap.add_argument("--port", type=int, default=9876,
                     help="TCP port of the torch.distributed rendezvous")
     ap.add_argument("--sync-policy", default="barrier",
@@ -212,10 +239,11 @@ def _maybe_fail_for_test(worker: int):
 
 def run_worker(args) -> list:
     """One process of the barrier pod: join the process group (when
-    nproc > 1), build the sharded step over this rank's replicas, and
-    hand the step stream to the runtime's ``RoundRunner``.  Emits
-    bit-exact losses (proc 0 only).  With nproc 1 it is the
-    single-process reference: the local step over all n replicas."""
+    nproc > 1), build the sharded step over this rank's replicas (its
+    blocks of them under a composed spec), and hand the step stream to
+    the runtime's ``RoundRunner``.  Emits bit-exact losses (proc 0
+    only).  With nproc 1 it is the single-process reference: the local
+    step over all n replicas."""
     if args.device == "cuda":
         # cuBLAS reads this once, at its first use (still ahead)
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -235,6 +263,7 @@ def run_worker(args) -> list:
     obs = Obs(args.metrics_out, args.trace_out, pid=proc,
               process_name=f"pod-worker{proc}")
     cfg = _model_config(args)
+    check_in_replica(args, cfg)
     model = build_model(cfg)
     algo = registry.get(args.algo)
     spec = _mesh_spec(args)
@@ -245,11 +274,12 @@ def run_worker(args) -> list:
     n = pcfg.n_replicas
     validate_replicas(args.algo, args.replicas, n, axis, size)
     group = None
+    kw = dict(use_kernel=args.use_kernel)
     if args.nproc > 1:
-        group = group_from_spec(spec, n, obs)
-        step_fn = algo.make_sharded_step(model.loss, pcfg, group)
+        group = groups_from_spec(spec, n, obs)
+        step_fn = algo.make_sharded_step(model.loss, pcfg, group, **kw)
     else:
-        step_fn = algo.make_step(model.loss, pcfg)
+        step_fn = algo.make_step(model.loss, pcfg, **kw)
     rows = group.rows if group is not None else slice(None)
     local = group.local if group is not None else n
 
@@ -258,7 +288,10 @@ def run_worker(args) -> list:
     stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=args.seq,
                          batch_size=args.batch, seed=args.seed,
                          device=str(device))
-    mesh_rec = obs.emit("mesh", mesh={axis: size}, replica_axis=axis,
+    mesh_rec = obs.emit("mesh", mesh=parse_mesh_spec(spec),
+                        replica_axis=axis,
+                        in_replica_axes=list(getattr(group, "inner_axes",
+                                                     ())),
                         processes=args.nproc, replicas_per_process=local,
                         device=str(device))
     if proc == 0:
@@ -315,6 +348,14 @@ def run_worker(args) -> list:
     if round_t["t"] is not None and obs.enabled:
         obs.registry.histogram("pod.round_wall_ms", worker=proc) \
            .observe((time.perf_counter() - round_t["t"]) * 1e3)
+    if obs.enabled:
+        for name, count in parle_update.launch_counts().items():
+            obs.registry.gauge("pod.kernel_launches", kernel=name,
+                               worker=proc).set(count)
+        if device.type == "cuda":
+            obs.registry.gauge("pod.peak_device_memory_bytes",
+                               worker=proc).set(
+                torch.cuda.max_memory_allocated(device))
     obs.finalize()
     if args.nproc > 1:
         dist.destroy_process_group()
@@ -617,7 +658,8 @@ def _base_args(args, cfg):
             "--batch", str(args.batch), "--seq", str(args.seq),
             "--lr", str(args.lr), "--seed", str(args.seed),
             "--port", str(args.port),
-            "--_config", json.dumps(dataclasses.asdict(cfg))]
+            "--_config", json.dumps(dataclasses.asdict(cfg))] + (
+                ["--use-kernel"] if args.use_kernel else [])
 
 
 def verdict(dist_recs: list, ref_recs: list) -> dict:
@@ -745,22 +787,21 @@ def main(argv=None, cfg=None) -> int:
         else:
             run_worker(args)
         return 0
+    cfg = cfg or _model_config(args)
+    check_in_replica(args, cfg)
     if args.sync_policy == "async":
-        return _run_async_pod(args, cfg or _model_config(args))
+        return _run_async_pod(args, cfg)
 
     spec = _mesh_spec(args)
-    axis, size = replica_axis(spec)
-    if inner_axes(spec):
-        raise SystemExit(f"mesh {spec!r}: the pod launcher runs the "
-                         "replica axis alone; train with axes inside a "
-                         "replica under python -m torch.distributed.run "
-                         "-m repro_torch.launch.train --mesh ...")
-    if size != args.nproc:
-        raise SystemExit(f"mesh {spec!r}: its replica axis {axis!r} spans "
-                         f"{size} ranks, --nproc is {args.nproc} (one rank "
-                         "a process; --replicas puts several replicas on "
-                         "a rank)")
-    base = _base_args(args, cfg or _model_config(args))
+    need = mesh_size(spec)
+    if need != args.nproc:
+        inner = (f" ({'x'.join(str(s) for s in parse_mesh_spec(spec).values())}"
+                 ")" if inner_axes(spec) else "")
+        raise SystemExit(f"mesh {spec!r} spans {need} ranks{inner}, --nproc "
+                         f"is {args.nproc}: pass --nproc {need} (one rank a "
+                         "process; --replicas puts several replicas on a "
+                         "rank)")
+    base = _base_args(args, cfg)
     print(json.dumps({"launch": "dist_run", "nproc": args.nproc,
                       "mesh": spec, "device": args.device}), flush=True)
 

@@ -59,8 +59,8 @@ shard size.  Each model rank computes the whole replica (the products
 are not split over "model": ROADMAP.md queue 1 item 6a).  Refused on
 such a mesh, with the ROADMAP.md item that ports them: a moe
 architecture with ``data`` above 1 (its flat dispatch's capacity and aux
-loss are batch-global: item 6a), ``--checkpoint-dir`` / ``--resume``
-(item 6b) and ``--sync-policy async`` (item 6d).
+loss are batch-global: item 6a) and ``--sync-policy async`` (item
+6d).
 
 Params are drawn from a ``torch.Generator`` seeded by ``--seed`` on the
 training device (not the reference's init: its float draws go through
@@ -70,10 +70,12 @@ rank draws the same params, and the batches of its own replicas.
 
 ``--checkpoint-dir`` / ``--resume`` work under ``--mesh`` too: a
 checkpoint gathers the rows of the fields that carry the replica axis
-(``Algorithm.state_pspecs``) to rank 0, which writes the one file of the
-reference's format; a resume resolves one file for every rank (rank 0
-resolves, then broadcasts) and each rank restores its own rows.  The
-same file resumes under any rank count that divides its replicas, in one
+(``Algorithm.state_pspecs``) to rank 0 (with axes inside a replica,
+each leaf's blocks assembled on the replica's first rank before), which
+writes the one file of the reference's format; a resume resolves one
+file for every rank (rank 0 resolves, then broadcasts) and each rank
+restores its own rows, or its blocks of them.  The same file resumes
+under any mesh shape whose replica axis divides its replicas, in one
 process, and in the reference.  ``--sync-policy async`` exits pointing
 at the pod launcher (``launch/dist_run.py``), as the reference's does.
 ``--host-devices`` is the reference's XLA CPU mesh and has no
@@ -107,7 +109,7 @@ from repro_torch.runtime import (CheckpointSpec, RoundRunner, emit_progress,
                                  resolve_train_policy)
 from repro_torch.runtime.policies import ASYNC_IN_REPLICA
 from repro_torch.runtime.precision import pin_float32
-from repro_torch.sharding.partition import active
+from repro_torch.sharding.partition import distributed
 
 
 def build_argparser():
@@ -251,20 +253,16 @@ def check_in_replica(args, cfg):
             "over 'data' changes the flat dispatch's capacity and its "
             "batch-global aux loss (the grouped dispatch keeps them); "
             "'model' alone works")
-    if args.checkpoint_dir or args.resume:
-        raise SystemExit(
-            f"{spec}: checkpoints with an axis inside a replica are not "
-            "ported yet (ROADMAP.md queue 1, item 6b); drop "
-            "--checkpoint-dir / --resume, or use the replica axis alone")
     if args.sync_policy == "async":
         raise SystemExit(ASYNC_IN_REPLICA.format(axes=",".join(inner)))
 
 
 def resolve_resume(path: str, group) -> str:
     """``ckpt.resolve`` of ``--resume``; under a group of several ranks
-    rank 0 resolves it and broadcasts the file (or its error), so a
-    corrupt-newest fallback picks the same file for every rank."""
-    if active(group) is None:
+    the world's rank 0 resolves it and broadcasts the file (or its
+    error) to every rank of the world, so a corrupt-newest fallback picks
+    the same file for every rank."""
+    if not distributed(group):
         return ckpt.resolve(path)
     got = [None]
     if group.rank == 0:
@@ -272,7 +270,9 @@ def resolve_resume(path: str, group) -> str:
             got[0] = ckpt.resolve(path)
         except (FileNotFoundError, ckpt.CheckpointCorruptError) as e:
             got[0] = e
-    dist.broadcast_object_list(got, src=0, group=group.pg)
+    # a MeshGroups spans the world; a ReplicaGroup's pg is its own
+    dist.broadcast_object_list(got, src=0,
+                               group=getattr(group, "pg", None))
     if isinstance(got[0], Exception):
         raise got[0]
     return got[0]

@@ -11,8 +11,8 @@ series); the caller injects what differs through small hooks
 runs the loop and counts the tokens of its own replicas, only rank 0
 prints progress, and a checkpoint gathers the ranks' rows into the one
 file rank 0 writes.  Under a ``MeshGroups`` (axes inside a replica) only
-the world's rank 0 prints; checkpoints there are not ported (the train
-CLI refuses them).
+the world's rank 0 prints, and a checkpoint gathers each leaf's blocks
+inside the replicas, then the replicas' rows, into that same file.
 
 Spans end on ``torch.cuda.synchronize`` (``Span.block``), the
 counterpart of the reference's ``block_until_ready``.  There is no AOT
@@ -26,7 +26,7 @@ import time
 from typing import Any, Callable, NamedTuple, Optional
 
 from repro_torch.checkpoint import checkpoint as ckpt
-from repro_torch.sharding.partition import active
+from repro_torch.sharding.partition import distributed
 
 
 class CheckpointSpec(NamedTuple):
@@ -50,7 +50,7 @@ class RoundRunner:
         self.obs = obs
         self.ns = ns
         self.checkpoint = checkpoint
-        self.group = active(group)
+        self.group = group if distributed(group) else None
         self.prints = group is None or group.rank == 0   # the world's rank
 
     def _report(self, progress, *args, history):
@@ -62,20 +62,22 @@ class RoundRunner:
     # -- checkpointing --------------------------------------------
     def _save(self, state, gstep: int):
         """One checkpoint, in a ``checkpoint`` span.  Under a group of
-        several ranks every rank takes part (its rows are gathered), rank
-        0 writes the file with its counter stamp, and every rank leaves
-        once it is written."""
+        several ranks every rank takes part (its rows, or its blocks, are
+        gathered), rank 0 writes the file with its counter stamp (the
+        span's ``write_s``: its writes, digest and sidecar), and every
+        rank leaves once it is written."""
         ck = self.checkpoint
         path = f"{ck.dir}/step{gstep:06d}.npz"
         reg = self.obs.registry
-        with self.obs.tracer.span("checkpoint", cat="io", step=gstep):
+        with self.obs.tracer.span("checkpoint", cat="io", step=gstep) as sp:
             if self.group is None:
                 ckpt.save(path, state, step=gstep, meta={"arch": ck.arch},
                           algo=ck.algo, metrics=reg.counter_stamp())
             else:
-                ckpt.save_rows(path, state, self.group, ck.pspecs,
-                               step=gstep, meta={"arch": ck.arch},
-                               algo=ck.algo, metrics=reg.counter_stamp)
+                sp.set(**ckpt.save_rows(
+                    path, state, self.group, ck.pspecs, step=gstep,
+                    meta={"arch": ck.arch}, algo=ck.algo,
+                    metrics=reg.counter_stamp))
         self.obs.emit("checkpoint", step=gstep, path=path)
 
     def _ckpt_enabled(self) -> bool:

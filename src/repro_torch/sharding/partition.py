@@ -26,8 +26,12 @@ ranks goes through the group's three operations:
 
 A checkpoint adds a fourth, :meth:`ReplicaGroup.gather_rows`: every
 rank's rows of each state leaf, gathered leaf by leaf into rank 0's host
-memory (``dist.gather``) and handed to the writer there, counted as
-``op="gather"``; no rank's device holds another's rows.
+memory (``dist.gather``, a :class:`GatherStage`) and handed to the
+writer there, counted as ``op="gather"``; no rank's device holds
+another's rows.  Under axes inside a replica,
+:meth:`MeshGroups.gather_state` first gathers each leaf's blocks to the
+replica's first in-replica rank, which assembles the whole leaf, then
+runs the same replica-axis stage from those ranks.
 
 Axes inside a replica (``--mesh replica:R,data:D,model:M``): a
 :class:`MeshGroups` lays the world's R·D·M ranks out in the spec's axis
@@ -66,6 +70,7 @@ algorithms take their single-process path under it.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import time
 from typing import Optional
@@ -262,43 +267,14 @@ class ReplicaGroup(_Staged):
         """Each local (k, ...) leaf -> every rank's rows in rank order, an
         (n, ...) host tensor on rank 0, handed to ``each(i, rows)`` there
         (in a buffer the next leaf reuses: ``each`` consumes it before it
-        returns).  One ``dist.gather`` a leaf through host buffers of the
-        largest leaf's bytes (pinned for CUDA leaves), never through the
-        device, so no rank's device memory grows with n.  Counted once,
-        as one ``gather`` of the bytes of this rank's rows, in one
-        ``pod.gather`` span whose ``gather_s`` is the time of the copies
-        and the gloo calls (``each`` excluded)."""
-        reg, tracer = self.obs.registry, self.obs.tracer
-        sizes = [t.numel() * t.element_size() for t in leaves]
-        reg.counter("pod.collectives", op="gather", axis=self.axis).inc()
-        reg.counter("pod.collective_bytes", op="gather",
-                    axis=self.axis).inc(sum(sizes))
-        cuda = {t.device for t in leaves if t.device.type != "cpu"}
-        send = (self._host("ckpt_send", max(sizes), torch.uint8) if cuda
-                else torch.empty(max(sizes), dtype=torch.uint8))
-        recv = (torch.empty(self.world * max(sizes),
-                            dtype=torch.uint8) if self.rank == 0 else None)
-        spent = 0.0
-        with tracer.span("pod.gather", cat="sync", op="gather",
-                         axis=self.axis, bytes=sum(sizes)) as sp:
-            for dev in cuda:
-                torch.cuda.current_stream(dev).synchronize()
-            for i, (t, sz) in enumerate(zip(leaves, sizes)):
-                t0 = time.perf_counter()
-                send[:sz].view(t.dtype).view(t.shape).copy_(t)
-                parts = (None if recv is None else
-                         list(recv[:self.world * sz].view(self.world, sz)
-                              .unbind(0)))
-                dist.gather(send[:sz], gather_list=parts, dst=0,
-                            group=self.pg)
-                spent += time.perf_counter() - t0
+        returns): one :class:`GatherStage` over the group."""
+        with GatherStage(self, self.axis, self.pg, self.world, 0,
+                         self.rank == 0, leaves) as stage:
+            for i, t in enumerate(leaves):
+                parts = stage.gather(t)
                 if each is not None:
-                    each(i, recv[:self.world * sz].view(t.dtype).view(
+                    each(i, parts.view(t.dtype).view(
                         (self.n,) + tuple(t.shape[1:])))
-            sp.set(gather_s=round(spent, 3))
-        if self.obs.enabled:
-            reg.histogram("pod.collective_ms", op="gather",
-                          axis=self.axis).observe(spent * 1e3)
 
     def barrier(self) -> None:
         """Every rank waits for every other (not counted: it moves no
@@ -309,6 +285,79 @@ class ReplicaGroup(_Staged):
     def counts(self) -> dict:
         """{op: (calls, bytes)} of this rank's collectives so far."""
         return collective_counts(self.obs.registry)
+
+
+class GatherStage:
+    """One stage of a checkpoint's gather: every rank of the group ``pg``
+    (``size`` ranks) hands its tensor of each leaf in turn
+    (:meth:`gather`), and world rank ``dst`` (``root``: this rank is it)
+    gets the ranks' bytes of it in group rank order.  One
+    ``dist.gather`` a leaf through host buffers of the largest leaf's
+    bytes (pinned for CUDA leaves), never through the device, so no
+    rank's device memory grows with the ranks.  ``leaves``: the tensors
+    (or their shapes and dtypes) this rank will hand, for the sizes.
+
+    Counted once, on entry, as one ``gather`` of this rank's bytes on
+    ``axis`` (``pod.collectives`` / ``pod.collective_bytes``), in one
+    ``pod.gather`` span whose ``gather_s`` is the time of the copies and
+    the gloo calls (what the caller does with each leaf excluded)."""
+
+    def __init__(self, staged: _Staged, axis: str, pg, size: int, dst: int,
+                 root: bool, leaves):
+        self.staged, self.axis, self.pg = staged, axis, pg
+        self.size, self.dst, self.root = size, dst, root
+        sizes = [t.numel() * t.element_size() for t in leaves]
+        self.nbytes, most = sum(sizes), max(sizes, default=1)
+        self.cuda = {t.device for t in leaves if t.device.type == "cuda"}
+        self.send = (staged._host("ckpt_send", most, torch.uint8)
+                     if self.cuda else torch.empty(most, dtype=torch.uint8))
+        self.recv = (torch.empty(size * most, dtype=torch.uint8) if root
+                     else None)
+        self.spent = 0.0
+
+    def __enter__(self):
+        reg = self.staged.obs.registry
+        reg.counter("pod.collectives", op="gather", axis=self.axis).inc()
+        reg.counter("pod.collective_bytes", op="gather",
+                    axis=self.axis).inc(self.nbytes)
+        self.span = self.staged.obs.tracer.span(
+            "pod.gather", cat="sync", op="gather", axis=self.axis,
+            bytes=self.nbytes).__enter__()
+        for dev in self.cuda:
+            torch.cuda.current_stream(dev).synchronize()
+        return self
+
+    def __exit__(self, *exc):
+        self.span.set(gather_s=round(self.spent, 3))
+        self.span.__exit__(*exc)
+        if self.staged.obs.enabled:
+            self.staged.obs.registry.histogram(
+                "pod.collective_ms", op="gather",
+                axis=self.axis).observe(self.spent * 1e3)
+        return False
+
+    def buffer(self, dtype, shape) -> torch.Tensor:
+        """The send buffer as a ``shape`` tensor of ``dtype``, to be
+        filled in place and handed to :meth:`gather` with ``filled``."""
+        nbytes = torch.Size(shape).numel() * dtype.itemsize
+        return self.send[:nbytes].view(dtype).view(shape)
+
+    def gather(self, t, filled: bool = False):
+        """This rank's ``t`` -> on the root, a ``(size, bytes)`` uint8
+        view of every rank's bytes of it in group rank order (in a buffer
+        the next leaf reuses); None elsewhere.  ``filled``: ``t`` is the
+        :meth:`buffer` view, already in place."""
+        t0 = time.perf_counter()
+        sz = t.numel() * t.element_size()
+        if not filled:
+            self.send[:sz].view(t.dtype).view(t.shape).copy_(t)
+        parts = None
+        if self.root:
+            parts = self.recv[:self.size * sz].view(self.size, sz)
+        dist.gather(self.send[:sz], gather_list=None if parts is None
+                    else list(parts.unbind(0)), dst=self.dst, group=self.pg)
+        self.spent += time.perf_counter() - t0
+        return parts
 
 
 def _counter_series(registry):
@@ -520,6 +569,90 @@ class MeshGroups:
         if split and self.data_size > 1:
             return self.inner.reduce_scatter_grads(full_grad, out, layout)
         return layout.scatter_grads(full_grad, out)
+
+    def barrier(self) -> None:
+        """Every rank of the world waits for every other."""
+        if not self.trivial:
+            dist.barrier()
+
+    def gather_state(self, leaves, layout: ShardedLayout, each=None):
+        """A checkpoint's gather of a state held on this mesh: each leaf
+        whole, in turn, on world rank 0, handed to ``each(i, t)`` there
+        (a host tensor in a buffer the next leaf reuses).
+
+        ``leaves``: ``[(t, block, rows)]``, this rank's tensor of each
+        leaf; ``block``: the ``layout`` index of the leaf whose blocks
+        ``t`` holds (behind its leading dims), or None for a leaf every
+        rank holds whole (rank 0's own is handed on); ``rows``: whether
+        the leaf carries the replica axis (``t``'s first dim: the rank's
+        k replicas).  Two :class:`GatherStage`\\ s, leaf by leaf:
+
+        1. over the in-replica group, every rank's blocks to the
+           replica's first in-replica rank, which assembles the whole
+           leaf (``ShardedLayout.gather_leaf_into``: a block several
+           ranks hold is read from one);
+        2. on those first ranks, the whole k rows over the replica
+           subgroup at in-replica coordinate 0 to world rank 0, as
+           :meth:`ReplicaGroup.gather_rows` gathers them.
+
+        A leaf without the replica axis takes stage 1 in replica 0
+        only.  Each stage is counted once on each rank that takes it,
+        under its axis."""
+        raxis = self.replica.axis
+        first = self.inner_index == 0
+        home = mesh_rank(self.axes, {**self.inner_coords[0],
+                                     raxis: self.coords[raxis]})
+        G, R = len(self.inner_coords), self.replica.world
+
+        def whole(i):               # leaf i whole: a meta tensor
+            t, b, _ = leaves[i]
+            lead = tuple(t.shape[:t.dim() - len(layout.shapes[b])])
+            return torch.empty(lead + tuple(layout.full.shapes[b]),
+                               dtype=t.dtype, device="meta")
+
+        def stage(group, axis, pg, size, dst, root, ts):
+            return (GatherStage(group, axis, pg, size, dst, root, ts) if ts
+                    else contextlib.nullcontext())
+
+        mine = [i for i, (_, b, rows) in enumerate(leaves)
+                if b is not None and (rows or self.replica.rank == 0)]
+        up = [i for i in mine if leaves[i][2] and R > 1] if first else []
+        inner = stage(self.inner, self.inner.axis, self.inner_pg, G, home,
+                      first, [leaves[i][0] for i in mine])
+        across = stage(self.replica, raxis, self.replica.pg, R, 0,
+                       self.rank == 0, [whole(i) for i in up])
+        # rank 0 assembles the leaves that skip stage 2 in a buffer here
+        alone = ([whole(i) for i in mine if i not in set(up)]
+                 if self.rank == 0 else [])
+        scratch = torch.empty(max([m.numel() * m.element_size()
+                                   for m in alone] + [1]), dtype=torch.uint8)
+        mine, up = set(mine), set(up)
+        hand = each or (lambda i, t: None)
+        with inner, across:
+            for i, (t, b, rows) in enumerate(leaves):
+                if b is None:
+                    if self.rank == 0:
+                        hand(i, t)
+                    continue
+                if i not in mine:
+                    continue
+                parts = inner.gather(t)
+                if not first:
+                    continue
+                blocks = parts.view(t.dtype).view((G,) + tuple(t.shape))
+                shape = whole(i).shape
+                if i in up:
+                    full = across.buffer(t.dtype, shape)
+                    layout.gather_leaf_into(b, blocks, full)
+                    got = across.gather(full, filled=True)
+                    if got is not None:
+                        hand(i, got.view(t.dtype).view(
+                            (self.n,) + tuple(shape[1:])))
+                elif self.rank == 0:
+                    full = scratch[:shape.numel() * t.element_size()] \
+                        .view(t.dtype).view(shape)
+                    layout.gather_leaf_into(b, blocks, full)
+                    hand(i, full)
 
     def data_mean_(self, values: torch.Tensor, split: bool) -> torch.Tensor:
         """Per-replica values (losses) of this rank's batch rows -> their

@@ -215,10 +215,24 @@ class ShardedLayout:
         full = self.full.views(full_row)
         for i, (o, s, shape) in enumerate(zip(self.offsets, self.sizes,
                                               self.shapes)):
-            for c in self._sources[i]:
-                full[i][self.slices[c][i]].copy_(
-                    blocks[c, o:o + s].view(shape))
+            self.gather_leaf_into(i, [blocks[c, o:o + s].view(shape)
+                                      for c in range(len(blocks))], full[i])
         return full_row
+
+    def gather_leaf_into(self, i: int, blocks, full):
+        """Leaf i's blocks (``blocks[c]``: rank c's, of shape ``lead +
+        block``) assembled into ``full`` (``lead + leaf shape``), each
+        block that several ranks hold read from the first of them."""
+        lead = (slice(None),) * (full.dim() - len(self.full.shapes[i]))
+        for c in self._sources[i]:
+            full[lead + self.slices[c][i]].copy_(blocks[c])
+        return full
+
+    def block_of(self, i: int, full):
+        """This rank's block of leaf i in ``full`` (``lead + leaf
+        shape``): a view."""
+        lead = (slice(None),) * (full.dim() - len(self.full.shapes[i]))
+        return full[lead + self.slices[self.index][i]]
 
     def blocks_of(self, full, c: int, out):
         """Rank c's blocks of ``full`` — a FlatLayout row, or the list of

@@ -1,8 +1,12 @@
 """The pod launcher (``repro_torch/launch/dist_run.py``): the port's
 counterpart of tests/test_dist_run.py.  The pure helpers, then the
 2-process smoke pod on the CPU against the single-process run (bit for
-bit, ~10 s on one worker, so it stays in tier-1), and a failed worker:
-the launcher exits with its code and leaves no process behind."""
+bit, ~10 s on one worker, so it stays in tier-1), a failed worker: the
+launcher exits with its code and leaves no process behind, and composed
+specs: four ranks under ``replica:2,model:2`` (bit for bit, the merged
+metrics keep the bytes by axis) and ``replica:2,data:2`` (within
+``--tol``), with the train CLI's refusals and a wrong ``--nproc``
+naming its fix."""
 import json
 import os
 import socket
@@ -76,12 +80,12 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _launch(port, env_extra=None, timeout=300):
+def _launch(port, env_extra=None, timeout=300, argv=("--nproc", "2")):
     env = dict(os.environ, OMP_NUM_THREADS="1", **(env_extra or {}))
     env["PYTHONPATH"] = os.pathsep.join([SRC, env.get("PYTHONPATH", "")])
     return subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dist_run", "--nproc",
-         "2", "--smoke", "--steps", "6", "--L", "3", "--device", "cpu",
+        [sys.executable, "-m", "repro_torch.launch.dist_run", *argv,
+         "--smoke", "--steps", "6", "--L", "3", "--device", "cpu",
          "--port", str(port)],
         env=env, capture_output=True, text=True, timeout=timeout)
 
@@ -123,3 +127,73 @@ def test_failed_worker_fails_the_pod_without_orphans():
     while _workers_on(port) and time.monotonic() < deadline:
         time.sleep(0.1)
     assert _workers_on(port) == []
+
+
+# "data" sums each grad over two halves of the batch: the reference's
+# composed-mesh loss bound (measured 7.2e-8 at this cell)
+DATA_TOL = 2e-5
+
+
+def test_composed_pod_under_model_is_bitwise(tmp_path):
+    """``--nproc 4 --mesh replica:2,model:2 --use-kernel``: every rank
+    computes its replica on the one-process row, so the launcher's
+    verdict is bit for bit; the merged metrics keep each collective's
+    bytes by axis, the sum over the four workers."""
+    from repro_torch.obs import read_events
+    m = str(tmp_path / "m.jsonl")
+    res = _launch(_free_port(), argv=(
+        "--nproc", "4", "--mesh", "replica:2,model:2", "--use-kernel",
+        "--metrics-out", m))
+    assert res.returncode == 0, res.stdout + res.stderr
+    verdict = json.loads(res.stdout.strip().splitlines()[-1])
+    assert verdict["bitwise_equal"] is True, verdict
+    assert verdict["compared_steps"] == 6
+    mesh = json.loads([line for line in res.stdout.splitlines()
+                       if '"in_replica_axes"' in line][0])
+    assert mesh["in_replica_axes"] == ["model"]
+    merged = [e for e in read_events(m)
+              if e["kind"] == "pod_merged"][-1]["snapshot"]
+    got = {(c["labels"]["op"], c["labels"]["axis"]): c["total"]
+           for c in merged["counters"]
+           if c["name"] == "pod.collective_bytes"}
+    want = {}
+    for i in range(4):
+        snap = [e for e in read_events(f"{m}.worker{i}")
+                if e["kind"] == "metrics_snapshot"][-1]["snapshot"]
+        for c in snap["counters"]:
+            if c["name"] == "pod.collective_bytes":
+                key = (c["labels"]["op"], c["labels"]["axis"])
+                want[key] = want.get(key, 0) + c["total"]
+    assert got == want
+    assert {a for _, a in got} == {"model", "replica"}
+    gauges = {(g["labels"]["kernel"], g["labels"]["worker"])
+              for g in merged["gauges"]
+              if g["name"] == "pod.kernel_launches"}
+    assert ("parle_inner_update", 3) in gauges
+
+
+def test_composed_pod_under_data_is_within_tol():
+    """``--mesh replica:2,data:2 --tol 2e-5``: the launcher passes, its
+    largest relative loss difference within the bound."""
+    res = _launch(_free_port(), argv=(
+        "--nproc", "4", "--mesh", "replica:2,data:2", "--tol",
+        str(DATA_TOL)))
+    assert res.returncode == 0, res.stdout + res.stderr
+    verdict = json.loads(res.stdout.strip().splitlines()[-1])
+    print(f"[dist_run] replica:2,data:2: max rel diff "
+          f"{verdict['max_rel_diff']:.3e}")
+    assert verdict["compared_steps"] == 6
+    assert verdict["max_rel_diff"] <= DATA_TOL
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--nproc", "2", "--mesh", "replica:2,model:2"],
+     r"spans 4 ranks \(2x2\), --nproc is 2: pass --nproc 4"),
+    (["--nproc", "2", "--mesh", "replica:1,data:2", "--arch",
+      "qwen2-moe-a2.7b"], "item 6a"),
+    (["--nproc", "2", "--mesh", "replica:1,data:2", "--sync-policy",
+      "async"], "item 6d"),
+])
+def test_composed_spec_refusals_name_their_fix(argv, match):
+    with pytest.raises(SystemExit, match=match):
+        dist_run.main(argv + ["--smoke", "--device", "cpu"])

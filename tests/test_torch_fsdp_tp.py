@@ -21,8 +21,8 @@ runs every case of :data:`CASES` on a ``MeshGroups`` of its spec:
   * int8 + overlap + flush through the kernels' plain versions,
     Elastic-SGD and SGD at the tolerances stated by each test;
   * the train CLI under ``torch.distributed.run`` on four ranks prints
-    the reference's records, and the paths not ported refuse with their
-    ROADMAP.md item.
+    the reference's records, the paths not ported refuse with their
+    ROADMAP.md item, and the checkpoint paths (item 6b) run.
 """
 import dataclasses
 import json
@@ -253,17 +253,57 @@ def test_train_cli_on_four_ranks(tmp_path):
     assert np.isfinite(recs[-1]["final_eval_loss"])
 
 
-@pytest.mark.parametrize("argv,match", [
+@pytest.fixture(scope="module")
+def item_6b_runs(tmp_path_factory):
+    """The two "item 6b" cases below, run on two spawned ranks under
+    replica:1,model:2 (with "ck" a directory of their own): the first
+    checkpoints every step, the second resumes from the directory.
+    Returns the directory and {case: rank 0's result}."""
+    d = tmp_path_factory.mktemp("item_6b")
+    ck = str(d / "ck")
+    jobs = {i: [ck if a == "ck" else a for a in
+                ["--smoke", "--device", "cpu", "--steps", "1"] + argv]
+            for i, argv in ((1, ITEMS[1][0]), (2, ITEMS[2][0]))}
+    per_rank = torch_ranks.spawn(torch_ranks.train_cli_jobs, 2,
+                                 str(d / "store"), jobs)
+    return ck, per_rank[0]
+
+
+# (argv, the ROADMAP.md item): "item 6b" is ported (the cases run),
+# "item 6a" and "item 6d" still refuse naming their item
+ITEMS = [
     (["--arch", "qwen2-moe-a2.7b", "--mesh", "replica:1,data:2"],
      "item 6a"),
     (["--mesh", "replica:1,model:2", "--checkpoint-dir", "ck",
       "--checkpoint-every", "1"], "item 6b"),
     (["--mesh", "replica:1,model:2", "--resume", "ck"], "item 6b"),
     (["--mesh", "replica:1,data:2", "--sync-policy", "async"], "item 6d"),
-])
-def test_unported_paths_name_their_item(argv, match):
-    with pytest.raises(SystemExit, match=match):
-        train.main(["--smoke", "--device", "cpu", "--steps", "1"] + argv)
+]
+
+
+@pytest.mark.parametrize("argv,match", ITEMS)
+def test_unported_paths_name_their_item(argv, match, request):
+    """The paths still unported on a mesh with an axis inside a replica
+    exit naming their ROADMAP.md item; the checkpoint paths of item 6b
+    now run: on two ranks, the first case writes a step-1 file of the
+    one-process shapes (whole leaves, n = 1), the second resumes from
+    the directory and takes step 2 to a finite loss."""
+    if match != "item 6b":
+        with pytest.raises(SystemExit, match=match):
+            train.main(["--smoke", "--device", "cpu", "--steps", "1"]
+                       + argv)
+        return
+    ck, results = request.getfixturevalue("item_6b_runs")
+    if "--checkpoint-dir" in argv:
+        from repro_torch.checkpoint import checkpoint as ckpt
+        path = ckpt.resolve(ck)
+        assert ckpt.latest_step(path) == 1
+        with np.load(path) as f:
+            assert f["x/blocks/attn/wq"].shape == (1, 2, 256, 256)
+        assert len(results[1]["losses"]) == 1
+    else:
+        assert np.isfinite(results[2]["losses"]).all()
+        assert np.isfinite(results[2]["eval_loss"])
 
 
 def test_moe_model_axis_is_not_refused():

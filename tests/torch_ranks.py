@@ -154,25 +154,30 @@ def gather_orders(rank, world):
 def train_cli(argv):
     """One run of the train CLI's ``run()`` (smoke width, on the CPU) in
     this process, under the ``--mesh`` of ``argv``: each round's per-step
-    losses, the eval loss, the final state's fields as numpy (this rank's
-    rows; ``c``, ``ref`` and SGD's whole on every rank) and the rank's
-    collective counts."""
+    losses (without ``--round-fused``: the progress records'), the eval
+    loss, the final state's fields as numpy (this rank's rows; ``c``,
+    ``ref`` and SGD's whole on every rank) and the rank's collective
+    counts (summed, and by axis)."""
     from repro_torch.configs import get_config, smoke_variant
     from repro_torch.launch import train
     from repro_torch.obs import Obs
-    from repro_torch.sharding.partition import collective_counts
+    from repro_torch.sharding.partition import (collective_counts,
+                                                collective_counts_by_axis)
     args = train.parse_args(argv)
     obs = Obs()
     losses = []
-    state, _, eval_loss = train.run(
+    state, history, eval_loss = train.run(
         args, smoke_variant(get_config(args.arch)), torch.device("cpu"),
         obs, on_round=lambda r, gstep, m: losses.append(
             m["losses"].detach().clone()))
+    if not losses:          # the step loop: its progress records' losses
+        losses = [torch.tensor([h["loss"] for h in history])]
     fields = {f: getattr(state, f).numpy().copy()
               for f in ("x", "e", "c", "v", "ref", "params")
               if isinstance(getattr(state, f, None), torch.Tensor)}
     return {"losses": torch.cat(losses).numpy(), "eval_loss": eval_loss,
-            "fields": fields, "counts": collective_counts(obs.registry)}
+            "fields": fields, "counts": collective_counts(obs.registry),
+            "by_axis": collective_counts_by_axis(obs.registry)}
 
 
 def train_cli_jobs(rank, world, jobs):
@@ -280,3 +285,67 @@ def fsdp_tp_cases(rank, world, cases, cfg_fields, np_params, stream_kw):
         res["coords"] = group.coords
         out.append(res)
     return out
+
+
+# ------------------------------------------------------------------
+# checkpoints under a composed mesh (tests/test_torch_checkpoint_mesh.py)
+# ------------------------------------------------------------------
+
+def _numpy_tree(tree) -> dict:
+    from repro_torch.utils.pytree import tree_leaves_with_paths
+    return {"/".join(p): t.detach().numpy().copy()
+            for p, t in tree_leaves_with_paths(tree)}
+
+
+def checkpoint_contract(rank, world, argv, restore_mesh):
+    """The reference's sharded-checkpoint contract on this rank: the
+    train CLI's ``run()`` under ``argv``'s mesh, checkpointing at its last
+    step; that file restored under ``restore_mesh`` (a ``MeshGroups`` of
+    the same world); the deployable of both states, one more step's loss
+    after the restore, whether a wrong ``algo`` stamp raised
+    ValueError, and the rank's checkpoint gathers by axis."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.core import registry
+    from repro_torch.core.parle import dealias_state
+    from repro_torch.data.synthetic import TokenStream, replica_batches
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model
+    from repro_torch.obs import Obs
+    from repro_torch.sharding.partition import collective_counts_by_axis
+
+    args = train.parse_args(argv)
+    cfg = smoke_variant(get_config(args.arch))
+    obs = Obs()
+    state, _, _ = train.run(args, cfg, torch.device("cpu"), obs)
+    algo = registry.get(args.algo)
+    pcfg = train.parle_config(args, algo)
+    n = pcfg.n_replicas
+    saved = _numpy_tree(algo.deployable(
+        state, mesh_mod.groups_from_spec(args.mesh, n, Obs())))
+    path = ckpt.resolve(args.checkpoint_dir)
+    group = mesh_mod.groups_from_spec(restore_mesh, n, Obs())
+    model = build_model(cfg)
+    like = algo.init(model.init(torch.Generator().manual_seed(1)), pcfg,
+                     group)
+    pspecs = algo.state_pspecs(group.axis, pcfg)
+    refused = False
+    try:
+        ckpt.restore(path, like, algo="elastic_sgd", group=group,
+                     pspecs=pspecs)
+    except ValueError:
+        refused = True
+    restored = dealias_state(ckpt.restore(path, like, algo=args.algo,
+                                          group=group, pspecs=pspecs))
+    deploy = _numpy_tree(algo.deployable(restored, group))
+    step = algo.make_sharded_step(model.loss, pcfg, group)
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                         batch_size=args.batch, seed=args.seed)
+    _, m = step(restored, replica_batches(stream, ckpt.latest_step(path),
+                                          args.batch, n, rows=group.rows))
+    by_axis = collective_counts_by_axis(obs.registry)
+    return {"saved": saved, "deploy": deploy, "loss": float(m["loss"]),
+            "refused": refused, "coords": group.coords,
+            "gathers": {a: ops["gather"] for a, ops in by_axis.items()
+                        if "gather" in ops}}
