@@ -96,9 +96,10 @@ itself and, in order:
    with host synchronisation forbidden) and paged eagerly, with equal
    tokens; then
    (phases 5f-5i) the four remaining
-   families at full width and a quarter of their depth, float32, random
+   families at full width and an eighth of their depth (Zamba2 12 of
+   38 layers: two sites), float32, random
    params (seed 0), each freed before the next is built —
-   Qwen1.5-MoE-A2.7B (6 of 24 layers), Zamba2-1.2B, InternVL2-1B (256
+   Qwen1.5-MoE-A2.7B (3 of 24 layers), Zamba2-1.2B, InternVL2-1B (256
    patch embeddings a request)
    and MusicGen-large (64 cond frames, 4 codebooks): 8 requests, 32
    greedy tokens each, 4 slots, page size 16, through the paged engine
@@ -249,7 +250,28 @@ itself and, in order:
    own one-process run bit for bit; each collective's bytes by axis, its
    d2h / gloo / h2d seconds, the step wall, peak memory a rank and the
    phase wall printed (four ranks time-slicing one card over loopback,
-   not a multi-card figure).
+   not a multi-card figure);
+14. (after 13) the dry run against the card (``launch/dryrun.py``, each
+   program on PyTorch's meta device): (14a) at phase 6's cell (n = 2 in
+   one process, f32, remat off) a round of L train_inner programs and
+   the sync = the FLOPs ``FlopCounterMode`` counted over the plain run's
+   first round on the card, as integers, and the program's arguments =
+   the card's state plus one step's batch in bytes (arguments + temp
+   printed beside the run's peak); (14b) at 13a's mesh, 4 train_inner
+   and 2 parle_sync = 13a's counters by axis and op, and the predicted
+   shard's row and blocks = its gathers' and all-reduces' bytes; (14c)
+   the dry-run CLI at full size (Qwen2.5-3B train_4k on both production
+   meshes, Qwen1.5-MoE decode_32k through the expert-parallel dispatch
+   and prefill_32k through the grouped one, each record's roofline line
+   printed) with the card's allocator counting no allocation and no
+   port kernel launched; (14d, run in 5f) one forward of a Qwen1.5-MoE
+   block with 4 groups = the flat dispatch within rtol 1e-5 / atol 1e-6
+   at a drop-free capacity, and the routings each drops at 1.25; (14e,
+   run on phase 13's four ranks) one full-width Qwen1.5-MoE block split
+   over the "model" pairs (30 of 60 experts and half the shared ff a
+   rank) summed over each pair = each rank's flat forward (gated in
+   float64, the float32 error printed), one float32 all-reduce of
+   4,194,304 B a rank = the dry run's prediction.
 
 Nothing is caught: a failing phase exits non-zero and prints no device
 line.  Without a CUDA card it exits 2 before doing anything.
@@ -277,6 +299,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 import torch.multiprocessing as mp  # noqa: E402
+from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -298,7 +321,8 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import parle_update as pu  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
-from repro_torch.launch import serve, steps, train  # noqa: E402
+from repro_torch.launch import (dryrun, serve, specs, steps,  # noqa: E402
+                                train)
 from repro_torch.models import hybrid  # noqa: E402
 from repro_torch.models import mamba2  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
@@ -1859,6 +1883,64 @@ def moe_prefill_phase(device, cfg, params) -> dict:
     return res
 
 
+# 14d: the grouped dispatch (moe_groups = 4) on one block of 5f's
+# Qwen1.5-MoE params, against the flat one at a drop-free capacity (E /
+# K: a bucket holds every token of its group) within the reference's
+# contract (tests/test_models.py), then the routings each drops at the
+# config's own capacity factor
+GROUPED_GROUPS = 4
+GROUPED_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def dropped_share(ids, cfg, groups: int) -> float:
+    """The share of the routings ``ids`` (T, K) that a dispatch of
+    ``groups`` groups drops at ``cfg``'s capacity (each expert of a group
+    keeps its first ``_capacity(T / groups)``)."""
+    T = ids.shape[0]
+    C = moe._capacity(T // groups, cfg)
+    counts = torch.stack([torch.bincount(g, minlength=cfg.num_experts)
+                          for g in ids.reshape(groups, -1)])
+    return float((counts - C).clamp(min=0).sum()) / ids.numel()
+
+
+def grouped_dispatch_phase(device, cfg, params) -> dict:
+    """14d (run here, reported in phase 14): one forward of layer 0's
+    MoE block of the card's params on FAMILY_FORWARD tokens of N(0, 1)
+    input, flat and with GROUPED_GROUPS groups, at the drop-free capacity
+    factor E / K: within GROUPED_TOL; then the share of routings dropped
+    at ``cfg.capacity_factor``, grouped against flat."""
+    B, T = FAMILY_FORWARD
+    layer = {k: ({kk: vv[0] for kk, vv in v.items()} if isinstance(v, dict)
+                 else v[0]) for k, v in params["blocks"]["moe"].items()}
+    x = torch.randn((B, T, cfg.d_model), device=device,
+                    generator=torch.Generator(device=device).manual_seed(3))
+    free = dataclasses.replace(cfg, capacity_factor=cfg.num_experts
+                               / cfg.top_k)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        flat, aux_f = moe.moe_forward(layer, free, x)
+        grouped, aux_g = moe.moe_forward(
+            layer, dataclasses.replace(free, moe_groups=GROUPED_GROUPS), x)
+        _, _, ids = moe.route(layer, cfg, x.reshape(B * T, -1))
+    torch.cuda.synchronize(device)
+    out = {"tokens": [B, T], "groups": GROUPED_GROUPS,
+           "capacity_factor_free": free.capacity_factor,
+           "max_abs_err": _max_err(grouped, flat),
+           "aux_err": abs(float(aux_g) - float(aux_f)),
+           "allclose": bool(torch.allclose(grouped, flat, **GROUPED_TOL)
+                            and torch.allclose(aux_g, aux_f,
+                                               **GROUPED_TOL)),
+           "dropped_share": {"capacity_factor": cfg.capacity_factor,
+                             "flat": dropped_share(ids, cfg, 1),
+                             "grouped": dropped_share(ids, cfg,
+                                                      GROUPED_GROUPS)},
+           "wall_s": round(time.perf_counter() - t0, 3)}
+    del flat, grouped, x
+    print(json.dumps({"14d": out}), flush=True)
+    return out
+
+
 def _decode_margin_cuts(chunks, num_layers):
     """{uid: index of the first generated token whose decode step routed
     a token of that request below MARGIN} from the gather run's decode
@@ -2102,16 +2184,16 @@ def family_forward_phase(device, cfg, params, label) -> dict:
 FAMILY_MODES = ("paged_kernel", "paged_kernel_eager", "gather")
 FAMILY_ARCHS = (("qwen2-moe-a2.7b", "5f"), ("zamba2-1.2b", "5g"),
                 ("internvl2-1b", "5h"), ("musicgen-large", "5i"))
-# each family at full width and a quarter of its depth (24, 38, 24 and
-# 48 layers; Zamba2's 12 keep two sites of its shared block, as 6i
+# each family at full width and an eighth of its depth (of 24, 24 and 48
+# layers), Zamba2 at 12 of its 38 (two sites of its shared block, as 6i
 # trains it): the script's time limit
-FAMILY_LAYERS = {"qwen2-moe-a2.7b": 6, "zamba2-1.2b": 12,
-                 "internvl2-1b": 6, "musicgen-large": 12}
+FAMILY_LAYERS = {"qwen2-moe-a2.7b": 3, "zamba2-1.2b": 12,
+                 "internvl2-1b": 3, "musicgen-large": 6}
 
 
 def families_phase(device) -> dict:
-    """Each of the four families at full width and a quarter of its
-    depth (FAMILY_LAYERS), float32,
+    """Each of the four families at full width and a cut depth
+    (FAMILY_LAYERS), float32,
     random params from torch.Generator seed 0: served through K8 (and
     the gather path), then the 2 x 1024 prefill (moe) or forward through
     K3 (and K9 in the hybrid).  Each model is freed before the next is
@@ -2136,6 +2218,7 @@ def families_phase(device) -> dict:
                "serve": family_serve_phase(device, cfg, params, label)}
         if cfg.family == "moe":
             res["prefill"] = moe_prefill_phase(device, cfg, params)
+            res["grouped"] = grouped_dispatch_phase(device, cfg, params)
         else:
             res["forward"] = family_forward_phase(device, cfg, params,
                                                   f"{label}-2")
@@ -2245,22 +2328,28 @@ def train_cfg():
                                num_layers=TRAIN_LAYERS)
 
 
-def _train_once(device, argv, profile=False, cfg=None, obs=None):
+def _train_once(device, argv, profile=False, cfg=None, obs=None,
+                flops=None):
     """One run of the train CLI's run() on ``cfg`` (default: train_cfg())
     with the telemetry ``obs`` (default: none armed); returns its
     per-step losses, the wall of each round (device-synchronized), the
     final state, the eval loss and, with ``profile``, the profiler over
-    its first round."""
+    its first round.  ``flops``: a dict that gets the FLOPs
+    ``FlopCounterMode`` counts over the first round (its wall includes
+    the counter's host time)."""
     args = train.parse_args(argv)
     losses, walls, marks = [], [], {}
     prof = (torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA])
         if profile else None)
+    counter = FlopCounterMode(display=False) if flops is not None else None
 
     def pre_round(r):
         torch.cuda.synchronize(device)
         if prof is not None and r == 0:
             prof.start()
+        if counter is not None and r == 0:
+            counter.__enter__()
         marks[r] = time.perf_counter()
 
     def on_round(r, gstep, metrics):
@@ -2268,6 +2357,9 @@ def _train_once(device, argv, profile=False, cfg=None, obs=None):
         walls.append(time.perf_counter() - marks[r])
         if prof is not None and r == 0:
             prof.stop()
+        if counter is not None and r == 0:
+            counter.__exit__(None, None, None)
+            flops["round0"] = counter.get_total_flops()
         losses.append(metrics["losses"].detach().cpu())
 
     state, _, eval_loss = train.run(args, cfg or train_cfg(), device,
@@ -2294,6 +2386,13 @@ def train_phase(device) -> dict:
     peak = torch.cuda.max_memory_allocated(device)
     n, m = state.x.shape
     x_k = state.x.cpu()
+    # phase 14a's measures: what the card holds for one step
+    held = {"state_bytes": dryrun.device_bytes(state, "cuda"),
+            "batch_bytes": dryrun.device_bytes(replica_batches(
+                TokenStream(vocab_size=cfg.vocab_size, seq_len=256,
+                            batch_size=2, seed=0, device="cuda"), 0, 2, n),
+                "cuda"),
+            "peak_bytes": peak}
     pod_refs = {"none": {"losses": losses_k.tolist(), "eval_loss": eval_k,
                          "digests": {"x": row_digests(x_k)}}}
     print(f"layout: {len(state.layout.paths)} leaves, M = {m} per replica "
@@ -2309,7 +2408,7 @@ def train_phase(device) -> dict:
 
     reset_launches()
     losses_p, walls_p, state, eval_p, _ = _train_once(
-        device, train_argv(use_kernel=False))
+        device, train_argv(use_kernel=False), flops=held)
     launch_counts()                       # the plain path launches nothing
     print("losses (plain):", losses_p.tolist(), flush=True)
     check(torch.equal(losses_k, losses_p),
@@ -2349,6 +2448,7 @@ def train_phase(device) -> dict:
     print(json.dumps({k: v for k, v in out.items() if k != "losses"}),
           flush=True)
     out["overlap_round_wall_s"] = walls_o
+    out["dryrun"] = held
     out["profile"] = train_profile_phase(device, walls_k[1])
     out["bf16"] = train_bf16_phase(device)
     out["int8"] = train_int8_phase(device, pod_refs)
@@ -3795,6 +3895,68 @@ def shard_ckpt_rank_jobs(device, ckpt_dir) -> dict:
     return out
 
 
+# 14e: one full-width Qwen1.5-MoE block split over the "model" pairs of
+# phase 13's world (replica:2,model:2: ranks 0-1 and 2-3), a rank holding
+# 30 of its 60 experts and half of its shared ff, on MOE_COLUMNS_TOKENS
+MOE_COLUMNS_SPEC = "replica:2,model:2"
+MOE_COLUMNS_TOKENS = (2, 256)
+
+
+def moe_columns_rank_job(device, rank) -> dict:
+    """14e on one rank of phase 13's world (reported in phase 14): the
+    block (seed 0, the same on every rank) forward on N(0, 1) tokens
+    (seed 1) through the expert-parallel dispatch, the rank's column of
+    it summed over its "model" pair (``MeshGroups.model_sum_``), against
+    its own flat forward of the whole block: in float32 (its counters by
+    axis; its error printed), then in float64 (the routing stays float32,
+    so both select the same slots), where the column split's summation
+    order rounds below GROUPED_TOL (a split float32 contraction of 2816 +
+    2816 shared-ff terms against one of 5632 rounds at ~1e-6 of O(1)
+    outputs on the card: 3.1e-6 measured, beside 4.8e-7 on the CPU)."""
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-moe-a2.7b")
+    axes = mesh_mod.parse_mesh_spec(MOE_COLUMNS_SPEC)
+    mesh = partition.MeshGroups(axes, axes["replica"], rank)
+    M, m = axes["model"], mesh.coords["model"]
+    block = moe.init_moe_params(torch.Generator(device=device).manual_seed(0),
+                                cfg)
+    lo, hi = moe.split(cfg.num_experts, M, m)
+    flo, fhi = moe.split(cfg.shared_expert_d_ff, M, m)
+    B, T = MOE_COLUMNS_TOKENS
+    x = torch.randn((B, T, cfg.d_model), device=device,
+                    generator=torch.Generator(device=device).manual_seed(1))
+    ep_cfg = dataclasses.replace(cfg, moe_impl="shard_map")
+
+    def forward(block, x):
+        sp = block["shared"]
+        own = {"router": block["router"],
+               **{k: block[k][lo:hi] for k in ("w_gate", "w_up", "w_down")},
+               "shared": {"w_gate": sp["w_gate"][:, flo:fhi],
+                          "w_up": sp["w_up"][:, flo:fhi],
+                          "w_down": sp["w_down"][flo:fhi]}}
+        with torch.no_grad():
+            flat, _ = moe.moe_forward(block, cfg, x)
+            with moe.expert_parallel(moe.ExpertParallel(M, m, mesh)):
+                got, _ = moe.moe_forward(own, ep_cfg, x)
+        torch.cuda.synchronize(device)
+        return _max_err(got, flat), bool(torch.allclose(got, flat,
+                                                         **GROUPED_TOL))
+
+    err32, close32 = forward(block, x)
+    by_axis = {a: {op: list(v) for op, v in ops.items()} for a, ops in
+               collective_counts_by_axis(mesh.obs.registry).items()}
+    block = tree_map(lambda t: t.double(), block)
+    err64, close64 = forward(block, x.double())
+    out = {"rank": rank, "model": m, "experts": [lo, hi],
+           "shared_ff": [flo, fhi], "max_abs_err_f32": err32,
+           "allclose_f32": close32, "max_abs_err_f64": err64,
+           "allclose_f64": close64, "by_axis": by_axis,
+           "wall_s": round(time.perf_counter() - t0, 2)}
+    del block, x
+    _release()
+    return out
+
+
 def shard_rank_main(rank, world, port, out_q, ckpt_dir):
     """One rank of phase 13, a spawned process: join the gloo world of
     four, run 13b and 13c's jobs under deterministic algorithms, and put
@@ -3811,7 +3973,8 @@ def shard_rank_main(rank, world, port, out_q, ckpt_dir):
                                 rank=rank, world_size=world)
         spec, extra, _ = SHARD_JOBS["13b"]
         res = {"13b": _shard_job(device, rank, spec, extra),
-               "13c": shard_ckpt_rank_jobs(device, ckpt_dir)}
+               "13c": shard_ckpt_rank_jobs(device, ckpt_dir),
+               "14e": moe_columns_rank_job(device, rank)}
         out_q.put((rank, res, None))
     except BaseException:            # reported to the parent, then raised
         out_q.put((rank, None, traceback.format_exc()))
@@ -4175,6 +4338,7 @@ def shard_phase(device, smi) -> dict:
            "13c": shard_13c_report(results, beside, refs["13c"], where,
                                    smi),
            "13a": finish_shard_launcher(launcher, smi)}
+    out["14e"] = [results[r]["14e"] for r in range(SHARD_WORLD)]
     out["ranks_wall_s"] = round(ranks_s, 1)
     out["phase_wall_s"] = round(time.perf_counter() - t0, 1)
     print(json.dumps({"shard_phase_wall_s": out["phase_wall_s"],
@@ -4183,6 +4347,248 @@ def shard_phase(device, smi) -> dict:
                       "note": "four ranks time-slicing one card over "
                               "loopback gloo, not a multi-card figure",
                       "card": smi}), flush=True)
+    return out
+
+
+# ------------------------------------------------------------------
+# phase 14: the dry run against the card
+# ------------------------------------------------------------------
+
+# 14a: phase 6's cell as the dry run's shape (n = 2 in one process, a
+# replica's batch 2 x 256, f32, the train CLI's remat=False)
+DRY_TRAIN = dict(kind="train", seq_len=256, global_batch=4)
+DRY_L = 4
+# 14c: the dry-run CLI at full size
+DRYRUN_CLI = (
+    ["--arch", "qwen2.5-3b", "--shape", "train_4k", "--mesh", "both"],
+    ["--arch", "qwen2-moe-a2.7b", "--shape", "decode_32k", "--moe-impl",
+     "shard_map"],
+    ["--arch", "qwen2-moe-a2.7b", "--shape", "prefill_32k", "--moe-groups",
+     "16"])
+
+
+def _dry_records(cfg, mesh, shape, **kw) -> dict:
+    """{tag: record} of the dry run's programs, the train CLI's remat
+    (False) set while they run."""
+    remat = dryrun.OPTIONS["remat"]
+    dryrun.OPTIONS["remat"] = False
+    try:
+        return {p.tag: dryrun.analyze_one(p, 1) for p in
+                dryrun.build_programs(cfg, mesh, shape, **kw)}
+    finally:
+        dryrun.OPTIONS["remat"] = remat
+
+
+def _by_axis(times) -> dict:
+    """{axis: {op: [calls, bytes]}} of ``times`` [(record, repeats)]."""
+    out: dict = {}
+    for rec, k in times:
+        c = rec["collectives"]
+        for key in c["bytes"]:
+            axis, op = key.split("/")
+            cur = out.setdefault(axis, {}).setdefault(op, [0, 0])
+            cur[0] += k * c["counts"][key]
+            cur[1] += k * c["bytes"][key]
+    return out
+
+
+def dryrun_train_check(trained, smi) -> dict:
+    """14a: the dry run at phase 6's cell (Qwen2.5-3B, 4 layers, n = 2,
+    2 x 256 a replica, f32) against phase 6: a round of L train_inner and
+    one parle_sync = the FLOPs ``FlopCounterMode`` counted over the plain
+    run's first round on the card, as integers; the arguments = the
+    card's state plus one step's batch, in bytes; arguments + temp
+    beside the kernel run's peak (printed, not a gate)."""
+    held = trained["dryrun"]
+    recs = _dry_records(train_cfg(), {}, DRY_TRAIN, n_replicas=2,
+                        precision="f32")
+    inner, sync = recs["train_inner"], recs["parle_sync"]
+    step = inner["flops_per_device"]
+    predicted = DRY_L * step + sync["flops_per_device"]
+    check(predicted == held["round0"],
+          f"14a: predicted round FLOPs {predicted} ({DRY_L} x {step} + "
+          f"{sync['flops_per_device']}) != counted on the card "
+          f"{held['round0']}")
+    args = inner["memory"]["argument_size_bytes"]
+    card = held["state_bytes"] + held["batch_bytes"]
+    check(args == card, f"14a: predicted argument bytes {args} != the "
+          f"card's state {held['state_bytes']} + batch "
+          f"{held['batch_bytes']}")
+    peak = args + inner["memory"]["temp_size_bytes"]
+    out = {"flops_per_step": step, "round_flops": held["round0"],
+           "argument_bytes": args, "predicted_peak_bytes": peak,
+           "card_peak_bytes": held["peak_bytes"],
+           "peak_rel_err": (peak - held["peak_bytes"]) / held["peak_bytes"],
+           "bytes_accessed_per_step": inner["bytes_accessed_per_device"],
+           "roofline": inner["roofline"], "trace_s": inner["trace_s"]}
+    print(f"14a: FLOPs a step {step} (round {held['round0']} counted on the "
+          f"card = {DRY_L} x {step}); arguments {args} B = the card's state "
+          f"+ batch; predicted peak (arguments + temp) {peak} B beside the "
+          f"card's {held['peak_bytes']} B ({out['peak_rel_err']:+.4f})",
+          flush=True)
+    print(json.dumps({"14a": out, "card": smi}), flush=True)
+    return out
+
+
+def dryrun_mesh_check(shard, smi) -> dict:
+    """14b: the dry run at 13a's mesh (replica:2,model:2, Mamba2-1.3B at 2
+    layers, f32): 4 train_inner and 2 parle_sync = 13a's counters by
+    axis and op (rank 0's, read from its metrics); the predicted shard
+    (padded) is the gather's bytes a call, its blocks the all-reduce's."""
+    spec = SHARD_JOBS["13a"][0]
+    recs = _dry_records(ckpt_cfg(), spec, DRY_TRAIN, precision="f32")
+    predicted = _by_axis([(recs["train_inner"], 4), (recs["parle_sync"], 2)])
+    got = shard["13a"]["by_axis"]
+    check(predicted == got, f"14b: predicted collectives {predicted} != "
+          f"13a's {got}")
+    layout = ShardedLayout(
+        planner.meta_params(build_model(ckpt_cfg())),
+        planner.ShardContext(mesh_mod.inner_axes(spec)),
+        [{"model": m} for m in range(2)], 0)
+    calls, nbytes = got["model"]["all_gather"]
+    check(layout.numel * 4 * calls == nbytes,
+          f"14b: predicted shard numel {layout.numel} x 4 B x {calls} != "
+          f"13a's gathers {nbytes} B")
+    live = sum(layout.sizes)
+    calls, nbytes = got["replica"]["all_reduce"]
+    check(live * 4 * calls == nbytes, f"14b: predicted blocks {live} x 4 B "
+          f"x {calls} != 13a's all-reduces {nbytes} B")
+    out = {"by_axis": predicted, "shard_numel": layout.numel,
+           "block_elements": live}
+    print(f"14b: predicted = 13a's counters by axis and op {predicted}; a "
+          f"rank's row (K1's) {layout.numel} elements, {live} of them its "
+          "blocks", flush=True)
+    print(json.dumps({"14b": out, "card": smi}), flush=True)
+    return out
+
+
+def dryrun_cli_phase(device, smi) -> dict:
+    """14c: the dry run's CLI at full size (DRYRUN_CLI), each record's
+    roofline line printed; the card's allocator counts no allocation and
+    no port kernel launches while it runs.  The shard_map decode's
+    collectives: one all-reduce over "model" a MoE layer of the rank's
+    rows' bf16 activations."""
+    gc.collect()
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_stats(device)
+    reset_launches()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for argv in DRYRUN_CLI:
+            t0 = time.perf_counter()
+            dryrun.main(argv + ["--out", tmp])
+            out[" ".join(argv)] = round(time.perf_counter() - t0, 1)
+        recs = {}
+        for name in sorted(os.listdir(tmp)):
+            with open(os.path.join(tmp, name)) as f:
+                recs[name[:-len(".json")]] = json.load(f)
+    launch_counts()
+    torch.cuda.synchronize(device)
+    after = torch.cuda.memory_stats(device)
+    # cumulative counts: a free of an earlier phase's tensor moves neither
+    keys = ("allocation.all.allocated", "allocated_bytes.all.allocated")
+    check(all(after.get(k, 0) == before.get(k, 0) for k in keys),
+          f"14c: the dry run touched the card's allocator: "
+          f"{ {k: (before.get(k), after.get(k)) for k in keys} }")
+    check(len(recs) == 4 and all(r["programs"] and "refused" not in r
+                                 for r in recs.values()),
+          f"14c: records {sorted(recs)}")
+    moe_cfg = get_config("qwen2-moe-a2.7b")
+    dec = recs["qwen2-moe-a2.7b__decode_32k__sp"]["programs"][0]
+    rows = specs.INPUT_SHAPES["decode_32k"]["global_batch"] // 16
+    want = {"model/all_reduce": moe_cfg.num_layers * rows * moe_cfg.d_model
+            * 2}
+    check(dec["collectives"]["bytes"] == want
+          and dec["collectives"]["counts"] == {
+              "model/all_reduce": moe_cfg.num_layers},
+          f"14c: shard_map decode collectives {dec['collectives']}, "
+          f"expected {want} in {moe_cfg.num_layers} calls")
+    print(f"14c: {len(recs)} records; the card's allocator counted no "
+          f"allocation ({before.get(keys[0])} allocations before and "
+          f"after) and no port kernel launched; shard_map decode: "
+          f"{moe_cfg.num_layers} all-reduces over 'model' of {rows} "
+          f"rows x {moe_cfg.d_model} bf16", flush=True)
+    summary = {name: [{k: p[k] for k in ("program", "flops_per_device",
+                                          "bytes_accessed_per_device",
+                                          "dominant", "trace_s")}
+                      | {"memory": p["memory"],
+                         "collective_bytes": p["collectives"]["total_bytes"]}
+                      for p in r["programs"]]
+               for name, r in recs.items()}
+    print(json.dumps({"14c": summary, "walls_s": out, "card": smi}),
+          flush=True)
+    return {"walls_s": out, "records": summary}
+
+
+def dryrun_moe_ranks_check(shard, smi) -> dict:
+    """14e (run on phase 13's ranks): each rank's column sum = its own flat
+    forward within GROUPED_TOL, and its counters = one all-reduce over
+    "model" of B T d float32 = the dry run's prediction for that forward
+    (a meta program on rank 0 of MOE_COLUMNS_SPEC)."""
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                              moe_impl="shard_map")
+    B, T = MOE_COLUMNS_TOKENS
+    rec = dryrun.analyze_one(dryrun.moe_block_program(
+        cfg, B, T, MOE_COLUMNS_SPEC), 4)
+    coll = rec["collectives"]
+    predicted = {"model": {"all_reduce": [coll["counts"]["model/all_reduce"],
+                                          coll["bytes"]["model/all_reduce"]]}}
+    check(predicted == {"model": {"all_reduce": [1, B * T * cfg.d_model * 4]}},
+          f"14e: the dry run predicts {predicted}")
+    for r in shard["14e"]:
+        check(r["allclose_f64"], f"14e rank {r['rank']}: the float64 column "
+              f"sum is {r['max_abs_err_f64']} from its flat forward")
+        check(r["by_axis"] == predicted, f"14e rank {r['rank']}: counters "
+              f"{r['by_axis']} != the dry run's {predicted}")
+    out = {"predicted": predicted, "ranks": shard["14e"]}
+    errs = {k: max(r[k] for r in shard["14e"])
+            for k in ("max_abs_err_f32", "max_abs_err_f64", "wall_s")}
+    print(f"14e: 4 ranks, each model pair's column sum = its flat forward "
+          f"within {GROUPED_TOL} in float64 (max abs err "
+          f"{errs['max_abs_err_f64']:.3e}; float32 "
+          f"{errs['max_abs_err_f32']:.3e}, within the tolerance on "
+          f"{sum(r['allclose_f32'] for r in shard['14e'])} of 4 ranks); one "
+          f"float32 all-reduce of {B * T * cfg.d_model * 4} B over 'model' a "
+          f"rank = the dry run's prediction; {errs['wall_s']} s a rank",
+          flush=True)
+    print(json.dumps({"14e": out, "card": smi}), flush=True)
+    return out
+
+
+def dryrun_phase(device, smi, trained, families, shard) -> dict:
+    """Phase 14: the port's dry run (``launch/dryrun.py``, meta tensors)
+    held against what the card measured: 14a at phase 6's cell, 14b at
+    13a's mesh, 14c the CLI at full size (no allocation on the card),
+    14d (run in 5f) the grouped dispatch, 14e (run on phase 13's ranks)
+    the expert-parallel dispatch over "model" pairs."""
+    phase("14. the dry run against the card: 14a phase 6's FLOPs and bytes, "
+          "14b 13a's collectives, 14c the CLI at full size, 14d the grouped "
+          "dispatch (5f), 14e the expert-parallel dispatch (phase 13's "
+          "ranks)")
+    t0 = time.perf_counter()
+    walls = {}
+    out = {}
+    for key, fn in (("14a", lambda: dryrun_train_check(trained, smi)),
+                    ("14b", lambda: dryrun_mesh_check(shard, smi)),
+                    ("14c", lambda: dryrun_cli_phase(device, smi)),
+                    ("14e", lambda: dryrun_moe_ranks_check(shard, smi))):
+        t = time.perf_counter()
+        out[key] = fn()
+        walls[key] = round(time.perf_counter() - t, 1)
+    grouped = families["qwen2-moe-a2.7b"]["grouped"]
+    check(grouped["allclose"], f"14d: grouped dispatch {grouped['max_abs_err']}"
+          f" from the flat one at a drop-free capacity")
+    out["14d"] = grouped
+    walls["14d_in_5f"] = grouped["wall_s"]
+    out["walls_s"] = walls
+    out["phase_wall_s"] = round(time.perf_counter() - t0, 1)
+    print(f"14d: grouped = flat within {GROUPED_TOL} (max abs err "
+          f"{grouped['max_abs_err']:.3e}); dropped at capacity factor "
+          f"{grouped['dropped_share']['capacity_factor']}: flat "
+          f"{grouped['dropped_share']['flat']:.4f}, grouped "
+          f"{grouped['dropped_share']['grouped']:.4f}", flush=True)
+    print(json.dumps({"phase14_wall_s": out["phase_wall_s"],
+                      "walls_s": walls, "card": smi}), flush=True)
     return out
 
 
@@ -4635,6 +5041,7 @@ def main() -> int:
     remat = remat_phase(device, smi)
     stream = stream_report_phase(device, pod["ckpt"]["obs"], smi)
     shard = shard_phase(device, smi)
+    dry = dryrun_phase(device, smi, trained, families, shard)
     main_errs = parle_main_shape_phase(device, trained["replicas"],
                                        trained["elements_per_replica"])
 
@@ -4705,6 +5112,7 @@ def main() -> int:
             "13c": {k: shard["13c"][k] for k in (
                 "file_bytes", "save_s", "restore_s", "peak_memory_gib")},
             **{k: shard[k] for k in ("phase_wall_s", "ranks_wall_s")}},
+        "phase14": {k: dry[k] for k in ("phase_wall_s", "walls_s")},
         "flash_prefill": {k: run["flash_prefill"][k] for k in (
             "max_logit_err", "max_kv_cache_err", "prefill_wall_s")},
         "mamba2": {"max_logit_err": mamba["max_logit_err"],

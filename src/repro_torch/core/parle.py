@@ -578,8 +578,8 @@ def _make_step_body(loss_fn: Callable, cfg, weight_decay, use_kernel,
     group = active(group)
 
     def step(state: ParleState, batch):
-        losses = _grads_at_y(loss_fn, state, batch, gbuf, weight_decay,
-                             shard)
+        losses = grads_at_y(loss_fn, state, batch, gbuf, weight_decay,
+                            shard)
         new_state = fused_step(state, gbuf.buf, cfg, use_kernel=use_kernel,
                                lr_scale=schedule_scale(lr_schedule,
                                                        state.step),
@@ -630,8 +630,8 @@ def shard_grads_for(group) -> Optional[ShardGrads]:
     return ShardGrads(mesh) if mesh is not None else None
 
 
-def _grads_at_y(loss_fn, state: ParleState, batch, gbuf, weight_decay,
-                shard=None):
+def grads_at_y(loss_fn, state: ParleState, batch, gbuf, weight_decay,
+               shard=None):
     """grad f(y^a) of every replica into the (n, M) buffer of ``gbuf``
     (through ``shard``, a :class:`ShardGrads`, under axes inside a
     replica); returns the (n,) losses."""
@@ -654,9 +654,9 @@ def _inner_steps(loss_fn, state: ParleState, batches, cfg, gbuf,
     one gather after the L steps makes the means over all n."""
     step_losses = []
     for i in range(cfg.L):
-        losses = _grads_at_y(loss_fn, state,
-                             {k: v[i] for k, v in batches.items()}, gbuf,
-                             weight_decay, shard)
+        losses = grads_at_y(loss_fn, state,
+                            {k: v[i] for k, v in batches.items()}, gbuf,
+                            weight_decay, shard)
         state = inner_step(state, gbuf.buf, cfg, use_kernel=use_kernel,
                            lr_scale=schedule_scale(lr_schedule, state.step))
         step_losses.append(losses if group is not None else losses.mean())

@@ -1,7 +1,10 @@
 """``--mesh`` specs on a ``torch.distributed`` world.  Port of
 ``repro/launch/mesh.py``'s ``parse_mesh_spec``, ``replica_axis_of``,
-``make_mesh_from_spec``'s layout and its spec checks; the JAX mesh
-factories have no counterpart.
+``make_mesh_from_spec``'s layout and its spec checks; its
+``make_production_mesh`` is the two specs of :data:`PRODUCTION_MESHES`,
+and :func:`dry_groups_from_spec` gives one rank's groups on such a mesh
+with no world (the dry run's); the other JAX mesh factories have no
+counterpart.
 
 A spec names axes outermost first ("pod:2", "replica:2,data:2,model:2").
 Its ranks are the world's, one for every point of the mesh, laid out in
@@ -37,6 +40,14 @@ LAUNCH_HINT = (
 # the pod launcher runs the replica axis alone
 POD_HINT = (", or use the pod launcher `python -m "
             "repro_torch.launch.dist_run --nproc {size} ...`")
+# the reference's production meshes: one pod of 16 x 16 chips, and two
+PRODUCTION_MESHES = {"single": "data:16,model:16",
+                     "multi": "pod:2,data:16,model:16"}
+
+
+def production_mesh_spec(multi_pod: bool = False) -> str:
+    """``make_production_mesh``'s mesh as a spec."""
+    return PRODUCTION_MESHES["multi" if multi_pod else "single"]
 
 
 def parse_mesh_spec(spec: str) -> dict:
@@ -148,3 +159,31 @@ def groups_from_spec(spec: str, n: int = 0, obs=None):
                          f"planner assigns ({', '.join(INNER_AXES)})")
     rank = _world_for(spec)
     return MeshGroups(parse_mesh_spec(spec), n or size, rank, obs=obs)
+
+
+def with_replica_axis(spec: str) -> dict:
+    """The parsed ``spec``, a replica axis of size 1 put first when it
+    has none (a mesh of one replica, as the reference's dry run reads a
+    mesh without "pod")."""
+    axes = parse_mesh_spec(spec) if isinstance(spec, str) else dict(spec)
+    if replica_axis_of(axes) is None:
+        axes = {"replica": 1, **axes}
+    return axes
+
+
+def dry_groups_from_spec(spec, n: int = 0, rank: int = 0,
+                         policy: str = "fsdp_tp", obs=None):
+    """Rank ``rank``'s groups on the mesh of ``spec`` (a spec or its
+    parsed axes; a replica axis of size 1 added when it has none),
+    holding ``n`` replicas (0: one a replica index), with no world: their
+    collectives are counted, not run.  A ``MeshGroups`` when an axis
+    inside a replica has more than one rank, else a ``ReplicaGroup``
+    (None for one rank)."""
+    axes = with_replica_axis(spec)
+    raxis = replica_axis_of(axes)
+    n = n or axes[raxis]
+    if any(s > 1 for a, s in axes.items() if a != raxis):
+        return MeshGroups(axes, n, rank, obs=obs, policy=policy, dry=True)
+    if axes[raxis] == 1:
+        return None
+    return ReplicaGroup(n, rank, axes[raxis], axis=raxis, obs=obs, dry=True)

@@ -33,6 +33,7 @@ from repro_torch.core import parle as parle_mod
 from repro_torch.core import registry
 from repro_torch.models.model import build_model
 from repro_torch.runtime import policy_for
+from repro_torch.sharding.partition import active
 
 
 def make_loss_fn(cfg, use_flash: bool = False, remat=False):
@@ -90,16 +91,22 @@ def make_algorithm_round_flush(algo_name: str, pcfg, lr_schedule=None):
 
 def make_parle_steps(cfg, pcfg, weight_decay: float = 0.0,
                      use_flash: bool = False, remat=False,
-                     use_kernel: bool = False):
+                     use_kernel: bool = False, mesh=None):
     """(inner_step, sync_step, fused_step) of Parle over its flat state;
-    inner_step and fused_step take batches with a leading replica axis."""
+    inner_step and fused_step take batches with a leading replica axis.
+    ``mesh`` (a ``ReplicaGroup`` or a ``MeshGroups``): the state and the
+    batch hold the rank's replicas (its blocks of them under axes inside
+    a replica, whose rows of the batch it takes), the losses are
+    gathered over the replica axis each step and the sync's mean spans
+    it, as in the sharded train step."""
     loss_fn = make_loss_fn(cfg, use_flash, remat)
-    gbuf = parle_mod.GradBuffer()
+    gbuf, shard = parle_mod.GradBuffer(), parle_mod.shard_grads_for(mesh)
+    group = active(mesh)
 
     def grads(state, batch):
-        return parle_mod.replica_grads(loss_fn, state.layout, state.y, batch,
-                                       gbuf.like(state.y), weight_decay,
-                                       state.y)
+        losses = parle_mod.grads_at_y(loss_fn, state, batch, gbuf,
+                                      weight_decay, shard)
+        return losses if group is None else group.all_gather_rows(losses)
 
     def inner_step(state, batch):
         """(8a)-(8b): per-replica grad + update; no cross-replica term."""
@@ -110,12 +117,12 @@ def make_parle_steps(cfg, pcfg, weight_decay: float = 0.0,
 
     def sync_step(state):
         """(8c)-(8d): the one mean over the replica axis."""
-        return parle_mod.sync_step(state, pcfg)
+        return parle_mod.sync_step(state, pcfg, group=group)
 
     def fused_step(state, batch):
         losses = grads(state, batch)
         state = parle_mod.fused_step(state, gbuf.buf, pcfg,
-                                     use_kernel=use_kernel)
+                                     use_kernel=use_kernel, group=group)
         return state, {"loss": losses.mean(), "gamma": state.scopes.gamma,
                        "rho": state.scopes.rho}
 

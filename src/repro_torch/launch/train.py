@@ -239,6 +239,17 @@ def make_group(args, pcfg, obs):
     return group
 
 
+# a moe architecture with a data axis inside a replica (also the dry
+# run's refusal of such a training pair)
+MOE_DATA_AXIS = (
+    "{spec}: a moe architecture with a data axis above 1 is not ported yet "
+    "(ROADMAP.md queue 1, item 6a): on a data axis the reference runs the "
+    "flat dispatch at the global batch's capacity, with one batch-global "
+    "aux loss, where a rank here would dispatch its own rows at their own "
+    "capacity (the grouped dispatch has a capacity per group, not the "
+    "global one either); 'model' alone works")
+
+
 def check_in_replica(args, cfg):
     """The paths not ported on a mesh with an axis inside a replica exit
     naming the ROADMAP.md item that ports them."""
@@ -247,12 +258,7 @@ def check_in_replica(args, cfg):
         return
     spec = f"--mesh {args.mesh}"
     if cfg.family == "moe" and inner.get("data", 1) > 1:
-        raise SystemExit(
-            f"{spec}: a moe architecture with a data axis above 1 is not "
-            "ported yet (ROADMAP.md queue 1, item 6a): splitting the batch "
-            "over 'data' changes the flat dispatch's capacity and its "
-            "batch-global aux loss (the grouped dispatch keeps them); "
-            "'model' alone works")
+        raise SystemExit(MOE_DATA_AXIS.format(spec=spec))
     if args.sync_policy == "async":
         raise SystemExit(ASYNC_IN_REPLICA.format(axes=",".join(inner)))
 

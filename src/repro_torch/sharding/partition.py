@@ -99,11 +99,12 @@ class _Staged:
 
     axis = "pod"
 
-    def _init_staging(self, obs):
+    def _init_staging(self, obs, dry: bool = False):
         if obs is None:
             from repro_torch.obs import Obs
             obs = Obs()
         self.obs = obs
+        self.dry = dry
         self._pinned: dict = {}
 
     def _host(self, key, numel: int, dtype) -> torch.Tensor:
@@ -117,18 +118,24 @@ class _Staged:
 
     def _staging(self, device, key, numel: int, dtype) -> torch.Tensor:
         """Where a collective's host side lives: a pinned buffer for a CUDA
-        tensor, a fresh one on the CPU."""
+        tensor, a fresh one on the CPU; for a dry group, one element
+        stretched over ``numel`` on the ``meta`` device (never read)."""
+        if self.dry:
+            return torch.empty((), dtype=dtype, device="meta").expand(numel)
         if device.type == "cpu":
             return torch.empty(numel, dtype=dtype)
         return self._host(key, numel, dtype)
 
     def _collective(self, op: str, nbytes: int, d2h, call, h2d, axis=None):
         """Run one staged collective: ``d2h()`` -> host buffers, ``call``
-        on them, ``h2d()`` back; count it and time its three parts."""
+        on them, ``h2d()`` back; count it and time its three parts.  A dry
+        group only counts it."""
         axis = axis or self.axis
         reg, tracer = self.obs.registry, self.obs.tracer
         reg.counter("pod.collectives", op=op, axis=axis).inc()
         reg.counter("pod.collective_bytes", op=op, axis=axis).inc(nbytes)
+        if self.dry:
+            return
         t = [time.perf_counter()]
         for name, fn in (("pod.d2h", d2h), ("pod.collective", call),
                          ("pod.h2d", h2d)):
@@ -182,16 +189,17 @@ class ReplicaGroup(_Staged):
     ``n`` replicas.  ``pg``: the ``torch.distributed`` process group
     (None: the default group); ``obs``: the ``Obs`` bundle whose registry
     and tracer record the collectives (None: a private registry, no
-    spans)."""
+    spans); ``dry``: a group of no world, whose collectives are counted
+    and not run (the dry run's, ``launch/dryrun.py``)."""
 
     def __init__(self, n: int, rank: int = 0, world: int = 1, *,
-                 axis: str = "pod", pg=None, obs=None):
+                 axis: str = "pod", pg=None, obs=None, dry: bool = False):
         check_divisible(n, world, axis)
         self.n, self.rank, self.world, self.axis = n, rank, world, axis
         self.local = n // world
         self.rows = slice(rank * self.local, (rank + 1) * self.local)
         self.pg = pg
-        self._init_staging(obs)
+        self._init_staging(obs, dry)
 
     @property
     def trivial(self) -> bool:
@@ -279,7 +287,7 @@ class ReplicaGroup(_Staged):
     def barrier(self) -> None:
         """Every rank waits for every other (not counted: it moves no
         data)."""
-        if not self.trivial:
+        if not self.trivial and not self.dry:
             dist.barrier(group=self.pg)
 
     def counts(self) -> dict:
@@ -443,9 +451,13 @@ class MeshGroups:
     Building one is collective: every rank of the world creates every
     subgroup, in one order.  A group of one rank makes no collective.
     The state a rank holds is its replicas' blocks; every operation is
-    counted under ``pod.collectives{op, axis}``."""
+    counted under ``pod.collectives{op, axis}``.  ``policy``: the
+    planner policy of the layout; ``dry``: rank ``rank`` of no world
+    (no subgroup is made, every collective is counted and not run: the
+    dry run's, ``launch/dryrun.py``)."""
 
-    def __init__(self, axes: dict, n: int, rank: int = 0, *, obs=None):
+    def __init__(self, axes: dict, n: int, rank: int = 0, *, obs=None,
+                 policy: str = "fsdp_tp", dry: bool = False):
         raxis = replica_axis_of(axes)
         if raxis is None:
             raise ValueError(f"mesh {axes} has no replica axis")
@@ -463,7 +475,8 @@ class MeshGroups:
         self.inner_sizes = {a: s for a, s in axes.items() if a != raxis}
         self.inner_axes = planner_mod.in_replica_axes(axes, raxis)
         self.data_size = axes.get(DATA, 1)
-        self.ctx = planner_mod.ShardContext(self.inner_sizes)
+        self.dry = dry
+        self.ctx = planner_mod.ShardContext(self.inner_sizes, policy)
         R = axes[raxis]
         inner_coords = [dict(zip(self.inner_sizes, idx)) for idx in
                         itertools.product(*[range(s) for s in
@@ -497,16 +510,39 @@ class MeshGroups:
                 if self.rank in ranks:
                     data_pg = pg
         self.inner_pg, self.data_pg = inner_pg, data_pg
+        self._model_pg = None
         self.replica = ReplicaGroup(n, self.coords[raxis], R, axis=raxis,
-                                    pg=replica_pg, obs=obs)
+                                    pg=replica_pg, obs=obs, dry=dry)
         self.inner = _InReplica(self, obs=self.replica.obs)
 
     def _new_group(self, ranks):
         """A gloo subgroup of ``ranks`` (None for a group of one rank or
-        the whole world: no subgroup needed)."""
-        if len(ranks) == 1 or len(ranks) == self.world:
+        the whole world, or in a dry group: no subgroup needed)."""
+        if len(ranks) == 1 or len(ranks) == self.world or self.dry:
             return None
         return dist.new_group(ranks, backend="gloo")
+
+    @property
+    def model_pg(self):
+        """The group of the ranks that differ from this one only in
+        "model", made at its first use (by every rank at once, as every
+        subgroup: the expert-parallel MoE's first forward)."""
+        if self._model_pg is None:
+            if self.inner_axes == (MODEL,):
+                self._model_pg = (self.inner_pg,)
+            else:
+                raxis, M = self.replica.axis, self.axes.get(MODEL, 1)
+                for r in range(self.replica.world):
+                    for c in self.inner_coords:
+                        if c.get(MODEL, 0):
+                            continue
+                        ranks = [mesh_rank(self.axes,
+                                           {**c, raxis: r, MODEL: m})
+                                 for m in range(M)]
+                        pg = self._new_group(ranks)
+                        if self.rank in ranks:
+                            self._model_pg = (pg,)
+        return self._model_pg[0]
 
     # -- what the ReplicaGroup-taking code reads --------------------
     @property
@@ -572,7 +608,7 @@ class MeshGroups:
 
     def barrier(self) -> None:
         """Every rank of the world waits for every other."""
-        if not self.trivial:
+        if not self.trivial and not self.dry:
             dist.barrier()
 
     def gather_state(self, leaves, layout: ShardedLayout, each=None):
@@ -654,6 +690,14 @@ class MeshGroups:
                     layout.gather_leaf_into(b, blocks, full)
                     hand(i, full)
 
+    def model_sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """SUM-all-reduce the contiguous ``t`` in place over the ranks that
+        differ from this one only in "model" (the expert-parallel MoE's
+        partial outputs), counted on axis "model"."""
+        if self.axes.get(MODEL, 1) > 1:
+            self.inner._all_reduce(t.view(-1), self.model_pg, axis=MODEL)
+        return t
+
     def data_mean_(self, values: torch.Tensor, split: bool) -> torch.Tensor:
         """Per-replica values (losses) of this rank's batch rows -> their
         mean over the data ranks (a SUM all-reduce over "data", then the
@@ -671,7 +715,7 @@ class _InReplica(_Staged):
     def __init__(self, mesh: MeshGroups, obs):
         self.mesh = mesh
         self.axis = ",".join(mesh.inner_axes) or "none"
-        self._init_staging(obs)
+        self._init_staging(obs, mesh.dry)
 
     def gather_blocks(self, local_row, full_row, layout: ShardedLayout):
         m = self.mesh

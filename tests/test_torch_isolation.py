@@ -51,7 +51,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.dist_run, repro_torch.core.entropy_sgd, "
             "repro_torch.runtime.coordinator, repro_torch.runtime.faults, "
             "repro_torch.data.threefry, repro_torch.examples.obs_report, "
-            "repro_torch.sharding.rules, repro_torch.sharding.planner\n"
+            "repro_torch.sharding.rules, repro_torch.sharding.planner, "
+            "repro_torch.launch.specs, repro_torch.launch.dryrun\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

@@ -8,7 +8,8 @@ paged through K8; the reference engine's and the port's naive loop's),
 and prefix sharing; the forward of the Qwen1.5-MoE-A2.7B and
 Llama-4-Scout smoke variants too (their decode and Parle step are in
 test_torch_arch_smoke.py).  The grouped and shard_map
-dispatches raise.
+dispatches equal the flat one where nothing drops (held to the
+reference's own in test_torch_moe_dispatch.py).
 
 Tolerance: f32 logits, loss and grads within
 rtol = atol = 1e-5 (``TOL``); the largest error measured is printed
@@ -97,12 +98,29 @@ def test_loss_decreases_under_sgd():
 @pytest.mark.parametrize("change", [dict(moe_groups=4),
                                     dict(moe_impl="shard_map")])
 def test_expert_parallel_dispatch_raises(params, change):
+    """Both dispatches run (they once raised, naming "queue 1, item 7"):
+    at this drop-free capacity the grouped dispatch and two
+    expert-parallel columns summed equal the flat dispatch (the reference
+    contract's rtol 1e-5 / atol 1e-6), and the shard_map setting without
+    a context is the flat dispatch itself
+    (``tests/test_torch_moe_dispatch.py`` holds both to the reference)."""
     _, pp = params
     cfg = dataclasses.replace(CFG, **change)
-    layer = {k: v[0] for k, v in pp["blocks"]["moe"].items()
-             if k != "shared"}
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        moe.moe_forward(layer, cfg, torch.zeros((1, 4, cfg.d_model)))
+    layer = {k: ({kk: vv[0] for kk, vv in v.items()} if k == "shared"
+                 else v[0]) for k, v in pp["blocks"]["moe"].items()}
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 8, cfg.d_model)).astype(np.float32))
+    flat, flat_aux = moe.moe_forward(layer, CFG, x)
+    got, aux = moe.moe_forward(layer, cfg, x)
+    if cfg.moe_impl == "shard_map":
+        assert torch.equal(got, flat)
+        parts = []
+        for m in range(2):
+            with moe.expert_parallel(moe.ExpertParallel(2, m)):
+                parts.append(moe.moe_forward(layer, cfg, x)[0])
+        got = parts[0] + parts[1]
+    assert_close(got, flat, dict(rtol=1e-5, atol=1e-6), f"{change} vs flat")
+    assert_close(aux, flat_aux, dict(rtol=1e-5, atol=1e-6), "aux")
 
 
 def test_prefill_then_decode_match_reference(params):

@@ -349,3 +349,62 @@ def checkpoint_contract(rank, world, argv, restore_mesh):
             "refused": refused, "coords": group.coords,
             "gathers": {a: ops["gather"] for a, ops in by_axis.items()
                         if "gather" in ops}}
+
+
+# ------------------------------------------------------------------
+# the dry run's collectives and the expert-parallel MoE
+# (tests/test_torch_dryrun.py, tests/test_torch_moe_dispatch.py)
+# ------------------------------------------------------------------
+
+def dry_run_counters(rank, world, spec, cfg_fields, batch, remat):
+    """The dry run's two train programs for real on this rank of the
+    mesh ``spec``: one ``train_inner``, then one ``parle_sync``
+    (``steps.make_parle_steps`` on the rank's ``MeshGroups``, f32, smoke
+    params from seed 0); the rank's collective counters by axis after
+    each."""
+    from repro_torch.configs import ParleConfig
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import parle
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding.partition import collective_counts_by_axis
+
+    cfg = ModelConfig(**cfg_fields)
+    n = mesh_lib.replica_axis(spec)[1]
+    group = mesh_lib.groups_from_spec(spec, n)
+    pcfg = ParleConfig(n_replicas=n, lr=0.1, lr_inner=0.1)
+    inner, sync, _ = steps.make_parle_steps(cfg, pcfg, weight_decay=5e-4,
+                                            remat=remat, mesh=group)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    state = parle.dealias_state(parle.init(params, pcfg, group))
+    state, _ = inner(state, {k: torch.from_numpy(v[group.rows])
+                             for k, v in batch.items()})
+    counts = [collective_counts_by_axis(group.obs.registry)]
+    sync(state)
+    counts.append(collective_counts_by_axis(group.obs.registry))
+    return counts
+
+
+def moe_columns(rank, world, layer, cfg, x):
+    """One rank of a "model" pair: its column of the expert-parallel MoE
+    dispatch summed over the pair (``MeshGroups.model_sum_``), its
+    counters by axis, and what a backward through the sum raises."""
+    from repro_torch.models import moe
+    from repro_torch.sharding.partition import (MeshGroups,
+                                                collective_counts_by_axis)
+    mesh = MeshGroups({"replica": 1, "model": world}, 1, rank)
+    params = {k: (torch.from_numpy(v) if not isinstance(v, dict) else
+                  {kk: torch.from_numpy(vv) for kk, vv in v.items()})
+              for k, v in layer.items()}
+    with moe.expert_parallel(moe.ExpertParallel(world, rank, mesh)):
+        y, _ = moe.moe_forward(params, cfg, torch.from_numpy(x))
+        xg = torch.from_numpy(x).requires_grad_(True)
+        yg, _ = moe.moe_forward(params, cfg, xg)
+    try:
+        yg.sum().backward()
+        raised = ""
+    except NotImplementedError as e:
+        raised = str(e)
+    return {"y": y.numpy(), "raised": raised,
+            "counts": collective_counts_by_axis(mesh.obs.registry)}
