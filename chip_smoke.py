@@ -148,13 +148,15 @@ itself and, in order:
    the teacher task, SGD against Parle n=3, 400 steps) on the card and
    fails unless Parle's test error is within 0.02 of SGD's or better;
 9. runs the paper's experiments (``repro_torch/examples/``) on the card
-   at the reference's default steps: Table 1's seed 0 (600 steps, n=3)
+   at half the reference's default steps (for the script's time limit):
+   Table 1's seed 0 (300 steps, n=3)
    twice, through K1 / K2 / K7 and through their plain versions, under
    deterministic algorithms — the four algorithms' deployables and errors
-   equal bit for bit, K1 launched 600 times and K2 24 for Parle and for
-   Entropy-SGD, K7 600 for Elastic-SGD, none for SGD and none on the
-   plain run — then seeds 1 and 2, Table 2 (400 steps, n=2 and 4) and
-   Fig. 1 (400 steps) through the kernels (launches checked), printing
+   equal bit for bit, K1 launched 300 times and K2 12 for Parle and for
+   Entropy-SGD, K7 300 for Elastic-SGD, none for SGD and none on the
+   plain run — then Table 2 (200 steps, n=2 and 4) and Fig. 1 (200
+   steps) through the kernels (launches checked; Table 1's seeds 1 and 2
+   left out), printing
    every row the reference prints as a JSON line with the card's name
    and power limit (the ``holds=`` values are findings, not gates); then
    ``split_data`` at its defaults (its assert is a gate),
@@ -173,7 +175,8 @@ itself and, in order:
    6's argv plus ``--mesh pod:2`` under deterministic algorithms — the
    f32 barrier run through K1 / K2, the int8 barrier (K4 / K5) and
    overlap (K4 / K6 and the flush) runs, and Elastic-SGD through K7 —
-   and each rank's 8 losses, eval loss and final rows (x; e, c; v, ref)
+   and each rank's losses (8; Elastic-SGD's 4), eval loss and final rows
+   (x; e, c; v, ref)
    equal phase 6's bit for bit (sha256 of each row), with each kernel's
    launches a rank and each collective a rank counted; beside the
    ranks, the pod launcher (``launch/dist_run.py --nproc 2 --smoke
@@ -226,12 +229,13 @@ itself and, in order:
    ``repro_torch.examples.obs_report`` accepts 12a's rank-0 metrics and
    trace;
 13. (after 12c) axes inside a replica: the one-process references
-   (full-width Mamba2-1.3B cut to 2 layers, Parle n = 2, L = 2, 4 steps
+   (full-width Mamba2-1.3B cut to 2 layers, Parle n = 2, L = 2, 2 steps
    of 2 x 256 through the kernels, the int8 barrier; 13c's runs below;
    deterministic algorithms), then four spawned gloo ranks on the one
    card, each holding half of one replica's state as the sharding
    planner assigns it (``sharding/partition.py::MeshGroups``): 13b
-   ``--mesh replica:2,data:2`` (int8, K1 4 / K4 2 / K5 2 a rank) —
+   ``--mesh replica:2,data:2`` (int8, one round: K1 2 / K4 1 / K5 1 a
+   rank) —
    losses within rtol 2e-5 of the one-process int8 run, the replica axis
    moving a shard's int8 payload and its scales a sync; 13c, on the same
    ranks: full-width Mamba2-1.3B cut to 2 layers, Parle n = 2, L = 2, f32
@@ -250,7 +254,18 @@ itself and, in order:
    own one-process run bit for bit; each collective's bytes by axis, its
    d2h / gloo / h2d seconds, the step wall, peak memory a rank and the
    phase wall printed (four ranks time-slicing one card over loopback,
-   not a multi-card figure);
+   not a multi-card figure); on the same ranks after 13c, the Megatron
+   split (``models/megatron.py``): 13d full-width Qwen2.5-3B cut to 2
+   layers under ``replica:2,model:2`` (n = 2, L = 2, 4 steps of 2 x 256,
+   f32, K1 4 / K2 2 a rank; each rank computes its half of the heads,
+   the ff and the vocab on its column of each leaf) and 13e full-width
+   Qwen1.5-MoE-A2.7B cut to 1 layer under ``replica:1,data:2,model:2``
+   (n = 1, 2 steps, K1 2 / K2 1 a rank; its 30 of 60 experts, the
+   batch's one flat dispatch over the two data ranks' rows) — each
+   rank's losses and eval loss within rtol 2e-5 of the one-process
+   run's, its blocks of the deployable (Parle's mean row) within rtol
+   2e-5 / atol 2e-6 of the one-process row, its bytes by axis and op,
+   step wall and peak memory printed;
 14. (after 13) the dry run against the card (``launch/dryrun.py``, each
    program on PyTorch's meta device): (14a) at phase 6's cell (n = 2 in
    one process, f32, remat off) a round of L train_inner programs and
@@ -259,7 +274,9 @@ itself and, in order:
    the card's state plus one step's batch in bytes (arguments + temp
    printed beside the run's peak); (14b) at 13a's mesh, 4 train_inner
    and 2 parle_sync = 13a's counters by axis and op, and the predicted
-   shard's row and blocks = its gathers' and all-reduces' bytes; (14c)
+   shard's row and blocks = its gathers' and all-reduces' bytes; at
+   13d's mesh, 4 train_inner and 2 parle_sync = 13d's "model" counters
+   and replica all-reduces (rank 0's, over its training rounds); (14c)
    the dry-run CLI at full size (Qwen2.5-3B train_4k on both production
    meshes, Qwen1.5-MoE decode_32k through the expert-parallel dispatch
    and prefill_32k through the grouped one, each record's roofline line
@@ -271,7 +288,9 @@ itself and, in order:
    over the "model" pairs (30 of 60 experts and half the shared ff a
    rank) summed over each pair = each rank's flat forward (gated in
    float64, the float32 error printed), one float32 all-reduce of
-   4,194,304 B a rank = the dry run's prediction.
+   4,194,304 B a rank = the dry run's prediction, and, in float64, the
+   grads through the sum (of the tokens, the router and the rank's
+   experts and shared ff) = the flat dispatch's.
 
 Nothing is caught: a failing phase exits non-zero and prints no device
 line.  Without a CUDA card it exits 2 before doing anything.
@@ -289,7 +308,6 @@ import subprocess
 import sys
 import tempfile
 import time
-from collections import Counter
 
 # cuBLAS reads its workspace setting once, at its first use: deterministic
 # float32 products for the training phase's bitwise comparison
@@ -325,6 +343,7 @@ from repro_torch.launch import (dryrun, serve, specs, steps,  # noqa: E402
                                 train)
 from repro_torch.models import hybrid  # noqa: E402
 from repro_torch.models import mamba2  # noqa: E402
+from repro_torch.models import megatron  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
@@ -2309,6 +2328,9 @@ TRAINED_FAMILIES = (("mamba2", "mamba2-1.3b"), ("moe", "qwen2-moe-a2.7b"),
 # Qwen1.5-MoE-A2.7B: one layer plus the embedding and the untied head is
 # 4.77 GB of float32 a copy; Parle keeps five a replica, 47.7 GB at n = 2
 MOE_TRAIN_LAYERS = 1
+# Elastic-SGD's steps in 6f and phase 10: one round (in a pod each step
+# all-reduces the whole model over gloo)
+ELASTIC_STEPS = 4
 # Zamba2-1.2B: 12 Mamba2 layers (two sites of the shared block)
 HYBRID_TRAIN_LAYERS = 12
 
@@ -2329,15 +2351,17 @@ def train_cfg():
 
 
 def _train_once(device, argv, profile=False, cfg=None, obs=None,
-                flops=None):
+                flops=None, rounds=None):
     """One run of the train CLI's run() on ``cfg`` (default: train_cfg())
     with the telemetry ``obs`` (default: none armed); returns its
     per-step losses, the wall of each round (device-synchronized), the
     final state, the eval loss and, with ``profile``, the profiler over
     its first round.  ``flops``: a dict that gets the FLOPs
     ``FlopCounterMode`` counts over the first round (its wall includes
-    the counter's host time)."""
+    the counter's host time); ``rounds``: a list that gets ``obs``'s
+    collective counters by axis after each round."""
     args = train.parse_args(argv)
+    obs = obs or Obs()
     losses, walls, marks = [], [], {}
     prof = (torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA])
@@ -2361,9 +2385,11 @@ def _train_once(device, argv, profile=False, cfg=None, obs=None,
             counter.__exit__(None, None, None)
             flops["round0"] = counter.get_total_flops()
         losses.append(metrics["losses"].detach().cpu())
+        if rounds is not None:
+            rounds.append(collective_counts_by_axis(obs.registry))
 
     state, _, eval_loss = train.run(args, cfg or train_cfg(), device,
-                                    obs or Obs(), pre_round=pre_round,
+                                    obs, pre_round=pre_round,
                                     on_round=on_round)
     return torch.cat(losses), walls, state, eval_loss, prof
 
@@ -2599,17 +2625,18 @@ def _release():
 
 
 def train_baselines_phase(device, pod_refs) -> dict:
-    """The paper's baselines on the same cell: Elastic-SGD through K7
-    (one launch a step, so 8; no other kernel), then without
-    ``--use-kernel`` (the same 8 losses and final x, v and ref bit for
-    bit); then SGD (``--use-kernel`` is ignored: no port kernel; every
-    loss finite).  Round walls and peak memory of each run."""
+    """The paper's baselines on the same cell: Elastic-SGD for
+    ELASTIC_STEPS steps through K7 (one launch a step; no other kernel),
+    then without ``--use-kernel`` (the same losses and final x, v and ref
+    bit for bit); then SGD for 8 (``--use-kernel`` is ignored: no port
+    kernel; every loss finite).  Round walls and peak memory of each
+    run."""
     phase("6f. Elastic-SGD through K7 and SGD: full-width qwen2.5-3b cut "
-          f"to {TRAIN_LAYERS} layers, n=2, L=4, 8 steps")
+          f"to {TRAIN_LAYERS} layers, n=2, L=4, {ELASTIC_STEPS} and 8 steps")
     out = {}
     losses_k, walls_k, state, eval_k, peak = _train_measured(
-        device, train_argv(algo="elastic_sgd"))
-    launches = launch_counts(elastic_update=8)
+        device, train_argv(steps=ELASTIC_STEPS, algo="elastic_sgd"))
+    launches = launch_counts(elastic_update=ELASTIC_STEPS)
     kept = {f: getattr(state, f).cpu() for f in ("x", "v", "ref")}
     pod_refs["elastic_sgd"] = {
         "losses": losses_k.tolist(), "eval_loss": eval_k,
@@ -2619,7 +2646,8 @@ def train_baselines_phase(device, pod_refs) -> dict:
     print(f"elastic_sgd: launches {launches}; losses {losses_k.tolist()}; "
           f"round walls {walls_k}; peak {peak:.3f} GiB", flush=True)
     losses_p, walls_p, state, _, peak_p = _train_measured(
-        device, train_argv(use_kernel=False, algo="elastic_sgd"))
+        device, train_argv(steps=ELASTIC_STEPS, use_kernel=False,
+                           algo="elastic_sgd"))
     launch_counts()
     check(torch.equal(losses_k, losses_p)
           and all(torch.equal(t, getattr(state, f).cpu())
@@ -2628,7 +2656,7 @@ def train_baselines_phase(device, pod_refs) -> dict:
           f"{losses_p.tolist()} (or final x / v / ref differ)")
     del state, kept
     _release()
-    print(f"elastic_sgd: kernel path == plain path bit for bit (8 losses, "
+    print(f"elastic_sgd: kernel path == plain path bit for bit (losses, "
           f"final x, v, ref); plain round walls {walls_p}", flush=True)
     out["elastic_sgd"] = {
         "launches": {k: v for k, v in launches.items() if v},
@@ -2698,8 +2726,10 @@ POD_JOBS = {
     "int8_overlap": ("parle", ["--sync-compress", "int8", "--sync-overlap"],
                      INT8_PATHS["overlap"][1], ("x", "e", "c"),
                      {"all_reduce": 1, "all_gather": 4}),
-    "elastic_sgd": ("elastic_sgd", [], dict(elastic_update=8),
-                    ("x", "v", "ref"), {"all_reduce": 8, "all_gather": 2}),
+    # 4 steps (phase 6f's): each a model-size all-reduce over gloo
+    "elastic_sgd": ("elastic_sgd", ["--steps", str(ELASTIC_STEPS)],
+                    dict(elastic_update=ELASTIC_STEPS), ("x", "v", "ref"),
+                    {"all_reduce": ELASTIC_STEPS, "all_gather": 1}),
 }
 
 
@@ -2919,7 +2949,7 @@ def pod_phase(device, refs, smi) -> dict:
             "syncs": results[0][name]["syncs"],
             "peak_memory_gib": [results[r][name]["peak_memory_gib"]
                                 for r in range(POD_WORLD)]}
-        print(f"pod {name}: both ranks == phase 6 bit for bit (8 losses, "
+        print(f"pod {name}: both ranks == phase 6 bit for bit (losses, "
               f"eval, final {', '.join(fields)}); launches a rank "
               f"{out[name]['launches_per_rank']}", flush=True)
     ranks_s = time.perf_counter() - t0
@@ -3086,10 +3116,11 @@ def _finish_async_pod(started, tag) -> dict:
     proc, t0 = started
     try:
         stdout, stderr = proc.communicate(timeout=ASYNC_POD_TIMEOUT_S)
-    finally:
-        if proc.poll() is None:        # timed out: no pod outlives the phase
-            proc.kill()
-            proc.communicate()
+    except subprocess.TimeoutExpired:   # no pod outlives the phase
+        proc.kill()
+        stdout, stderr = proc.communicate()
+        check(False, f"async pod {tag} ran past {ASYNC_POD_TIMEOUT_S} s:\n"
+              f"{stdout[-3000:]}\n{stderr[-3000:]}")
     wall = time.time() - t0
     check(proc.returncode == 0,
           f"async pod {tag} exited {proc.returncode}:\n"
@@ -3760,9 +3791,11 @@ SHARD_JOBS = {
     "13a": ("replica:2,model:2", [],
             dict(parle_inner_update=4, parle_sync_update=2)),
     "13b": ("replica:2,data:2", ["--sync-compress", "int8"],
-            dict(parle_inner_update=4, quantize_ef=2,
-                 parle_sync_dequant=2)),
+            dict(parle_inner_update=2, quantize_ef=1,
+                 parle_sync_dequant=1)),
 }
+# 13b's steps: one round, for the script's time limit
+SHARD_13B_STEPS = 2
 # 13b against the one-process int8 run: the data split sums each grad as
 # two halves of the batch (the reference's composed-mesh loss bound)
 SHARD_RTOL = 2e-5
@@ -3774,6 +3807,62 @@ SHARD_RTOL = 2e-5
 SHARD_CKPT_SAVE, SHARD_CKPT_RESUME = "replica:2,model:2", "replica:2,data:2"
 SHARD_CKPT_LAUNCHES = dict(parle_inner_update=2, parle_sync_update=1)
 SHARD_CKPT_COPIES = 10              # the file: five (n, M) fields, n = 2
+
+
+# 13d / 13e: the Megatron split over "model" and the MoE on a "data"
+# axis, on phase 13's ranks after 13c.  job: (arch, layers, mesh,
+# replicas, steps, K launches a rank); L = 2, 2 x 256 tokens a replica,
+# f32, deterministic algorithms
+MEGATRON_JOBS = {
+    "13d": ("qwen2.5-3b", 2, "replica:2,model:2", 2, 4,
+            dict(parle_inner_update=4, parle_sync_update=2)),
+    "13e": ("qwen2-moe-a2.7b", 1, "replica:1,data:2,model:2", 1, 2,
+            dict(parle_inner_update=2, parle_sync_update=1)),
+}
+# a step under replica:2,model:2 before the split (Qwen2.5-3B at 2 layers,
+# every model rank on the gathered row; NVIDIA H100 80GB HBM3, 700.00 W)
+GATHERED_ROW_STEP_S = (5.42, 6.10)
+# 13d / 13e's deployable (Parle's mean row) against one process's: the
+# reference's composed-mesh bound on the deployable
+DEPLOY_TOL = dict(rtol=2e-5, atol=2e-6)
+
+
+def deploy_path(deploy_dir, job) -> str:
+    """The raw float32 file of ``job``'s one-process deployable row."""
+    return os.path.join(deploy_dir, f"{job}_deployable.f32")
+
+
+def deployable_err(spec, n, state, path) -> tuple:
+    """(max abs err, whether within DEPLOY_TOL) of this rank's blocks of
+    the deployable under ``--mesh spec`` (``n`` replicas; the mean over
+    the replica axis, one all-reduce on groups made anew) against the
+    one-process row at ``path``, leaf by leaf (a block row's gaps left
+    out)."""
+    group = mesh_mod.groups_from_spec(spec, n)
+    got = registry.get("parle").deployable_row(state, group)
+    lay = state.layout
+    ref = torch.from_numpy(np.memmap(path, np.float32, "c")).to(got.device)
+    want = lay.blocks_of(ref, lay.index, torch.zeros_like(got))
+    del ref
+    err, ok = 0.0, True
+    for o, size in zip(lay.offsets, lay.sizes):
+        a, b = got[o:o + size], want[o:o + size]
+        err = max(err, float((a - b).abs().max()))
+        ok = ok and bool(torch.allclose(a, b, **DEPLOY_TOL))
+    return err, ok
+
+
+def megatron_cfg(job):
+    arch, layers = MEGATRON_JOBS[job][:2]
+    return dataclasses.replace(get_config(arch), num_layers=layers)
+
+
+def megatron_argv(job, mesh=None) -> list:
+    arch, _, _, n, steps, _ = MEGATRON_JOBS[job]
+    return (["--arch", arch, "--device", "cuda", "--replicas", str(n),
+             "--L", "2", "--steps", str(steps), "--batch", "2", "--seq",
+             "256", "--round-fused", "--use-kernel", "--log-every", "2",
+             "--seed", "0"] + (["--mesh", mesh] if mesh else []))
 
 
 def shard_argv(steps=4, extra=()) -> list:
@@ -3816,20 +3905,24 @@ def file_leaf_digests(path) -> dict:
                             for k, m in ckpt._members(path).items()})
 
 
-def shard_reference_phase(device) -> dict:
+def shard_reference_phase(device, deploy_dir) -> dict:
     """13's one-process references, under deterministic algorithms: 13b's
     int8 barrier run (through the kernels) — its losses and eval loss;
     13c's uninterrupted 4-step run (f32, K1 / K2) — its losses, eval
     loss and final x rows' digests — and its 2-step run, the sha256 of
     every leaf of its state (what a one-process checkpoint at step 2
-    holds)."""
+    holds); 13d's and 13e's runs — their losses, eval loss, and their
+    deployable rows written under ``deploy_dir``."""
     phase(f"13. one-process references: full-width {CKPT_ARCH} cut to "
-          f"{CKPT_LAYERS} layers, parle n=2 L=2, 4 steps, int8 (13b); "
-          f"f32, 4 steps and 2 steps (13c)")
+          f"{CKPT_LAYERS} layers, parle n=2 L=2, {SHARD_13B_STEPS} steps, "
+          f"int8 (13b); f32, 4 steps and 2 steps (13c); full-width "
+          f"qwen2.5-3b cut to "
+          f"2 layers, n=2, 4 steps (13d) and qwen2-moe-a2.7b cut to 1 "
+          f"layer, n=1, 2 steps (13e), f32")
     torch.use_deterministic_algorithms(True)
     spec, extra, want = SHARD_JOBS["13b"]
     losses, walls, state, eval_loss, peak = _train_measured(
-        device, shard_argv(extra=extra), cfg=ckpt_cfg())
+        device, shard_argv(SHARD_13B_STEPS, extra), cfg=ckpt_cfg())
     launch_counts(**want)
     refs = {"13b": {"losses": losses.tolist(), "eval_loss": eval_loss,
                     "round_wall_s": walls, "peak_memory_gib": round(peak, 3)}}
@@ -3846,24 +3939,46 @@ def shard_reference_phase(device) -> dict:
           f"run's first two {full['losses'][:2]}")
     refs["13c"] = {"full": full, "leaf_digests": half["leaf_digests"],
                    "wall_s": round(time.perf_counter() - t0, 1)}
+    for job, (*_, want) in MEGATRON_JOBS.items():
+        _release()
+        losses, walls, state, eval_loss, peak = _train_measured(
+            device, megatron_argv(job), cfg=megatron_cfg(job))
+        launch_counts(**want)
+        refs[job] = {"losses": losses.tolist(), "eval_loss": eval_loss,
+                     "round_wall_s": walls,
+                     "peak_memory_gib": round(peak, 3)}
+        t0 = time.perf_counter()
+        parle.mean_row(state).cpu().numpy().tofile(deploy_path(deploy_dir,
+                                                               job))
+        refs[job]["deploy_write_s"] = round(time.perf_counter() - t0, 2)
+        del state
+    _release()
     torch.use_deterministic_algorithms(False)
     print(json.dumps({"shard_refs": {
         "13b": refs["13b"],
         "13c": {k: full[k] for k in ("losses", "eval_loss", "round_wall_s",
                                      "peak_memory_gib")},
-        "13c_refs_wall_s": refs["13c"]["wall_s"]}}), flush=True)
+        "13c_refs_wall_s": refs["13c"]["wall_s"],
+        **{job: refs[job] for job in MEGATRON_JOBS}}}), flush=True)
     return refs
 
 
-def _shard_job(device, rank, spec, extra) -> dict:
+def _shard_job(device, rank, spec, extra, argv=None, cfg=None,
+               deploy=None) -> dict:
     """One job of a phase-13 rank: the train CLI's run() under ``--mesh
-    spec``; what the parent compares and prints."""
+    spec`` (``argv``, ``cfg``: default phase 13's Mamba2 run with
+    ``extra``); what the parent compares and prints, the counters by
+    axis after the last round among it (``train_by_axis``), and with
+    ``deploy`` (the one-process deployable's file, ``n`` replicas) the
+    :func:`deployable_err` of the final state."""
     obs = Obs(trace_out=os.devnull)    # spans kept in memory, never saved
     torch.cuda.reset_peak_memory_stats(device)
     reset_launches()
+    rounds = []
     losses, walls, state, eval_loss, _ = _train_once(
-        device, shard_argv(extra=[*extra, "--mesh", spec]), cfg=ckpt_cfg(),
-        obs=obs)
+        device, argv or shard_argv(SHARD_13B_STEPS,
+                                   [*extra, "--mesh", spec]),
+        cfg=cfg or ckpt_cfg(), obs=obs, rounds=rounds)
     launches = {name: getattr(mod, attr)
                 for name, (mod, attr) in COUNTERS.items()}
     peak = torch.cuda.max_memory_allocated(device)
@@ -3875,8 +3990,15 @@ def _shard_job(device, rank, spec, extra) -> dict:
            "numel": lay.numel, "live": sum(lay.sizes),
            "full_numel": lay.full.numel,
            "by_axis": collective_counts_by_axis(obs.registry),
+           "train_by_axis": {a: {op: list(v) for op, v in ops.items()}
+                             for a, ops in rounds[-1].items()},
            "syncs": _sync_records(obs.tracer.events),
            "peak_memory_gib": round(peak / 2 ** 30, 3)}
+    if deploy is not None:
+        t0 = time.perf_counter()
+        out["deploy_err"] = deployable_err(spec, deploy[1], state,
+                                           deploy[0])
+        out["deploy_check_s"] = round(time.perf_counter() - t0, 2)
     del state
     _release()
     return out
@@ -3920,12 +4042,13 @@ def moe_columns_rank_job(device, rank) -> dict:
     M, m = axes["model"], mesh.coords["model"]
     block = moe.init_moe_params(torch.Generator(device=device).manual_seed(0),
                                 cfg)
-    lo, hi = moe.split(cfg.num_experts, M, m)
-    flo, fhi = moe.split(cfg.shared_expert_d_ff, M, m)
+    lo, hi = megatron.split(cfg.num_experts, M, m)
+    flo, fhi = megatron.split(cfg.shared_expert_d_ff, M, m)
     B, T = MOE_COLUMNS_TOKENS
     x = torch.randn((B, T, cfg.d_model), device=device,
                     generator=torch.Generator(device=device).manual_seed(1))
     ep_cfg = dataclasses.replace(cfg, moe_impl="shard_map")
+    tp = megatron.TensorParallel(M, m, mesh)
 
     def forward(block, x):
         sp = block["shared"]
@@ -3936,31 +4059,72 @@ def moe_columns_rank_job(device, rank) -> dict:
                           "w_down": sp["w_down"][flo:fhi]}}
         with torch.no_grad():
             flat, _ = moe.moe_forward(block, cfg, x)
-            with moe.expert_parallel(moe.ExpertParallel(M, m, mesh)):
+            with megatron.tensor_parallel(tp):
                 got, _ = moe.moe_forward(own, ep_cfg, x)
         torch.cuda.synchronize(device)
         return _max_err(got, flat), bool(torch.allclose(got, flat,
                                                          **GROUPED_TOL))
+
+    def grads(block, x):
+        """The grads of sum(y * w) / (B T) + aux (w N(0, 1), seed 2)
+        through the flat forward and through the column sum: the
+        largest difference of x's, the router's, and the rank's experts'
+        and shared ff's; whether each is within GROUPED_TOL."""
+        w = torch.randn(x.shape, device=device, dtype=x.dtype,
+                        generator=torch.Generator(device=device)
+                        .manual_seed(2)) / (B * T)
+        # leaves sharing the block's storage: only the grads are new
+        leaf = lambda t: t.detach().requires_grad_(True)  # noqa: E731
+        full, xf = tree_map(leaf, block), leaf(x)
+        y, aux = moe.moe_forward(full, cfg, xf)
+        (torch.sum(y * w) + aux).backward()
+        sp = full["shared"]
+        own = {"router": leaf(block["router"]),
+               **{k: leaf(block[k][lo:hi])
+                  for k in ("w_gate", "w_up", "w_down")},
+               "shared": {"w_gate": leaf(block["shared"]["w_gate"]
+                                         [:, flo:fhi]),
+                          "w_up": leaf(block["shared"]["w_up"][:, flo:fhi]),
+                          "w_down": leaf(block["shared"]["w_down"]
+                                         [flo:fhi])}}
+        xo = leaf(x)
+        with megatron.tensor_parallel(tp):
+            y, aux = moe.moe_forward(own, ep_cfg, xo)
+        (torch.sum(y * w) + aux).backward()
+        pairs = [(xo.grad, xf.grad), (own["router"].grad,
+                                      full["router"].grad)]
+        pairs += [(own[k].grad, full[k].grad[lo:hi])
+                  for k in ("w_gate", "w_up", "w_down")]
+        pairs += [(own["shared"]["w_gate"].grad, sp["w_gate"].grad[:, flo:fhi]),
+                  (own["shared"]["w_up"].grad, sp["w_up"].grad[:, flo:fhi]),
+                  (own["shared"]["w_down"].grad, sp["w_down"].grad[flo:fhi])]
+        torch.cuda.synchronize(device)
+        return (max(_max_err(a, b) for a, b in pairs),
+                all(bool(torch.allclose(a, b, **GROUPED_TOL))
+                    for a, b in pairs))
 
     err32, close32 = forward(block, x)
     by_axis = {a: {op: list(v) for op, v in ops.items()} for a, ops in
                collective_counts_by_axis(mesh.obs.registry).items()}
     block = tree_map(lambda t: t.double(), block)
     err64, close64 = forward(block, x.double())
+    gerr64, gclose64 = grads(block, x.double())
     out = {"rank": rank, "model": m, "experts": [lo, hi],
            "shared_ff": [flo, fhi], "max_abs_err_f32": err32,
            "allclose_f32": close32, "max_abs_err_f64": err64,
-           "allclose_f64": close64, "by_axis": by_axis,
+           "allclose_f64": close64, "grad_max_abs_err_f64": gerr64,
+           "grads_allclose_f64": gclose64, "by_axis": by_axis,
            "wall_s": round(time.perf_counter() - t0, 2)}
     del block, x
     _release()
     return out
 
 
-def shard_rank_main(rank, world, port, out_q, ckpt_dir):
+def shard_rank_main(rank, world, port, out_q, ckpt_dir, deploy_dir):
     """One rank of phase 13, a spawned process: join the gloo world of
-    four, run 13b and 13c's jobs under deterministic algorithms, and put
-    the results on ``out_q``."""
+    four, run 13b, 13c, 13d, 13e (held to the deployable rows under
+    ``deploy_dir``) and 14e's jobs under deterministic algorithms, and
+    put the results on ``out_q``."""
     import traceback
     # four ranks of ~16-19 GB each share the card
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
@@ -3973,8 +4137,14 @@ def shard_rank_main(rank, world, port, out_q, ckpt_dir):
                                 rank=rank, world_size=world)
         spec, extra, _ = SHARD_JOBS["13b"]
         res = {"13b": _shard_job(device, rank, spec, extra),
-               "13c": shard_ckpt_rank_jobs(device, ckpt_dir),
-               "14e": moe_columns_rank_job(device, rank)}
+               "13c": shard_ckpt_rank_jobs(device, ckpt_dir)}
+        # after 13c: by then 13a's launcher (beside) has left the card
+        for job, (_, _, mesh, n, *_) in MEGATRON_JOBS.items():
+            res[job] = _shard_job(device, rank, mesh, (),
+                                  argv=megatron_argv(job, mesh),
+                                  cfg=megatron_cfg(job),
+                                  deploy=(deploy_path(deploy_dir, job), n))
+        res["14e"] = moe_columns_rank_job(device, rank)
         out_q.put((rank, res, None))
     except BaseException:            # reported to the parent, then raised
         out_q.put((rank, None, traceback.format_exc()))
@@ -4003,8 +4173,12 @@ def shard_ckpt_beside(device, ckpt_dir, procs) -> dict:
                         Obs(trace_out=os.devnull), fields=("x",))
     finally:
         torch.use_deterministic_algorithms(False)
+    nbytes = os.path.getsize(path)
+    # the ranks opened it as their resume began; its 10.3 GB may sit in
+    # the host's /dev/shm while they run 13d / 13e
+    os.remove(path)
     return {"leaf_digests": digests, "digest_s": round(digest_s, 1),
-            "bytes": os.path.getsize(path), "one": one}
+            "bytes": nbytes, "one": one}
 
 
 def _kill_workers(port) -> None:
@@ -4177,8 +4351,9 @@ def shard_13b_report(results, ref, smi) -> dict:
         want_bytes = r["numel"] + r["numel"] // 256
         syncs = [s for s in r["syncs"] if s["axis"] == "replica"
                  and s["bytes"] > 64 and s["op"] == "all_gather"]
-        check(len(syncs) >= 2 and all(s["bytes"] == want_bytes
-                                     for s in syncs[:2]),
+        rounds = SHARD_13B_STEPS // 2
+        check(len(syncs) >= rounds and all(s["bytes"] == want_bytes
+                                          for s in syncs[:rounds]),
               f"13b rank {rank}: replica-axis syncs "
               f"{[s['bytes'] for s in syncs]}, expected {want_bytes}")
         print(json.dumps({
@@ -4203,6 +4378,77 @@ def shard_13b_report(results, ref, smi) -> dict:
     print(f"shard 13b ({spec}): every rank within {max(errs):.3e} of one "
           f"process's losses; launches a rank {out['launches_per_rank']}",
           flush=True)
+    return out
+
+
+def shard_megatron_report(results, refs, smi) -> dict:
+    """13d / 13e's gates: each rank's losses and eval loss (the split
+    ``parle.evaluate`` of the deployable) within SHARD_RTOL of the
+    one-process run, its blocks of the deployable within DEPLOY_TOL of
+    the one-process row, K1 / K2 launched as counted; each rank's bytes
+    by axis and op over its training rounds, step wall and peak memory
+    printed, 13d's step beside the gathered row's."""
+    out = {}
+    for job, (arch, layers, mesh, n, steps, want) in MEGATRON_JOBS.items():
+        expected = {k: want.get(k, 0) for k in COUNTERS}
+        ref, errs = refs[job], []
+        for rank in range(SHARD_WORLD):
+            r = results[rank][job]
+            check(r["launches"] == expected, f"{job} rank {rank}: "
+                  f"launches {r['launches']}, expected {expected}")
+            err = max(abs(a / b - 1)
+                      for a, b in zip(r["losses"], ref["losses"]))
+            errs.append(err)
+            check(len(r["losses"]) == steps and err <= SHARD_RTOL,
+                  f"{job} rank {rank}: losses {r['losses']} vs one "
+                  f"process's {ref['losses']}: max rel err {err:.3e} > "
+                  f"{SHARD_RTOL}")
+            eval_err = abs(r["eval_loss"] / ref["eval_loss"] - 1)
+            check(eval_err <= SHARD_RTOL, f"{job} rank {rank}: eval loss "
+                  f"{r['eval_loss']} vs one process's {ref['eval_loss']}: "
+                  f"rel err {eval_err:.3e} > {SHARD_RTOL}")
+            dep_err, dep_ok = r["deploy_err"]
+            check(dep_ok, f"{job} rank {rank}: its blocks of the "
+                  f"deployable off one process's by {dep_err:.3e}, beyond "
+                  f"{DEPLOY_TOL}")
+            print(json.dumps({
+                "shard_job": job, "rank": rank, "coords": r["coords"],
+                "losses": r["losses"], "eval_loss": r["eval_loss"],
+                "eval_rel_err": eval_err, "deployable_max_abs_err": dep_err,
+                "deploy_check_s": r["deploy_check_s"],
+                "round_wall_s": r["round_wall_s"],
+                "step_wall_s": [w / 2 for w in r["round_wall_s"]],
+                "collective_bytes_by_axis": r["train_by_axis"],
+                "seconds_by_axis": _seconds_by_axis(r["syncs"]),
+                "shard_numel": r["numel"], "full_numel": r["full_numel"],
+                "peak_memory_gib": r["peak_memory_gib"], "card": smi}),
+                flush=True)
+        r0 = results[0][job]
+        out[job] = {
+            "mesh": mesh, "losses": r0["losses"], "ref_losses": ref["losses"],
+            "max_rel_loss_err": max(errs),
+            "eval_loss": [results[r][job]["eval_loss"]
+                          for r in range(SHARD_WORLD)],
+            "ref_eval_loss": ref["eval_loss"],
+            "deployable_max_abs_err": max(
+                results[r][job]["deploy_err"][0] for r in range(SHARD_WORLD)),
+            "step_wall_s": [[w / 2 for w in results[r][job]["round_wall_s"]]
+                            for r in range(SHARD_WORLD)],
+            "ref_step_wall_s": [w / 2 for w in ref["round_wall_s"]],
+            "peak_memory_gib": [results[r][job]["peak_memory_gib"]
+                                for r in range(SHARD_WORLD)],
+            "ref_peak_memory_gib": ref["peak_memory_gib"],
+            "train_by_axis": r0["train_by_axis"],
+            "seconds_by_axis": _seconds_by_axis(r0["syncs"])}
+        steady = min(w for ws in out[job]["step_wall_s"] for w in ws)
+        print(f"shard {job} ({arch} at {layers} layers, {mesh}): every rank "
+              f"within {max(errs):.3e} of one process's losses; steady "
+              f"step {steady:.3f} s (one process "
+              f"{min(out[job]['ref_step_wall_s']):.3f} s"
+              + (f"; on the gathered row {GATHERED_ROW_STEP_S[0]}-"
+                 f"{GATHERED_ROW_STEP_S[1]} s" if job == "13d" else "")
+              + f"); peak {max(out[job]['peak_memory_gib'])} GiB a rank",
+              flush=True)
     return out
 
 
@@ -4311,12 +4557,23 @@ def shard_phase(device, smi) -> dict:
     card over loopback gloo, not a multi-card figure."""
     t0 = time.perf_counter()
     _release()
-    refs = shard_reference_phase(device)
+    # 13d's and 13e's one-process deployables (3.1 and 3.4 GB), on disk
+    deploy_dir = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    try:
+        return _shard_phase(device, smi, t0, deploy_dir)
+    finally:
+        shutil.rmtree(deploy_dir, ignore_errors=True)
+
+
+def _shard_phase(device, smi, t0, deploy_dir) -> dict:
+    refs = shard_reference_phase(device, deploy_dir)
     phase(f"13. axes inside a replica: four gloo ranks on the one card, "
           f"13b {SHARD_JOBS['13b'][0]} int8 through K1/K4/K5, then 13c's "
           f"checkpoint under {SHARD_CKPT_SAVE} resumed under "
-          f"{SHARD_CKPT_RESUME} and (beside) in one process; 13a's pod "
-          "launcher beside them")
+          f"{SHARD_CKPT_RESUME} and (beside) in one process, then the "
+          f"Megatron split: 13d {MEGATRON_JOBS['13d'][2]} and 13e "
+          f"{MEGATRON_JOBS['13e'][2]} through K1/K2; 13a's pod launcher "
+          "beside them")
     free = torch.cuda.mem_get_info(device)[0]
     print(f"shard: free device memory before the ranks "
           f"{free / 2 ** 30:.3f} GiB", flush=True)
@@ -4326,6 +4583,7 @@ def shard_phase(device, smi) -> dict:
     try:
         results, beside = _run_ranks(
             shard_rank_main, SHARD_WORLD, SHARD_TIMEOUT_S, ckpt_dir,
+            deploy_dir,
             beside=lambda procs: shard_ckpt_beside(device, ckpt_dir, procs))
     except BaseException:               # a rank failed: no pod outlives it
         launcher["proc"].kill()
@@ -4338,6 +4596,7 @@ def shard_phase(device, smi) -> dict:
            "13c": shard_13c_report(results, beside, refs["13c"], where,
                                    smi),
            "13a": finish_shard_launcher(launcher, smi)}
+    out.update(shard_megatron_report(results, refs, smi))
     out["14e"] = [results[r]["14e"] for r in range(SHARD_WORLD)]
     out["ranks_wall_s"] = round(ranks_s, 1)
     out["phase_wall_s"] = round(time.perf_counter() - t0, 1)
@@ -4434,7 +4693,9 @@ def dryrun_mesh_check(shard, smi) -> dict:
     """14b: the dry run at 13a's mesh (replica:2,model:2, Mamba2-1.3B at 2
     layers, f32): 4 train_inner and 2 parle_sync = 13a's counters by
     axis and op (rank 0's, read from its metrics); the predicted shard
-    (padded) is the gather's bytes a call, its blocks the all-reduce's."""
+    (padded) is the gather's bytes a call, its blocks the all-reduce's.
+    At 13d's mesh (Qwen2.5-3B at 2 layers split over "model"), the
+    same programs = 13d's "model" collectives and sync all-reduces."""
     spec = SHARD_JOBS["13a"][0]
     recs = _dry_records(ckpt_cfg(), spec, DRY_TRAIN, precision="f32")
     predicted = _by_axis([(recs["train_inner"], 4), (recs["parle_sync"], 2)])
@@ -4453,11 +4714,23 @@ def dryrun_mesh_check(shard, smi) -> dict:
     calls, nbytes = got["replica"]["all_reduce"]
     check(live * 4 * calls == nbytes, f"14b: predicted blocks {live} x 4 B "
           f"x {calls} != 13a's all-reduces {nbytes} B")
+    # 13d: the split's collectives, rank 0's over its training rounds
+    # (the round-fused CLI gathers its losses once a round, the dry run's
+    # train_inner once a step: the replica axis is held by its sync)
+    spec = MEGATRON_JOBS["13d"][2]
+    recs = _dry_records(megatron_cfg("13d"), spec, DRY_TRAIN,
+                        precision="f32")
+    split = _by_axis([(recs["train_inner"], 4), (recs["parle_sync"], 2)])
+    got = shard["13d"]["train_by_axis"]
+    check(split["model"] == got["model"]
+          and split["replica"]["all_reduce"] == got["replica"]["all_reduce"],
+          f"14b: predicted at 13d's mesh {split} != 13d's {got}")
     out = {"by_axis": predicted, "shard_numel": layout.numel,
-           "block_elements": live}
+           "block_elements": live, "13d_by_axis": split}
     print(f"14b: predicted = 13a's counters by axis and op {predicted}; a "
           f"rank's row (K1's) {layout.numel} elements, {live} of them its "
-          "blocks", flush=True)
+          f"blocks; at 13d's mesh the predicted 'model' collectives "
+          f"{split['model']} and the sync's = 13d's", flush=True)
     print(json.dumps({"14b": out, "card": smi}), flush=True)
     return out
 
@@ -4538,18 +4811,24 @@ def dryrun_moe_ranks_check(shard, smi) -> dict:
     for r in shard["14e"]:
         check(r["allclose_f64"], f"14e rank {r['rank']}: the float64 column "
               f"sum is {r['max_abs_err_f64']} from its flat forward")
+        check(r["grads_allclose_f64"], f"14e rank {r['rank']}: the float64 "
+              f"grads through the column sum are "
+              f"{r['grad_max_abs_err_f64']} from the flat dispatch's")
         check(r["by_axis"] == predicted, f"14e rank {r['rank']}: counters "
               f"{r['by_axis']} != the dry run's {predicted}")
     out = {"predicted": predicted, "ranks": shard["14e"]}
     errs = {k: max(r[k] for r in shard["14e"])
-            for k in ("max_abs_err_f32", "max_abs_err_f64", "wall_s")}
+            for k in ("max_abs_err_f32", "max_abs_err_f64",
+                      "grad_max_abs_err_f64", "wall_s")}
     print(f"14e: 4 ranks, each model pair's column sum = its flat forward "
           f"within {GROUPED_TOL} in float64 (max abs err "
           f"{errs['max_abs_err_f64']:.3e}; float32 "
           f"{errs['max_abs_err_f32']:.3e}, within the tolerance on "
           f"{sum(r['allclose_f32'] for r in shard['14e'])} of 4 ranks); one "
           f"float32 all-reduce of {B * T * cfg.d_model * 4} B over 'model' a "
-          f"rank = the dry run's prediction; {errs['wall_s']} s a rank",
+          f"rank = the dry run's prediction; the float64 grads through the "
+          f"sum = the flat dispatch's (max abs err "
+          f"{errs['grad_max_abs_err_f64']:.3e}); {errs['wall_s']} s a rank",
           flush=True)
     print(json.dumps({"14e": out, "card": smi}), flush=True)
     return out
@@ -5257,9 +5536,9 @@ def quickstart_phase(t_start) -> dict:
     return out
 
 
-# the reference's default steps of Table 1 (n = 3, seeds 0-2), Table 2
-# and Fig. 1; the Parle family's L
-TABLE1_STEPS, TABLE2_STEPS, FIG1_STEPS, PAPER_L = 600, 400, 400, 25
+# half the reference's default steps of Table 1 (n = 3, seed 0 here),
+# Table 2 and Fig. 1, for the script's time limit; the Parle family's L
+TABLE1_STEPS, TABLE2_STEPS, FIG1_STEPS, PAPER_L = 300, 200, 200, 25
 
 
 def _parle_launches(steps, runs=1) -> dict:
@@ -5281,7 +5560,7 @@ def _print_rows(script, lines, smi) -> None:
 
 
 def _table1_bitwise(device) -> dict:
-    """Table 1's seed 0 at its default steps twice, through K1 / K2 / K7
+    """Table 1's seed 0 at TABLE1_STEPS twice, through K1 / K2 / K7
     and through their plain versions, under deterministic algorithms: the
     four deployables and their errors equal bit for bit, each kernel
     launched once a step (K2 once every L) and the plain run launching
@@ -5343,8 +5622,9 @@ def _llm_resume_check(res, path) -> None:
 
 def paper_phase(device, smi, t_start) -> dict:
     """Phase 9: the paper's experiments and the examples on the card.
-    Table 1 (seed 0 bitwise against the plain path, then seeds 1 and 2),
-    Table 2 and Fig. 1 at the reference's default steps through K1, K2
+    Table 1 (seed 0 bitwise against the plain path; its seeds 1 and 2
+    are left out for the script's time),
+    Table 2 and Fig. 1 at half the reference's default steps through K1, K2
     and K7 (launches checked, every row printed beside the card), then
     split_data (its assert), train_llm_parle at its defaults (the mean
     loss of the last tenth of the steps is below the first tenth's; the
@@ -5352,17 +5632,11 @@ def paper_phase(device, smi, t_start) -> dict:
     serve_batched on mamba2-1.3b and windowed llama3-8b (no port kernel
     on either path: launches checked)."""
     phase(f"9. the paper on the card: Table 1 ({TABLE1_STEPS} steps, n=3, "
-          f"seeds 0-2), Table 2 ({TABLE2_STEPS}), Fig. 1 ({FIG1_STEPS}) "
+          f"seed 0), Table 2 ({TABLE2_STEPS}), Fig. 1 ({FIG1_STEPS}) "
           "through K1, K2, K7; split_data, train_llm_parle, serve_batched")
     t0 = time.perf_counter()
     walls = {}
     per_seed = [_table1_bitwise(device)]
-    for seed in (1, 2):
-        reset_launches()
-        per_seed.append(table1_baselines.run_one(TABLE1_STEPS, 3, seed,
-                                                 device, use_kernel=True))
-        launch_counts(**sum(map(Counter, TABLE1_LAUNCHES.values()),
-                            Counter()))
     table1 = table1_baselines.report(table1_baselines.summarize(per_seed),
                                      TABLE1_STEPS)
     _print_rows("table1", table1, smi)

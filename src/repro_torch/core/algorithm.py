@@ -36,9 +36,13 @@ n=1, §2.1/§3), ``elastic_sgd`` (Eq. 7, coupled every step) and ``sgd``
                                 for one every rank holds whole; with
                                 ``params``, the planner form (a Spec
                                 tree a field, ``sharding/partition.py``)
+  deployable_row(state, group=None)
+                             -> the single servable model as one row
+                                (Parle: the mean over every rank's rows;
+                                under axes inside a replica, the rank's
+                                blocks of it)
   deployable(state, group=None)
-                             -> the single servable param tree (Parle:
-                                the mean over every rank's rows)
+                             -> that row as a param tree of whole leaves
   diagnostics(state, group=None)
                              -> dict of host floats (gamma, rho, overlap,
                                 spread, where the algorithm has them;
@@ -74,6 +78,14 @@ def resolve_lr_schedule(cfg, lr_schedule=None):
         return sgd.step_decay_schedule(1.0, cfg.lr_drop_steps,
                                        cfg.lr_drop_factor)
     return None
+
+
+def _deployable(algo, state, group=None) -> dict:
+    """``algo.deployable_row`` as a param tree of whole leaves (under
+    axes inside a replica, its blocks gathered from the in-replica
+    ranks)."""
+    return parle.full_tree(algo.deployable_row(state, group), state.layout,
+                           group)
 
 
 def _replica_diagnostics(flat, group=None) -> dict:
@@ -164,8 +176,10 @@ class ParleAlgorithm:
             specs["c"] = None
         return specs
 
-    def deployable(self, state, group=None):
-        return parle.average_model(state, group)
+    def deployable_row(self, state, group=None):
+        return parle.mean_row(state, group)
+
+    deployable = _deployable
 
     def diagnostics(self, state, group=None) -> dict:
         return {"gamma": float(state.scopes.gamma),
@@ -265,9 +279,11 @@ class ElasticSGDAlgorithm:
         return {"x": replica_axis, "v": replica_axis, "ref": None,
                 "step": None, "scopes": None}
 
-    def deployable(self, state, group=None):
+    def deployable_row(self, state, group=None):
         # ref is on every rank (its blocks, inside a replica)
-        return elastic_sgd.average_model(state, group)
+        return state.ref
+
+    deployable = _deployable
 
     def diagnostics(self, state, group=None) -> dict:
         return {"rho": float(state.scopes.rho),
@@ -326,8 +342,10 @@ class SGDAlgorithm:
             return partition.sgd_state_pspecs(params, axis_sizes)
         return {"params": None, "v": None, "step": None}
 
-    def deployable(self, state, group=None):
-        return parle.full_tree(state.params, state.layout, group)
+    def deployable_row(self, state, group=None):
+        return state.params
+
+    deployable = _deployable
 
     def diagnostics(self, state, group=None) -> dict:
         del state, group

@@ -67,13 +67,16 @@ leaf of its replicas' rows (``utils/pytree.py::ShardedLayout``, as the
 sharding planner assigns them), so every buffer is shard-sized and the
 kernels run on the rank's flat shard buffers unchanged (int8 chunks
 follow the shard layout).  A replica's grads (:class:`ShardGrads`)
-gather its y blocks into ONE reused full row, take the grads there on
-the rank's rows of the batch, and reduce-scatter them back to the shard
-(a SUM over "data", then a division by D; over "model" each rank takes
-its own blocks).  The Eq. (8d) sync rides the replica
-subgroup at shard size.  With ``data:1`` every rank computes the whole
-replica on the same full row as one process does, so the f32 trajectory
-is the single-process one bit for bit.
+gather its y blocks over "data" into ONE reused compute row — the rank's
+model column of each leaf the Megatron split cuts for a dense or moe
+replica (``models/megatron.py``), the full row for every other family —
+take the grads there on the rank's rows of the batch, and reduce-scatter
+them back to the shard (a SUM over "data", then a division by D).  The
+Eq. (8d) sync rides the replica subgroup at shard size.  A family the
+split does not reach, with ``data:1``, has every rank compute the whole
+replica on the same full row as one process does, so its f32 trajectory
+is the single-process one bit for bit; a split replica's partial sums
+over "model" hold it within float tolerance.
 
 Per-replica grads come from a Python loop over the replicas
 (:func:`replica_grads`, shared with Elastic-SGD and SGD: only one
@@ -91,6 +94,8 @@ import torch
 
 from repro_torch.core import compress
 from repro_torch.core.scoping import Scopes, init_scopes, update_scopes
+from repro_torch.models import megatron
+from repro_torch.models.megatron import TensorParallel
 from repro_torch.sharding.partition import (active, check_divisible,
                                             in_replica, layout_for,
                                             make_sharded_step_fn,
@@ -502,30 +507,59 @@ class GradBuffer:
         return self.buf
 
 
+def split_context(mesh, cfg, split: bool) -> Optional[TensorParallel]:
+    """The tensor-parallel context of a replica of ``cfg`` on ``mesh`` (a
+    ``MeshGroups`` with an axis inside a replica; ``split``: its data
+    ranks take different rows of the batch), or None: the replica is not
+    split and no moe dispatch spans data ranks."""
+    if cfg is None or not megatron.splits_family(cfg):
+        return None
+    M = mesh.model_size if mesh.ctx.policy != "dp_only" else 1
+    D = mesh.data_size if split else 1
+    if M == 1 and (D == 1 or cfg.family != "moe"):
+        return None
+    return TensorParallel(M, mesh.model_index if M > 1 else 0, mesh, D)
+
+
 class ShardGrads:
     """:func:`replica_grads` under axes inside a replica (``mesh``, a
     ``MeshGroups``): ``rows`` are the shard rows of the rank's local
     replicas (``layout``, a ``ShardedLayout``), ``batch`` each replica's
     whole batch (leaves (k, B, ...)), ``out`` their shard grad rows (k,
     numel), or for SGD (``out`` (numel,)) the sum of the k rows' grads at
-    the one row ``rows[0]``.
+    the one row ``rows[0]``.  The grads are taken on the rank's rows of
+    the batch (``MeshGroups.data_rows``: its 1/D over "data" when D
+    divides B, else all of them); ``weight_decay * decay_rows[a]`` is
+    added on the shard.  Returns the (k,) losses, averaged over the data
+    ranks when they took different rows.
 
-    For each replica: its blocks are gathered into ONE reused full row
+    Over "model", a dense or moe replica is SPLIT (``models/megatron.py``,
+    read from the ``cfg`` the loss carries): each replica's blocks are
+    gathered over "data" only into ONE reused compute row of the rank's
+    model column of each split leaf (``MeshGroups.gather_columns``,
+    ``utils/pytree.py::ColumnLayout``: about 1/M of the row), the forward
+    and backward run there under the tensor-parallel context, and the
+    leaf grads go straight to the shard (``MeshGroups.
+    reduce_column_grads``: the leaves read in part of a whole summed over
+    "model", then summed over the data ranks and divided by D when they
+    took different rows).  Every other family, and a replica with no
+    "model" axis, gathers each replica's blocks into ONE reused full row
     (the FlatLayout of ``layout.full``, so the forward reads the same
-    leaf views as one process), the grads are taken there on the rank's
-    rows of the batch (``MeshGroups.data_rows``: its 1/D over "data"
-    when D divides B, else all of them), and autograd's leaf grads go
-    straight to the shard: summed over the data ranks and divided by D
-    when they took different rows, else the rank's own blocks.
-    ``weight_decay * decay_rows[a]`` is added on the shard.  Returns the
-    (k,) losses, averaged over the data ranks when they took different
-    rows.  The full row is the only model-size buffer beside autograd's
-    grads (SGD sums its k grads in one full grad row); no full params
-    stay resident between calls of the forward."""
+    leaf views as one process) and every "model" rank computes the whole
+    replica there; a moe replica on a "data" axis runs its dispatch
+    over the whole batch there too (the context's ``data``).  The compute
+    row is the only model-size buffer beside autograd's grads (SGD sums
+    its k grads); no params stay resident between calls."""
 
     def __init__(self, mesh):
         self.mesh = mesh
-        self.row, self.grad = GradBuffer(), GradBuffer()
+        self.row = GradBuffer()
+        self._clay = (None, None, None)
+
+    def column_layout(self, layout, cfg):
+        if self._clay[:2] != (layout, cfg):
+            self._clay = (layout, cfg, self.mesh.column_layout(layout, cfg))
+        return self._clay[2]
 
     def __call__(self, loss_fn, layout, rows, batch, out,
                  weight_decay: float = 0.0, decay_rows=None):
@@ -535,31 +569,48 @@ class ShardGrads:
         split = sel != slice(None)
         batch = {name: v[:, sel] for name, v in batch.items()}
         rows = list(rows)
-        full = self.row.get((layout.full.numel,), rows[0].dtype,
-                            rows[0].device)
-        if out.dim() == 1:                  # SGD: k shards at one row
-            gfull = self.grad.get((layout.full.numel,), out.dtype,
-                                  out.device)
-            mesh.gather_blocks(rows[0], full, layout)
-            losses = replica_grads(loss_fn, layout.full, [full] * k, batch,
-                                   gfull)
-            mesh.reduce_grads(gfull, out, layout, split)
-            return mesh.data_mean_(losses, split)
-        losses = []
+        cfg = getattr(loss_fn, "cfg", None)
+        tp = split_context(mesh, cfg, split)
+        if tp is not None and tp.columns > 1:
+            clay = self.column_layout(layout, cfg)
+            crow = self.row.get((clay.flat.numel,), rows[0].dtype,
+                                rows[0].device)
+            gather = lambda r: mesh.gather_columns(r, crow, clay)  # noqa
+            take = lambda g, o: mesh.reduce_column_grads(  # noqa: E731
+                g, o, clay, split)
+            flat = clay.flat
+        else:
+            crow = self.row.get((layout.full.numel,), rows[0].dtype,
+                                rows[0].device)
+            gather = lambda r: mesh.gather_blocks(r, crow, layout)  # noqa
+            take = lambda g, o: mesh.reduce_grads(  # noqa: E731
+                g, o, layout, split)
+            flat = layout.full
+        sgd = out.dim() == 1            # SGD: k shards at one row
+        losses, acc = [], None
         for a, r in enumerate(rows):
-            mesh.gather_blocks(r, full, layout)
-            row = full.detach().requires_grad_(True)
-            params, leaves = layout.full.split_leaves(row)
-            loss, _ = loss_fn(params, {name: v[a]
-                                       for name, v in batch.items()})
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            if a == 0 or not sgd:
+                gather(r)
+            row = crow.detach().requires_grad_(True)
+            params, leaves = flat.split_leaves(row)
+            with megatron.tensor_parallel(tp):
+                loss, _ = loss_fn(params, {name: v[a]
+                                           for name, v in batch.items()})
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             grads = [torch.zeros_like(l) if g is None else g
                      for l, g in zip(leaves, grads)]
-            mesh.reduce_grads(grads, out[a], layout, split)
-            del grads, params, leaves, row
+            losses.append(loss.detach())
+            del params, leaves, row
+            if sgd:
+                acc = grads if acc is None else [
+                    s.add_(g) for s, g in zip(acc, grads)]
+                continue
+            take(grads, out[a])
+            del grads
             if weight_decay:
                 out[a].add_(weight_decay * decay_rows[a])
-            losses.append(loss.detach())
+        if sgd:
+            take(acc, out)
         return mesh.data_mean_(torch.stack(losses), split)
 
 
@@ -947,15 +998,38 @@ def make_async_apply_fn(cfg, lr_schedule=None):
     return apply
 
 
+def mean_row(state: ParleState, group=None) -> torch.Tensor:
+    """The mean of the replicas' x rows; under a ``group``, of all n (one
+    all-reduce), the rank's blocks of it under axes inside a replica."""
+    rg = active(group)
+    return (replica_mean(state.x) if rg is None else
+            rg.mean_rows(state.x, segments=state.layout.segments))
+
+
 def average_model(state: ParleState, group=None) -> dict:
     """The deployable single model: mean of replicas (what the paper
     evaluates after scoping collapses the ensemble); under a ``group``,
     of all n (one all-reduce); under axes inside a replica, the mean's
     blocks gathered into full leaves on every rank."""
-    rg = active(group)
-    mean = (replica_mean(state.x) if rg is None else
-            rg.mean_rows(state.x, segments=state.layout.segments))
-    return full_tree(mean, state.layout, group)
+    return full_tree(mean_row(state, group), state.layout, group)
+
+
+def evaluate(loss_fn, row, layout, group, batch):
+    """``loss_fn``'s value at one model row (``row``: a rank's blocks of
+    it under axes inside a replica) on ``batch``, no grad.  A replica
+    split over "model" (:class:`ShardGrads`) evaluates split too: its
+    column of the row gathered over "data" only, every rank on the whole
+    batch; anything else on the full tree (:func:`full_tree`)."""
+    mesh = in_replica(group)
+    cfg = getattr(loss_fn, "cfg", None)
+    tp = split_context(mesh, cfg, False) if mesh is not None else None
+    with torch.no_grad():
+        if tp is None or tp.columns == 1:
+            return loss_fn(full_tree(row, layout, group), batch)[0]
+        clay = mesh.column_layout(layout, cfg)
+        crow = mesh.gather_columns(row, row.new_zeros(clay.flat.numel), clay)
+        with megatron.tensor_parallel(tp):
+            return loss_fn(clay.flat.tree(crow), batch)[0]
 
 
 def full_tree(row, layout, group=None) -> dict:

@@ -263,7 +263,7 @@ def run_worker(args) -> list:
     obs = Obs(args.metrics_out, args.trace_out, pid=proc,
               process_name=f"pod-worker{proc}")
     cfg = _model_config(args)
-    check_in_replica(args, cfg)
+    check_in_replica(args)
     model = build_model(cfg)
     algo = registry.get(args.algo)
     spec = _mesh_spec(args)
@@ -788,7 +788,7 @@ def main(argv=None, cfg=None) -> int:
             run_worker(args)
         return 0
     cfg = cfg or _model_config(args)
-    check_in_replica(args, cfg)
+    check_in_replica(args)
     if args.sync_policy == "async":
         return _run_async_pod(args, cfg)
 

@@ -16,19 +16,21 @@ reference's:
   and the sync, as separate programs — the sync's bytes amortize over L
   inner steps): the rank holds its planner blocks of its replicas'
   state (``MeshGroups`` / ``ShardedLayout``) and the replica's whole
-  batch; ``train_inner`` gathers the replica's row, runs the forward and
-  backward over the rank's "data" rows on full weights, reduce-scatters
-  the grads to its blocks and applies the Parle update there;
-  ``parle_sync`` is the mean over the replica axis on its blocks (no
-  collective on a mesh of one replica).  Each model rank computes the
-  whole replica (ROADMAP.md queue 1 item 6a): FLOPs are not divided over
-  "model", and temp holds the gathered row;
+  batch; ``train_inner`` gathers the replica's blocks over "data" into
+  the rank's column (a dense or moe replica, split over "model" as
+  ``models/megatron.py`` says: its FLOPs about 1/M of the replica's)
+  or into the whole row (every other family: each model rank computes
+  the whole replica), runs the forward and backward over the rank's
+  "data" rows, reduce-scatters the grads to its blocks and applies the
+  Parle update there; ``parle_sync`` is the mean over the replica axis
+  on its blocks (no collective on a mesh of one replica);
 * prefill / decode: the rank's "data" rows of the batch and of the cache
   (``cache_pspecs``' "data" entry; its "model" entry is not applied, as
   each model rank computes the whole replica) on full weights.  Under
   ``--moe-impl shard_map`` each MoE block computes the rank's column of
   the experts and sums the columns over "model"
-  (``models/moe.py::moe_forward_shard_map``).
+  (``models/moe.py::moe_forward_split`` under a context that splits
+  only the experts, ``models/megatron.py``).
 
 Per program it records:
 
@@ -50,9 +52,8 @@ Per program it records:
 * ``roofline``: compute, memory and collective seconds at the H100's
   rates (below), and the dominant one.
 
-Where the port refuses a pair on a mesh (a moe architecture training
-with a data axis above 1: ROADMAP.md item 6a), its record carries
-``refused`` and no numbers.  The steps take ``use_kernel=False`` and
+Every pair runs, moe training on a data axis included (the batch's one
+flat dispatch, ``models/moe.py::moe_forward_split``).  The steps take ``use_kernel=False`` and
 ``use_flash=False``, as the reference's dry run does, so nothing
 touches CUDA: this runs on any host.
 """
@@ -79,7 +80,7 @@ from repro_torch.core import parle as parle_mod
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import specs as specs_lib
 from repro_torch.launch import steps as steps_lib
-from repro_torch.launch.train import MOE_DATA_AXIS
+from repro_torch.models import megatron
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.model import build_model
 from repro_torch.obs import Obs
@@ -121,24 +122,24 @@ OPTIONS = {"policy": "fsdp_tp", "remat": True, "moe_groups": 0,
 EXTRAPOLATED_ARCHS = {"musicgen-large": 2}
 
 DESIGN_TRAIN = (
-    "each model rank computes its data rows of the whole replica: FLOPs "
-    "are not divided over 'model' (ROADMAP.md item 6a); temp holds the "
-    "replica's gathered row and autograd's grads of its leaves; the batch "
-    "argument is the replica's whole batch, of which the rank takes its "
-    "'data' rows")
+    "a dense or moe replica is split over 'model' (models/megatron.py): "
+    "the rank computes its column of each split product on its 'data' "
+    "rows, its FLOPs about 1/M of the replica's, temp holding its column "
+    "of the row and autograd's grads of its leaves; the other families "
+    "compute the whole replica on every model rank, on the gathered row; "
+    "a moe replica on a 'data' axis runs the batch's one flat dispatch, "
+    "each rank's expert buffer at the batch's capacity, so up to D times "
+    "the rows it can fill (ROADMAP.md item 6g); "
+    "the batch argument is the replica's whole batch, of which the rank "
+    "takes its 'data' rows")
 DESIGN_SERVE = (
     "full weights on every rank; the rank's 'data' rows of the batch and "
     "of the cache (cache_pspecs' 'model' entry not applied: each model "
-    "rank computes the whole replica, ROADMAP.md item 6a)")
+    "rank computes the whole replica; only training splits it)")
 DESIGN_SHARD_MAP = (
     "each MoE block computes the rank's column of the experts, then one "
     "all-reduce over 'model'")
 UNFUSED = "bytes accessed: eager, unfused aten ops"
-
-
-class Refused(Exception):
-    """A pair the port does not run on a mesh; the message names its
-    ROADMAP.md item."""
 
 
 @dataclass
@@ -176,7 +177,7 @@ def _expert_parallel(cfg, axes, group):
     M = axes.get(MODEL, 1)
     if cfg.family != "moe" or cfg.moe_impl != "shard_map" or M == 1:
         return None
-    return moe_mod.ExpertParallel(M, 0, group)
+    return megatron.TensorParallel(M, 0, group, experts_only=True)
 
 
 def _spec(mesh) -> str:
@@ -185,24 +186,11 @@ def _spec(mesh) -> str:
     return ",".join(f"{a}:{s}" for a, s in (mesh or {}).items())
 
 
-def train_refusal(cfg, mesh) -> Optional[str]:
-    """Why the port does not train ``cfg`` on ``mesh`` (None: it does)."""
-    axes = _axes(mesh)
-    if cfg.family == "moe" and axes.get(DATA, 1) > 1:
-        return MOE_DATA_AXIS.format(spec=f"--mesh {_spec(mesh)}")
-    if _expert_parallel(cfg, axes, None) is not None:
-        return moe_mod.MEGATRON_BACKWARD
-    return None
-
-
 def build_train_programs(cfg, mesh, shape_info, n_replicas=None,
                          precision="bf16"):
     """[Program] of the Parle training path: train_inner and parle_sync
     of rank 0, its state and batch on ``meta``."""
     axes = _axes(mesh)
-    refusal = train_refusal(cfg, mesh)
-    if refusal:
-        raise Refused(refusal)
     n = n_replicas or axes[replica_axis_of(axes)]
     pcfg = ParleConfig(n_replicas=n, lr=0.1, lr_inner=0.1,
                        precision=precision)
@@ -399,7 +387,7 @@ def analyze_one(prog: Program, num_chips: int, mflops=0.0) -> dict:
     meter = _Meter(arg_keys)
     t0 = time.perf_counter()
     with FlopCounterMode(display=False) as fc, meter, (
-            moe_mod.expert_parallel(prog.ep) if prog.ep is not None
+            megatron.tensor_parallel(prog.ep) if prog.ep is not None
             else contextlib.nullcontext()):
         out = prog.fn(*prog.args)
     trace_s = time.perf_counter() - t0
@@ -489,35 +477,28 @@ def run_pair(arch: str, shape_name: str, multi_pod: bool, verbose=True,
            "num_chips": num_chips, "programs": []}
     extrapolate = arch in EXTRAPOLATED_ARCHS
     L0 = EXTRAPOLATED_ARCHS.get(arch, 2)
-    try:
-        if extrapolate:
-            recs = {}
-            for L in (L0, 2 * L0):
-                c = dataclasses.replace(cfg, num_layers=L)
-                mf = model_flops(c, info, info["kind"])
-                recs[L] = [analyze_one(p, num_chips, mflops=(
-                    mf if p.tag != "parle_sync" else 0.0))
-                    for p in build_programs(c, spec, shape_name)]
-            combined = _combine_extrapolated(recs[L0], recs[2 * L0], L0,
-                                             cfg.num_layers, num_chips)
-            # model_flops must reflect the REAL depth
-            for rec in combined:
-                if rec.get("model_flops"):
-                    rec["model_flops"] = model_flops(cfg, info, info["kind"])
-                    rec["model_flops_ratio"] = (rec["model_flops"] /
-                                                rec["flops_total"])
-            out["programs"] = combined
-        else:
-            for p in build_programs(cfg, spec, shape_name):
-                mf = (model_flops(cfg, info, info["kind"])
-                      if p.tag != "parle_sync" else 0.0)
-                out["programs"].append(analyze_one(p, num_chips, mflops=mf))
-    except Refused as e:
-        out["refused"] = str(e)
-        if verbose:
-            print(f"  [{out['mesh']}] {arch} x {shape_name} :: refused "
-                  f"({str(e)[:100]}...)", flush=True)
-        return out
+    if extrapolate:
+        recs = {}
+        for L in (L0, 2 * L0):
+            c = dataclasses.replace(cfg, num_layers=L)
+            mf = model_flops(c, info, info["kind"])
+            recs[L] = [analyze_one(p, num_chips, mflops=(
+                mf if p.tag != "parle_sync" else 0.0))
+                for p in build_programs(c, spec, shape_name)]
+        combined = _combine_extrapolated(recs[L0], recs[2 * L0], L0,
+                                         cfg.num_layers, num_chips)
+        # model_flops must reflect the REAL depth
+        for rec in combined:
+            if rec.get("model_flops"):
+                rec["model_flops"] = model_flops(cfg, info, info["kind"])
+                rec["model_flops_ratio"] = (rec["model_flops"] /
+                                            rec["flops_total"])
+        out["programs"] = combined
+    else:
+        for p in build_programs(cfg, spec, shape_name):
+            mf = (model_flops(cfg, info, info["kind"])
+                  if p.tag != "parle_sync" else 0.0)
+            out["programs"].append(analyze_one(p, num_chips, mflops=mf))
     if verbose:
         for rec in out["programs"]:
             print(roofline_line(out, rec), flush=True)

@@ -55,12 +55,14 @@ reference train CLI's ``fsdp_tp`` policy), gathers a replica's weights
 for its forward and backward and reduce-scatters its grads, its
 replica's batch split over "data" when D divides ``--batch``; the
 kernels run on the shard buffers and the sync rides the replica axis at
-shard size.  Each model rank computes the whole replica (the products
-are not split over "model": ROADMAP.md queue 1 item 6a).  Refused on
-such a mesh, with the ROADMAP.md item that ports them: a moe
-architecture with ``data`` above 1 (its flat dispatch's capacity and aux
-loss are batch-global: item 6a) and ``--sync-policy async`` (item
-6d).
+shard size.  A dense or moe replica is split over "model" as Megatron-LM
+splits it (``models/megatron.py``: each rank computes its heads, its ff
+and experts, its vocab of the head, on its column of each leaf); the
+other families compute the whole replica on every model rank.  A moe
+replica on a "data" axis runs the batch's one flat dispatch (the
+capacity and aux loss of the whole batch).  ``--sync-policy async`` is
+refused on such a mesh, as the reference refuses it on any (ROADMAP.md
+item 6d).
 
 Params are drawn from a ``torch.Generator`` seeded by ``--seed`` on the
 training device (not the reference's init: its float draws go through
@@ -97,7 +99,7 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import ParleConfig, get_config, smoke_variant
-from repro_torch.core import registry
+from repro_torch.core import parle, registry
 from repro_torch.core.parle import dealias_state   # any algorithm's state
 from repro_torch.core.algorithm import validate_replicas
 from repro_torch.data.synthetic import (TokenStream, make_round_batch_fn,
@@ -239,26 +241,12 @@ def make_group(args, pcfg, obs):
     return group
 
 
-# a moe architecture with a data axis inside a replica (also the dry
-# run's refusal of such a training pair)
-MOE_DATA_AXIS = (
-    "{spec}: a moe architecture with a data axis above 1 is not ported yet "
-    "(ROADMAP.md queue 1, item 6a): on a data axis the reference runs the "
-    "flat dispatch at the global batch's capacity, with one batch-global "
-    "aux loss, where a rank here would dispatch its own rows at their own "
-    "capacity (the grouped dispatch has a capacity per group, not the "
-    "global one either); 'model' alone works")
-
-
-def check_in_replica(args, cfg):
-    """The paths not ported on a mesh with an axis inside a replica exit
-    naming the ROADMAP.md item that ports them."""
+def check_in_replica(args):
+    """The async policy on a mesh with an axis inside a replica exits, as
+    the reference's does (ROADMAP.md item 6d)."""
     inner = mesh_mod.inner_axes(args.mesh) if args.mesh else {}
     if not inner:
         return
-    spec = f"--mesh {args.mesh}"
-    if cfg.family == "moe" and inner.get("data", 1) > 1:
-        raise SystemExit(MOE_DATA_AXIS.format(spec=spec))
     if args.sync_policy == "async":
         raise SystemExit(ASYNC_IN_REPLICA.format(axes=",".join(inner)))
 
@@ -290,7 +278,7 @@ def run(args, cfg, device, obs, pre_round=None, on_round=None):
     go to ``RoundRunner.run_rounds`` (``--round-fused``).  Under
     ``--mesh`` the state holds this rank's replicas."""
     pin_float32()
-    check_in_replica(args, cfg)
+    check_in_replica(args)
     policy = resolve_train_policy(args)
     model = build_model(cfg)
     algo = registry.get(args.algo)
@@ -364,9 +352,11 @@ def run(args, cfg, device, obs, pre_round=None, on_round=None):
             tokens_per_step=args.batch * args.seq * k,
             progress_every=args.log_every, progress=progress)
 
-    with obs.tracer.span("eval") as sp, torch.no_grad():
-        loss, _ = model.loss(algo.deployable(state, group),
-                             stream.batch(10_000_019))   # held-out step
+    with obs.tracer.span("eval") as sp:
+        # the deployable at a held-out step; a replica split over "model"
+        # evaluates split (no rank gathers the whole row)
+        loss = parle.evaluate(model.loss, algo.deployable_row(state, group),
+                              state.layout, group, stream.batch(10_000_019))
         sp.block(loss)
     rec = obs.emit("train_final", final_eval_loss=round(float(loss), 4),
                    algo=args.algo, arch=cfg.name,

@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.models import megatron
 from repro_torch.models.layers import apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -146,9 +147,63 @@ def _attn_full(params, cfg, x, positions, use_flash=False):
 def attn_forward(params, cfg, x, positions, use_flash=False):
     """Full-sequence (training / prefill) attention.
 
-    x: (B, T, d); positions: (B, T) int32.  Returns (B, T, d).
+    x: (B, T, d); positions: (B, T) int32.  Returns (B, T, d).  Under a
+    tensor-parallel context that splits the heads, the rank's heads
+    (:func:`_attn_split`).
     """
+    tp = megatron.current()
+    if tp is not None and megatron.splits_attention(cfg, tp.columns):
+        return _attn_split(params, cfg, x, positions, tp, use_flash)
     return _attn_full(params, cfg, x, positions, use_flash=use_flash)[0]
+
+
+def _attn_split(params, cfg, x, positions, tp, use_flash=False):
+    """Column ``tp.column`` of attention split over ``tp.columns`` "model"
+    ranks: the rank's H/M query heads, the KV heads they read, and its
+    H/M · hd rows of ``wo``; the partial output summed over "model".
+
+    The KV heads: where M divides KV, the column of ``wk`` / ``wv`` holds
+    exactly the rank's KV heads.  Where it does not (GQA with fewer KV
+    heads than ranks), a column of ``wk`` / ``wv`` may end mid-head, so
+    every rank's K / V columns are GATHERED over "model" (one all-gather
+    of the (B, T, 2 KV hd / M) activations, entered through ``copy`` so
+    that the backward sums each rank's use of a head) and the rank takes
+    its heads; a ``wk`` / ``wv`` held whole (M does not divide KV hd) is
+    read at the rank's heads, its grads summed over "model"
+    (``ColumnLayout``'s ``summed``)."""
+    B, T, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    M, m = tp.columns, tp.column
+    Hm, G = H // M, H // KV
+    k0, k1 = m * Hm // G, ((m + 1) * Hm - 1) // G + 1   # its KV heads
+    xc = tp.copy(x)
+    q = xc @ tp.cols(params["wq"], H * hd, -1)
+    if cfg.qkv_bias:
+        q = q + tp.cols(params["bq"], H * hd, -1)
+
+    def proj(name):
+        w, b = params["w" + name], params.get("b" + name)
+        if KV % M == 0 or w.shape[-1] != KV * hd:    # the rank's columns
+            return xc @ tp.cols(w, KV * hd, -1) + (
+                tp.cols(b, KV * hd, -1) if b is not None else 0)
+        cols = slice(k0 * hd, k1 * hd)               # its heads of a whole
+        return xc @ w[:, cols] + (b[cols] if b is not None else 0)
+
+    k, v = proj("k"), proj("v")
+    if KV % M and params["wk"].shape[-1] != KV * hd:
+        kv = tp.copy(tp.gather(torch.cat([k, v], -1), -1))
+        kv = kv.reshape(B, T, M, 2, KV * hd // M).transpose(2, 3)
+        kv = kv.reshape(B, T, 2, KV * hd)[..., k0 * hd:k1 * hd]
+        k, v = kv.unbind(2)
+    q = apply_rope(q.reshape(B, T, Hm, hd), positions, cfg.rope_theta)
+    k = apply_rope(k.reshape(B, T, k1 - k0, hd), positions, cfg.rope_theta)
+    v = v.reshape(B, T, k1 - k0, hd)
+    heads = torch.arange(m * Hm, (m + 1) * Hm, device=x.device) // G - k0
+    mask = causal_mask(T, T, window=cfg.sliding_window, device=x.device)
+    o = attention_core(q, k[:, :, heads], v[:, :, heads], mask,
+                       use_flash=use_flash, window=cfg.sliding_window)
+    return tp.reduce(o.reshape(B, T, Hm * hd)
+                     @ tp.cols(params["wo"], H * hd, -2))
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.float32,

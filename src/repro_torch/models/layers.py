@@ -104,6 +104,44 @@ def chunked_cross_entropy(h, head_w, labels, chunk: int = 512,
     return total / (B * T * (num_streams or 1))
 
 
+def _chunk_nll_sum_vocab(hc, head_w, lc, tp, lo: int):
+    """:func:`_chunk_nll_sum` of the rank's V/M logits (vocab ids
+    [lo, lo + V/M)): the max and the sum of exponentials taken over
+    "model" (the max all-reduced without grad, the sum and the target
+    logit, which only its holder has, in one all-reduce)."""
+    logits = (hc @ head_w).float()                      # (B, c, V/M)
+    shift = tp.max_(logits.detach().amax(-1).contiguous())
+    local = lc.long() - lo
+    mine = (local >= 0) & (local < logits.shape[-1])
+    gold = logits.gather(-1, local.clamp(0, logits.shape[-1] - 1)[..., None])
+    part = torch.stack([torch.exp(logits - shift[..., None]).sum(-1),
+                        gold[..., 0] * mine])
+    sumexp, gold = tp.reduce(part).unbind(0)
+    return (shift + torch.log(sumexp) - gold).sum()
+
+
+def vocab_parallel_cross_entropy(h, head_w, labels, tp, vocab: int,
+                                 chunk: int = 512):
+    """:func:`chunked_cross_entropy` over a head split over "model" (the
+    tensor-parallel context ``tp``): ``head_w`` (d, V/M) is the column of
+    vocab ids ``tp.part(vocab)``.  ``h`` enters the split region once
+    (its grads summed over "model" in one all-reduce); each chunk runs
+    under ``torch.utils.checkpoint``, as there, so one chunk's V/M logits
+    are held for the backward, and its recompute repeats the chunk's two
+    all-reduces."""
+    lo, _ = tp.part(vocab)
+    h = tp.copy(h)
+    B, T = h.shape[:2]
+    if T % chunk:
+        chunk = T
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, T, chunk):
+        total = total + checkpoint(_chunk_nll_sum_vocab, h[:, i:i + chunk],
+                                   head_w, labels[:, i:i + chunk], tp, lo,
+                                   use_reentrant=False)
+    return total / (B * T)
+
+
 def cross_entropy(logits, labels, mask=None):
     """Mean next-token CE.  logits: (..., V); labels: (...,) int."""
     logits = logits.float()

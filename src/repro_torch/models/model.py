@@ -39,7 +39,9 @@ from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import mamba2 as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models import vlm as vlm_mod
-from repro_torch.models.layers import chunked_cross_entropy
+from repro_torch.models import megatron
+from repro_torch.models.layers import (chunked_cross_entropy,
+                                       vocab_parallel_cross_entropy)
 
 
 @dataclass(frozen=True)
@@ -125,14 +127,28 @@ def with_cache_positions(cache, pos):
     return cache._replace(**repl)
 
 
+def lm_cross_entropy(params, cfg, h, labels):
+    """The LM head's T-chunked CE of the hidden states ``h``; under a
+    tensor-parallel context that splits the head (an untied one),
+    vocab-parallel.  A tied head is read whole on every rank."""
+    tp = megatron.current()
+    if tp is not None and megatron.splits_head(cfg, tp.columns):
+        return vocab_parallel_cross_entropy(
+            h, tp.cols(params["head"], cfg.vocab_size, -1), labels, tp,
+            cfg.vocab_size)
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return chunked_cross_entropy(h, head, labels)
+
+
 def _lm_loss(hidden_fn, cfg):
     """Hidden states + T-chunked CE: the (B, T, V) logits tensor is
-    never materialized whole."""
+    never materialized whole.  The loss carries its ``cfg`` (the
+    training step under a mesh reads it for the Megatron split)."""
     def loss(params, batch):
         h, aux = hidden_fn(params, batch)
-        head = params["embed"].T if cfg.tie_embeddings else params["head"]
-        ce = chunked_cross_entropy(h, head, batch["labels"])
+        ce = lm_cross_entropy(params, cfg, h, batch["labels"])
         return ce + aux, {"ce": ce, "aux": aux}
+    loss.cfg = cfg
     return loss
 
 

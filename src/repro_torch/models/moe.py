@@ -21,23 +21,33 @@ three functions do:
   ``_capacity(B T / G)`` and its own dump row.  It equals the flat
   dispatch only where nothing is dropped.  The reference's sharding
   constraints on each stage have no eager meaning and are dropped;
-* the expert-parallel dispatch (``cfg.moe_impl == "shard_map"`` under an
-  :func:`expert_parallel` context, :func:`moe_forward_shard_map`):
-  column m of M computes the experts ``split(E, M, m)`` (the reference's
-  [m E/M, (m+1) E/M) where M divides E) at ``_capacity(B T)``, slots of
-  the other columns' experts go to a dump bucket, the shared expert's ff
-  dimension is split over the columns the same way, and the column's
-  partial output is summed over the context's "model" ranks
-  (``MeshGroups.model_sum_``, counted as ``pod.collective_bytes{op=
-  "all_reduce", axis="model"}``).  Each expert's bucket keeps the flat
+* the expert-parallel dispatch (``cfg.moe_impl == "shard_map"`` under
+  ``models/megatron.py``'s tensor-parallel context,
+  :func:`moe_forward_split`): column m of M computes the experts
+  ``split(E, M, m)`` (the reference's [m E/M, (m+1) E/M) where M divides
+  E) at ``_capacity(B T)``, slots of the other columns' experts go to a
+  dump bucket, the shared expert's ff dimension is split over the
+  columns the same way, and the column's partial output is summed over
+  the context's "model" ranks (``MeshGroups.reduce_from_model``, counted
+  as ``pod.collective_bytes{op="all_reduce", axis="model"}``; the tokens
+  and gates enter through ``copy_to_model``, so a backward sums their
+  grads over the ranks).  Each expert's bucket keeps the flat
   dispatch's token order, so the M columns sum to the flat dispatch at
   any capacity, up to the order of that sum.  Without a group the
   column's partial comes back as it is (the dry run counts one column;
-  tests sum M of them).  A backward through the sum across ranks
-  raises: the grads of a product split over "model" are the Megatron
-  half of ROADMAP.md queue 1 item 6a.  With no context set, the
-  shard_map setting takes the grouped or flat dispatch, as the
-  reference does when its ambient mesh is None.
+  tests sum M of them).  With no context set, the shard_map setting
+  takes the grouped or flat dispatch, as the reference does when its
+  ambient mesh is None.
+
+The training step under a mesh runs :func:`moe_forward_split` under the
+same context: the columns where M divides E (any M under shard_map),
+and on a "data" axis the batch's ONE flat dispatch — the capacity of
+all the batch's tokens, each rank's slots placed after those of the
+ranks before it, the aux loss batch-global — exactly as the
+reference's flat dispatch runs on the global batch under pjit.  Each
+rank's expert buffer is sized at that global capacity (at most its own
+slots, ``min(C, S)``), so at D "data" ranks it computes up to D times
+the rows it can fill (ROADMAP.md item 6g).
 
 The reference scatters tokens into the buffer and scatter-adds the
 results back.  Here both directions are gathers: buffer row (e, c) reads
@@ -52,20 +62,10 @@ kernel.
 """
 from __future__ import annotations
 
-import contextlib
-import contextvars
-from dataclasses import dataclass
-from typing import Optional
-
 import torch
 
+from repro_torch.models import megatron
 from repro_torch.models.layers import dense_init, silu
-
-MEGATRON_BACKWARD = (
-    "a backward through the expert-parallel MoE's sum over the 'model' "
-    "ranks is not ported yet: the grads of a product split over 'model' "
-    "come with the Megatron half of ROADMAP.md queue 1, item 6a (the "
-    "forward across ranks works)")
 
 
 def init_moe_params(generator, cfg, dtype=torch.float32, layers=()):
@@ -94,46 +94,6 @@ def _capacity(num_tokens: int, cfg) -> int:
     return max(8, (c + 7) // 8 * 8)   # pad to a multiple of 8
 
 
-def split(size: int, parts: int, index: int):
-    """[lo, hi) of part ``index`` of ``size`` items in ``parts`` nearly
-    equal parts, the first ``size % parts`` one larger."""
-    base, extra = divmod(size, parts)
-    lo = index * base + min(index, extra)
-    return lo, lo + base + (index < extra)
-
-
-@dataclass(frozen=True)
-class ExpertParallel:
-    """Where the expert-parallel dispatch runs: column ``column`` of
-    ``columns`` (the "model" axis), and ``group``, the ``MeshGroups``
-    whose "model" ranks hold the other columns (None: the column's
-    partial output is returned unsummed)."""
-
-    columns: int
-    column: int
-    group: Optional[object] = None
-
-    def experts(self, num_experts: int):
-        """[lo, hi) of the column's experts."""
-        return split(num_experts, self.columns, self.column)
-
-
-_EXPERT_PARALLEL = contextvars.ContextVar("expert_parallel", default=None)
-
-
-@contextlib.contextmanager
-def expert_parallel(ep: ExpertParallel):
-    """Run the ``moe_impl == "shard_map"`` MoE blocks called inside as
-    column ``ep.column`` of ``ep.columns``."""
-    if not 0 <= ep.column < ep.columns:
-        raise ValueError(f"column {ep.column} of {ep.columns}")
-    token = _EXPERT_PARALLEL.set(ep)
-    try:
-        yield ep
-    finally:
-        _EXPERT_PARALLEL.reset(token)
-
-
 def route(params, cfg, xf):
     """Router of ``xf`` (T, d): (probs (T, E) float32, renormalised gate
     values (T, K), expert ids (T, K) int64), the top-k in descending
@@ -146,22 +106,32 @@ def route(params, cfg, xf):
     return probs, gate_vals, expert_ids
 
 
-def _aux(cfg, probs, expert_ids):
+def _aux(cfg, probs, expert_ids, top1=None):
     """Switch-style load-balance loss over all tokens: mean router prob x
-    fraction routed (top-1)."""
+    fraction routed (top-1).  ``top1``: the (E,) top-1 fractions of the
+    whole batch where ``probs`` holds only this rank's rows (its mean
+    router probabilities carry the grad; the data ranks' mean of this
+    aux is the batch's)."""
     E = cfg.num_experts
-    experts = torch.arange(E, device=probs.device)
-    top1 = (expert_ids[:, :1] == experts).to(probs.dtype)      # (T, E)
-    return cfg.router_aux_weight * E * torch.sum(probs.mean(0) * top1.mean(0))
+    if top1 is None:
+        experts = torch.arange(E, device=probs.device)
+        top1 = (expert_ids[:, :1] == experts).to(probs.dtype).mean(0)
+    return cfg.router_aux_weight * E * torch.sum(probs.mean(0) * top1)
 
 
 def _dispatch(experts, cfg, xf, expert_ids, gate_vals, groups: int,
-              lo: int, C: int):
+              lo: int, C: int, before=None):
     """The routed output (T, d) of ``xf`` (T, d) through the expert stack
     ``experts`` (its w_gate / w_up / w_down: experts [lo, lo + n) of the
     E), with the T tokens in ``groups`` contiguous groups, each sorted
     and bucketed on its own at capacity ``C``.  Routings to an expert
-    outside the stack go to a dump bucket sorted last, and are dropped."""
+    outside the stack go to a dump bucket sorted last, and are dropped.
+
+    ``before`` (n,): the routed slots of tokens on the ranks before this
+    one in each expert's bucket (one group; ``xf`` the rank's tokens of a
+    batch split over "data"): a slot's place in its bucket is counted
+    from there, so tokens drop where the batch's one dispatch drops
+    them."""
     Tflat, d = xf.shape
     G, K = groups, cfg.top_k
     n = experts["w_gate"].shape[0]
@@ -181,7 +151,12 @@ def _dispatch(experts, cfg, xf, expert_ids, gate_vals, groups: int,
     starts = (counts[:, None, :]
               * (buckets[None, None, :] < buckets[None, :, None])).sum(2)
     pos = inv - torch.gather(starts, 1, local)                # in its bucket
-    keep = mine & (pos < C)
+    if before is None:
+        keep = mine & (pos < C)
+    else:
+        ahead = torch.cat([before, before.new_zeros(1)])[local]
+        keep = mine & (pos + ahead < C)
+        C = min(C, S)              # a rank's buffer holds its kept slots
 
     # buffer row (g, e, c) <- the token of sorted slot starts[g, e] + c
     c_idx = torch.arange(C, device=dev)
@@ -210,13 +185,14 @@ def _shared(sp, xf):
 
 
 def moe_forward(params, cfg, x):
-    """x: (B, T, d) -> (B, T, d), aux_loss scalar.  The expert-parallel
-    dispatch under ``cfg.moe_impl == "shard_map"`` and an
-    :func:`expert_parallel` context, else the grouped dispatch when
+    """x: (B, T, d) -> (B, T, d), aux_loss scalar.  Under a
+    tensor-parallel context (``models/megatron.py``: the training step
+    under a mesh, the expert-parallel dispatch), the split dispatch
+    (:func:`moe_forward_split`); else the grouped dispatch when
     ``cfg.moe_groups`` > 1, else the flat one."""
-    ep = _EXPERT_PARALLEL.get()
-    if cfg.moe_impl == "shard_map" and ep is not None:
-        return moe_forward_shard_map(params, cfg, x, ep)
+    tp = megatron.context()
+    if tp is not None:
+        return moe_forward_split(params, cfg, x, tp)
     if cfg.moe_groups > 1:
         return moe_forward_grouped(params, cfg, x)
     return _moe_forward_flat(params, cfg, x)
@@ -248,58 +224,79 @@ def _forward(params, cfg, x, groups: int):
     return y.reshape(B, T, d), aux
 
 
-def _column(stack, full: int, lo: int, hi: int, dim: int):
-    """A column's slice [lo, hi) along ``dim`` of ``stack``: the whole
-    of ``full`` items is sliced, the column's own ``hi - lo`` pass."""
-    size = stack.shape[dim]
-    if size == full:
-        return stack.narrow(dim, lo, hi - lo)
-    if size == hi - lo:
-        return stack
-    raise ValueError(f"an expert-parallel column [{lo}, {hi}) of {full} "
-                     f"takes {full} or {hi - lo} along dim {dim}, not "
-                     f"{size}")
+def moe_forward_split(params, cfg, x, tp):
+    """The MoE under a tensor-parallel context ``tp``, the batch's one
+    dispatch (flat, or grouped under ``cfg.moe_groups``; one group under
+    ``cfg.moe_impl == "shard_map"``), in two ways:
 
+    * over "model": the rank computes its E/M experts and its 1/M of the
+      shared expert's ff where M divides them (under shard_map, balanced
+      parts where it does not), the rest whole; the router runs whole on
+      every rank.  ``params`` hold every expert (and the whole shared
+      ff), or only the column's own;
+    * over "data" (``tp.data`` ranks, each with a contiguous slice of the
+      batch's rows): the flat dispatch at the capacity of the whole
+      batch's tokens, each routed slot placed in its expert's bucket
+      after the slots of the ranks before it (one all-gather over "data"
+      a layer of the (E,) slot counts, with the (E,) top-1 counts of the
+      aux loss); the grouped dispatch's groups each lie on one rank.
 
-def moe_forward_shard_map(params, cfg, x, ep: ExpertParallel):
-    """Column ``ep.column`` of the expert-parallel dispatch: x (B, T, d)
-    -> (its partial summed over ``ep.group``'s "model" ranks, or the
-    partial alone without a group), aux_loss.  ``params`` hold every
-    expert (and the whole shared ff), or only the column's own."""
+    The split parts take the tokens and the gates through ``tp.copy``
+    and their partial sums leave through ``tp.reduce``, so the router's
+    grads are whole on every rank."""
+    M = tp.columns
+    if cfg.moe_impl == "shard_map" and M > cfg.num_experts:
+        raise ValueError(f"{M} expert-parallel columns for "
+                         f"{cfg.num_experts} experts")
+    groups = 1 if cfg.moe_impl == "shard_map" else max(cfg.moe_groups, 1)
+    if tp.data > 1 and groups > 1:
+        if groups % tp.data:
+            raise ValueError(f"moe_groups={groups} groups do not split "
+                             f"over {tp.data} data ranks")
+        groups //= tp.data
+    split_experts = megatron.splits_experts(cfg, M)
+    split_shared = megatron.splits_shared(cfg, M)
     B, T, d = x.shape
     E = cfg.num_experts
-    if ep.columns > E:
-        raise ValueError(f"{ep.columns} expert-parallel columns for "
-                         f"{E} experts")
-    lo, hi = ep.experts(E)
     xf = x.reshape(B * T, d)
     probs, gate_vals, expert_ids = route(params, cfg, xf)
-    aux = _aux(cfg, probs, expert_ids)
-    experts = {k: _column(params[k], E, lo, hi, 0)
+    lo, hi = tp.part(E) if split_experts else (0, E)
+    top1 = before = None
+    tokens = B * T              # the tokens of one capacity's bucket
+    if tp.data > 1:
+        ids = torch.arange(E, device=x.device)
+        counts = torch.stack([
+            (expert_ids.reshape(-1)[:, None] == ids).sum(0),
+            (expert_ids[:, 0][:, None] == ids).sum(0)])
+        every = tp.group.data_gather(counts)                  # (D, 2, E)
+        top1 = every[:, 1].sum(0).to(probs.dtype) / (tokens * tp.data)
+        if groups == 1:
+            before = every[:tp.group.data_index, 0].sum(0)[lo:hi]
+            tokens *= tp.data
+    aux = _aux(cfg, probs, expert_ids, top1)
+    experts = {k: tp.cols(params[k], E, 0) if split_experts else params[k]
                for k in ("w_gate", "w_up", "w_down")}
-    y = _dispatch(experts, cfg, xf, expert_ids, gate_vals, 1, lo,
-                  _capacity(B * T, cfg))
+    xc = tp.copy(xf) if split_experts or split_shared else xf
+    partial = whole = None
+    routed = _dispatch(experts, cfg, xc if split_experts else xf,
+                       expert_ids,
+                       tp.copy(gate_vals) if split_experts else gate_vals,
+                       groups, lo, _capacity(tokens // groups, cfg), before)
+    if split_experts:
+        partial = routed
+    else:
+        whole = routed
     if cfg.num_shared_experts > 0:
-        sp = params["shared"]
-        sff = cfg.shared_expert_d_ff
-        flo, fhi = split(sff, ep.columns, ep.column)
-        y = y + _shared({"w_gate": _column(sp["w_gate"], sff, flo, fhi, 1),
-                         "w_up": _column(sp["w_up"], sff, flo, fhi, 1),
-                         "w_down": _column(sp["w_down"], sff, flo, fhi, 0)},
-                        xf)
-    if ep.group is not None:
-        y = _ModelSum.apply(y, ep.group)
+        sp, sff = params["shared"], cfg.shared_expert_d_ff
+        if split_shared:
+            sp = {"w_gate": tp.cols(sp["w_gate"], sff, -1),
+                  "w_up": tp.cols(sp["w_up"], sff, -1),
+                  "w_down": tp.cols(sp["w_down"], sff, -2)}
+            s = _shared(sp, xc)
+            partial = s if partial is None else partial + s
+        else:
+            s = _shared(sp, xf)
+            whole = s if whole is None else whole + s
+    y = tp.reduce(partial) if partial is not None else None
+    y = whole if y is None else (y if whole is None else y + whole)
     return y.reshape(B, T, d), aux
-
-
-class _ModelSum(torch.autograd.Function):
-    """The one collective of the expert-parallel dispatch: the columns'
-    partial outputs summed over the "model" ranks.  Forward only."""
-
-    @staticmethod
-    def forward(ctx, partial, group):
-        return group.model_sum_(partial.clone())
-
-    @staticmethod
-    def backward(ctx, grad):
-        raise NotImplementedError(MEGATRON_BACKWARD)

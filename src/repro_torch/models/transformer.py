@@ -27,6 +27,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn
+from repro_torch.models import megatron
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (dense_init, device_index, embed_init,
                                        rms_norm, swiglu)
@@ -105,13 +106,25 @@ def _remat(body, remat):
     if remat == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _dots_policy)
-    return lambda *args: checkpoint(body, *args, use_reentrant=False, **kw)
+    # the recompute runs the block under its forward's tensor-parallel
+    # context (autograd may run it on another thread)
+    return lambda *args: checkpoint(megatron.within(megatron.context(),
+                                                    body),
+                                    *args, use_reentrant=False, **kw)
 
 
 def _mlp(bp, cfg, u):
-    """(MLP output, the MoE's aux loss or None)."""
+    """(MLP output, the MoE's aux loss or None).  Under a tensor-parallel
+    context that splits the ff dim: gate and up column-parallel, down
+    row-parallel, the partial output summed over "model"."""
     if cfg.family == "moe":
         return moe_mod.moe_forward(bp["moe"], cfg, u)
+    tp = megatron.current()
+    if tp is not None and megatron.splits_mlp(cfg, tp.columns):
+        f, p = cfg.d_ff, bp["mlp"]
+        return tp.reduce(swiglu(tp.copy(u), tp.cols(p["w_gate"], f, -1),
+                                tp.cols(p["w_up"], f, -1),
+                                tp.cols(p["w_down"], f, -2))), None
     return swiglu(u, **bp["mlp"]), None
 
 
@@ -162,10 +175,20 @@ def _embed(params, tokens, extra_embeds):
     return x if extra_embeds is None else x + extra_embeds
 
 
+def embed_tokens(params, cfg, tokens):
+    """The token embeddings (B, T, d).  Under a tensor-parallel context
+    that splits d: the rank's d/M columns, gathered over "model"."""
+    tp = megatron.current()
+    if tp is not None and megatron.splits_embed(cfg, tp.columns):
+        return tp.gather(tp.cols(params["embed"], cfg.d_model, -1)[tokens],
+                         -1)
+    return params["embed"][tokens]
+
+
 def forward_hidden(params, cfg, tokens, use_flash=False, remat=False):
     """Returns (final-normed hidden (B, T, d), aux_loss)."""
     B, T = tokens.shape
-    x = params["embed"][tokens]
+    x = embed_tokens(params, cfg, tokens)
     h, aux = stack_forward(params, cfg, x, _positions(B, T, x.device),
                            use_flash=use_flash, remat=remat)
     return rms_norm(h, params["ln_f"], cfg.norm_eps), aux

@@ -28,10 +28,11 @@ from repro_torch.runtime import faults as faults_mod
 from repro_torch.sharding.partition import in_replica
 
 ASYNC_IN_REPLICA = (
-    "--sync-policy async with an axis inside a replica ({axes}) is not "
-    "ported yet (ROADMAP.md queue 1, item 6d): its workers are "
-    "single-process (the pod launcher's); use --sync-policy barrier or "
-    "overlap on this mesh")
+    "--sync-policy async with an axis inside a replica ({axes}) is refused "
+    "(ROADMAP.md queue 1, item 6d), as the reference refuses the async "
+    "policy on any mesh: its workers are single-process (the pod "
+    "launcher's) and build no mesh; use --sync-policy barrier or overlap "
+    "on this mesh")
 
 POLICY_NAMES = ("barrier", "overlap", "async")
 

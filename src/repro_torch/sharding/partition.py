@@ -81,7 +81,8 @@ import torch.distributed as dist
 from repro_torch.data.synthetic import data_rows
 from repro_torch.sharding import planner as planner_mod
 from repro_torch.sharding.rules import DATA, MODEL, Spec
-from repro_torch.utils.pytree import (FlatLayout, ShardedLayout, tree_map,
+from repro_torch.utils.pytree import (ColumnLayout, FlatLayout,
+                                      ShardedLayout, tree_map,
                                       tree_leaves_with_paths)
 
 def check_divisible(n_replicas: int, world: int, axis: str = "pod"):
@@ -149,11 +150,11 @@ class _Staged:
                     (t[i + 1] - t[i]) * 1e3)
 
     def _all_reduce(self, buf: torch.Tensor, pg, axis=None,
-                    segments=None) -> torch.Tensor:
-        """SUM-all-reduce the contiguous 1-D ``buf`` in place over ``pg``.
-        ``segments``: the (offset, size) spans that carry data — only they
-        move (packed into one buffer); the rest of ``buf`` is left as it
-        is."""
+                    segments=None, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """All-reduce (``op``, SUM by default) the contiguous 1-D ``buf``
+        in place over ``pg``.  ``segments``: the (offset, size) spans that
+        carry data — only they move (packed into one buffer); the rest of
+        ``buf`` is left as it is."""
         spans = segments if segments is not None else [(0, buf.numel())]
         total = sum(s for _, s in spans)
         whole = segments is None and buf.device.type == "cpu"
@@ -179,9 +180,41 @@ class _Staged:
                 at += s
 
         self._collective("all_reduce", total * buf.element_size(), d2h,
-                         lambda: dist.all_reduce(host, group=pg), h2d,
+                         lambda: dist.all_reduce(host, op=op, group=pg), h2d,
                          axis=axis)
         return buf
+
+    def _all_gather(self, t: torch.Tensor, pg, size: int, axis=None,
+                    key: str = "gather") -> torch.Tensor:
+        """Every rank's ``t`` over ``pg`` (``size`` ranks), stacked in
+        group rank order: ``(size, *t.shape)``, in ONE collective
+        (``key``: the staging buffers' role)."""
+        t = t.contiguous()
+        dev, numel = t.device, t.numel()
+        out = torch.empty((size,) + tuple(t.shape), dtype=t.dtype,
+                          device=dev)
+        send = (t.view(-1) if dev.type == "cpu" else
+                self._staging(dev, f"{key}_send", numel, t.dtype))
+        recv = (out.view(size, numel) if dev.type == "cpu" else
+                self._staging(dev, f"{key}_recv", size * numel,
+                              t.dtype).view(size, numel))
+
+        def d2h():
+            if dev.type != "cpu":
+                torch.cuda.current_stream(dev).synchronize()
+                send.copy_(t.view(-1))
+
+        def h2d():
+            if dev.type != "cpu":
+                out.view(size, numel).copy_(recv)
+
+        # moved as bytes: gloo gathers any dtype that way
+        self._collective(
+            "all_gather", numel * t.element_size(), d2h,
+            lambda: dist.all_gather(list(recv.view(torch.uint8).unbind(0)),
+                                    send.view(torch.uint8), group=pg),
+            h2d, axis=axis)
+        return out
 
 
 class ReplicaGroup(_Staged):
@@ -692,11 +725,114 @@ class MeshGroups:
 
     def model_sum_(self, t: torch.Tensor) -> torch.Tensor:
         """SUM-all-reduce the contiguous ``t`` in place over the ranks that
-        differ from this one only in "model" (the expert-parallel MoE's
-        partial outputs), counted on axis "model"."""
-        if self.axes.get(MODEL, 1) > 1:
+        differ from this one only in "model" (a split product's partial
+        sums), counted on axis "model"."""
+        if self.model_size > 1:
             self.inner._all_reduce(t.view(-1), self.model_pg, axis=MODEL)
         return t
+
+    # -- the Megatron split over "model" (models/megatron.py) ----------
+    @property
+    def model_size(self) -> int:
+        return self.axes.get(MODEL, 1)
+
+    @property
+    def model_index(self) -> int:
+        return self.coords.get(MODEL, 0)
+
+    def copy_to_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Identity forward; backward, the grad summed over "model" (one
+        all-reduce): the entry of a split region."""
+        return _CopyToModel.apply(x, self)
+
+    def reduce_from_model(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over "model" (one all-reduce) forward; identity
+        backward: the exit of a split region."""
+        return _ReduceFromModel.apply(x, self)
+
+    def gather_from_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every "model" rank's ``x`` concatenated along ``dim`` in "model"
+        order (one all-gather) forward; backward, this rank's slice of the
+        grad (the rest of the region reads the gathered tensor the same
+        on every "model" rank)."""
+        return _GatherFromModel.apply(x, self, dim)
+
+    def model_max_(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over "model" of the contiguous ``t``, in
+        place (no grad: a softmax's shift)."""
+        if self.model_size > 1:
+            self.inner._all_reduce(t.view(-1), self.model_pg, axis=MODEL,
+                                   op=dist.ReduceOp.MAX)
+        return t
+
+    def data_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every "data" rank's ``t`` of this rank's other coordinates,
+        stacked in "data" order: ``(D, *t.shape)``, one all-gather (no
+        grad: the MoE's per-rank expert counts)."""
+        if self.data_size == 1:
+            return t[None]
+        return self.inner._all_gather(t, self.data_pg, self.data_size,
+                                      axis=DATA)
+
+    def column_layout(self, layout: ShardedLayout, cfg) -> ColumnLayout:
+        """The :class:`~repro_torch.utils.pytree.ColumnLayout` of
+        ``layout`` (this rank's) for ``cfg``'s Megatron split."""
+        from repro_torch.models import megatron
+        dims = [megatron.leaf_split_dim(cfg, self.model_size, p)
+                for p in layout.paths]
+        return ColumnLayout(layout, dims, MODEL, DATA)
+
+    def gather_columns(self, local_row, row, clay: ColumnLayout):
+        """This rank's blocks of one replica (``local_row``) -> its compute
+        ``row`` (``clay.flat``): the data ranks' blocks (one all-gather
+        over "data"), then the columns of the leaves ``clay`` gathers
+        whole (one all-gather over "model", only where it has such
+        leaves)."""
+        if self.data_size > 1:
+            blocks = self.inner._all_gather(local_row, self.data_pg,
+                                            self.data_size, axis=DATA,
+                                            key="block")
+        else:
+            blocks = local_row[None]
+        clay.assemble(blocks, row)
+        if clay.gathered:
+            views = clay.flat.views(row)
+            mine = torch.cat([clay.column_of(i, views[i], self.model_index)
+                              .reshape(-1) for i in clay.gathered])
+            got = self.inner._all_gather(mine, self.model_pg,
+                                         self.model_size, axis=MODEL)
+            for m in range(self.model_size):
+                if m == self.model_index:
+                    continue
+                at = 0
+                for i in clay.gathered:
+                    dst = clay.column_of(i, views[i], m)
+                    dst.copy_(got[m, at:at + dst.numel()].view(dst.shape))
+                    at += dst.numel()
+        return row
+
+    def reduce_column_grads(self, grads, out, clay: ColumnLayout,
+                            split: bool):
+        """Autograd's grads of the compute leaves (``clay.flat`` order) ->
+        this rank's shard grad row ``out``: the leaves read in part of a
+        whole are summed over "model" (one all-reduce), then the blocks
+        go to their ranks as :meth:`reduce_grads` sends them (summed
+        over "data" and divided by D when ``split``)."""
+        if clay.sums and self.model_size > 1:
+            buf = torch.cat([grads[i].reshape(-1) for i in clay.sums])
+            self.model_sum_(buf)
+            grads = list(grads)
+            at = 0
+            for i in clay.sums:
+                n = grads[i].numel()
+                grads[i] = buf[at:at + n].view(grads[i].shape)
+                at += n
+        if split and self.data_size > 1:
+            return self.inner.reduce_scatter_blocks(
+                lambda j, buf: clay.blocks_of(grads, j, buf), out,
+                clay.sharded)
+        return clay.blocks_of(grads, clay.data_index.index(
+            clay.sharded.index), out)
 
     def data_mean_(self, values: torch.Tensor, split: bool) -> torch.Tensor:
         """Per-replica values (losses) of this rank's batch rows -> their
@@ -710,12 +846,26 @@ class MeshGroups:
 
 
 class _InReplica(_Staged):
-    """The collectives of a :class:`MeshGroups` inside one replica."""
+    """The collectives of a :class:`MeshGroups` inside one replica.  A
+    staging buffer above :attr:`PIN_LIMIT` bytes is pageable: PyTorch's
+    caching host allocator keeps every pinned block (its size rounded up
+    to a power of two) until the process ends, and a few ranks' gathered
+    rows would fill the host."""
+
+    PIN_LIMIT = 1 << 26
 
     def __init__(self, mesh: MeshGroups, obs):
         self.mesh = mesh
         self.axis = ",".join(mesh.inner_axes) or "none"
         self._init_staging(obs, mesh.dry)
+
+    def _host(self, key, numel: int, dtype) -> torch.Tensor:
+        if numel * dtype.itemsize <= self.PIN_LIMIT:
+            return super()._host(key, numel, dtype)
+        k = (key, numel, dtype)
+        if k not in self._pinned:
+            self._pinned[k] = torch.empty(numel, dtype=dtype)
+        return self._pinned[k]
 
     def gather_blocks(self, local_row, full_row, layout: ShardedLayout):
         m = self.mesh
@@ -743,19 +893,32 @@ class _InReplica(_Staged):
 
     def reduce_scatter_grads(self, full_grad, out, layout: ShardedLayout):
         m = self.mesh
-        D, numel, dev = m.data_size, layout.numel, out.device
         # rank j of the data group: this rank's coordinate with data = j
         mine = m.inner_coords[m.inner_index]
-        idx = [m.inner_coords.index({**mine, DATA: j}) for j in range(D)]
+        idx = [m.inner_coords.index({**mine, DATA: j})
+               for j in range(m.data_size)]
+        return self.reduce_scatter_blocks(
+            lambda j, buf: layout.blocks_of(full_grad, idx[j], buf), out,
+            layout)
+
+    def reduce_scatter_blocks(self, fill, out, layout: ShardedLayout):
+        """``fill(j, buf)`` writes the grads of the blocks of the rank at
+        "data" coordinate j into ``buf`` (a ``layout.numel`` row); they
+        are summed over "data" into this rank's ``out`` (one
+        reduce-scatter) and divided by D."""
+        m = self.mesh
+        D, numel, dev = m.data_size, layout.numel, out.device
+        # the buffers of the blocks' all-gather over "data" (a step uses
+        # both in turn)
         send = self._staging(dev, "block_recv", D * numel,
                              out.dtype).view(D, numel)
-        recv = self._staging(dev, "grad_recv", numel, out.dtype)
+        recv = self._staging(dev, "block_send", numel, out.dtype)
 
         def d2h():
             if dev.type != "cpu":
                 torch.cuda.current_stream(dev).synchronize()
-            for j, c in enumerate(idx):
-                layout.blocks_of(full_grad, c, send[j])
+            for j in range(D):
+                fill(j, send[j])
 
         def call():
             dist.reduce_scatter_tensor(recv, send.view(-1), group=m.data_pg)
@@ -769,6 +932,51 @@ class _InReplica(_Staged):
         self._collective("reduce_scatter", D * numel * out.element_size(),
                          d2h, call, h2d, axis=DATA)
         return out
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: identity forward, SUM all-reduce over "model" of the
+    grad backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.model_sum_(grad.contiguous().clone()), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g: SUM all-reduce over "model" forward, identity
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.model_sum_(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """All-gather over "model" along ``dim`` forward, the rank's slice of
+    the grad backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        dim = dim % x.dim()
+        ctx.mesh, ctx.dim, ctx.size = mesh, dim, x.shape[dim]
+        parts = mesh.inner._all_gather(x, mesh.model_pg, mesh.model_size,
+                                       axis=MODEL)
+        return torch.cat(parts.unbind(0), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad.narrow(ctx.dim, ctx.mesh.model_index * ctx.size,
+                            ctx.size), None, None)
 
 
 def replica_group(group) -> Optional[ReplicaGroup]:

@@ -250,3 +250,128 @@ class ShardedLayout:
         grads) into its shard grad row ``out`` (no reduction: the caller
         reduces over "data")."""
         return self.blocks_of(full_grads, self.index, out)
+
+
+class ColumnLayout:
+    """What a rank of a replica split over its M "model" ranks computes
+    with: its model column of each leaf the Megatron split cuts
+    (``models/megatron.py``), every other leaf whole, in one
+    :class:`FlatLayout` row (``flat``, the row the forward splits).  Its
+    blocks (a :class:`ShardedLayout`, ``sharded``) reach that row over
+    "data" only, except for the leaves whose module the split does not
+    reach while the planner splits them over "model".
+
+    ``split_dims[i]``: the dim of leaf i that the split cuts (None: read
+    whole).  Each leaf takes one of three modes:
+
+    * ``"col"``: split over "model" by the planner and by the compute on
+      the same dim: the rank's column (the full leaf with that dim cut to
+      1/M); its grads are the rank's own;
+    * ``"whole"``: held whole on every "model" rank (the planner does not
+      split it); when the compute reads only the column's part of it
+      (``summed``: the 1-D biases, a K/V projection M does not divide),
+      its grads are partial and are summed over "model";
+    * ``"gather"``: split over "model" by the planner, read whole by a
+      module the split does not reach: its columns are gathered over
+      "model", and every "model" rank's grads of it are the same.
+
+    ``mine``: this rank's index in ``sharded.coords``; ``data_index[j]``:
+    the index there of the rank at "data" coordinate j and this rank's
+    other coordinates; ``cslices[j][i]``: where that rank's block of leaf
+    i lies in the rank's compute leaf i."""
+
+    def __init__(self, sharded: ShardedLayout, split_dims, model_axis: str,
+                 data_axis: str):
+        self.sharded, self.paths = sharded, sharded.paths
+        sizes = sharded.ctx.axis_sizes
+        self.M = sizes.get(model_axis, 1)
+        coord = sharded.coords[sharded.index]
+        self.column = coord.get(model_axis, 0)
+        D = sizes.get(data_axis, 1)
+        self.data_index = [sharded.coords.index({**coord, data_axis: j})
+                           for j in range(D)] if data_axis in coord \
+            else [sharded.index]
+        self.modes, self.summed, self.kdims, shapes = [], [], [], []
+        for spec, shape, k in zip(sharded.specs, sharded.full.shapes,
+                                  split_dims):
+            dims = list(spec) + [None] * (len(shape) - len(spec))
+            if any(isinstance(a, tuple) and model_axis in a for a in dims):
+                raise ValueError(f"spec {spec}: the Megatron split reads "
+                                 f"one axis a dim")
+            held = dims.index(model_axis) if model_axis in dims else None
+            k = None if k is None else k % len(shape)
+            if k is None:
+                mode = "whole" if held is None else "gather"
+            elif held is None:
+                mode = "whole"
+            elif held == k:
+                mode = "col"
+            else:
+                raise ValueError(f"spec {spec} splits dim {held} over "
+                                 f"{model_axis!r}, the compute dim {k}")
+            self.modes.append(mode)
+            self.summed.append(mode == "whole" and k is not None)
+            self.kdims.append(held)
+            shape = list(shape)
+            if mode == "col":
+                shape[held] //= self.M
+            shapes.append(tuple(shape))
+        self.flat = FlatLayout(tree_from_paths(
+            (p, torch.empty(s, device="meta"))
+            for p, s in zip(self.paths, shapes)))
+        self.cslices = []
+        for c in self.data_index:
+            row = []
+            for i, sl in enumerate(sharded.slices[c]):
+                if self.modes[i] == "col":
+                    sl = tuple(slice(None) if d == self.kdims[i] else s
+                               for d, s in enumerate(sl))
+                row.append(sl)
+            self.cslices.append(row)
+        # the first data rank holding each distinct block of a leaf
+        self._sources = []
+        for i in range(len(self.paths)):
+            seen, src = set(), []
+            for j, row in enumerate(self.cslices):
+                key = tuple((s.start, s.stop) for s in row[i])
+                if key not in seen:
+                    seen.add(key)
+                    src.append(j)
+            self._sources.append(src)
+        self.gathered = [i for i, m in enumerate(self.modes)
+                         if m == "gather"]
+        self.sums = [i for i in range(len(self.paths)) if self.summed[i]]
+
+    @property
+    def data_numel(self) -> int:
+        """The elements of the compute row's leaves (its gaps left out)."""
+        return sum(self.flat.sizes)
+
+    def assemble(self, blocks, row):
+        """The data ranks' block rows (``blocks[j]``: the
+        ``sharded.numel`` row of the rank at "data" coordinate j) into the
+        compute ``row``: every leaf but the gathered ones' other columns."""
+        views = self.flat.views(row)
+        sh = self.sharded
+        for i, (o, s, shape) in enumerate(zip(sh.offsets, sh.sizes,
+                                              sh.shapes)):
+            for j in self._sources[i]:
+                views[i][self.cslices[j][i]].copy_(
+                    blocks[j][o:o + s].view(shape))
+        return row
+
+    def column_of(self, i: int, whole, column: int):
+        """Column ``column`` of gathered leaf i in its whole view."""
+        k = self.kdims[i]
+        n = whole.shape[k] // self.M
+        return whole.narrow(k, column * n, n)
+
+    def blocks_of(self, grads, j: int, out):
+        """The block of the rank at "data" coordinate j of each compute
+        leaf grad in ``grads`` (layout order) into ``out`` (a
+        ``sharded.numel`` buffer whose gaps stay untouched)."""
+        sh = self.sharded
+        for i, (o, s, shape) in enumerate(zip(sh.offsets, sh.sizes,
+                                              sh.shapes)):
+            out[o:o + s].view(shape).copy_(grads[i][self.cslices[j][i]])
+        return out

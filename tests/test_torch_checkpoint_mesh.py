@@ -2,8 +2,21 @@
 the port's counterpart of tests/test_checkpoint_sharded.py, with the
 train CLI's ``--checkpoint-dir`` / ``--resume`` under ``--mesh
 replica:R,data:D,model:M`` (``torch_ranks.spawn``: gloo ranks, spawned
-once a world for the module), smoke-width Qwen2.5-3B on the CPU,
-``--round-fused``, L = 2, checkpoints every 2 steps.
+once a world for the module), on the CPU, ``--round-fused``, L = 2,
+checkpoints every 2 steps, at smoke width in two families
+(``runs`` is parametrized):
+
+* Qwen2.5-3B (dense): under "model" the replica is split
+  (``models/megatron.py``), its sums in another order, so a run or a
+  file under "model" is held to one process within the reference's
+  composed-mesh bounds (rtol 2e-5 on losses, rtol 2e-5 / atol 2e-6 on
+  the state), and a resume under the same split mesh to the
+  uninterrupted split run bit for bit;
+* Mamba2-1.3B (ssm): a family the split does not reach, every model
+  rank computing the whole replica, so under "model" alone the run and
+  the file are the one-process run's bit for bit.
+
+Where "bit for bit" stands below, the dense case takes those bounds.
 
 1. The reference's contract: 3 steps under replica:2,data:2,model:2
    (eight ranks, crossing an L = 2 sync), saved, restored onto
@@ -45,6 +58,7 @@ from repro.core import registry as ref_registry
 from repro_torch.checkpoint.checkpoint import _members
 from repro_torch.configs import ARCHS, smoke_variant
 from repro_torch.launch.mesh import parse_mesh_spec
+from repro_torch.models import megatron
 from repro_torch.models.model import build_model
 from repro_torch.sharding import planner
 from repro_torch.sharding.partition import mesh_coords
@@ -52,18 +66,50 @@ from repro_torch.utils.pytree import ShardedLayout
 from torch_parity import numpy_params
 from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 
-RCFG = ref_smoke_variant(REF_ARCHS["qwen2.5-3b"])
-BASE = ["--arch", "qwen2.5-3b", "--smoke", "--device", "cpu", "--L", "2",
-        "--batch", "2", "--seq", "32", "--round-fused", "--log-every", "2",
-        "--seed", "0"]
-F32 = BASE + ["--replicas", "2"]
-INT8 = F32 + ["--sync-compress", "int8", "--sync-overlap", "--use-kernel"]
-EL = F32 + ["--algo", "elastic_sgd", "--use-kernel"]
-SGD = F32 + ["--algo", "sgd"]
+ARCH_UNDER_TEST = ("qwen2.5-3b", "mamba2-1.3b")
+
+
+def _base(arch):
+    return ["--arch", arch, "--smoke", "--device", "cpu", "--L", "2",
+            "--batch", "2", "--seq", "32", "--round-fused", "--log-every",
+            "2", "--seed", "0"]
+
+
+BASE = _base("qwen2.5-3b")
 RM, RD = "replica:2,model:2", "replica:2,data:2"
 COMPOSED_TOL = dict(rtol=2e-5)          # the reference's loss bound
+STATE_TOL = dict(rtol=2e-5, atol=2e-6)  # ... and its deployable's
 INT8_TOL = dict(rtol=5e-4)              # test_torch_fsdp_tp.py's int8 bound
 ROW_FIELDS = ("x", "y", "z", "v_y", "v_x")
+
+
+def _argvs(arch):
+    f32 = _base(arch) + ["--replicas", "2"]
+    return {"f32": f32,
+            "int8": f32 + ["--sync-compress", "int8", "--sync-overlap",
+                           "--use-kernel"],
+            "el": f32 + ["--algo", "elastic_sgd", "--use-kernel"],
+            "sgd": f32 + ["--algo", "sgd"]}
+
+
+def _split(arch) -> bool:
+    """Whether the Megatron split cuts ``arch``'s replica over "model"."""
+    return megatron.splits_family(ARCHS[arch])
+
+
+def _same(arch, got, want, tol=COMPOSED_TOL, what="", show=True):
+    """``got`` = ``want``: bit for bit for a family the split does not
+    reach, within ``tol`` for one it splits (printing the error unless
+    not ``show``); the max abs err (0 where bit for bit)."""
+    if not _split(arch):
+        np.testing.assert_array_equal(got, want, err_msg=what)
+        return 0.0
+    got, want = np.asarray(got), np.asarray(want)
+    err = float(np.abs(got - want).max())
+    if show:
+        print(f"[ckpt_mesh] {arch} {what}: max abs err {err:.3e}")
+    np.testing.assert_allclose(got, want, err_msg=what, **tol)
+    return err
 
 
 def _argv(base, steps, mesh=None, ckpt=None, resume=None):
@@ -89,10 +135,14 @@ def _pod(jobs, world, store):
     return {k: [r[k] for r in per_rank] for k in jobs}
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+@pytest.fixture(scope="module", params=ARCH_UNDER_TEST)
+def runs(request, tmp_path_factory):
     """{name: [each rank's result]} of the composed and pod jobs, {name:
-    result} of the one-process jobs, and the directories written."""
+    result} of the one-process jobs, the directories written, and the
+    arch."""
+    arch = request.param
+    a = _argvs(arch)
+    F32, INT8, EL, SGD = a["f32"], a["int8"], a["el"], a["sgd"]
     d = tmp_path_factory.mktemp("ckpt_mesh")
     dirs = {k: str(d / k) for k in ("one", "pod", "rm", "int8", "el",
                                     "sgd", "ref")}
@@ -100,7 +150,7 @@ def runs(tmp_path_factory):
     # a reference-written checkpoint of the same state: the one-process
     # port file at step 2, through the reference's restore and save
     ref_ckpt.save(_step2(dirs["ref"]), ref_ckpt.restore(
-        _step2(dirs["one"]), _ref_like(), algo="parle"), step=2,
+        _step2(dirs["one"]), _ref_like(arch), algo="parle"), step=2,
         algo="parle")
     pod = _pod({"f32": _argv(F32, 4, "pod:2", ckpt=dirs["pod"])}, 2,
                str(d / "store2"))
@@ -124,31 +174,31 @@ def runs(tmp_path_factory):
                             ("sgd_resume", SGD, "sgd")):
         one[name] = torch_ranks.train_cli(_argv(base, 2,
                                                 resume=_step2(dirs[src])))
-    return mesh, pod, one, dirs
+    return mesh, pod, one, dirs, arch
 
 
-def _ref_like():
+def _ref_like(arch):
+    rcfg = ref_smoke_variant(REF_ARCHS[arch])
     return ref_parle.dealias_state(ref_registry.get("parle").init(
-        jax.tree.map(jnp.asarray, numpy_params(RCFG)),
+        jax.tree.map(jnp.asarray, numpy_params(rcfg)),
         RefParleConfig(n_replicas=2, L=2)))
 
 
-def _layouts(mesh):
+def _layouts(arch, mesh):
     """Each in-replica rank's ShardedLayout of the smoke model under
     ``mesh``, in rank order."""
     axes = parse_mesh_spec(mesh)
     inner = {a: s for a, s in axes.items() if a != "replica"}
-    params = planner.meta_params(build_model(smoke_variant(
-        ARCHS["qwen2.5-3b"])))
+    params = planner.meta_params(build_model(smoke_variant(ARCHS[arch])))
     ctx = planner.ShardContext(inner)
     coords = [dict(zip(inner, idx)) for idx in np.ndindex(*inner.values())]
     return [ShardedLayout(params, ctx, coords, i) for i in range(len(coords))]
 
 
-def _whole(ranks, mesh, f="x"):
+def _whole(arch, ranks, mesh, f="x"):
     """The (R, M) FlatLayout rows of field ``f`` (k = 1 row a replica
     index) from the ranks' blocks."""
-    lay = _layouts(mesh)[0]
+    lay = _layouts(arch, mesh)[0]
     axes = parse_mesh_spec(mesh)
     rows = []
     for rep in range(axes["replica"]):
@@ -161,9 +211,16 @@ def _whole(ranks, mesh, f="x"):
     return np.stack(rows)
 
 
-def _resumed(got_losses, got_eval, full_losses, full_eval):
-    np.testing.assert_array_equal(got_losses, full_losses[2:])
-    assert got_eval == full_eval
+def _resumed(got_losses, got_eval, full_losses, full_eval, arch=None):
+    """Steps 3-4 and the eval loss of a run resumed at step 2 = the
+    uninterrupted run's: bit for bit, or (``arch`` one the split cuts,
+    the two runs on different meshes) within the composed-mesh bound."""
+    if arch is None or not _split(arch):
+        np.testing.assert_array_equal(got_losses, full_losses[2:])
+        assert got_eval == full_eval
+        return
+    _same(arch, got_losses, full_losses[2:], what="resumed losses")
+    _same(arch, got_eval, full_eval, what="resumed eval loss")
 
 
 def test_reference_contract_across_mesh_shapes(tmp_path):
@@ -188,21 +245,26 @@ def test_reference_contract_across_mesh_shapes(tmp_path):
 
 
 def test_composed_file_is_the_one_process_file(runs):
-    """replica:2,model:2 in f32: the file's leaves (keys, shapes, dtypes,
-    bytes) equal the one-process file's of the same step, and the
-    reference's restore reads it into its Parle template."""
-    _, _, _, dirs = runs
+    """replica:2,model:2 in f32: the file's leaves (keys, shapes, dtypes;
+    bytes, or a split replica's values within the composed-mesh bound)
+    equal the one-process file's of the same step, and the reference's
+    restore reads it into its Parle template."""
+    _, _, _, dirs, arch = runs
     for step in (2, 4):
         name = f"step{step:06d}.npz"
+        err = 0.0
         with np.load(f"{dirs['rm']}/{name}") as got, \
                 np.load(f"{dirs['one']}/{name}") as want:
             assert sorted(got.files) == sorted(want.files)
             for k in want.files:
                 assert got[k].dtype == want[k].dtype, k
-                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+                assert got[k].shape == want[k].shape, k
+                err = max(err, _same(arch, got[k], want[k], STATE_TOL,
+                                     f"step {step} {k}", show=False))
                 if k.startswith("x/"):
                     assert got[k].shape[0] == 2
-        back = ref_ckpt.restore(f"{dirs['rm']}/{name}", _ref_like(),
+        print(f"[ckpt_mesh] {arch} step {step} file: max abs err {err:.3e}")
+        back = ref_ckpt.restore(f"{dirs['rm']}/{name}", _ref_like(arch),
                                 algo="parle")
         with np.load(f"{dirs['rm']}/{name}") as got:
             for path, leaf in jax.tree_util.tree_leaves_with_path(
@@ -216,60 +278,67 @@ def test_composed_file_is_the_one_process_file(runs):
 
 
 def test_reference_file_resumes_under_a_composed_mesh(runs):
-    mesh, _, _, _ = runs
+    """The reference-written file (the one-process state at step 2)
+    resumed under replica:2,model:2 = the composed file resumed there
+    (a split replica: within the composed-mesh bounds, the two files'
+    states differing by them)."""
+    mesh, _, _, _, arch = runs
     for got, want in zip(mesh["from_ref"], mesh["f32_resume"]):
-        np.testing.assert_array_equal(got["losses"], want["losses"])
-        assert got["eval_loss"] == want["eval_loss"]
+        _same(arch, got["losses"], want["losses"], what="losses")
+        _same(arch, got["eval_loss"], want["eval_loss"], what="eval loss")
         for f in want["fields"]:
-            np.testing.assert_array_equal(got["fields"][f],
-                                          want["fields"][f])
+            _same(arch, got["fields"][f], want["fields"][f], STATE_TOL, f)
 
 
 @pytest.mark.parametrize("where", ["one", "pod:2", RM])
 def test_composed_file_resumes_bit_for_bit(runs, where):
     """From the replica:2,model:2 file at step 2: the losses of steps 3-4,
     the eval loss and the final x rows equal the uninterrupted
-    one-process run's."""
-    mesh, pod, one, _ = runs
+    one-process run's (a split replica: within the composed-mesh bounds;
+    resumed under replica:2,model:2 itself, the uninterrupted split
+    run's bit for bit)."""
+    mesh, pod, one, _, arch = runs
     full = one["f32"]
     if where == "one":
         got = one["f32_resume"]
         _resumed(got["losses"], got["eval_loss"], full["losses"],
-                 full["eval_loss"])
-        np.testing.assert_array_equal(got["fields"]["x"],
-                                      full["fields"]["x"])
+                 full["eval_loss"], arch)
+        _same(arch, got["fields"]["x"], full["fields"]["x"], STATE_TOL, "x")
     elif where == "pod:2":
         for rank, got in enumerate(pod["from_rm"]):
             _resumed(got["losses"], got["eval_loss"], full["losses"],
-                     full["eval_loss"])
-            np.testing.assert_array_equal(got["fields"]["x"],
-                                          full["fields"]["x"][rank:rank + 1])
+                     full["eval_loss"], arch)
+            _same(arch, got["fields"]["x"],
+                  full["fields"]["x"][rank:rank + 1], STATE_TOL, "x")
     else:
-        for got in mesh["f32_resume"]:
-            _resumed(got["losses"], got["eval_loss"], full["losses"],
-                     full["eval_loss"])
-        np.testing.assert_array_equal(_whole(mesh["f32_resume"], RM),
-                                      full["fields"]["x"])
+        for got, want in zip(mesh["f32_resume"], mesh["f32"]):
+            _resumed(got["losses"], got["eval_loss"], want["losses"],
+                     want["eval_loss"])
+            np.testing.assert_array_equal(got["fields"]["x"],
+                                          want["fields"]["x"])
+        _same(arch, _whole(arch, mesh["f32_resume"], RM),
+              full["fields"]["x"], STATE_TOL, "x")
     # the uninterrupted composed run is the one-process run
     for got in mesh["f32"]:
-        np.testing.assert_array_equal(got["losses"], full["losses"])
+        _same(arch, got["losses"], full["losses"], what="losses")
 
 
 def test_pod_file_resumes_under_composed_meshes(runs):
-    """The pod:2 file at step 2 under replica:2,model:2: bit for bit; under
-    replica:2,data:2: within the reference's composed-mesh bound."""
-    mesh, pod, one, _ = runs
+    """The pod:2 file at step 2 under replica:2,model:2: bit for bit (a
+    split replica: within the bounds); under replica:2,data:2: within
+    the reference's composed-mesh bound."""
+    mesh, pod, one, _, arch = runs
     full = one["f32"]
     np.testing.assert_array_equal(pod["f32"][0]["losses"], full["losses"])
     for got in mesh["from_pod"]:
         _resumed(got["losses"], got["eval_loss"], full["losses"],
-                 full["eval_loss"])
-    np.testing.assert_array_equal(_whole(mesh["from_pod"], RM),
-                                  full["fields"]["x"])
+                 full["eval_loss"], arch)
+    _same(arch, _whole(arch, mesh["from_pod"], RM), full["fields"]["x"],
+          STATE_TOL, "x")
     for got in mesh["data_from_pod"]:
         rel = np.abs(got["losses"] / full["losses"][2:] - 1).max()
-        print(f"[ckpt_mesh] pod:2 file under {RD}: losses max rel err "
-              f"{rel:.3e}")
+        print(f"[ckpt_mesh] {arch} pod:2 file under {RD}: losses max rel "
+              f"err {rel:.3e}")
         np.testing.assert_allclose(got["losses"], full["losses"][2:],
                                    **COMPOSED_TOL)
         np.testing.assert_allclose(got["eval_loss"], full["eval_loss"],
@@ -281,7 +350,7 @@ def test_int8_overlap_round_trips_and_continues(runs):
     ``c``; resumed under the same mesh the run is the uninterrupted one
     bit for bit (losses, eval, final x, e and c blocks); resumed in one
     process, within the composed-int8 bound."""
-    mesh, _, one, dirs = runs
+    mesh, _, one, dirs, arch = runs
     with np.load(_step2(dirs["int8"])) as f:
         fields = {k.split("/")[0] for k in f.files}
     assert {"e", "c"} <= fields
@@ -294,8 +363,8 @@ def test_int8_overlap_round_trips_and_continues(runs):
                                           want["fields"][f], err_msg=f)
     got = one["int8_resume"]
     rel = np.abs(got["losses"] / full[0]["losses"][2:] - 1).max()
-    print(f"[ckpt_mesh] int8 file resumed in one process: losses max rel "
-          f"err {rel:.3e}")
+    print(f"[ckpt_mesh] {arch} int8 file resumed in one process: losses "
+          f"max rel err {rel:.3e}")
     np.testing.assert_allclose(got["losses"], full[0]["losses"][2:],
                                **INT8_TOL)
 
@@ -304,17 +373,18 @@ def test_int8_overlap_round_trips_and_continues(runs):
 def test_baselines_saved_under_the_mesh_resume_in_one(runs, algo):
     """Elastic-SGD and SGD saved under replica:2,model:2 at step 2,
     resumed in one process: the uninterrupted composed run's steps 3-4,
-    eval loss and final model bit for bit."""
-    mesh, _, one, _ = runs
+    eval loss and final model bit for bit (a split replica: within the
+    composed-mesh bounds)."""
+    mesh, _, one, _, arch = runs
     full, got = mesh[algo], one[f"{algo}_resume"]
     _resumed(got["losses"], got["eval_loss"], full[0]["losses"],
-             full[0]["eval_loss"])
+             full[0]["eval_loss"], arch)
     if algo == "el":
-        np.testing.assert_array_equal(got["fields"]["x"],
-                                      _whole(full, RM, "x"))
+        _same(arch, got["fields"]["x"], _whole(arch, full, RM, "x"),
+              STATE_TOL, "x")
     else:               # every replica holds the one model
-        for row in _whole(full, RM, "params"):
-            np.testing.assert_array_equal(got["fields"]["params"], row)
+        for row in _whole(arch, full, RM, "params"):
+            _same(arch, got["fields"]["params"], row, STATE_TOL, "params")
 
 
 def test_a_checkpoint_is_one_gather_a_rank_on_each_axis(runs):
@@ -323,8 +393,8 @@ def test_a_checkpoint_is_one_gather_a_rank_on_each_axis(runs):
     the five row fields (and, in replica 0, of the rest: none in f32
     Parle); the replica's first rank one replica-axis gather of its
     whole rows; no other rank crosses the replica axis for it."""
-    mesh, _, _, _ = runs
-    lays = _layouts(RM)
+    mesh, _, _, _, arch = runs
+    lays = _layouts(arch, RM)
     full = 4 * sum(lays[0].full.sizes) * len(ROW_FIELDS)
     axes = parse_mesh_spec(RM)
     for rank, r in enumerate(mesh["f32"]):

@@ -3,10 +3,12 @@ counterpart of tests/test_dist_run.py.  The pure helpers, then the
 2-process smoke pod on the CPU against the single-process run (bit for
 bit, ~10 s on one worker, so it stays in tier-1), a failed worker: the
 launcher exits with its code and leaves no process behind, and composed
-specs: four ranks under ``replica:2,model:2`` (bit for bit, the merged
-metrics keep the bytes by axis) and ``replica:2,data:2`` (within
-``--tol``), with the train CLI's refusals and a wrong ``--nproc``
-naming its fix."""
+specs: four ranks under ``replica:2,model:2`` (an ssm replica, which
+the Megatron split does not reach, bit for bit, the merged metrics
+keeping the bytes by axis) and ``replica:2,data:2`` (within ``--tol``),
+a moe replica split over ``data:2,model:2`` (within ``--tol``), the
+train CLI's refusal of the async policy and a wrong ``--nproc`` naming
+its fix."""
 import json
 import os
 import socket
@@ -135,7 +137,8 @@ DATA_TOL = 2e-5
 
 
 def test_composed_pod_under_model_is_bitwise(tmp_path):
-    """``--nproc 4 --mesh replica:2,model:2 --use-kernel``: every rank
+    """``--nproc 4 --mesh replica:2,model:2 --use-kernel`` on an ssm
+    replica (a family the Megatron split does not reach): every rank
     computes its replica on the one-process row, so the launcher's
     verdict is bit for bit; the merged metrics keep each collective's
     bytes by axis, the sum over the four workers."""
@@ -143,7 +146,7 @@ def test_composed_pod_under_model_is_bitwise(tmp_path):
     m = str(tmp_path / "m.jsonl")
     res = _launch(_free_port(), argv=(
         "--nproc", "4", "--mesh", "replica:2,model:2", "--use-kernel",
-        "--metrics-out", m))
+        "--arch", "mamba2-1.3b", "--metrics-out", m))
     assert res.returncode == 0, res.stdout + res.stderr
     verdict = json.loads(res.stdout.strip().splitlines()[-1])
     assert verdict["bitwise_equal"] is True, verdict
@@ -189,11 +192,24 @@ def test_composed_pod_under_data_is_within_tol():
 @pytest.mark.parametrize("argv,match", [
     (["--nproc", "2", "--mesh", "replica:2,model:2"],
      r"spans 4 ranks \(2x2\), --nproc is 2: pass --nproc 4"),
-    (["--nproc", "2", "--mesh", "replica:1,data:2", "--arch",
+    (["--nproc", "4", "--mesh", "replica:1,data:2,model:2", "--arch",
       "qwen2-moe-a2.7b"], "item 6a"),
     (["--nproc", "2", "--mesh", "replica:1,data:2", "--sync-policy",
       "async"], "item 6d"),
 ])
 def test_composed_spec_refusals_name_their_fix(argv, match):
-    with pytest.raises(SystemExit, match=match):
-        dist_run.main(argv + ["--smoke", "--device", "cpu"])
+    """A wrong ``--nproc`` and the async policy on a composed mesh exit
+    naming their fix; a moe architecture on a data axis (item 6a, once
+    refused) runs split over "model" too, within the composed-mesh bound
+    of one process."""
+    if match != "item 6a":
+        with pytest.raises(SystemExit, match=match):
+            dist_run.main(argv + ["--smoke", "--device", "cpu"])
+        return
+    res = _launch(_free_port(), argv=tuple(argv) + ("--tol", str(DATA_TOL)))
+    assert res.returncode == 0, res.stdout + res.stderr
+    verdict = json.loads(res.stdout.strip().splitlines()[-1])
+    print(f"[dist_run] moe replica:1,data:2,model:2: max rel diff "
+          f"{verdict['max_rel_diff']:.3e}")
+    assert verdict["compared_steps"] == 6
+    assert verdict["max_rel_diff"] <= DATA_TOL

@@ -4,8 +4,9 @@ contract at smoke size on a ``pod:2,data:4,model:2`` mesh (its
 ``_combine_extrapolated`` against the reference's own functions, the
 meta program's FLOPs and argument bytes against the real step's on the
 CPU, the predicted collectives against the counters of one real step of
-four gloo ranks, and the refusal of a moe training pair on a data axis
-(ROADMAP.md item 6a)."""
+four gloo ranks (and, for a moe replica split over data:2,model:2, its
+FLOPs too), and a moe training pair on a data axis (ROADMAP.md item 6a,
+once refused) reported on both production meshes."""
 import dataclasses
 import json
 import os
@@ -144,6 +145,25 @@ def test_meta_program_equals_the_real_step(options, remat):
     assert rec["collectives"]["total_bytes"] == 0
 
 
+def _predicted(cfg, spec, batch_rows):
+    """The dry run's rank-0 train_inner and parle_sync of ``cfg`` on
+    ``spec`` (f32, no remat): its counters by axis after each, as one
+    rank's cumulative counters read, and train_inner's FLOPs."""
+    dr.OPTIONS["remat"] = False
+    recs = _run(cfg, spec, dict(TRAIN, global_batch=batch_rows),
+                precision="f32")
+    want, total = [], {}
+    for tag in ("train_inner", "parle_sync"):
+        coll = recs[tag]["collectives"]
+        for key in coll["bytes"]:
+            axis, op = key.split("/")
+            calls, nbytes = total.get(axis, {}).get(op, (0, 0))
+            total.setdefault(axis, {})[op] = (
+                calls + coll["counts"][key], nbytes + coll["bytes"][key])
+        want.append({a: dict(ops) for a, ops in total.items()})
+    return want, recs["train_inner"]["flops_per_device"]
+
+
 def test_predicted_collectives_equal_four_ranks(tmp_path):
     """One real train_inner and parle_sync on four gloo ranks of
     replica:2,data:2: every rank's counters by axis and op = the dry
@@ -156,30 +176,49 @@ def test_predicted_collectives_equal_four_ranks(tmp_path):
     got = torch_ranks.spawn(torch_ranks.dry_run_counters, 4,
                             os.path.join(tmp_path, "store"), spec,
                             dataclasses.asdict(cfg), batch, False)
-    dr.OPTIONS["remat"] = False
-    recs = _run(cfg, spec, TRAIN, precision="f32")
-    want, total = [], {}
-    for tag in ("train_inner", "parle_sync"):
-        coll = recs[tag]["collectives"]
-        for key in coll["bytes"]:
-            axis, op = key.split("/")
-            calls, nbytes = total.get(axis, {}).get(op, (0, 0))
-            total.setdefault(axis, {})[op] = (
-                calls + coll["counts"][key], nbytes + coll["bytes"][key])
-        want.append({a: dict(ops) for a, ops in total.items()})
+    want, _ = _predicted(cfg, spec, 16)
     assert set(want[0]) == {"data", "replica"}         # the step's axes
     assert want[1]["replica"]["all_reduce"][1] > 0     # the sync's mean
     for rank in got:
-        assert rank == want
+        assert rank["counts"] == want
+
+
+def test_moe_split_program_equals_four_ranks(tmp_path):
+    """A moe replica split over data:2,model:2 (the batch's one flat
+    dispatch, the experts' columns): every rank's counters by axis and
+    op after a real train_inner and parle_sync = the dry run's
+    prediction for rank 0, and rank 0's train_inner FLOPs = the meta
+    program's (about half the one-process step's: the split over
+    "model")."""
+    spec = "replica:1,data:2,model:2"
+    cfg = smoke_variant(get_config("qwen2-moe-a2.7b"))
+    rng = np.random.default_rng(2)
+    batch = {k: rng.integers(0, cfg.vocab_size, (1, 16, 64), dtype=np.int32)
+             for k in ("tokens", "labels")}
+    got = torch_ranks.spawn(torch_ranks.dry_run_counters, 4,
+                            os.path.join(tmp_path, "store"), spec,
+                            dataclasses.asdict(cfg), batch, False)
+    want, flops = _predicted(cfg, spec, 16)
+    assert {"data", "model"} <= set(want[0])
+    assert got[0]["flops"] == flops
+    for rank in got:
+        assert rank["counts"] == want
 
 
 def test_moe_training_on_a_data_axis_is_refused(tmp_path):
-    """The dry run refuses the pair, naming item 6a, with no numbers;
-    the sweep still passes."""
-    rec = dr.run_pair("qwen2-moe-a2.7b", "train_4k", False, verbose=False)
-    assert "item 6a" in rec["refused"] and rec["programs"] == []
+    """Once refused (ROADMAP.md item 6a), the pair now runs on both
+    production meshes: train_inner and parle_sync with their numbers,
+    train_inner gathering over "data" (the blocks, and each layer's
+    expert counts) and summing over "model"."""
     dr.main(["--arch", "qwen2-moe-a2.7b", "--shape", "train_4k", "--mesh",
              "both", "--out", str(tmp_path)])
     for tag in ("sp", "mp"):
         with open(tmp_path / f"qwen2-moe-a2.7b__train_4k__{tag}.json") as f:
-            assert "item 6a" in json.load(f)["refused"]
+            rec = json.load(f)
+        assert "refused" not in rec
+        assert [p["program"] for p in rec["programs"]] == [
+            "train_inner", "parle_sync"]
+        inner = rec["programs"][0]
+        assert inner["flops_per_device"] > 0
+        keys = set(inner["collectives"]["bytes"])
+        assert {"data/all_gather", "model/all_reduce"} <= keys, keys

@@ -16,13 +16,22 @@ runs every case of :data:`CASES` on a ``MeshGroups`` of its spec:
     path;
   * the bytes by axis: the Eq. (8d) sync moves at most a shard + 4096
     bytes over the replica axis, a step without a sync only the scalar
-    loss, and the gathers and reduce-scatters ride the in-replica axes;
-  * ``replica:2,model:4`` (no data axis): the one-process run bit for bit;
+    loss; inside a replica the blocks are gathered over "data" only and
+    "model" carries the Megatron split's activations, never a leaf;
+  * ``replica:2,model:4`` (no data axis; 2 KV heads over 4 ranks, so a
+    rank's K / V columns end mid-head): the dense replica split over
+    "model" within the composed-mesh bounds, its compute row about 1/4
+    of the row, and the ssm family (which the split does not reach) the
+    one-process run bit for bit;
   * int8 + overlap + flush through the kernels' plain versions,
     Elastic-SGD and SGD at the tolerances stated by each test;
   * the train CLI under ``torch.distributed.run`` on four ranks prints
-    the reference's records, the paths not ported refuse with their
-    ROADMAP.md item, and the checkpoint paths (item 6b) run.
+    the reference's records, the async policy refuses naming its
+    ROADMAP.md item, and the checkpoint paths (item 6b) and a moe
+    architecture on a data axis (item 6a) run.
+
+``replica:2,model:2`` runs in the four-rank world of
+``tests/test_torch_megatron.py``.
 """
 import dataclasses
 import json
@@ -41,12 +50,16 @@ from repro_torch.launch import train
 from repro_torch.sharding import planner
 from repro_torch.sharding.rules import Spec
 from torch_parity import (numpy_params, one_torch_thread,  # noqa: F401
-                          port_config)
+                          port_config, ssm_init_draws)
 
 RCFG = RefModelConfig(name="t-dense", family="dense", num_layers=2,
                       d_model=128, num_heads=4, num_kv_heads=2, d_ff=256,
                       vocab_size=512, head_dim=32)
 CFG = port_config(RCFG)
+RCFG_SSM = RefModelConfig(name="t-ssm", family="ssm", num_layers=2,
+                          d_model=64, num_heads=0, num_kv_heads=0, d_ff=0,
+                          vocab_size=512, ssm_state=16, ssm_head_dim=16,
+                          ssm_expand=2, ssm_chunk=8)
 STREAM = dict(vocab_size=512, seq_len=16, batch_size=2, seed=0)
 MESH = "replica:2,data:2,model:2"
 TOL = dict(rtol=2e-5)                         # the reference's loss bound
@@ -61,6 +74,7 @@ def _case(algo="parle", mesh=MESH, steps=7, mode="step", **kw):
 CASES = {
     "parle": _case(),
     "parle-model4": _case(mesh="replica:2,model:4"),
+    "ssm-model4": _case(mesh="replica:2,model:4", model="ssm"),
     "parle-int8-overlap": _case(mode="round", steps=6, compress="int8",
                                 overlap=True, use_kernel=True),
     "elastic_sgd": _case("elastic_sgd", mode="round", steps=6,
@@ -75,21 +89,29 @@ def np_params():
 
 
 @pytest.fixture(scope="module")
-def world(np_params, tmp_path_factory):
+def models(np_params):
+    """{model name: (port config fields, numpy params)} of the cases."""
+    ssm = ssm_init_draws(jax.tree.map(np.asarray, numpy_params(RCFG_SSM)))
+    return {"dense": (dataclasses.asdict(CFG), np_params),
+            "ssm": (dataclasses.asdict(port_config(RCFG_SSM)), ssm)}
+
+
+@pytest.fixture(scope="module")
+def world(models, tmp_path_factory):
     """Every case on eight spawned ranks: {case: [each rank's result]}."""
     store = str(tmp_path_factory.mktemp("fsdp_tp") / "store")
     per_rank = torch_ranks.spawn(
-        torch_ranks.fsdp_tp_cases, 8, store, list(CASES.values()),
-        dataclasses.asdict(CFG), np_params, STREAM)
+        torch_ranks.fsdp_tp_cases, 8, store, list(CASES.values()), models,
+        STREAM)
     return {k: [r[i] for r in per_rank] for i, k in enumerate(CASES)}
 
 
 @pytest.fixture(scope="module")
-def single(np_params):
+def single(models):
     """Every case in this process, all n replicas."""
-    return {k: torch_ranks.run_mesh_case(c, None, dataclasses.asdict(CFG),
-                                         np_params, STREAM)
-            for k, c in CASES.items()}
+    return {k: torch_ranks.run_mesh_case(
+        c, None, *models[c.get("model", "dense")], STREAM)
+        for k, c in CASES.items()}
 
 
 def _nparam(np_params):
@@ -158,12 +180,27 @@ def test_sharded_equals_one_process_across_syncs(world, single, np_params):
                                    **DEPLOY_TOL)
 
 
+def _activation_bytes(mesh):
+    """The bytes a rank gathers over "model" in a step of t-dense split
+    over it (one local replica, the rank's B / D rows): the embedding's
+    d/M columns, and where M does not divide the 2 KV heads, each layer's
+    K and V columns."""
+    D, M = (int(dict(a.split(":") for a in mesh.split(",")).get(k, 1))
+            for k in ("data", "model"))
+    rows = STREAM["batch_size"] // D * STREAM["seq_len"]
+    kv = 0 if RCFG.num_kv_heads % M == 0 else (
+        RCFG.num_layers * 2 * RCFG.num_kv_heads * RCFG.head_dim // M)
+    return rows * (RCFG.d_model // M + kv) * 4
+
+
 def test_bytes_by_axis(world, np_params):
     """The sync (steps 3 and 6) moves over the replica axis between a
     shard of the model (its bytes / (data x model)) and that plus 4096
-    bytes; every other step only the scalar loss; the in-replica axes
-    carry the gathers (data,model) and the grads' reduce-scatter
-    (data)."""
+    bytes; every other step only the scalar loss.  Inside a replica each
+    step gathers the blocks over "data" (one all-gather a step) and
+    reduce-scatters the grads there; "model" carries only the split's
+    activations: its all-gathers are the embedding's columns, never a
+    leaf, and no collective spans "data,model"."""
     shard = _nparam(np_params) * 4 // 4
     for r in world["parle"]:
         rep = _step_bytes(r["counts"], "replica")
@@ -173,23 +210,53 @@ def test_bytes_by_axis(world, np_params):
             else:
                 assert b <= 64, (i, b)
         by_axis = r["counts"][-1]
-        assert by_axis["data,model"]["all_gather"][0] >= 7
+        assert by_axis["data"]["all_gather"][0] == 7
         assert by_axis["data"]["reduce_scatter"][0] == 7
-        assert set(by_axis) <= {"replica", "data", "data,model"}
+        gathered = [c.get("model", {}).get("all_gather", (0, 0))[1]
+                    for c in r["counts"]]
+        assert list(np.diff([0] + gathered)) == [_activation_bytes(MESH)] * 7
+        assert set(by_axis) == {"replica", "data", "model"}
 
 
 def test_model_axis_alone_is_bit_for_bit(world, single):
-    """Under replica:2,model:4 every model rank computes its replica on
-    the gathered full row, as one process does: the losses and each
-    final x row equal the one-process run's bit for bit."""
-    one = single["parle-model4"]
-    for r in world["parle-model4"]:
+    """Under replica:2,model:4 a family the Megatron split does not reach
+    (ssm) has every model rank compute its replica on the gathered full
+    row, as one process does: the losses and each final x row equal the
+    one-process run's bit for bit."""
+    one = single["ssm-model4"]
+    for r in world["ssm-model4"]:
         np.testing.assert_array_equal(r["losses"], one["losses"])
         rep = r["coords"]["replica"]
         np.testing.assert_array_equal(r["full_rows"][0],
                                       one["full_rows"][rep])
         # no data axis: the gathers ride "model", no grad is reduced
         assert set(r["counts"][-1]) == {"replica", "model"}
+
+
+def test_model_axis_alone_splits_a_dense_replica(world, single):
+    """Under replica:2,model:4 a dense replica is split over "model" (the
+    reference's composed-mesh contract: losses within rtol 2e-5, the
+    deployable within rtol 2e-5 / atol 2e-6 of one process): no leaf is
+    gathered over "model" (its all-gathers are the embedding's columns
+    and the K / V columns of the 2 KV heads, 4 ranks ending mid-head),
+    and a rank computes on about a quarter of the row."""
+    one = single["parle-model4"]
+    for r in world["parle-model4"]:
+        rel = np.abs(r["losses"] / one["losses"] - 1).max()
+        dep = max(np.abs(r["deploy"][k] - v).max()
+                  for k, v in one["deploy"].items())
+        print(f"[fsdp_tp] dense replica:2,model:4: losses max rel err "
+              f"{rel:.3e}, deployable max abs err {dep:.3e}")
+        np.testing.assert_allclose(r["losses"], one["losses"], **TOL)
+        for k, v in one["deploy"].items():
+            np.testing.assert_allclose(r["deploy"][k], v, err_msg=k,
+                                       **DEPLOY_TOL)
+        gathered = [c["model"]["all_gather"][1] for c in r["counts"]]
+        assert list(np.diff([0] + gathered)) == \
+            [_activation_bytes("replica:2,model:4")] * 7
+        assert set(r["counts"][-1]) == {"replica", "model"}
+        # the norms (3 leaves, 640 elements) are whole on every rank
+        assert r["column"] == (r["row"] - 640) // 4 + 640
 
 
 @pytest.mark.parametrize("case,loss_tol,deploy_tol", [
@@ -254,23 +321,26 @@ def test_train_cli_on_four_ranks(tmp_path):
 
 
 @pytest.fixture(scope="module")
-def item_6b_runs(tmp_path_factory):
-    """The two "item 6b" cases below, run on two spawned ranks under
-    replica:1,model:2 (with "ck" a directory of their own): the first
-    checkpoints every step, the second resumes from the directory.
-    Returns the directory and {case: rank 0's result}."""
-    d = tmp_path_factory.mktemp("item_6b")
+def item_runs(tmp_path_factory):
+    """The "item 6b" and "item 6a" cases below, run on two spawned ranks
+    (with "ck" a directory of their own): the first checkpoints every
+    step under replica:1,model:2, the second resumes from the directory,
+    the third trains a moe architecture under replica:1,data:2.  Returns
+    the directory and {case: rank 0's result}."""
+    d = tmp_path_factory.mktemp("item_runs")
     ck = str(d / "ck")
     jobs = {i: [ck if a == "ck" else a for a in
                 ["--smoke", "--device", "cpu", "--steps", "1"] + argv]
-            for i, argv in ((1, ITEMS[1][0]), (2, ITEMS[2][0]))}
+            for i, argv in ((0, ITEMS[0][0]), (1, ITEMS[1][0]),
+                            (2, ITEMS[2][0]))}
     per_rank = torch_ranks.spawn(torch_ranks.train_cli_jobs, 2,
                                  str(d / "store"), jobs)
     return ck, per_rank[0]
 
 
-# (argv, the ROADMAP.md item): "item 6b" is ported (the cases run),
-# "item 6a" and "item 6d" still refuse naming their item
+# (argv, the ROADMAP.md item): "item 6a" and "item 6b" are ported (the
+# cases run), "item 6d" refuses naming its item, as the reference refuses
+# the async policy on any mesh
 ITEMS = [
     (["--arch", "qwen2-moe-a2.7b", "--mesh", "replica:1,data:2"],
      "item 6a"),
@@ -283,18 +353,29 @@ ITEMS = [
 
 @pytest.mark.parametrize("argv,match", ITEMS)
 def test_unported_paths_name_their_item(argv, match, request):
-    """The paths still unported on a mesh with an axis inside a replica
-    exit naming their ROADMAP.md item; the checkpoint paths of item 6b
-    now run: on two ranks, the first case writes a step-1 file of the
-    one-process shapes (whole leaves, n = 1), the second resumes from
-    the directory and takes step 2 to a finite loss."""
-    if match != "item 6b":
+    """The async policy on a mesh with an axis inside a replica exits
+    naming its ROADMAP.md item; the ported items run on two ranks: the
+    checkpoint paths of item 6b (the first case writes a step-1 file of
+    the one-process shapes, whole leaves, n = 1; the second resumes from
+    the directory and takes step 2 to a finite loss) and a moe
+    architecture under a data axis (item 6a: its step-1 loss within the
+    reference's composed-mesh bound of the one-process run's)."""
+    if match == "item 6d":
         with pytest.raises(SystemExit, match=match):
             train.main(["--smoke", "--device", "cpu", "--steps", "1"]
                        + argv)
         return
-    ck, results = request.getfixturevalue("item_6b_runs")
-    if "--checkpoint-dir" in argv:
+    ck, results = request.getfixturevalue("item_runs")
+    if match == "item 6a":
+        one = torch_ranks.train_cli(["--smoke", "--device", "cpu",
+                                     "--steps", "1", "--replicas", "1",
+                                     "--arch", "qwen2-moe-a2.7b"])
+        np.testing.assert_allclose(results[0]["losses"], one["losses"],
+                                   **TOL)
+        np.testing.assert_allclose(results[0]["eval_loss"],
+                                   one["eval_loss"], **TOL)
+        assert results[0]["by_axis"]["data"]["reduce_scatter"][0] == 1
+    elif "--checkpoint-dir" in argv:
         from repro_torch.checkpoint import checkpoint as ckpt
         path = ckpt.resolve(ck)
         assert ckpt.latest_step(path) == 1
@@ -307,7 +388,7 @@ def test_unported_paths_name_their_item(argv, match, request):
 
 
 def test_moe_model_axis_is_not_refused():
-    """A moe architecture over "model" alone gets past the refusals (to
+    """A moe architecture over "model" alone gets past the checks (to
     the launch hint: no world of two ranks here)."""
     with pytest.raises(SystemExit, match="torch.distributed.run"):
         train.main(["--smoke", "--device", "cpu", "--steps", "1", "--arch",

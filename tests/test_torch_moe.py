@@ -27,7 +27,7 @@ from repro.configs import ARCHS as REF_ARCHS
 from repro.configs import smoke_variant as ref_smoke_variant
 from repro.models import moe as ref_moe
 from repro.serving import Engine as RefEngine
-from repro_torch.models import moe
+from repro_torch.models import megatron, moe
 from repro_torch.models.model import build_model
 from repro_torch.serving import Engine, make_naive_fns, naive_generate
 from torch_parity import (assert_close, assert_same_tokens, both_params,
@@ -116,7 +116,7 @@ def test_expert_parallel_dispatch_raises(params, change):
         assert torch.equal(got, flat)
         parts = []
         for m in range(2):
-            with moe.expert_parallel(moe.ExpertParallel(2, m)):
+            with megatron.tensor_parallel(megatron.TensorParallel(2, m)):
                 parts.append(moe.moe_forward(layer, cfg, x)[0])
         got = parts[0] + parts[1]
     assert_close(got, flat, dict(rtol=1e-5, atol=1e-6), f"{change} vs flat")

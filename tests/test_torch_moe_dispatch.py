@@ -5,10 +5,10 @@ the CPU (under jax 0.9's default Explicit axes the reference's
 ``with_sharding_constraint`` asserts): outputs, the aux loss and, for
 the grouped dispatch, the grads, at a drop-free capacity and at one that
 drops.  Then the port's own contracts: grouped = flat where nothing is
-dropped, two gloo ranks summing their columns over "model" = the
+dropped, and two gloo ranks summing their columns over "model" = the
 one-process column sum (the all-reduce counted as B·T·d·4 bytes on
-axis "model"), and a backward through that sum raising with the
-Megatron half of ROADMAP.md item 6a.
+axis "model"), with a backward through that sum = the flat dispatch's
+grads (the tokens' and gates' grads summed over "model" once each).
 
 Tolerance: rtol 1e-5 (atol 1e-6 against the flat dispatch, the
 reference's contract, 1e-5 against the reference's dispatches)."""
@@ -25,7 +25,7 @@ from repro.configs import ARCHS as REF_ARCHS
 from repro.configs import smoke_variant as ref_smoke_variant
 from repro.models import moe as ref_moe
 from repro.utils.compat import use_mesh
-from repro_torch.models import moe
+from repro_torch.models import megatron, moe
 from torch_parity import assert_close, numpy_params, port_config
 from torch_parity import one_torch_thread  # noqa: F401 (autouse)
 import torch_ranks
@@ -124,7 +124,7 @@ def test_two_columns_sum_to_reference_shard_map(capacity):
     pl, xt = _torch_tree(layer), torch.from_numpy(x)
     cols = []
     for m in range(2):
-        with moe.expert_parallel(moe.ExpertParallel(2, m)):
+        with megatron.tensor_parallel(megatron.TensorParallel(2, m)):
             y, aux = moe.moe_forward(pl, pcfg, xt)
         assert_close(aux, r_aux, TOL, f"column {m} aux")
         cols.append(y)
@@ -148,22 +148,53 @@ def test_grouped_equals_flat_where_nothing_drops():
 
 
 def test_two_ranks_equal_the_column_sum(tmp_path):
+    """Two gloo ranks, each one column of the shard_map dispatch summed
+    over "model": the forward = the one-process column sum; the grads of
+    sum(y * w) / (B T) + aux through the sum = the flat dispatch's: x's
+    and the router's whole on each rank, each expert's and the shared
+    ff's on the rank whose column holds them (zero on the other)."""
     rcfg, _ = _cfgs(CAPACITIES["drops"])
     pcfg = port_config(dataclasses.replace(rcfg, moe_impl="shard_map"))
     layer = jax.tree.map(np.asarray, _layer(rcfg))
-    x, _ = _inputs(rcfg)
+    x, r = _inputs(rcfg)
+    w = r / np.float32(B * T)
     got = torch_ranks.spawn(torch_ranks.moe_columns, 2,
-                            os.path.join(tmp_path, "store"), layer, pcfg, x)
+                            os.path.join(tmp_path, "store"), layer, pcfg, x,
+                            w)
     pl, xt = _torch_tree(layer), torch.from_numpy(x)
     cols = []
     for m in range(2):
-        with moe.expert_parallel(moe.ExpertParallel(2, m)):
+        with megatron.tensor_parallel(megatron.TensorParallel(2, m)):
             cols.append(moe.moe_forward(pl, pcfg, xt)[0])
     want = cols[0] + cols[1]
-    for rank in got:
+    pg, xg = _torch_tree(layer, grad=True), torch.tensor(x,
+                                                         requires_grad=True)
+    flat, aux = moe.moe_forward(pg, dataclasses.replace(pcfg,
+                                                        moe_impl="pjit"), xg)
+    (torch.sum(flat * torch.from_numpy(w)) + aux).backward()
+    E, sff = pcfg.num_experts, pcfg.shared_expert_d_ff
+    for m, rank in enumerate(got):
         assert_close(torch.from_numpy(rank["y"]), want, FLAT_TOL,
                      "the ranks' sum over model")
-        # two forwards, each one all-reduce of B T d float32
+        assert_close(torch.from_numpy(rank["gx"]), xg.grad, FLAT_TOL,
+                     "grad x")
+        g = rank["grads"]
+        assert_close(torch.from_numpy(g["router"]), pg["router"].grad,
+                     FLAT_TOL, "grad router")
+        lo, hi = megatron.split(E, 2, m)
+        flo, fhi = megatron.split(sff, 2, m)
+        for k in ("w_gate", "w_up", "w_down"):
+            assert_close(torch.from_numpy(g[k][lo:hi]),
+                         pg[k].grad[lo:hi], FLAT_TOL, f"grad {k}")
+            assert not np.any(np.delete(g[k], np.s_[lo:hi], 0))
+            dim = 0 if k == "w_down" else 1
+            sl = [slice(None)] * 2
+            sl[dim] = slice(flo, fhi)
+            assert_close(torch.from_numpy(g["shared"][k][tuple(sl)]),
+                         pg["shared"][k].grad[tuple(sl)], FLAT_TOL,
+                         f"grad shared {k}")
+        # three forwards' sums, and in the backward the sums of the
+        # tokens' and the gates' grads (B T d and B T K float32)
+        d, K = rcfg.d_model, rcfg.top_k
         assert rank["counts"] == {"model": {"all_reduce": (
-            2, 2 * B * T * rcfg.d_model * 4)}}
-        assert "item 6a" in rank["raised"] and "Megatron" in rank["raised"]
+            4, 3 * B * T * d * 4 + B * T * K * 4)}}

@@ -199,8 +199,9 @@ def run_mesh_case(case: dict, group, cfg_fields: dict, np_params,
     Returns the per-step losses, each step's (or round's) collective
     counts by axis, the final state's model rows gathered into full
     FlatLayout rows (x of each local replica; SGD's params), the
-    deployable tree as numpy, the layout's sizes and the local block of
-    ``blocks/attn/wq`` in the initial x."""
+    deployable tree as numpy, the layout's sizes, the local block of
+    ``blocks/attn/wq`` in the initial x (None without one), and the
+    elements of the rank's compute row beside the whole row's."""
     from repro_torch.configs import ParleConfig
     from repro_torch.configs.base import ModelConfig
     from repro_torch.core import registry
@@ -225,8 +226,8 @@ def run_mesh_case(case: dict, group, cfg_fields: dict, np_params,
     model_field = "params" if case["algo"] == "sgd" else "x"
     first = getattr(state, model_field)
     wq = [i for i, p in enumerate(lay.paths)
-          if p == ("blocks", "attn", "wq")][0]
-    wq_block = lay.views(first)[wq].numpy().copy()
+          if p == ("blocks", "attn", "wq")]
+    wq_block = lay.views(first)[wq[0]].numpy().copy() if wq else None
     stream = TokenStream(**stream_kw)
     rows = group.rows if group is not None else slice(None)
     n, L, kw = case["n"], case["L"], dict(use_kernel=case.get("use_kernel",
@@ -266,14 +267,21 @@ def run_mesh_case(case: dict, group, cfg_fields: dict, np_params,
             full.append(mesh.gather_blocks(r, f, lay).numpy().copy())
     deploy = {"/".join(p): t.numpy().copy() for p, t in
               tree_leaves_with_paths(algo.deployable(state, group))}
+    # the rank's compute row under the Megatron split: its elements, and
+    # those of the whole row
+    column = (mesh.column_layout(lay, model.cfg).data_numel
+              if mesh is not None else None)
     return {"losses": np.concatenate(losses), "counts": counts,
             "full_rows": np.stack(full), "deploy": deploy,
-            "numel": lay.numel, "wq_block": wq_block}
+            "numel": lay.numel, "wq_block": wq_block, "column": column,
+            "row": sum(lay.full.sizes) if mesh is not None else None}
 
 
-def fsdp_tp_cases(rank, world, cases, cfg_fields, np_params, stream_kw):
+def fsdp_tp_cases(rank, world, cases, models, stream_kw):
     """The rank side of the composed-mesh world: every case on a
-    ``MeshGroups`` of its spec (each with a registry of its own)."""
+    ``MeshGroups`` of its spec (each with a registry of its own), on the
+    model its ``"model"`` key names in ``models`` ({name: (cfg fields,
+    numpy params)}; default "dense")."""
     from repro_torch.launch.mesh import parse_mesh_spec
     from repro_torch.obs import Obs
     from repro_torch.sharding.partition import MeshGroups
@@ -281,7 +289,8 @@ def fsdp_tp_cases(rank, world, cases, cfg_fields, np_params, stream_kw):
     for c in cases:
         group = MeshGroups(parse_mesh_spec(c["mesh"]), c["n"], rank,
                            obs=Obs())
-        res = run_mesh_case(c, group, cfg_fields, np_params, stream_kw)
+        res = run_mesh_case(c, group, *models[c.get("model", "dense")],
+                            stream_kw)
         res["coords"] = group.coords
         out.append(res)
     return out
@@ -361,7 +370,8 @@ def dry_run_counters(rank, world, spec, cfg_fields, batch, remat):
     mesh ``spec``: one ``train_inner``, then one ``parle_sync``
     (``steps.make_parle_steps`` on the rank's ``MeshGroups``, f32, smoke
     params from seed 0); the rank's collective counters by axis after
-    each."""
+    each, and the FLOPs of its ``train_inner``."""
+    from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import ParleConfig
     from repro_torch.configs.base import ModelConfig
     from repro_torch.core import parle
@@ -378,33 +388,173 @@ def dry_run_counters(rank, world, spec, cfg_fields, batch, remat):
                                             remat=remat, mesh=group)
     params = build_model(cfg).init(torch.Generator().manual_seed(0))
     state = parle.dealias_state(parle.init(params, pcfg, group))
-    state, _ = inner(state, {k: torch.from_numpy(v[group.rows])
-                             for k, v in batch.items()})
+    with FlopCounterMode(display=False) as fc:
+        state, _ = inner(state, {k: torch.from_numpy(v[group.rows])
+                                 for k, v in batch.items()})
     counts = [collective_counts_by_axis(group.obs.registry)]
     sync(state)
     counts.append(collective_counts_by_axis(group.obs.registry))
-    return counts
+    return {"counts": counts, "flops": fc.get_total_flops()}
 
 
-def moe_columns(rank, world, layer, cfg, x):
+def moe_columns(rank, world, layer, cfg, x, w):
     """One rank of a "model" pair: its column of the expert-parallel MoE
-    dispatch summed over the pair (``MeshGroups.model_sum_``), its
-    counters by axis, and what a backward through the sum raises."""
-    from repro_torch.models import moe
+    dispatch summed over the pair (``MeshGroups.reduce_from_model``), the
+    grads of ``sum(y * w) + aux`` through the sum (x's, and each of the
+    layer's leaves the rank's column of them), and its counters by
+    axis."""
+    from repro_torch.models import megatron, moe
     from repro_torch.sharding.partition import (MeshGroups,
                                                 collective_counts_by_axis)
     mesh = MeshGroups({"replica": 1, "model": world}, 1, rank)
+    tp = megatron.TensorParallel(world, rank, mesh)
     params = {k: (torch.from_numpy(v) if not isinstance(v, dict) else
                   {kk: torch.from_numpy(vv) for kk, vv in v.items()})
               for k, v in layer.items()}
-    with moe.expert_parallel(moe.ExpertParallel(world, rank, mesh)):
+    with megatron.tensor_parallel(tp):
         y, _ = moe.moe_forward(params, cfg, torch.from_numpy(x))
         xg = torch.from_numpy(x).requires_grad_(True)
-        yg, _ = moe.moe_forward(params, cfg, xg)
-    try:
-        yg.sum().backward()
-        raised = ""
-    except NotImplementedError as e:
-        raised = str(e)
-    return {"y": y.numpy(), "raised": raised,
+        pg = {k: ({kk: vv.clone().requires_grad_(True)
+                   for kk, vv in v.items()} if isinstance(v, dict)
+                  else v.clone().requires_grad_(True))
+              for k, v in params.items()}
+        yg, aux = moe.moe_forward(pg, cfg, xg)
+    (torch.sum(yg * torch.from_numpy(w)) + aux).backward()
+    grads = {k: ({kk: vv.grad.numpy() for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.grad.numpy())
+             for k, v in pg.items()}
+    return {"y": y.numpy(), "gx": xg.grad.numpy(), "grads": grads,
             "counts": collective_counts_by_axis(mesh.obs.registry)}
+
+
+# ------------------------------------------------------------------
+# the Megatron split and the MoE on a "data" axis
+# (tests/test_torch_megatron.py)
+# ------------------------------------------------------------------
+
+def moe_grads(rank, spec, cfg_fields, np_params, batch_np):
+    """One replica of the moe ``cfg_fields`` model on the mesh ``spec``
+    (every replica the same params and batch ``batch_np``): the loss and
+    the shard grads from ``core/parle.py::ShardGrads`` (the grads
+    gathered back into whole leaves), the aux loss of the rank's own
+    forward under the same context (the data ranks' mean of it), and the
+    rank's counters by axis."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core.parle import ShardGrads, split_context
+    from repro_torch.launch.mesh import parse_mesh_spec, replica_axis
+    from repro_torch.models import megatron
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.model import build_model
+    from repro_torch.obs import Obs
+    from repro_torch.sharding.partition import (MeshGroups,
+                                                collective_counts_by_axis)
+    cfg = ModelConfig(**cfg_fields)
+    model = build_model(cfg)
+    mesh = MeshGroups(parse_mesh_spec(spec), replica_axis(spec)[1], rank,
+                      obs=Obs())
+    lay = mesh.layout(params_from_numpy(np_params, "cpu"))
+    rows = lay.flatten(params_from_numpy(np_params, "cpu"))[None].clone()
+    batch = {k: torch.from_numpy(v)[None] for k, v in batch_np.items()}
+    out = torch.zeros_like(rows)
+    shard = ShardGrads(mesh)
+    loss = shard(model.loss, lay, rows, batch, out)
+    counts = collective_counts_by_axis(mesh.obs.registry)
+    full = torch.zeros(lay.full.numel)
+    mesh.gather_blocks(out[0], full, lay)
+    grads = {"/".join(p): g.numpy().copy()
+             for p, g in zip(lay.full.paths, lay.full.views(full))}
+    sel = mesh.data_rows(batch_np["tokens"].shape[0])
+    tp = split_context(mesh, cfg, sel != slice(None))
+    if tp.columns > 1:
+        clay = shard.column_layout(lay, cfg)
+        crow = mesh.gather_columns(rows[0], torch.zeros(clay.flat.numel),
+                                   clay)
+        params = clay.flat.tree(crow)
+    else:
+        params = lay.full.tree(mesh.gather_blocks(rows[0], full, lay))
+    with torch.no_grad(), megatron.tensor_parallel(tp):
+        _, info = model.loss(params, {k: v[0, sel]
+                                      for k, v in batch.items()})
+    aux = mesh.data_mean_(info["aux"].reshape(1), sel != slice(None))
+    return {"loss": float(loss[0]), "aux": float(aux[0]), "grads": grads,
+            "counts": counts, "coords": mesh.coords}
+
+
+def vocab_parallel_ce(rank, M, mesh, seed):
+    """The vocab-parallel CE (an untied head) and ``lm_cross_entropy`` of
+    a tied head on this rank's "model" column of ``mesh``, against
+    ``chunked_cross_entropy`` of the whole head in this process: values,
+    grads of h and of the rank's column of the head (a tied head's
+    whole), the bytes autograd saved for the backward, and the "model"
+    collectives of each."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models import layers, megatron
+    from repro_torch.models.model import lm_cross_entropy
+    from repro_torch.sharding.partition import collective_counts_by_axis
+    B, T, d, V, chunk = 2, 32, 32, 64, 8
+    rng = np.random.default_rng(seed)
+    h0 = torch.from_numpy(rng.standard_normal((B, T, d), np.float32))
+    w0 = torch.from_numpy(rng.standard_normal((d, V), np.float32) * 0.3)
+    labels = torch.from_numpy(rng.integers(0, V, (B, T)).astype(np.int32))
+    tp = megatron.TensorParallel(M, mesh.model_index, mesh)
+    tied = ModelConfig(name="t-tied", family="dense", num_layers=1,
+                       d_model=d, num_heads=1, num_kv_heads=1, d_ff=d,
+                       vocab_size=V, tie_embeddings=True)
+    out = {}
+    for kind in ("vocab", "tied"):
+        h, w = h0.clone().requires_grad_(), w0.clone().requires_grad_()
+        # the tied head at lm_cross_entropy's own chunk
+        kw = dict(chunk=chunk) if kind == "vocab" else {}
+        want = layers.chunked_cross_entropy(h, w, labels, **kw)
+        want_g = torch.autograd.grad(want, (h, w))
+        before = collective_counts_by_axis(mesh.obs.registry)
+        h, w = h0.clone().requires_grad_(), w0.clone().requires_grad_()
+        seen = {}
+
+        def pack(t):
+            seen[t.untyped_storage().data_ptr()] = \
+                t.untyped_storage().nbytes()
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            if kind == "vocab":
+                col = tp.cols(w, V, -1)
+                got = layers.vocab_parallel_cross_entropy(
+                    h, col, labels, tp, V, chunk=chunk)
+            else:                         # the embedding (V, d) = w.T
+                with megatron.tensor_parallel(tp):
+                    got = lm_cross_entropy({"embed": w.T}, tied, h, labels)
+        got_g = torch.autograd.grad(got, (h, w))
+        lo, hi = tp.part(V) if kind == "vocab" else (0, V)
+        sl = (slice(None), slice(lo, hi))
+        after = collective_counts_by_axis(mesh.obs.registry)
+        out[kind] = {
+            "value": (float(got), float(want)),
+            "gh": (got_g[0].numpy(), want_g[0].numpy()),
+            "gw": (got_g[1][sl].numpy(), want_g[1][sl].numpy()),
+            "saved": sum(seen.values()),
+            "model": {op: (c - before.get("model", {}).get(op, (0, 0))[0],
+                           b - before.get("model", {}).get(op, (0, 0))[1])
+                      for op, (c, b) in after.get("model", {}).items()}}
+    return out
+
+
+def megatron_world(rank, world, moe_cases, dense_case, models, stream_kw):
+    """The rank side of tests/test_torch_megatron.py's world: each moe
+    case ({name: (spec, cfg fields, numpy params, numpy batch)}) through
+    :func:`moe_grads`, the vocab-parallel CE on "model" pairs, and the
+    dense ``dense_case`` (a :func:`run_mesh_case` case) on a
+    ``MeshGroups`` of its spec."""
+    from repro_torch.launch.mesh import parse_mesh_spec
+    from repro_torch.obs import Obs
+    from repro_torch.sharding.partition import MeshGroups
+    out = {name: moe_grads(rank, *args) for name, args in moe_cases.items()}
+    mesh = MeshGroups(parse_mesh_spec("replica:1,data:2,model:2"), 1, rank,
+                      obs=Obs())
+    out["ce"] = vocab_parallel_ce(rank, 2, mesh, seed=3)
+    group = MeshGroups(parse_mesh_spec(dense_case["mesh"]), dense_case["n"],
+                       rank, obs=Obs())
+    out["dense"] = run_mesh_case(dense_case, group, *models["dense"],
+                                 stream_kw)
+    out["dense"]["coords"] = group.coords
+    return out

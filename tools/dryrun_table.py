@@ -6,14 +6,12 @@ fit the card, the dominant roofline term and the FLOPs a card.
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
     python3 tools/dryrun_table.py results/dryrun
 
-Refused pairs show their ROADMAP.md item; extrapolated ones are marked
-"(x)".  Reads only the JSON files ``launch/dryrun.py`` writes.
+Extrapolated pairs are marked "(x)".  Reads only the JSON files ``launch/dryrun.py`` writes.
 """
 from __future__ import annotations
 
 import json
 import os
-import re
 import sys
 
 MESHES = (("sp", "16x16"), ("mp", "2x16x16"))
@@ -24,9 +22,6 @@ TERMS = {"compute_s": "compute", "memory_s": "mem", "collective_s": "coll"}
 def cell(rec) -> str:
     if rec is None:
         return "—"
-    if rec.get("refused"):
-        item = re.search(r"item \w+", rec["refused"])
-        return f"refused ({item.group(0) if item else 'see record'})"
     prog = max(rec["programs"], key=lambda p: p["flops_per_device"])
     mem = prog["memory"]
     gib = (mem["argument_size_bytes"] + mem["temp_size_bytes"]) / 2 ** 30
