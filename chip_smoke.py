@@ -239,13 +239,17 @@ itself and, in order:
    losses within rtol 2e-5 of the one-process int8 run, the replica axis
    moving a shard's int8 payload and its scales a sync; 13c, on the same
    ranks: full-width Mamba2-1.3B cut to 2 layers, Parle n = 2, L = 2, f32
-   through K1 / K2, checkpointed at step 2 under ``--mesh
-   replica:2,model:2`` (each leaf's blocks gathered inside the replica,
-   then the replicas' rows to rank 0, which writes the one file) — its
-   every leaf's sha256 = the one-process state's at step 2 — and resumed
-   for 2 steps under ``replica:2,data:2`` (losses within rtol 2e-5) and,
-   beside the ranks, in this process with no mesh (steps 3-4, eval loss
-   and final x = the uninterrupted run's bit for bit); the save's
+   through K1 / K2, split over "model" (each rank its SSD heads),
+   checkpointed at step 2 under ``--mesh replica:2,model:2`` (each leaf's
+   blocks gathered inside the replica, then the replicas' rows to rank 0,
+   which writes the one file) — its every leaf within rtol 2e-5 / atol
+   2e-6 of the one-process state at step 2, and read back there = each
+   rank's state at step 2 bit for bit (sha256 of its rows) — resumed for
+   2 steps under ``replica:2,model:2`` (steps 3-4, eval loss and final x
+   = the uninterrupted split run's bit for bit), under
+   ``replica:2,data:2`` (a layout sharded over "data", no split) and,
+   beside the ranks, in this process with no mesh (both: losses and eval
+   loss within rtol 2e-5 of the uninterrupted runs'); the save's
    in-replica gather, replica gather and write seconds, each resume's
    seconds, the file's bytes and peak memory a rank printed; then 13a
    through the pod launcher, ``dist_run --nproc 4 --mesh
@@ -308,6 +312,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import unittest.mock
 
 # cuBLAS reads its workspace setting once, at its first use: deterministic
 # float32 products for the training phase's bitwise comparison
@@ -351,7 +356,8 @@ from repro_torch.obs import (Obs, Registry, read_events,  # noqa: E402
                              snapshot_summaries)
 from repro_torch.runtime import (AsyncElasticPolicy,  # noqa: E402
                                  consensus_digest, load_consensus)
-from repro_torch.runtime.coordinator import _np_dequant  # noqa: E402
+from repro_torch.runtime.coordinator import (_np_dequant,  # noqa: E402
+                                             free_ports)
 from repro_torch.runtime.precision import pin_float32  # noqa: E402
 from repro_torch.serving.engine import _bucket_len  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
@@ -2816,11 +2822,18 @@ def pod_rank_main(rank, world, port, out_q, ckpt_dir):
             dist.destroy_process_group()
 
 
+_PORTS: list = []
+
+
 def free_port() -> int:
-    import socket
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+    """A TCP port of 127.0.0.1 for a pod's rendezvous or coordinator:
+    drawn outside the kernel's ephemeral range (``runtime/coordinator.py::
+    free_ports``), where no outgoing connection can take it as its source
+    port before its server binds it, and never handed out twice in a run,
+    so that pods started side by side share none."""
+    if not _PORTS:
+        _PORTS.extend(free_ports(32))
+    return _PORTS.pop()
 
 
 def _run_ranks(target, world, timeout, *args, beside=None):
@@ -3462,13 +3475,13 @@ def _span_s(events, name) -> list:
     return [round(e["dur"] / 1e6, 3) for e in events if e["name"] == name]
 
 
-def _ckpt_job(device, argv, obs, fields=CKPT_FIELDS, leaves=False) -> dict:
+def _ckpt_job(device, argv, obs, fields=CKPT_FIELDS, against=None) -> dict:
     """One run of the train CLI's run() on ckpt_cfg() (12a's, 13c's): its
     losses, eval loss, the row digests of ``fields``, launches, peak
     memory and the seconds of its checkpoints (each gather stage with
-    its axis and bytes, whole save, rank 0's writes) and of its restore;
-    with ``leaves``, the sha256 of every leaf of the final state as the
-    checkpoint stores it (:func:`state_leaf_digests`)."""
+    its axis and bytes, whole save, rank 0's writes) and of its
+    restore; ``against``: a checkpoint its final state is held to
+    (:func:`leaves_against_file`)."""
     torch.cuda.reset_peak_memory_stats(device)
     reset_launches()
     t0 = time.perf_counter()
@@ -3479,12 +3492,12 @@ def _ckpt_job(device, argv, obs, fields=CKPT_FIELDS, leaves=False) -> dict:
                 for name, (mod, attr) in COUNTERS.items()}
     peak = torch.cuda.max_memory_allocated(device)
     digests = field_digests(state, fields) if fields else {}
-    out = {"leaf_digests": state_leaf_digests(state)} if leaves else {}
+    held = leaves_against_file(state, against) if against else None
     del state
     _release()
     ev = obs.tracer.events
     gathers = [e["args"] for e in ev if e["name"] == "pod.gather"]
-    return {**out, "losses": losses.tolist(), "eval_loss": eval_loss,
+    return {"losses": losses.tolist(), "eval_loss": eval_loss,
             "digests": digests, "launches": launches, "round_wall_s": walls,
             "wall_s": round(wall, 3),
             "peak_memory_gib": round(peak / 2 ** 30, 3),
@@ -3496,7 +3509,7 @@ def _ckpt_job(device, argv, obs, fields=CKPT_FIELDS, leaves=False) -> dict:
             "gather_bytes": [g["bytes"] for g in gathers],
             "gathers": [{k: g[k] for k in ("axis", "bytes", "gather_s")}
                         for g in gathers],
-            "restore_s": _span_s(ev, "restore")}
+            "restore_s": _span_s(ev, "restore"), "against_file": held}
 
 
 def ckpt_rank_jobs(device, rank, ckpt_dir) -> dict:
@@ -3800,25 +3813,50 @@ SHARD_13B_STEPS = 2
 # two halves of the batch (the reference's composed-mesh loss bound)
 SHARD_RTOL = 2e-5
 # 13c: 12a's model (full-width Mamba2-1.3B cut to 2 layers, 1.03 GB of
-# float32 a copy), Parle n = 2, L = 2, f32 through K1 / K2: saved at step
-# 2 (of the uninterrupted run's 4) by four ranks under SHARD_CKPT_SAVE,
-# resumed for 2 steps under SHARD_CKPT_RESUME (four ranks) and in this
-# process with no mesh.  Each 2-step run launches K1 2 / K2 1 (a rank)
-SHARD_CKPT_SAVE, SHARD_CKPT_RESUME = "replica:2,model:2", "replica:2,data:2"
+# float32 a copy), Parle n = 2, L = 2, f32 through K1 / K2, split over
+# "model" (each rank its SSD heads): saved at step 2 by four ranks under
+# SHARD_CKPT_SAVE (its every leaf within DEPLOY_TOL of the one-process
+# state at step 2), the file read back there (= the ranks' state bit for
+# bit), resumed for 2 steps under SHARD_CKPT_RESUME (= the uninterrupted
+# split run, 4 steps on the same ranks, bit for bit), under
+# SHARD_CKPT_RESUME_DATA (a layout sharded over "data", no split) and in
+# this process with no mesh (both within SHARD_RTOL of the uninterrupted
+# runs).  Each 2-step run launches K1 2 / K2 1 (a rank)
+SHARD_CKPT_SAVE = SHARD_CKPT_RESUME = "replica:2,model:2"
+SHARD_CKPT_RESUME_DATA = "replica:2,data:2"
 SHARD_CKPT_LAUNCHES = dict(parle_inner_update=2, parle_sync_update=1)
 SHARD_CKPT_COPIES = 10              # the file: five (n, M) fields, n = 2
+SHARD_CKPT_FIELDS = ("x", "y", "z", "v_y", "v_x")
+# 13a before the split (Mamba2-1.3B at 2 layers, every model rank on the
+# gathered row; PR 26's runs, NVIDIA H100 80GB HBM3, 700.00 W)
+GATHERED_ROW_13A_PEAK_GIB = (4.9, 5.4)
 
 
 # 13d / 13e: the Megatron split over "model" and the MoE on a "data"
 # axis, on phase 13's ranks after 13c.  job: (arch, layers, mesh,
-# replicas, steps, K launches a rank); L = 2, 2 x 256 tokens a replica,
-# f32, deterministic algorithms
+# replicas, steps, K launches a rank); L = 2 (1 for a one-step job,
+# split_L), 2 x 256 tokens a replica, f32, deterministic algorithms
 MEGATRON_JOBS = {
     "13d": ("qwen2.5-3b", 2, "replica:2,model:2", 2, 4,
             dict(parle_inner_update=4, parle_sync_update=2)),
-    "13e": ("qwen2-moe-a2.7b", 1, "replica:1,data:2,model:2", 1, 2,
+    # one step (L = 1) since PR 29, for the script's time limit
+    "13e": ("qwen2-moe-a2.7b", 1, "replica:1,data:2,model:2", 1, 1,
+            dict(parle_inner_update=1, parle_sync_update=1)),
+    # 13f: Zamba2-1.2B's SSM layers (its SSD heads) and its shared
+    # attention block split over "model", one round
+    "13f": ("zamba2-1.2b", 2, "replica:2,model:2", 2, 2,
             dict(parle_inner_update=2, parle_sync_update=1)),
 }
+# 13f's one-step cases of the vlm and audio families, through the
+# Algorithm API (the train CLI draws no patch_embeds / cond; L = 1, so
+# the step syncs): the same tuple as MEGATRON_JOBS
+FAMILY_STEP_JOBS = {
+    "13f-vlm": ("internvl2-1b", 2, "replica:2,model:2", 2, 1,
+                dict(parle_inner_update=1, parle_sync_update=1)),
+    "13f-audio": ("musicgen-large", 1, "replica:2,model:2", 2, 1,
+                  dict(parle_inner_update=1, parle_sync_update=1)),
+}
+SPLIT_JOBS = {**MEGATRON_JOBS, **FAMILY_STEP_JOBS}
 # a step under replica:2,model:2 before the split (Qwen2.5-3B at 2 layers,
 # every model rank on the gathered row; NVIDIA H100 80GB HBM3, 700.00 W)
 GATHERED_ROW_STEP_S = (5.42, 6.10)
@@ -3852,15 +3890,139 @@ def deployable_err(spec, n, state, path) -> tuple:
     return err, ok
 
 
+def leaves_against_file(state, path) -> dict:
+    """Every leaf of ``state`` against the checkpoint at ``path``'s, on the
+    leaf's device: whether the file holds the same keys, the max abs
+    err, and whether every float32 leaf is within DEPLOY_TOL (any other
+    leaf equal)."""
+    members, leaves = ckpt._members(path), ckpt._flat_leaves(state)
+    err, ok = 0.0, set(members) == set(leaves)
+    for key, leaf in leaves.items():
+        if key not in members:
+            continue
+        off, shape, dtype = members[key]
+        got = np.memmap(path, dtype, "c", off, tuple(shape))
+        if not (isinstance(leaf, torch.Tensor)
+                and leaf.dtype == torch.float32):
+            ok = ok and bool(np.array_equal(got, ckpt.to_numpy(leaf)))
+            continue
+        if leaf.numel() == 0:
+            continue
+        got = torch.from_numpy(got).to(leaf.device)
+        err = max(err, float((got - leaf).abs().max()))
+        ok = ok and bool(torch.allclose(got, leaf, **DEPLOY_TOL))
+        del got
+    return {"keys": len(leaves), "max_abs_err": err, "ok": ok}
+
+
 def megatron_cfg(job):
-    arch, layers = MEGATRON_JOBS[job][:2]
+    arch, layers = SPLIT_JOBS[job][:2]
     return dataclasses.replace(get_config(arch), num_layers=layers)
+
+
+def split_L(job) -> int:
+    """The job's L: 2, or 1 for a one-step job."""
+    return min(SPLIT_JOBS[job][4], 2)
+
+
+def family_batch(cfg, stream, step, n, rows, device) -> dict:
+    """The token stream's replica batches with the conditioning the vlm
+    and audio families read: each replica's ``patch_embeds`` / ``cond``
+    drawn on the card from a generator seeded with the step, the same on
+    every rank (``rows``: this rank's replicas)."""
+    batch = replica_batches(stream, step, stream.batch_size, n, rows=rows)
+    extra = {"vlm": ("patch_embeds", cfg.num_patches),
+             "audio": ("cond", cfg.cond_len)}.get(cfg.family)
+    if extra is not None:
+        name, length = extra
+        gen = torch.Generator(device=device).manual_seed(1000 + step)
+        batch[name] = torch.randn((n, stream.batch_size, length,
+                                   cfg.d_model), generator=gen,
+                                  device=device)[rows]
+    return batch
+
+
+def family_step_run(device, job, group=None) -> tuple:
+    """A FAMILY_STEP_JOBS job through the Algorithm API (``group``: this
+    rank's ``MeshGroups``; None: all n replicas in this process), params
+    from seed 0 on the card, 2 x 256 tokens a replica a step, through
+    K1 / K2: (losses, step walls, final state, eval loss of the
+    deployable, peak GiB, the group's counters by axis after the
+    steps)."""
+    _, _, _, n, steps, _ = SPLIT_JOBS[job]
+    cfg = megatron_cfg(job)
+    model = build_model(cfg)
+    algo = registry.get("parle")
+    pcfg = algo.canonicalize_cfg(ParleConfig(n_replicas=n, L=split_L(job),
+                                             lr=0.1, lr_inner=0.1))
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = parle.dealias_state(algo.init(model.init(gen), pcfg, group))
+    step = (algo.make_step(model.loss, pcfg, use_kernel=True)
+            if group is None else
+            algo.make_sharded_step(model.loss, pcfg, group, use_kernel=True))
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=256,
+                         batch_size=2, seed=0, device=str(device),
+                         num_codebooks=cfg.num_codebooks
+                         if cfg.family == "audio" else 0)
+    rows = group.rows if group is not None else slice(None)
+    losses, walls = [], []
+    for i in range(steps):
+        batch = family_batch(cfg, stream, i, n, rows, device)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize(device)
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    by_axis = (collective_counts_by_axis(group.obs.registry)
+               if group is not None else {})
+    held = {k: v[0] for k, v in family_batch(
+        cfg, stream, 10_000_019, 1, slice(None), device).items()}
+    eval_loss = float(parle.evaluate(
+        model.loss, algo.deployable_row(state, group), state.layout, group,
+        held))
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    check(all(np.isfinite(losses)) and np.isfinite(eval_loss),
+          f"{job}: losses {losses}, eval {eval_loss}")
+    return losses, walls, state, eval_loss, peak, by_axis
+
+
+def _family_step_job(device, rank, job, deploy) -> dict:
+    """:func:`family_step_run` on this rank's ``MeshGroups``: what
+    :func:`_shard_job` returns for the train CLI's jobs."""
+    _, _, spec, n, *_ = SPLIT_JOBS[job]
+    obs = Obs(trace_out=os.devnull)
+    group = mesh_mod.groups_from_spec(spec, n, obs)
+    losses, walls, state, eval_loss, peak, by_axis = family_step_run(
+        device, job, group)
+    lay = state.layout
+    out = {"losses": losses, "eval_loss": eval_loss, "round_wall_s": walls,
+           "launches": {name: getattr(mod, attr)
+                        for name, (mod, attr) in COUNTERS.items()},
+           "coords": partition.mesh_coords(mesh_mod.parse_mesh_spec(spec),
+                                           rank),
+           "numel": lay.numel, "live": sum(lay.sizes),
+           "full_numel": lay.full.numel,
+           "by_axis": collective_counts_by_axis(obs.registry),
+           "train_by_axis": {a: {op: list(v) for op, v in ops.items()}
+                             for a, ops in by_axis.items()},
+           "syncs": _sync_records(obs.tracer.events),
+           "peak_memory_gib": round(peak, 3)}
+    t0 = time.perf_counter()
+    out["deploy_err"] = deployable_err(spec, n, state, deploy)
+    out["deploy_check_s"] = round(time.perf_counter() - t0, 2)
+    del state
+    _release()
+    return out
 
 
 def megatron_argv(job, mesh=None) -> list:
     arch, _, _, n, steps, _ = MEGATRON_JOBS[job]
     return (["--arch", arch, "--device", "cuda", "--replicas", str(n),
-             "--L", "2", "--steps", str(steps), "--batch", "2", "--seq",
+             "--L", str(split_L(job)), "--steps", str(steps), "--batch",
+             "2", "--seq",
              "256", "--round-fused", "--use-kernel", "--log-every", "2",
              "--seed", "0"] + (["--mesh", mesh] if mesh else []))
 
@@ -3878,47 +4040,20 @@ def shard_ckpt_path(ckpt_dir) -> str:
     return os.path.join(ckpt_dir, "step000002.npz")
 
 
-def _sha256_threads(jobs) -> dict:
-    """{key: sha256 hex} of ``jobs`` ({key: callable giving the bytes}),
-    hashed in threads (hashlib releases the GIL over large buffers)."""
-    digest = lambda fn: hashlib.sha256(fn()).hexdigest()
-    with concurrent.futures.ThreadPoolExecutor(8) as ex:
-        return dict(zip(jobs, ex.map(digest, jobs.values())))
-
-
-def state_leaf_digests(state) -> dict:
-    """{checkpoint key: sha256} of every leaf of ``state`` as the
-    checkpoint stores it (``ckpt.to_numpy``'s bytes)."""
-    leaves = ckpt._flat_leaves(state)
-    return _sha256_threads({k: (lambda t=t: ckpt.to_numpy(t).reshape(-1)
-                                .view(np.uint8)) for k, t in leaves.items()})
-
-
-def file_leaf_digests(path) -> dict:
-    """{key: sha256} of every member's data in the npz at ``path``."""
-    def read(off, shape, dtype):
-        n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
-        with open(path, "rb") as f:
-            f.seek(off)
-            return f.read(n)
-    return _sha256_threads({k: (lambda m=m: read(*m))
-                            for k, m in ckpt._members(path).items()})
-
-
 def shard_reference_phase(device, deploy_dir) -> dict:
     """13's one-process references, under deterministic algorithms: 13b's
     int8 barrier run (through the kernels) — its losses and eval loss;
-    13c's uninterrupted 4-step run (f32, K1 / K2) — its losses, eval
-    loss and final x rows' digests — and its 2-step run, the sha256 of
-    every leaf of its state (what a one-process checkpoint at step 2
-    holds); 13d's and 13e's runs — their losses, eval loss, and their
-    deployable rows written under ``deploy_dir``."""
+    13c's uninterrupted 4-step run (f32, K1 / K2) — its losses and eval
+    loss; 13d's, 13e's and 13f's runs — their losses, eval loss, and
+    their deployable rows written under ``deploy_dir``."""
     phase(f"13. one-process references: full-width {CKPT_ARCH} cut to "
           f"{CKPT_LAYERS} layers, parle n=2 L=2, {SHARD_13B_STEPS} steps, "
-          f"int8 (13b); f32, 4 steps and 2 steps (13c); full-width "
+          f"int8 (13b); f32, 4 steps (13c); full-width "
           f"qwen2.5-3b cut to "
-          f"2 layers, n=2, 4 steps (13d) and qwen2-moe-a2.7b cut to 1 "
-          f"layer, n=1, 2 steps (13e), f32")
+          f"2 layers, n=2, 4 steps (13d), qwen2-moe-a2.7b cut to 1 "
+          f"layer, n=1, 1 step (13e), zamba2-1.2b cut to 2 layers, n=2, 2 "
+          f"steps, and one step of internvl2-1b (2 layers) and "
+          f"musicgen-large (1 layer) (13f), f32")
     torch.use_deterministic_algorithms(True)
     spec, extra, want = SHARD_JOBS["13b"]
     losses, walls, state, eval_loss, peak = _train_measured(
@@ -3931,20 +4066,19 @@ def shard_reference_phase(device, deploy_dir) -> dict:
     t0 = time.perf_counter()
     full = _ckpt_job(device, shard_argv(4), Obs(), fields=("x",))
     launch_counts(**{k: 2 * v for k, v in SHARD_CKPT_LAUNCHES.items()})
-    half = _ckpt_job(device, shard_argv(2), Obs(), fields=(),
-                     leaves=True)
-    launch_counts(**SHARD_CKPT_LAUNCHES)
-    check(half["losses"] == full["losses"][:2],
-          f"13c: the 2-step run's losses {half['losses']} != the 4-step "
-          f"run's first two {full['losses'][:2]}")
-    refs["13c"] = {"full": full, "leaf_digests": half["leaf_digests"],
+    refs["13c"] = {"full": full,
                    "wall_s": round(time.perf_counter() - t0, 1)}
-    for job, (*_, want) in MEGATRON_JOBS.items():
+    for job, (*_, want) in SPLIT_JOBS.items():
         _release()
-        losses, walls, state, eval_loss, peak = _train_measured(
-            device, megatron_argv(job), cfg=megatron_cfg(job))
+        if job in FAMILY_STEP_JOBS:
+            losses, walls, state, eval_loss, peak, _ = family_step_run(
+                device, job)
+        else:
+            losses, walls, state, eval_loss, peak = _train_measured(
+                device, megatron_argv(job), cfg=megatron_cfg(job))
+            losses = losses.tolist()
         launch_counts(**want)
-        refs[job] = {"losses": losses.tolist(), "eval_loss": eval_loss,
+        refs[job] = {"losses": losses, "eval_loss": eval_loss,
                      "round_wall_s": walls,
                      "peak_memory_gib": round(peak, 3)}
         t0 = time.perf_counter()
@@ -3959,7 +4093,7 @@ def shard_reference_phase(device, deploy_dir) -> dict:
         "13c": {k: full[k] for k in ("losses", "eval_loss", "round_wall_s",
                                      "peak_memory_gib")},
         "13c_refs_wall_s": refs["13c"]["wall_s"],
-        **{job: refs[job] for job in MEGATRON_JOBS}}}), flush=True)
+        **{job: refs[job] for job in SPLIT_JOBS}}}), flush=True)
     return refs
 
 
@@ -4004,16 +4138,45 @@ def _shard_job(device, rank, spec, extra, argv=None, cfg=None,
     return out
 
 
+def digesting_restore(into: dict):
+    """``ckpt.restore`` that also puts :func:`field_digests` of the rows it
+    restored (SHARD_CKPT_FIELDS) in ``into``: a resume's state as read
+    back, before its first step."""
+    restore = ckpt.restore
+
+    def wrapped(*args, **kwargs):
+        state = restore(*args, **kwargs)
+        into.update(field_digests(state, SHARD_CKPT_FIELDS))
+        return state
+    return wrapped
+
+
 def shard_ckpt_rank_jobs(device, ckpt_dir) -> dict:
     """13c on one rank: 2 steps under SHARD_CKPT_SAVE, checkpointed at
-    step 2 (every rank's blocks gathered, rank 0 writes the file), then
-    that file resumed for 2 steps under SHARD_CKPT_RESUME."""
+    step 2 (every rank's blocks gathered, rank 0 writes the file), the
+    rows of its state at step 2; that file read back under the same mesh
+    (its rows, as the resume reads it), resumed for 2 steps under
+    SHARD_CKPT_RESUME and under SHARD_CKPT_RESUME_DATA; and the
+    uninterrupted 4-step run under SHARD_CKPT_SAVE."""
     out = {"save": _ckpt_job(device, shard_argv(2, [
         "--mesh", SHARD_CKPT_SAVE, "--checkpoint-dir", ckpt_dir,
-        "--checkpoint-every", "2"]), Obs(trace_out=os.devnull), fields=())}
-    out["resume"] = _ckpt_job(device, shard_argv(2, [
-        "--mesh", SHARD_CKPT_RESUME, "--resume",
-        shard_ckpt_path(ckpt_dir)]), Obs(trace_out=os.devnull), fields=())
+        "--checkpoint-every", "2"]), Obs(trace_out=os.devnull),
+        fields=SHARD_CKPT_FIELDS)}
+    path = shard_ckpt_path(ckpt_dir)
+    out["restored"] = {}
+    with unittest.mock.patch.object(ckpt, "restore",
+                                    digesting_restore(out["restored"])):
+        out["resume"] = _ckpt_job(device, shard_argv(2, [
+            "--mesh", SHARD_CKPT_RESUME, "--resume", path]),
+            Obs(trace_out=os.devnull), fields=("x",))
+    out["resume_data"] = _ckpt_job(device, shard_argv(2, [
+        "--mesh", SHARD_CKPT_RESUME_DATA, "--resume", path]),
+        Obs(trace_out=os.devnull), fields=())
+    # done with the file: the parent may remove it (shard_ckpt_beside)
+    open(os.path.join(ckpt_dir, f"read{dist.get_rank()}"), "w").close()
+    out["uninterrupted"] = _ckpt_job(device, shard_argv(4, [
+        "--mesh", SHARD_CKPT_SAVE]), Obs(trace_out=os.devnull),
+        fields=("x",))
     return out
 
 
@@ -4122,7 +4285,7 @@ def moe_columns_rank_job(device, rank) -> dict:
 
 def shard_rank_main(rank, world, port, out_q, ckpt_dir, deploy_dir):
     """One rank of phase 13, a spawned process: join the gloo world of
-    four, run 13b, 13c, 13d, 13e (held to the deployable rows under
+    four, run 13b, 13c, 13d, 13e, 13f (held to the deployable rows under
     ``deploy_dir``) and 14e's jobs under deterministic algorithms, and
     put the results on ``out_q``."""
     import traceback
@@ -4139,7 +4302,11 @@ def shard_rank_main(rank, world, port, out_q, ckpt_dir, deploy_dir):
         res = {"13b": _shard_job(device, rank, spec, extra),
                "13c": shard_ckpt_rank_jobs(device, ckpt_dir)}
         # after 13c: by then 13a's launcher (beside) has left the card
-        for job, (_, _, mesh, n, *_) in MEGATRON_JOBS.items():
+        for job, (_, _, mesh, n, *_) in SPLIT_JOBS.items():
+            if job in FAMILY_STEP_JOBS:
+                res[job] = _family_step_job(device, rank, job,
+                                            deploy_path(deploy_dir, job))
+                continue
             res[job] = _shard_job(device, rank, mesh, (),
                                   argv=megatron_argv(job, mesh),
                                   cfg=megatron_cfg(job),
@@ -4155,30 +4322,31 @@ def shard_rank_main(rank, world, port, out_q, ckpt_dir, deploy_dir):
 
 
 def shard_ckpt_beside(device, ckpt_dir, procs) -> dict:
-    """While the ranks resume 13c under SHARD_CKPT_RESUME: once their
-    file is complete (its sidecar is written last), the sha256 of its
-    every leaf, then its one-process resume (no mesh, 2 steps) under
-    deterministic algorithms.  None when a rank ends first (its failure
+    """While the ranks resume 13c: once their file is complete (its
+    sidecar is written last), under deterministic algorithms, the
+    one-process 2-step run, its state at step 2 held to the file leaf by
+    leaf (:func:`leaves_against_file`), then the file's one-process
+    resume (no mesh, 2 steps).  None when a rank ends first (its failure
     is reported)."""
     path = shard_ckpt_path(ckpt_dir)
     if not _wait_for(path + ".json", procs):
         return None
-    t0 = time.perf_counter()
-    digests = file_leaf_digests(path)
-    digest_s = time.perf_counter() - t0
     _release()
     torch.use_deterministic_algorithms(True)
     try:
+        half = _ckpt_job(device, shard_argv(2), Obs(trace_out=os.devnull),
+                         fields=(), against=path)
         one = _ckpt_job(device, shard_argv(2, ["--resume", path]),
                         Obs(trace_out=os.devnull), fields=("x",))
     finally:
         torch.use_deterministic_algorithms(False)
     nbytes = os.path.getsize(path)
-    # the ranks opened it as their resume began; its 10.3 GB may sit in
-    # the host's /dev/shm while they run 13d / 13e
-    os.remove(path)
-    return {"leaf_digests": digests, "digest_s": round(digest_s, 1),
-            "bytes": nbytes, "one": one}
+    # once every rank has read it back: its 10.3 GB may sit in the host's
+    # /dev/shm while they run 13d-13f
+    if all(_wait_for(os.path.join(ckpt_dir, f"read{r}"), procs)
+           for r in range(SHARD_WORLD)):
+        os.remove(path)
+    return {"bytes": nbytes, "half": half, "one": one}
 
 
 def _kill_workers(port) -> None:
@@ -4214,6 +4382,7 @@ def start_shard_launcher() -> dict:
             "2", "--L", "2", "--steps", "4", "--batch", "2", "--seq",
             "256", "--seed", "0", "--metrics-out",
             os.path.join(tmp, "m.jsonl"), "--port", str(port),
+            "--tol", str(SHARD_RTOL),
             "--_config", json.dumps(dataclasses.asdict(ckpt_cfg()))]
     logs = [open(os.path.join(tmp, f), "w+") for f in ("out", "err")]
     epoch0 = time.time()
@@ -4227,17 +4396,18 @@ def start_shard_launcher() -> dict:
 
 def finish_shard_launcher(run, smi) -> dict:
     """13a's gates, once its launcher (:func:`start_shard_launcher`)
-    ends: its verdict (each of rank 0's 4 losses = its own one-process
-    run's, bit for bit); from each worker's ``--metrics-out`` file, its
+    ends: its verdict (each of rank 0's 4 losses within SHARD_RTOL of
+    its own one-process run's: each rank computes its SSD heads); from
+    each worker's ``--metrics-out`` file, its
     kernel launches (K1 4 / K2 2), its bytes by axis (the replica axis: 2
     syncs of its blocks' bytes), its peak device memory and its
     timeline."""
     spec, _, want = SHARD_JOBS["13a"]
     phase(f"13a. the pod launcher over a composed mesh (beside the ranks): "
           f"dist_run --nproc {SHARD_WORLD} --mesh {spec} --device cuda "
-          f"--use-kernel, full-width {CKPT_ARCH} cut to {CKPT_LAYERS} "
-          "layers, parle n=2 L=2, 4 steps, f32 through K1/K2, against its "
-          "own one-process run")
+          f"--use-kernel --tol {SHARD_RTOL}, full-width {CKPT_ARCH} cut "
+          f"to {CKPT_LAYERS} layers split over 'model', parle n=2 L=2, 4 "
+          "steps, f32 through K1/K2, against its own one-process run")
     proc, tmp, epoch0 = run["proc"], run["tmp"], run["epoch0"]
     m = os.path.join(tmp, "m.jsonl")
     try:
@@ -4255,8 +4425,9 @@ def finish_shard_launcher(run, smi) -> dict:
         check(proc.returncode == 0, f"13a: dist_run exited "
               f"{proc.returncode}:\n{stdout[-3000:]}\n{stderr[-3000:]}")
         verdict = json.loads(stdout.strip().splitlines()[-1])
-        check(verdict["bitwise_equal"] is True
-              and verdict["compared_steps"] == 4, f"13a: dist_run {verdict}")
+        check(verdict["compared_steps"] == 4
+              and verdict["max_rel_diff"] <= SHARD_RTOL,
+              f"13a: dist_run {verdict}")
         axes = mesh_mod.parse_mesh_spec(spec)
         inner = mesh_mod.inner_axes(spec)
         params = planner.meta_params(build_model(ckpt_cfg()))
@@ -4314,10 +4485,16 @@ def finish_shard_launcher(run, smi) -> dict:
                                  ranks[0]["launches"].items() if v},
            "peak_memory_gib": [r["peak_memory_gib"] for r in ranks],
            "by_axis": ranks[0]["by_axis"]}
+    steps = [np.diff(r["timeline"]["step_s"]).tolist() for r in ranks]
+    out["step_wall_s"] = steps
     print(f"13a: dist_run --nproc {SHARD_WORLD} --mesh {spec}: "
           f"{json.dumps(verdict)}; launches a rank "
           f"{out['launches_per_rank']}; launcher wall {out['wall_s']} s "
-          f"(its one-process run {out['reference_s']} s)", flush=True)
+          f"(its one-process run {out['reference_s']} s); peak "
+          f"{max(out['peak_memory_gib'])} GiB a rank (on the gathered row, "
+          f"PR 26: {GATHERED_ROW_13A_PEAK_GIB[0]}-"
+          f"{GATHERED_ROW_13A_PEAK_GIB[1]}); steps 2-4 a rank "
+          f"{steps} s ({smi})", flush=True)
     return out
 
 
@@ -4382,16 +4559,17 @@ def shard_13b_report(results, ref, smi) -> dict:
 
 
 def shard_megatron_report(results, refs, smi) -> dict:
-    """13d / 13e's gates: each rank's losses and eval loss (the split
+    """13d / 13e / 13f's gates: each rank's losses and eval loss (the split
     ``parle.evaluate`` of the deployable) within SHARD_RTOL of the
     one-process run, its blocks of the deployable within DEPLOY_TOL of
     the one-process row, K1 / K2 launched as counted; each rank's bytes
     by axis and op over its training rounds, step wall and peak memory
     printed, 13d's step beside the gathered row's."""
     out = {}
-    for job, (arch, layers, mesh, n, steps, want) in MEGATRON_JOBS.items():
+    for job, (arch, layers, mesh, n, steps, want) in SPLIT_JOBS.items():
         expected = {k: want.get(k, 0) for k in COUNTERS}
         ref, errs = refs[job], []
+        L = split_L(job)                    # steps a timed wall
         for rank in range(SHARD_WORLD):
             r = results[rank][job]
             check(r["launches"] == expected, f"{job} rank {rank}: "
@@ -4417,7 +4595,7 @@ def shard_megatron_report(results, refs, smi) -> dict:
                 "eval_rel_err": eval_err, "deployable_max_abs_err": dep_err,
                 "deploy_check_s": r["deploy_check_s"],
                 "round_wall_s": r["round_wall_s"],
-                "step_wall_s": [w / 2 for w in r["round_wall_s"]],
+                "step_wall_s": [w / L for w in r["round_wall_s"]],
                 "collective_bytes_by_axis": r["train_by_axis"],
                 "seconds_by_axis": _seconds_by_axis(r["syncs"]),
                 "shard_numel": r["numel"], "full_numel": r["full_numel"],
@@ -4432,9 +4610,9 @@ def shard_megatron_report(results, refs, smi) -> dict:
             "ref_eval_loss": ref["eval_loss"],
             "deployable_max_abs_err": max(
                 results[r][job]["deploy_err"][0] for r in range(SHARD_WORLD)),
-            "step_wall_s": [[w / 2 for w in results[r][job]["round_wall_s"]]
+            "step_wall_s": [[w / L for w in results[r][job]["round_wall_s"]]
                             for r in range(SHARD_WORLD)],
-            "ref_step_wall_s": [w / 2 for w in ref["round_wall_s"]],
+            "ref_step_wall_s": [w / L for w in ref["round_wall_s"]],
             "peak_memory_gib": [results[r][job]["peak_memory_gib"]
                                 for r in range(SHARD_WORLD)],
             "ref_peak_memory_gib": ref["peak_memory_gib"],
@@ -4452,53 +4630,97 @@ def shard_megatron_report(results, refs, smi) -> dict:
     return out
 
 
+def _resume_err(run, losses, eval_loss) -> float:
+    """The max rel err of a 2-step resume's losses and eval loss against
+    an uninterrupted run's steps 3-4 and eval loss."""
+    return max([abs(a / b - 1) for a, b in zip(run["losses"], losses[2:])]
+               + [abs(run["eval_loss"] / eval_loss - 1)])
+
+
 def shard_13c_report(results, beside, ref, where, smi) -> dict:
-    """13c's gates: the file the four ranks wrote under SHARD_CKPT_SAVE
-    holds, leaf for leaf, the bytes of the one-process state at step 2
-    (sha256 of every leaf); resumed in this process it continues the
-    uninterrupted one-process run bit for bit (losses of steps 3-4, eval
-    loss, sha256 of each final x row); resumed under SHARD_CKPT_RESUME
-    every rank's losses are within SHARD_RTOL of it; each run launched K1
-    2 / K2 1 (a rank); each rank made one in-replica gather, and the
-    replica's first rank one replica-axis gather."""
+    """13c's gates, the replica split over "model" (so held to one process
+    within the reference's composed-mesh bounds, and to the split run
+    itself bit for bit): the file the four ranks wrote under
+    SHARD_CKPT_SAVE holds every leaf of the one-process state at step 2
+    within DEPLOY_TOL (that run's losses the uninterrupted one-process
+    run's first two); read back there, it holds each rank's rows of its
+    state at step 2 bit for bit (sha256 of every row of
+    SHARD_CKPT_FIELDS); resumed there it continues the uninterrupted
+    split run bit for bit (losses of steps 3-4, eval loss, sha256 of each
+    final x row), whose first two losses are the save run's; the split
+    run's losses within SHARD_RTOL of one process's; resumed under
+    SHARD_CKPT_RESUME_DATA its losses and eval loss within SHARD_RTOL of
+    the uninterrupted split and one-process runs'; resumed in this
+    process (no mesh) within SHARD_RTOL of the uninterrupted one-process
+    run's; each 2-step run launched K1 2 / K2 1 (a rank); each rank made
+    one in-replica gather, and the replica's first rank one replica-axis
+    gather."""
     phase(f"13c. checkpoint under a composed mesh: full-width {CKPT_ARCH} "
           f"cut to {CKPT_LAYERS} layers, parle n=2 L=2 f32 through K1/K2, "
-          f"saved at step 2 by four ranks under {SHARD_CKPT_SAVE}, resumed "
-          f"under {SHARD_CKPT_RESUME} (four ranks) and in one process")
+          f"split over 'model', saved at step 2 by four ranks under "
+          f"{SHARD_CKPT_SAVE} and held to the one-process state, read back "
+          f"and resumed there against the uninterrupted split run, resumed "
+          f"under {SHARD_CKPT_RESUME_DATA} and in one process")
     check(beside is not None, "13c: the one-process resume did not run")
     full = ref["full"]
-    want_x = full["digests"]["x"]
-    check(beside["leaf_digests"] == ref["leaf_digests"],
-          "13c: the four ranks' file differs from the one-process state at "
-          "step 2: leaves " + str(sorted(
-              k for k in ref["leaf_digests"]
-              if beside["leaf_digests"].get(k) != ref["leaf_digests"][k])))
-    one = beside["one"]
-    check(one["losses"] == full["losses"][2:]
-          and one["eval_loss"] == full["eval_loss"]
-          and one["digests"]["x"] == want_x,
-          f"13c one-process resume: losses {one['losses']} / eval "
-          f"{one['eval_loss']} != the uninterrupted run's "
-          f"{full['losses'][2:]} / {full['eval_loss']} (or its final x)")
+    half, one = beside["half"], beside["one"]
     expected = {k: SHARD_CKPT_LAUNCHES.get(k, 0) for k in COUNTERS}
+    held = half["against_file"]
+    check(half["losses"] == full["losses"][:2]
+          and half["launches"] == expected,
+          f"13c one-process 2-step run: losses {half['losses']} != the "
+          f"4-step run's first two {full['losses'][:2]}, or launches "
+          f"{half['launches']} != {expected}")
+    check(held["ok"], f"13c: the four ranks' file against the one-process "
+          f"state at step 2: {held} (DEPLOY_TOL {DEPLOY_TOL})")
+    one_err = _resume_err(one, full["losses"], full["eval_loss"])
+    check(len(one["losses"]) == 2 and one_err <= SHARD_RTOL,
+          f"13c one-process resume: losses {one['losses']} / eval "
+          f"{one['eval_loss']} vs the uninterrupted run's "
+          f"{full['losses'][2:]} / {full['eval_loss']}: max rel err "
+          f"{one_err:.3e} > {SHARD_RTOL}")
     check(one["launches"] == expected, f"13c one-process resume: launches "
           f"{one['launches']}, expected {expected}")
-    errs, axes = [], mesh_mod.parse_mesh_spec(SHARD_CKPT_SAVE)
+    errs, data_errs, axes = [], [], mesh_mod.parse_mesh_spec(SHARD_CKPT_SAVE)
     inner = ",".join(mesh_mod.inner_axes(SHARD_CKPT_SAVE))
     for rank in range(SHARD_WORLD):
-        save, res = (results[rank]["13c"][k] for k in ("save", "resume"))
-        for name, run in (("save", save), ("resume", res)):
+        save, res, data, unint = (
+            results[rank]["13c"][k] for k in
+            ("save", "resume", "resume_data", "uninterrupted"))
+        for name, run in (("save", save), ("resume", res),
+                          (SHARD_CKPT_RESUME_DATA, data)):
             check(run["launches"] == expected, f"13c {name} rank {rank}: "
                   f"launches {run['launches']}, expected {expected}")
-        check(save["losses"] == full["losses"][:2], f"13c save rank {rank}:"
-              f" losses {save['losses']} != one process's "
-              f"{full['losses'][:2]}")
-        err = max(abs(a / b - 1)
-                  for a, b in zip(res["losses"], full["losses"][2:]))
-        errs.append(err)
-        check(err <= SHARD_RTOL, f"13c resume rank {rank}: losses "
-              f"{res['losses']} vs {full['losses'][2:]}: max rel err "
+        err = max(_resume_err(data, unint["losses"], unint["eval_loss"]),
+                  _resume_err(data, full["losses"], full["eval_loss"]))
+        data_errs.append(err)
+        check(len(data["losses"]) == 2 and err <= SHARD_RTOL,
+              f"13c {SHARD_CKPT_RESUME_DATA} resume rank {rank}: losses "
+              f"{data['losses']} / eval {data['eval_loss']} vs the "
+              f"uninterrupted split run's {unint['losses'][2:]} / "
+              f"{unint['eval_loss']} and one process's "
+              f"{full['losses'][2:]} / {full['eval_loss']}: max rel err "
               f"{err:.3e} > {SHARD_RTOL}")
+        check(results[rank]["13c"]["restored"] == save["digests"],
+              f"13c rank {rank}: the file read back under "
+              f"{SHARD_CKPT_SAVE} differs from the rank's state at step 2: "
+              + str(sorted(f for f in SHARD_CKPT_FIELDS
+                           if results[rank]["13c"]["restored"][f]
+                           != save["digests"][f])))
+        check(save["losses"] == unint["losses"][:2]
+              and res["losses"] == unint["losses"][2:]
+              and res["eval_loss"] == unint["eval_loss"]
+              and res["digests"]["x"] == unint["digests"]["x"],
+              f"13c rank {rank}: save {save['losses']} + resume "
+              f"{res['losses']} / eval {res['eval_loss']} != the "
+              f"uninterrupted split run's {unint['losses']} / "
+              f"{unint['eval_loss']} (or its final x)")
+        err = max(abs(a / b - 1)
+                  for a, b in zip(unint["losses"], full["losses"]))
+        errs.append(err)
+        check(err <= SHARD_RTOL, f"13c rank {rank}: the split run's losses "
+              f"{unint['losses']} vs one process's {full['losses']}: max "
+              f"rel err {err:.3e} > {SHARD_RTOL}")
         first = all(v == 0 for a, v in partition.mesh_coords(
             axes, rank).items() if a != "replica")
         got = sorted(g["axis"] for g in save["gathers"])
@@ -4516,26 +4738,42 @@ def shard_13c_report(results, beside, ref, where, smi) -> dict:
            "gathers_by_rank": by_rank("save", "gathers"),
            "checkpoint_s_by_rank": by_rank("save", "checkpoint_s"),
            "restore_s": {SHARD_CKPT_RESUME: by_rank("resume", "restore_s"),
+                         SHARD_CKPT_RESUME_DATA: by_rank("resume_data",
+                                                         "restore_s"),
                          "one_process": one["restore_s"]},
-           "digest_s": beside["digest_s"],
-           "max_rel_loss_err": max(errs),
+           "file_vs_one_process": held,
+           "max_rel_loss_err": max(errs), "one_process_rel_err": one_err,
+           "resume_data_rel_err": max(data_errs),
            "peak_memory_gib": {"save": by_rank("save", "peak_memory_gib"),
                                "resume": by_rank("resume",
                                                  "peak_memory_gib"),
+                               "resume_data": by_rank("resume_data",
+                                                      "peak_memory_gib"),
                                "one_process": one["peak_memory_gib"]},
            "round_wall_s": {"save": by_rank("save", "round_wall_s"),
-                            "resume": by_rank("resume", "round_wall_s")},
+                            "resume": by_rank("resume", "round_wall_s"),
+                            "resume_data": by_rank("resume_data",
+                                                   "round_wall_s"),
+                            "uninterrupted": by_rank("uninterrupted",
+                                                     "round_wall_s")},
            "run_wall_s": {"save": by_rank("save", "wall_s"),
                           "resume": by_rank("resume", "wall_s"),
+                          "resume_data": by_rank("resume_data", "wall_s"),
+                          "uninterrupted": by_rank("uninterrupted",
+                                                   "wall_s"),
+                          "one_process_2_steps": half["wall_s"],
                           "one_process": one["wall_s"]},
            "launches_per_rank": {k: v for k, v in
                                  save0["launches"].items() if v},
            "card": smi}
     print(json.dumps({"ckpt_composed_mesh": out}), flush=True)
-    print(f"13c: the {SHARD_CKPT_SAVE} file = the one-process state at step "
-          f"2 leaf for leaf (sha256); resumed in one process = the "
-          f"uninterrupted run bit for bit; under {SHARD_CKPT_RESUME} within "
-          f"{max(errs):.3e}", flush=True)
+    print(f"13c: the {SHARD_CKPT_SAVE} file within {held['max_abs_err']:.3e} "
+          f"(abs) of the one-process state at step 2, read back = each "
+          f"rank's state at step 2 (sha256 of its rows); resumed there = the "
+          f"uninterrupted split run bit for bit; the split run within "
+          f"{max(errs):.3e} of one process, the {SHARD_CKPT_RESUME_DATA} "
+          f"resume within {max(data_errs):.3e}, the one-process resume "
+          f"within {one_err:.3e}", flush=True)
     return out
 
 
@@ -4549,15 +4787,19 @@ def shard_phase(device, smi) -> dict:
     / K5): the losses within SHARD_RTOL of the one-process int8 run; the
     replica axis moves a shard's int8 payload plus its scales a sync.
     13c, on the same ranks after 13b: a checkpoint written under
-    replica:2,model:2 and resumed under replica:2,data:2 and, beside the
-    ranks, in this process (:func:`shard_13c_report`).  Beside the
-    ranks, 13a (replica:2,model:2, f32, K1 / K2) through the pod
-    launcher (:func:`start_shard_launcher`: its workers' start and its
-    own one-process run hide under the ranks' work).  Times: four ranks time-slicing one
-    card over loopback gloo, not a multi-card figure."""
+    replica:2,model:2 (the replica split over "model"), held to the
+    one-process state, read back and resumed there, resumed under
+    replica:2,data:2 and, beside the ranks, in this process
+    (:func:`shard_13c_report`).  Then the Megatron split of every
+    family: 13d (dense), 13e (moe on a data axis), 13f (hybrid, vlm,
+    audio; :func:`shard_megatron_report`).  Beside the ranks, 13a
+    (replica:2,model:2, f32, K1 / K2) through the pod launcher
+    (:func:`start_shard_launcher`: its workers' start and its own
+    one-process run hide under the ranks' work).  Times: four ranks
+    time-slicing one card over loopback gloo, not a multi-card figure."""
     t0 = time.perf_counter()
     _release()
-    # 13d's and 13e's one-process deployables (3.1 and 3.4 GB), on disk
+    # 13d-13f's one-process deployables (1.2-3.4 GB each), on disk
     deploy_dir = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
     try:
         return _shard_phase(device, smi, t0, deploy_dir)
@@ -4569,11 +4811,12 @@ def _shard_phase(device, smi, t0, deploy_dir) -> dict:
     refs = shard_reference_phase(device, deploy_dir)
     phase(f"13. axes inside a replica: four gloo ranks on the one card, "
           f"13b {SHARD_JOBS['13b'][0]} int8 through K1/K4/K5, then 13c's "
-          f"checkpoint under {SHARD_CKPT_SAVE} resumed under "
-          f"{SHARD_CKPT_RESUME} and (beside) in one process, then the "
-          f"Megatron split: 13d {MEGATRON_JOBS['13d'][2]} and 13e "
-          f"{MEGATRON_JOBS['13e'][2]} through K1/K2; 13a's pod launcher "
-          "beside them")
+          f"checkpoint under {SHARD_CKPT_SAVE} read back and resumed "
+          f"there, under {SHARD_CKPT_RESUME_DATA} and (beside) in one "
+          f"process, then the Megatron split: "
+          f"13d {MEGATRON_JOBS['13d'][2]}, 13e {MEGATRON_JOBS['13e'][2]} "
+          f"and 13f {MEGATRON_JOBS['13f'][2]} (zamba2, internvl2, "
+          f"musicgen) through K1/K2; 13a's pod launcher beside them")
     free = torch.cuda.mem_get_info(device)[0]
     print(f"shard: free device memory before the ranks "
           f"{free / 2 ** 30:.3f} GiB", flush=True)
@@ -4691,9 +4934,10 @@ def dryrun_train_check(trained, smi) -> dict:
 
 def dryrun_mesh_check(shard, smi) -> dict:
     """14b: the dry run at 13a's mesh (replica:2,model:2, Mamba2-1.3B at 2
-    layers, f32): 4 train_inner and 2 parle_sync = 13a's counters by
-    axis and op (rank 0's, read from its metrics); the predicted shard
-    (padded) is the gather's bytes a call, its blocks the all-reduce's.
+    layers split over "model", f32): 4 train_inner and 2 parle_sync =
+    13a's counters by axis and op (rank 0's, read from its metrics); the
+    "model" gathers are the split's activations (no leaf), their grads
+    reduce-scattered, the blocks the sync all-reduce's bytes.
     At 13d's mesh (Qwen2.5-3B at 2 layers split over "model"), the
     same programs = 13d's "model" collectives and sync all-reduces."""
     spec = SHARD_JOBS["13a"][0]
@@ -4706,10 +4950,27 @@ def dryrun_mesh_check(shard, smi) -> dict:
         planner.meta_params(build_model(ckpt_cfg())),
         planner.ShardContext(mesh_mod.inner_axes(spec)),
         [{"model": m} for m in range(2)], 0)
+    # "model" gathers activations, no leaf: a step gathers the rank's half
+    # of the embedding of its 2 x 256 tokens and, in each layer, of the
+    # packed projection's and the conv's outputs
+    cfg = ckpt_cfg()
+    di, N, nh = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_num_heads
+    per_token = cfg.d_model + cfg.num_layers * (3 * di + 4 * N + nh)
+    tokens = DRY_TRAIN["global_batch"] // 2 * DRY_TRAIN["seq_len"]
     calls, nbytes = got["model"]["all_gather"]
-    check(layout.numel * 4 * calls == nbytes,
-          f"14b: predicted shard numel {layout.numel} x 4 B x {calls} != "
-          f"13a's gathers {nbytes} B")
+    check(calls == 4 * (1 + 2 * cfg.num_layers)
+          and nbytes == 4 * tokens * per_token // 2 * 4,
+          f"14b: 13a's 'model' gathers {calls} / {nbytes} B, expected "
+          f"{4 * (1 + 2 * cfg.num_layers)} / "
+          f"{4 * tokens * per_token // 2 * 4} B of activations")
+    # the backward reduce-scatters the grads of a layer's two gathered
+    # outputs (counted at the rank's whole input: both at full width)
+    calls, nbytes = got["model"]["reduce_scatter"]
+    wide = cfg.num_layers * (3 * di + 4 * N + nh)
+    check(calls == 4 * 2 * cfg.num_layers
+          and nbytes == 4 * tokens * wide * 4,
+          f"14b: 13a's 'model' reduce-scatters {calls} / {nbytes} B, "
+          f"expected {4 * 2 * cfg.num_layers} / {4 * tokens * wide * 4} B")
     live = sum(layout.sizes)
     calls, nbytes = got["replica"]["all_reduce"]
     check(live * 4 * calls == nbytes, f"14b: predicted blocks {live} x 4 B "
@@ -4729,7 +4990,8 @@ def dryrun_mesh_check(shard, smi) -> dict:
            "block_elements": live, "13d_by_axis": split}
     print(f"14b: predicted = 13a's counters by axis and op {predicted}; a "
           f"rank's row (K1's) {layout.numel} elements, {live} of them its "
-          f"blocks; at 13d's mesh the predicted 'model' collectives "
+          f"blocks; 'model' gathers activations only; at 13d's mesh the "
+          f"predicted 'model' collectives "
           f"{split['model']} and the sync's = 13d's", flush=True)
     print(json.dumps({"14b": out, "card": smi}), flush=True)
     return out

@@ -68,8 +68,8 @@ sharding planner assigns them), so every buffer is shard-sized and the
 kernels run on the rank's flat shard buffers unchanged (int8 chunks
 follow the shard layout).  A replica's grads (:class:`ShardGrads`)
 gather its y blocks over "data" into ONE reused compute row — the rank's
-model column of each leaf the Megatron split cuts for a dense or moe
-replica (``models/megatron.py``), the full row for every other family —
+model column of each leaf the Megatron split cuts for a replica of the
+six families (``models/megatron.py``), the full row for any other —
 take the grads there on the rank's rows of the batch, and reduce-scatter
 them back to the shard (a SUM over "data", then a division by D).  The
 Eq. (8d) sync rides the replica subgroup at shard size.  A family the
@@ -533,7 +533,8 @@ class ShardGrads:
     added on the shard.  Returns the (k,) losses, averaged over the data
     ranks when they took different rows.
 
-    Over "model", a dense or moe replica is SPLIT (``models/megatron.py``,
+    Over "model", a replica of the six model families is SPLIT
+    (``models/megatron.py``,
     read from the ``cfg`` the loss carries): each replica's blocks are
     gathered over "data" only into ONE reused compute row of the rank's
     model column of each split leaf (``MeshGroups.gather_columns``,
@@ -542,8 +543,9 @@ class ShardGrads:
     leaf grads go straight to the shard (``MeshGroups.
     reduce_column_grads``: the leaves read in part of a whole summed over
     "model", then summed over the data ranks and divided by D when they
-    took different rows).  Every other family, and a replica with no
-    "model" axis, gathers each replica's blocks into ONE reused full row
+    took different rows).  Any other model (the paper's MLP and
+    All-CNN), and a replica with no "model" axis, gathers each replica's
+    blocks into ONE reused full row
     (the FlatLayout of ``layout.full``, so the forward reads the same
     leaf views as one process) and every "model" rank computes the whole
     replica there; a moe replica on a "data" axis runs its dispatch

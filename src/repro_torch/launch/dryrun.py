@@ -17,10 +17,9 @@ reference's:
   inner steps): the rank holds its planner blocks of its replicas'
   state (``MeshGroups`` / ``ShardedLayout``) and the replica's whole
   batch; ``train_inner`` gathers the replica's blocks over "data" into
-  the rank's column (a dense or moe replica, split over "model" as
-  ``models/megatron.py`` says: its FLOPs about 1/M of the replica's)
-  or into the whole row (every other family: each model rank computes
-  the whole replica), runs the forward and backward over the rank's
+  the rank's column (the replica split over "model" as
+  ``models/megatron.py`` says, in every family: its FLOPs about 1/M of
+  the replica's), runs the forward and backward over the rank's
   "data" rows, reduce-scatters the grads to its blocks and applies the
   Parle update there; ``parle_sync`` is the mean over the replica axis
   on its blocks (no collective on a mesh of one replica);
@@ -122,11 +121,11 @@ OPTIONS = {"policy": "fsdp_tp", "remat": True, "moe_groups": 0,
 EXTRAPOLATED_ARCHS = {"musicgen-large": 2}
 
 DESIGN_TRAIN = (
-    "a dense or moe replica is split over 'model' (models/megatron.py): "
+    "the replica is split over 'model' (models/megatron.py): "
     "the rank computes its column of each split product on its 'data' "
     "rows, its FLOPs about 1/M of the replica's, temp holding its column "
-    "of the row and autograd's grads of its leaves; the other families "
-    "compute the whole replica on every model rank, on the gathered row; "
+    "of the row and autograd's grads of its leaves (a module M does not "
+    "divide: computed whole on its gathered leaves); "
     "a moe replica on a 'data' axis runs the batch's one flat dispatch, "
     "each rank's expert buffer at the batch's capacity, so up to D times "
     "the rows it can fill (ROADMAP.md item 6g); "

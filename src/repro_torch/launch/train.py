@@ -55,10 +55,10 @@ reference train CLI's ``fsdp_tp`` policy), gathers a replica's weights
 for its forward and backward and reduce-scatters its grads, its
 replica's batch split over "data" when D divides ``--batch``; the
 kernels run on the shard buffers and the sync rides the replica axis at
-shard size.  A dense or moe replica is split over "model" as Megatron-LM
-splits it (``models/megatron.py``: each rank computes its heads, its ff
-and experts, its vocab of the head, on its column of each leaf); the
-other families compute the whole replica on every model rank.  A moe
+shard size.  A replica is split over "model" as Megatron-LM splits it
+(``models/megatron.py``: each rank computes its heads, its ff and
+experts, its SSD heads of a Mamba2 mixer, its vocab of the head, on its
+column of each leaf), in every family.  A moe
 replica on a "data" axis runs the batch's one flat dispatch (the
 capacity and aux loss of the whole batch).  ``--sync-policy async`` is
 refused on such a mesh, as the reference refuses it on any (ROADMAP.md

@@ -166,8 +166,8 @@ def _attn_split(params, cfg, x, positions, tp, use_flash=False):
     exactly the rank's KV heads.  Where it does not (GQA with fewer KV
     heads than ranks), a column of ``wk`` / ``wv`` may end mid-head, so
     every rank's K / V columns are GATHERED over "model" (one all-gather
-    of the (B, T, 2 KV hd / M) activations, entered through ``copy`` so
-    that the backward sums each rank's use of a head) and the rank takes
+    of the (B, T, 2 KV hd / M) activations, ``gather_summed``: the
+    backward reduce-scatters each rank's use of a head) and the rank takes
     its heads; a ``wk`` / ``wv`` held whole (M does not divide KV hd) is
     read at the rank's heads, its grads summed over "model"
     (``ColumnLayout``'s ``summed``)."""
@@ -191,7 +191,7 @@ def _attn_split(params, cfg, x, positions, tp, use_flash=False):
 
     k, v = proj("k"), proj("v")
     if KV % M and params["wk"].shape[-1] != KV * hd:
-        kv = tp.copy(tp.gather(torch.cat([k, v], -1), -1))
+        kv = tp.gather_summed(torch.cat([k, v], -1), -1)
         kv = kv.reshape(B, T, M, 2, KV * hd // M).transpose(2, 3)
         kv = kv.reshape(B, T, 2, KV * hd)[..., k0 * hd:k1 * hd]
         k, v = kv.unbind(2)

@@ -13,13 +13,17 @@ the cond frames occupy [0, cond_len) of the cache and the tokens follow.
 The merged embeddings go through ``transformer.py``'s stack as
 ``extra_embeds`` on all-zero tokens over codebook 0's table (the
 reference's zero-token trick), so ``use_flash`` reaches K3 and the paged
-decode's ``use_kernel`` K8 as in the dense family.
+decode's ``use_kernel`` K8 as in the dense family.  In training under a
+"model" axis (``models/megatron.py``) the blocks split as the dense
+family's, each codebook table takes the rank's d/M columns and the head
+its K·V/M columns (the per-codebook vocab-parallel CE of
+``models/model.py::lm_cross_entropy``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import megatron, transformer
 from repro_torch.models.layers import dense_init, embed_init, rms_norm
 
 
@@ -36,12 +40,19 @@ def init_params(generator, cfg, dtype=torch.float32):
     }
 
 
-def _embed(params, tokens):
-    """tokens: (B, K, T) -> (B, T, d) summed codebook embeddings."""
+def _embed(params, tokens, cfg=None):
+    """tokens: (B, K, T) -> (B, T, d) summed codebook embeddings.  With
+    ``cfg`` under a tensor-parallel context that splits d (training): the
+    rank's d/M columns of each table summed, gathered over "model"."""
+    tp = megatron.current() if cfg is not None else None
+    table = params["embed"]
+    split = tp is not None and megatron.splits_embed(cfg, tp.columns)
+    if split:
+        table = tp.cols(table, cfg.d_model, -1)
     out = 0.0
     for k in range(tokens.shape[1]):
-        out = out + params["embed"][k][tokens[:, k]]
-    return out
+        out = out + table[k][tokens[:, k]]
+    return tp.gather(out, -1) if split else out
 
 
 def _with_cond(x, cond):
@@ -67,7 +78,7 @@ def forward_hidden(params, cfg, tokens, cond=None, use_flash=False,
                    remat=False):
     """Returns final-normed hidden over the token region: (B, T, d)."""
     B, K, T = tokens.shape
-    x = _with_cond(_embed(params, tokens), cond)
+    x = _with_cond(_embed(params, tokens, cfg), cond)
     Tt = x.shape[1]
     h, aux = transformer.stack_forward(
         params, cfg, x, transformer._positions(B, Tt, x.device),

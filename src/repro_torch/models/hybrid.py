@@ -11,7 +11,9 @@ through the SSD-scan kernel (K9), and the paged decode's
 ``use_kernel`` the sites' decode attention through the paged-attention
 kernel (K8).  Caches are written in place, as in ``mamba2.py`` and
 ``transformer.py``; every cache tuple returned names the same storage
-with its three ``pos`` fields advanced.
+with its three ``pos`` fields advanced.  In training under a "model"
+axis (``models/megatron.py``) the SSM layers and the shared block are
+split over its ranks as the ssm and dense families are.
 
 Simplification vs the released model (as in the reference): the shared
 block consumes the hidden stream directly rather than concat(hidden,
@@ -26,8 +28,10 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
 from repro_torch.models.layers import (dense_init, device_index, embed_init,
-                                       rms_norm, swiglu)
-from repro_torch.models.transformer import _positions, _remat, layer_params
+                                       rms_norm)
+from repro_torch.models.transformer import (_decoder_layer, _positions,
+                                            _remat, embed_tokens,
+                                            layer_params)
 
 
 class HybridCache(NamedTuple):
@@ -83,9 +87,10 @@ def init_params(generator, cfg, dtype=torch.float32):
 
 
 def _shared_block(sp, cfg, x, attend):
-    """The shared pre-norm block around an attention callable."""
-    x = x + attend(rms_norm(x, sp["ln1"], cfg.norm_eps))
-    return x + swiglu(rms_norm(x, sp["ln2"], cfg.norm_eps), **sp["mlp"])
+    """The shared pre-norm block around an attention callable: the
+    decoder layer of ``transformer.py`` (its heads and ff split over
+    "model" under a tensor-parallel context, at every site)."""
+    return _decoder_layer(sp, cfg, x, attend)[0]
 
 
 def _logits(params, cfg, x):
@@ -98,7 +103,7 @@ def forward_hidden(params, cfg, tokens, remat=False, use_flash=False,
     recomputes the SSM blocks in the backward, not the shared attention
     block (as the reference)."""
     B, T = tokens.shape
-    x = params["embed"][tokens]
+    x = embed_tokens(params, cfg, tokens)
     positions = _positions(B, T, x.device)
     sp = params["shared_attn"]
     ssm_body = _remat(lambda lp, h: mamba2.ssm_block_forward(

@@ -104,32 +104,49 @@ def chunked_cross_entropy(h, head_w, labels, chunk: int = 512,
     return total / (B * T * (num_streams or 1))
 
 
-def _chunk_nll_sum_vocab(hc, head_w, lc, tp, lo: int):
-    """:func:`_chunk_nll_sum` of the rank's V/M logits (vocab ids
-    [lo, lo + V/M)): the max and the sum of exponentials taken over
-    "model" (the max all-reduced without grad, the sum and the target
-    logit, which only its holder has, in one all-reduce)."""
-    logits = (hc @ head_w).float()                      # (B, c, V/M)
-    shift = tp.max_(logits.detach().amax(-1).contiguous())
-    local = lc.long() - lo
-    mine = (local >= 0) & (local < logits.shape[-1])
-    gold = logits.gather(-1, local.clamp(0, logits.shape[-1] - 1)[..., None])
-    part = torch.stack([torch.exp(logits - shift[..., None]).sum(-1),
-                        gold[..., 0] * mine])
-    sumexp, gold = tp.reduce(part).unbind(0)
+def _chunk_nll_sum_vocab(hc, head_w, lc, tp, lo: int, vocab: int,
+                         num_streams: int):
+    """:func:`_chunk_nll_sum` of the rank's columns [lo, lo + W) of the
+    head's ``max(num_streams, 1)`` streams of ``vocab`` logits side by
+    side: per stream, the max and the sum of exponentials over its part
+    (empty on a rank that holds none of it) taken over "model" (the max
+    all-reduced without grad, the sums and the target logits, which only
+    their holders have, in one all-reduce)."""
+    logits = (hc @ head_w).float()                      # (B, c, W)
+    W = logits.shape[-1]
+    K = max(num_streams, 1)
+    lab = lc.long() if num_streams else lc.long()[..., None]   # (B, c, K)
+    parts = [(max(k * vocab, lo) - lo, min((k + 1) * vocab, lo + W) - lo)
+             for k in range(K)]
+    det = logits.detach()
+    shift = torch.stack([det[..., a:b].amax(-1) if a < b else
+                         det.new_full(det.shape[:-1], float("-inf"))
+                         for a, b in parts], -1).contiguous()
+    shift = tp.max_(shift)                              # (B, c, K)
+    sumexp = torch.stack([
+        torch.exp(logits[..., a:b] - shift[..., k:k + 1]).sum(-1)
+        if a < b else logits.new_zeros(logits.shape[:-1])
+        for k, (a, b) in enumerate(parts)], -1)
+    local = lab + torch.arange(K, device=lab.device) * vocab - lo
+    mine = (local >= 0) & (local < W)
+    gold = logits.gather(-1, local.clamp(0, W - 1)) * mine
+    sumexp, gold = tp.reduce(torch.stack([sumexp, gold])).unbind(0)
     return (shift + torch.log(sumexp) - gold).sum()
 
 
 def vocab_parallel_cross_entropy(h, head_w, labels, tp, vocab: int,
-                                 chunk: int = 512):
+                                 chunk: int = 512, num_streams: int = 0):
     """:func:`chunked_cross_entropy` over a head split over "model" (the
     tensor-parallel context ``tp``): ``head_w`` (d, V/M) is the column of
-    vocab ids ``tp.part(vocab)``.  ``h`` enters the split region once
+    vocab ids ``tp.part(vocab)``; with ``num_streams=K`` (labels (B, T,
+    K)) the head is K heads of ``vocab`` side by side, (d, K·V/M) the
+    rank's contiguous columns ``tp.part(K * vocab)`` of it, and the CE
+    the mean over the K streams.  ``h`` enters the split region once
     (its grads summed over "model" in one all-reduce); each chunk runs
-    under ``torch.utils.checkpoint``, as there, so one chunk's V/M logits
-    are held for the backward, and its recompute repeats the chunk's two
+    under ``torch.utils.checkpoint``, as there, so one chunk's logits are
+    held for the backward, and its recompute repeats the chunk's two
     all-reduces."""
-    lo, _ = tp.part(vocab)
+    lo, _ = tp.part(vocab * max(num_streams, 1))
     h = tp.copy(h)
     B, T = h.shape[:2]
     if T % chunk:
@@ -138,8 +155,8 @@ def vocab_parallel_cross_entropy(h, head_w, labels, tp, vocab: int,
     for i in range(0, T, chunk):
         total = total + checkpoint(_chunk_nll_sum_vocab, h[:, i:i + chunk],
                                    head_w, labels[:, i:i + chunk], tp, lo,
-                                   use_reentrant=False)
-    return total / (B * T)
+                                   vocab, num_streams, use_reentrant=False)
+    return total / (B * T * (num_streams or 1))
 
 
 def cross_entropy(logits, labels, mask=None):

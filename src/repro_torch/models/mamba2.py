@@ -14,9 +14,12 @@ chunk states.  ``ssd_chunked`` here is the plain PyTorch path; with
 
 Single group (B, C shared across heads), depthwise causal conv of width
 ``ssm_conv`` over the xBC streams, gated RMSNorm before out-projection —
-the standard Mamba2 block.  As in ``transformer.py``, the reference's
-``lax.scan`` over the stacked layers is a Python loop over per-layer
-views (one ``unbind(0)`` per leaf), and caches are written in place.
+the standard Mamba2 block.  Under a tensor-parallel context that splits
+the heads (training under a "model" axis, ``models/megatron.py``) a rank
+computes its H/M heads (:func:`_ssm_block_split`).  As in
+``transformer.py``, the reference's ``lax.scan`` over the stacked layers
+is a Python loop over per-layer views (one ``unbind(0)`` per leaf), and
+caches are written in place.
 """
 from __future__ import annotations
 
@@ -25,9 +28,10 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.models import megatron
 from repro_torch.models.layers import (dense_init, device_index, embed_init,
                                        rms_norm, silu, softplus)
-from repro_torch.models.transformer import _remat, layer_params
+from repro_torch.models.transformer import _remat, embed_tokens, layer_params
 
 
 class SSMCache(NamedTuple):
@@ -206,7 +210,13 @@ def _gated_out(lp, cfg, x, y, xs, z):
 
 
 def ssm_block_forward(lp, cfg, x, h0=None, use_kernel=False):
-    """x: (B, T, d) -> (B, T, d), final_state."""
+    """x: (B, T, d) -> (B, T, d), final_state.  Under a tensor-parallel
+    context that splits the heads, the rank's heads
+    (:func:`_ssm_block_split`; its final state is theirs)."""
+    tp = megatron.current()
+    if (h0 is None and tp is not None
+            and megatron.splits_ssm(cfg, tp.columns)):
+        return _ssm_block_split(lp, cfg, x, tp)
     Bsz, T, _ = x.shape
     u = rms_norm(x, lp["ln"], cfg.norm_eps)
     z, xBC, dt = _split_proj(cfg, u @ lp["in_proj"])
@@ -218,6 +228,73 @@ def ssm_block_forward(lp, cfg, x, h0=None, use_kernel=False):
     else:
         y, hf = ssd_chunked(xs, dt, A, B_mat, C_mat, cfg.ssm_chunk, h0=h0)
     return _gated_out(lp, cfg, x, y, xs, z), hf
+
+
+def packed_projection(tp, u, w):
+    """``u @ w`` of a packed projection (``in_proj``) whose columns the
+    compute splits otherwise than the planner: ``w`` is the rank's
+    planner block of the columns.  Every "model" rank gets the whole
+    output: the blocks' outputs gathered over "model" (activations, no
+    leaf) by ``gather_summed``, whose backward reduce-scatters the grads
+    (each rank reads other ranks' slices), so a rank's block gets every
+    rank's grads of it."""
+    return tp.gather_summed(tp.copy(u) @ w, -1)
+
+
+def _split_conv(tp, xBC, w, b):
+    """The depthwise causal conv of the whole ``xBC`` on every "model"
+    rank: each rank convolves the channels of its planner block of
+    ``w`` (``b`` read at them), the outputs gathered over "model" as
+    :func:`packed_projection` gathers."""
+    width = xBC.shape[-1]
+    lo, hi = tp.part(width)
+    return tp.gather_summed(
+        _causal_conv(xBC[..., lo:hi], w, tp.cols(b, width, -1)), -1)
+
+
+def split_gated_norm(tp, y, z, weight, eps: float, width: int):
+    """The gated RMSNorm over ``width`` channels of which ``y`` and ``z``
+    hold the rank's part: its sum of squares summed over "model", forward
+    and backward (every rank reads the sum, each for its own channels),
+    ``weight`` read at the rank's channels; :func:`rms_norm`'s
+    arithmetic."""
+    g = y * silu(z)
+    dtype = g.dtype
+    g = g.float()
+    var = tp.allsum(g.square().sum(dim=-1, keepdim=True)) / width
+    g = g * torch.rsqrt(var + eps)
+    return (g * weight).to(dtype)
+
+
+def _ssm_block_split(lp, cfg, x, tp):
+    """Column ``tp.column`` of the block split over ``tp.columns`` "model"
+    ranks: its H/M heads, their z, x and dt channels, all of B and C
+    (one group shared by every head), the SSD scan on its heads
+    (``ssd_chunked``: training, and K9 has no backward), the
+    gated RMSNorm over the whole di (:func:`split_gated_norm`) and its
+    di/M rows of ``out_proj``, the partial output summed over "model".
+    ``in_proj`` and the conv are read at the planner's blocks
+    (:func:`packed_projection`, :func:`_split_conv`); ``A_log``, ``D``,
+    ``dt_bias``, ``conv_b`` and ``norm`` whole, read at the rank's
+    heads or channels (their grads summed over "model")."""
+    Bsz, T, _ = x.shape
+    di, N, P = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_head_dim
+    nh = cfg.ssm_num_heads
+    h0, h1 = tp.part(nh)
+    c0, c1 = h0 * P, h1 * P                      # its z, x, y channels
+    u = rms_norm(x, lp["ln"], cfg.norm_eps)
+    z, xBC, dt = _split_proj(cfg, packed_projection(tp, u, lp["in_proj"]))
+    xBC = _split_conv(tp, xBC, lp["conv_w"], lp["conv_b"])
+    xs = xBC[..., c0:c1].reshape(Bsz, T, h1 - h0, P)
+    B_mat, C_mat = xBC[..., di:di + N], xBC[..., di + N:]
+    dt = softplus(dt[..., h0:h1] + tp.cols(lp["dt_bias"], nh, -1))
+    A = -torch.exp(tp.cols(lp["A_log"], nh, -1))
+    y, hf = ssd_chunked(xs, dt, A, B_mat, C_mat, cfg.ssm_chunk)
+    y = y + tp.cols(lp["D"], nh, -1)[:, None] * xs
+    y = y.reshape(Bsz, T, c1 - c0)
+    y = split_gated_norm(tp, y, z[..., c0:c1], tp.cols(lp["norm"], di, -1),
+                         cfg.norm_eps, di)
+    return x + tp.reduce(y @ tp.cols(lp["out_proj"], di, -2)), hf
 
 
 def ssm_block_prefill(lp, cfg, x, h0, conv0, valid):
@@ -296,7 +373,7 @@ def forward_hidden(params, cfg, tokens, remat=False, use_kernel=False):
     each SSM block recomputed in the backward (``transformer._remat``)."""
     body = _remat(lambda lp, h: ssm_block_forward(
         lp, cfg, h, use_kernel=use_kernel)[0], remat)
-    x = params["embed"][tokens]
+    x = embed_tokens(params, cfg, tokens)
     for lp in _layers(params, cfg):
         x = body(lp, x)
     return (rms_norm(x, params["ln_f"], cfg.norm_eps),

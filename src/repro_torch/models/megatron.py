@@ -14,8 +14,15 @@ Megatron-LM does:
   column-parallel, down row-parallel;
 * the MoE's routed experts: the rank's E/M experts
   (``models/moe.py``; the router runs whole on every rank);
-* the token embedding: the rank's d/M columns, gathered over "model";
-* the LM head: vocab-parallel, the rank's V/M logits
+* the Mamba2 mixer (the ssm family, and the hybrid's SSM layers;
+  ``models/mamba2.py``): the rank's H/M SSD heads, their z, x and dt
+  channels and all of B and C (one group shared by every head), the
+  depthwise conv, ``out_proj`` row-parallel, the gated RMSNorm's sum of
+  squares summed over "model";
+* the token embedding: the rank's d/M columns, gathered over "model"
+  (the audio family's K codebook tables alike);
+* the LM head: vocab-parallel, the rank's V/M logits (the audio
+  family's K·V/M of its K codebook heads)
   (``models/layers.py::vocab_parallel_cross_entropy``).
 
 A tied embedding and head are read whole on every rank.
@@ -28,15 +35,22 @@ forward, identity backward), the conjugate pair of
 regions (the residual stream, the norms, the router, the loss) is the
 same on every "model" rank, values and grads.
 
+The planner's block of a packed leaf need not be the compute's column:
+``in_proj`` packs ``[z | x | B | C | dt]`` and the planner splits its
+columns contiguously over "model" (so does ``conv_w``'s channels).  A
+rank multiplies by its planner block and the outputs are gathered over
+"model" as activations (:meth:`TensorParallel.gather_summed`: the
+backward reduce-scatters the grads, so a rank's block gets every rank's
+grads of it).
+
 A module is split only where M divides its split dim (heads, ff, experts,
-d, vocab: the predicates below; the expert-parallel dispatch splits the
-experts and the shared ff in balanced parts where it does not), and :func:`leaf_split_dim` names the dim
-of each leaf that the split cuts, so the leaves a rank is handed and the
-code that reads them agree.  A module that M does not divide is computed
-whole on every "model" rank, on its gathered leaves.  Only the dense and
-moe families are split (:func:`splits_family`); the others compute the
-whole replica on every "model" rank, on the gathered row (ROADMAP.md
-queue 1 item 6f).
+d, vocab, SSD heads: the predicates below; the expert-parallel dispatch
+splits the experts and the shared ff in balanced parts where it does
+not), and :func:`leaf_split_dim` names the dim of each leaf that the
+split cuts, so the leaves a rank is handed and the code that reads them
+agree.  A module that M does not divide is computed
+whole on every "model" rank, on its gathered leaves.  Every family is
+split (:func:`splits_family`); the serving paths run unsplit.
 
 The context is set by the training step under a mesh with an axis inside
 a replica (``ShardGrads``), and, splitting only the experts, around the
@@ -51,7 +65,12 @@ import contextvars
 from dataclasses import dataclass
 from typing import Optional
 
-SPLIT_FAMILIES = ("dense", "moe")
+SPLIT_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+# the Mamba2 leaves of a split mixer: the dim the split cuts ("ln", the
+# block's input norm, is read whole and its grads are every rank's own)
+SSM_SPLIT_DIMS = {"in_proj": -1, "conv_w": -1, "conv_b": -1, "A_log": -1,
+                  "D": -1, "dt_bias": -1, "norm": -1, "out_proj": -2}
 
 
 def split(size: int, parts: int, index: int):
@@ -88,6 +107,22 @@ def splits_shared(cfg, M: int) -> bool:
                       or cfg.moe_impl == "shard_map")
 
 
+def splits_ssm(cfg, M: int) -> bool:
+    """Each rank takes H/M whole SSD heads of the Mamba2 mixer.  M
+    divides the packed ``in_proj``'s and the conv's widths too (their
+    B and C, 2N), so the planner splits both into the blocks the compute
+    reads."""
+    return (M > 1 and cfg.family in ("ssm", "hybrid")
+            and cfg.ssm_num_heads % M == 0 and 2 * cfg.ssm_state % M == 0)
+
+
+def head_width(cfg) -> int:
+    """The LM head's output columns: V, or the audio family's K·V (its K
+    codebook heads side by side)."""
+    return cfg.vocab_size * (cfg.num_codebooks if cfg.family == "audio"
+                             else 1)
+
+
 def splits_embed(cfg, M: int) -> bool:
     """The rank's d/M columns of an untied embedding.  A tied one (the
     head is the embedding transposed) is read whole on every rank, as the
@@ -96,9 +131,10 @@ def splits_embed(cfg, M: int) -> bool:
 
 
 def splits_head(cfg, M: int) -> bool:
-    """The untied head vocab-parallel; a tied one whole
-    (:func:`splits_embed`)."""
-    return M > 1 and cfg.vocab_size % M == 0 and not cfg.tie_embeddings
+    """The untied head vocab-parallel (the rank's contiguous K·V/M
+    columns of an audio head, as the planner splits it); a tied one
+    whole (:func:`splits_embed`)."""
+    return M > 1 and head_width(cfg) % M == 0 and not cfg.tie_embeddings
 
 
 def leaf_split_dim(cfg, M: int, names) -> Optional[int]:
@@ -120,6 +156,8 @@ def leaf_split_dim(cfg, M: int, names) -> Optional[int]:
         return -2 if leaf == "w_down" else -1
     if parent == "moe" and leaf != "router" and splits_experts(cfg, M):
         return -3                                   # (L, E, ., .)
+    if parent == "layers" and splits_ssm(cfg, M):
+        return SSM_SPLIT_DIMS.get(leaf)
     return None
 
 
@@ -174,6 +212,12 @@ class TensorParallel:
         forward, identity backward."""
         return self.group.reduce_from_model(x) if self.collective else x
 
+    def allsum(self, x):
+        """``x`` summed over "model" forward and its grad summed over
+        "model" backward: a sum every rank reads whole, each for its own
+        part (the split gated RMSNorm's sum of squares)."""
+        return self.copy(self.reduce(x))
+
     def gather(self, x, dim: int):
         """Every column's ``x`` concatenated along ``dim`` in column order
         forward, the column's slice of the grad backward."""
@@ -182,6 +226,18 @@ class TensorParallel:
         if self.group is None:
             raise ValueError("gathering over 'model' needs a group")
         return self.group.gather_from_model(x, dim)
+
+    def gather_summed(self, x, dim: int):
+        """Every column's ``x`` concatenated along ``dim`` in column order
+        forward; backward, every column's grad of this column's slice
+        summed (one reduce-scatter): a gathered tensor each column reads
+        in parts of its own (a packed projection's outputs, KV heads cut
+        mid-head)."""
+        if self.columns == 1:
+            return x
+        if self.group is None:
+            raise ValueError("gathering over 'model' needs a group")
+        return self.group.gather_summed_from_model(x, dim)
 
     def max_(self, x):
         """``x`` (no grad) -> its elementwise max over "model", in place."""

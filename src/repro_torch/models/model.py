@@ -128,37 +128,33 @@ def with_cache_positions(cache, pos):
 
 
 def lm_cross_entropy(params, cfg, h, labels):
-    """The LM head's T-chunked CE of the hidden states ``h``; under a
-    tensor-parallel context that splits the head (an untied one),
-    vocab-parallel.  A tied head is read whole on every rank."""
+    """The LM head's T-chunked CE of the hidden states ``h`` (the audio
+    family's: the mean over its K codebook heads, ``labels`` (B, T, K));
+    under a tensor-parallel context that splits the head (an untied
+    one), vocab-parallel.  A tied head is read whole on every rank."""
+    K = cfg.num_codebooks if cfg.family == "audio" else 0
     tp = megatron.current()
     if tp is not None and megatron.splits_head(cfg, tp.columns):
         return vocab_parallel_cross_entropy(
-            h, tp.cols(params["head"], cfg.vocab_size, -1), labels, tp,
-            cfg.vocab_size)
+            h, tp.cols(params["head"], megatron.head_width(cfg), -1),
+            labels, tp, cfg.vocab_size, num_streams=K)
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return chunked_cross_entropy(h, head, labels)
+    return chunked_cross_entropy(h, head, labels, num_streams=K)
 
 
 def _lm_loss(hidden_fn, cfg):
     """Hidden states + T-chunked CE: the (B, T, V) logits tensor is
-    never materialized whole.  The loss carries its ``cfg`` (the
-    training step under a mesh reads it for the Megatron split)."""
+    never materialized whole (the audio family's labels (B, K, T) read
+    as (B, T, K)).  The loss carries its ``cfg`` (the training step
+    under a mesh reads it for the Megatron split)."""
     def loss(params, batch):
         h, aux = hidden_fn(params, batch)
-        ce = lm_cross_entropy(params, cfg, h, batch["labels"])
+        labels = batch["labels"]
+        if cfg.family == "audio":
+            labels = labels.transpose(1, 2)
+        ce = lm_cross_entropy(params, cfg, h, labels)
         return ce + aux, {"ce": ce, "aux": aux}
     loss.cfg = cfg
-    return loss
-
-
-def _audio_loss(hidden_fn, cfg):
-    def loss(params, batch):
-        h, aux = hidden_fn(params, batch)                   # (B, T, d)
-        labels = batch["labels"].transpose(1, 2)            # (B, T, K)
-        ce = chunked_cross_entropy(h, params["head"], labels,
-                                   num_streams=cfg.num_codebooks)
-        return ce + aux, {"ce": ce, "aux": aux}
     return loss
 
 
@@ -300,7 +296,7 @@ def build_model(cfg, use_flash: bool = False, remat=False,
                 audio_mod.prefill(p, cfg, b["tokens"], c, cond=b.get("cond")),
             decode=lambda p, b, c: audio_mod.decode_step(p, cfg,
                                                          b["tokens"], c),
-            loss=_audio_loss(lambda p, b: audio_mod.forward_hidden(
+            loss=_lm_loss(lambda p, b: audio_mod.forward_hidden(
                 p, cfg, b["tokens"], b.get("cond"), use_flash=use_flash,
                 remat=remat), cfg),
             init_paged_cache=lambda p, bs, np_, ps, mp, dtype=torch.float32:

@@ -7,7 +7,9 @@ language decoder that consumes them: the RMS-normed (``patch_ln``) patch
 embeddings take the first ``num_patches`` token positions (the <img>
 placeholder region, cut short when the prompt is shorter), the token
 embeddings the rest, then the dense decoder of ``transformer.py`` runs
-(``use_flash`` reaches K3, the paged decode's ``use_kernel`` K8).
+(``use_flash`` reaches K3, the paged decode's ``use_kernel`` K8; in
+training under a "model" axis, split over its ranks as the dense
+family's).
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ def forward_hidden(params, cfg, tokens, patch_embeds, use_flash=False,
                    remat=False):
     B, T = tokens.shape
     extra, mask = _merge(params, cfg, tokens, patch_embeds)
-    x = params["embed"][tokens] * mask + extra
+    x = transformer.embed_tokens(params, cfg, tokens) * mask + extra
     h, aux = transformer.stack_forward(
         params, cfg, x, transformer._positions(B, T, x.device),
         use_flash=use_flash, remat=remat)

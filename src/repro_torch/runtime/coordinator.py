@@ -81,7 +81,9 @@ import threading
 import time
 import zlib
 from collections import deque
-from multiprocessing.connection import Client, Listener
+from multiprocessing import AuthenticationError
+from multiprocessing.connection import (Connection, Listener,
+                                        answer_challenge, deliver_challenge)
 
 import numpy as np
 
@@ -89,6 +91,12 @@ from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core import parle
 
 AUTHKEY = b"repro-async-consensus"
+# each read and write of the authkey handshake, on either side, waits at
+# most this long: a peer that connects and stays silent (or a TCP
+# self-connect, which has no peer to speak) must hold nothing up
+HANDSHAKE_S = 5.0
+# the listening socket's backlog: a pod's workers (re)connect together
+BACKLOG = 64
 _CHUNK = 1024           # == core.compress.CHUNK (int8 scale granularity)
 _HDR = struct.Struct("!II")    # (payload length, CRC32) frame header
 
@@ -108,6 +116,113 @@ class CoordinatorStopped(RuntimeError):
 
 class CoordinatorUnavailable(ConnectionError):
     """The coordinator stayed unreachable past the retry deadline."""
+
+
+# what one connection's failure may raise, on either side: a reset or a
+# timed-out read (OSError), a close (EOFError), a wrong authkey
+CONN_ERRORS = (OSError, EOFError, AuthenticationError)
+
+
+def _socket_timeouts(fd: int, seconds: float) -> None:
+    """Bound each blocking read and write of the socket ``fd`` to
+    ``seconds`` (SO_RCVTIMEO / SO_SNDTIMEO; 0: unbounded): a read that
+    times out raises OSError (EAGAIN), also inside
+    ``multiprocessing.connection``'s own reads."""
+    usec = int(round(seconds * 1e6))
+    tv = struct.pack("ll", usec // 1_000_000, usec % 1_000_000)
+    s = socket.socket(fileno=fd)
+    try:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_RCVTIMEO, tv)
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_SNDTIMEO, tv)
+    finally:
+        s.detach()                     # the fd stays the connection's
+
+
+def _handshake(conn, server: bool, seconds: float) -> None:
+    """The authkey handshake of ``multiprocessing.connection`` (the
+    server challenges first, as its ``Listener`` / ``Client`` do, so
+    either package's peer speaks it), each read and write bounded by
+    ``seconds``: a silent peer or one that closes mid-way raises one of
+    :data:`CONN_ERRORS` instead of blocking."""
+    _socket_timeouts(conn.fileno(), seconds)
+    if server:
+        deliver_challenge(conn, AUTHKEY)
+        answer_challenge(conn, AUTHKEY)
+    else:
+        answer_challenge(conn, AUTHKEY)
+        deliver_challenge(conn, AUTHKEY)
+    _socket_timeouts(conn.fileno(), 0.0)
+
+
+def connect(port: int, deadline: float):
+    """A connection to the coordinator on 127.0.0.1:``port``, its TCP
+    connect and its handshake bounded by ``deadline`` (monotonic).  A
+    self-connect (the local address equals the peer's: while nothing
+    listens on a port of the ephemeral range, a connect from that same
+    port pairs with itself) is closed and raises ConnectionRefusedError:
+    it would block the handshake and hold the port against a restarted
+    coordinator."""
+    left = max(deadline - time.monotonic(), 0.1)
+    sock = socket.create_connection(("127.0.0.1", port), timeout=left)
+    try:
+        if sock.getsockname() == sock.getpeername():
+            raise ConnectionRefusedError(f"self-connect on port {port}")
+        sock.setblocking(True)
+        conn = Connection(sock.detach())
+    finally:
+        sock.close()                   # a no-op once detached
+    try:
+        _handshake(conn, False, min(HANDSHAKE_S, left))
+    except BaseException:
+        conn.close()
+        raise
+    return conn
+
+
+def ephemeral_range() -> tuple:
+    """The kernel's ephemeral port range (read only), or Linux's default
+    where it cannot be read."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo, hi = (int(v) for v in f.read().split())
+        return lo, hi
+    except (OSError, ValueError):
+        return 32768, 60999
+
+
+def free_ports(n: int) -> list:
+    """``n`` distinct TCP ports of 127.0.0.1 that are free now and lie
+    outside the kernel's ephemeral range, so that no outgoing connection
+    (a worker's retry, gloo's) takes one as its source port before its
+    server binds it.  Every port is held bound until all ``n`` are
+    chosen: pick all the ports of a phase in one call."""
+    lo, hi = ephemeral_range()
+    ranges = [r for r in ((10000, min(lo, 30000)), (hi + 1, 65536))
+              if r[1] - r[0] >= 4 * n]
+    rng = random.Random()
+    held, ports = [], []
+    try:
+        for _ in range(64 * n):
+            if len(ports) == n:
+                break
+            port = rng.randrange(*rng.choice(ranges))
+            if port in ports:
+                continue
+            s = socket.socket()
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                s.close()
+                continue
+            held.append(s)
+            ports.append(port)
+    finally:
+        for s in held:
+            s.close()
+    if len(ports) < n:
+        raise OSError(f"no {n} free ports outside the ephemeral range "
+                      f"{lo}-{hi}")
+    return ports
 
 
 def _send_frame(conn, obj, corrupt: bool = False) -> None:
@@ -254,7 +369,9 @@ class Coordinator:
         self.duplicates = 0
         if ck_dir:
             os.makedirs(ck_dir, exist_ok=True)
-        self._listener = Listener(("127.0.0.1", port), authkey=AUTHKEY)
+        # bound and listening only: connections are accepted raw and
+        # each handshakes on its own thread (``_serve``)
+        self._listener = Listener(("127.0.0.1", port), backlog=BACKLOG)
         self._stopping = threading.Event()
         self._crashed = False
         self._conns: list = []
@@ -267,11 +384,16 @@ class Coordinator:
 
     # -- serving loop ---------------------------------------------
     def _accept_loop(self):
+        """Accept connections until the listener closes.  The accept is
+        raw (no handshake: each connection's thread runs it, with a
+        deadline), so a peer that stays silent holds up no other join,
+        and an error of one connection drops that connection alone."""
         # poll before accept: a thread BLOCKED in accept() pins the
         # closed listening socket alive in the kernel (the port stays
         # LISTEN after close()), which would make a supervisor restart
         # on the same port impossible
         lsock = self._listener._listener._socket
+        lsock.setblocking(False)
         while not self._stopping.is_set():
             try:
                 ready, _, _ = select.select([lsock], [], [], 0.05)
@@ -280,18 +402,21 @@ class Coordinator:
             if not ready:
                 continue
             try:
-                conn = self._listener.accept()
-            except (OSError, EOFError):        # listener closed
-                return
-            # accepted sockets must carry SO_REUSEADDR too: otherwise
-            # their FIN_WAIT/TIME_WAIT corpses after a crash() block the
-            # restarted coordinator's bind on this port
+                sock, _ = lsock.accept()
+            except OSError:
+                if lsock.fileno() < 0:         # listener closed
+                    return
+                continue                       # that peer went away
             try:
-                s = socket.socket(fileno=os.dup(conn.fileno()))
-                s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-                s.close()
+                sock.setblocking(True)
+                # accepted sockets must carry SO_REUSEADDR too: otherwise
+                # their FIN_WAIT/TIME_WAIT corpses after a crash() block
+                # the restarted coordinator's bind on this port
+                sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                conn = Connection(sock.detach())
             except OSError:                    # pragma: no cover
-                pass
+                sock.close()
+                continue
             self._conns.append(conn)
             t = threading.Thread(target=self._serve, args=(conn,),
                                  daemon=True)
@@ -301,6 +426,13 @@ class Coordinator:
     def _serve(self, conn):
         worker = None
         linger = None
+        try:
+            _handshake(conn, True, HANDSHAKE_S)
+        except CONN_ERRORS:
+            # a peer that closed, reset or stayed silent mid-handshake,
+            # or spoke another authkey: drop it alone
+            conn.close()
+            return
         try:
             while True:
                 if self._crashed:
@@ -743,7 +875,8 @@ class CoordinatorClient:
                 self.conn = None
 
     def _ensure_connected(self, deadline: float, op: str = ""):
-        """(Re)connect within ``deadline``; after a reconnect of a
+        """(Re)connect within ``deadline`` (the connect and its handshake
+        too: :func:`connect`); after a reconnect of a
         joined client, transparently re-join so the (possibly freshly
         restarted) coordinator has this worker active again before the
         caller's op lands."""
@@ -752,12 +885,11 @@ class CoordinatorClient:
         first = not self._joined and self.reconnects == 0
         while True:
             try:
-                self.conn = Client(("127.0.0.1", self.port),
-                                   authkey=AUTHKEY)
+                self.conn = connect(self.port, deadline)
                 if not first:
                     self.reconnects += 1
                 break
-            except (ConnectionRefusedError, FileNotFoundError, OSError):
+            except CONN_ERRORS:
                 if time.monotonic() >= deadline:
                     raise CoordinatorUnavailable(
                         f"worker {self.worker}: coordinator on port "

@@ -216,6 +216,35 @@ class _Staged:
             h2d, axis=axis)
         return out
 
+    def _reduce_scatter(self, parts: torch.Tensor, pg,
+                        axis=None) -> torch.Tensor:
+        """``parts`` ``(size, *shape)`` -> the SUM over ``pg``'s ranks of
+        their ``parts[i]``, i this rank's index in ``pg``: ``shape``, in
+        ONE collective (counted at the bytes of ``parts``)."""
+        parts = parts.contiguous()
+        size, shape = parts.shape[0], tuple(parts.shape[1:])
+        dev, numel = parts.device, parts[0].numel()
+        out = torch.empty(shape, dtype=parts.dtype, device=dev)
+        send = (parts.view(-1) if dev.type == "cpu" else
+                self._staging(dev, "scatter_send", size * numel, parts.dtype))
+        recv = (out.view(-1) if dev.type == "cpu" else
+                self._staging(dev, "scatter_recv", numel, parts.dtype))
+
+        def d2h():
+            if dev.type != "cpu":
+                torch.cuda.current_stream(dev).synchronize()
+                send.copy_(parts.view(-1))
+
+        def h2d():
+            if dev.type != "cpu":
+                out.view(-1).copy_(recv)
+
+        self._collective(
+            "reduce_scatter", size * numel * parts.element_size(), d2h,
+            lambda: dist.reduce_scatter_tensor(recv, send, group=pg), h2d,
+            axis=axis)
+        return out
+
 
 class ReplicaGroup(_Staged):
     """Rank ``rank`` of ``world`` ranks holding rows ``rows`` of the
@@ -757,6 +786,14 @@ class MeshGroups:
         on every "model" rank)."""
         return _GatherFromModel.apply(x, self, dim)
 
+    def gather_summed_from_model(self, x: torch.Tensor,
+                                 dim: int) -> torch.Tensor:
+        """Every "model" rank's ``x`` concatenated along ``dim`` (one
+        all-gather) forward; backward, every "model" rank's grad of this
+        rank's slice summed (one reduce-scatter): a gathered tensor that
+        each rank reads in parts of its own."""
+        return _GatherSummedFromModel.apply(x, self, dim)
+
     def model_max_(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise max over "model" of the contiguous ``t``, in
         place (no grad: a softmax's shift)."""
@@ -977,6 +1014,17 @@ class _GatherFromModel(torch.autograd.Function):
     def backward(ctx, grad):
         return (grad.narrow(ctx.dim, ctx.mesh.model_index * ctx.size,
                             ctx.size), None, None)
+
+
+class _GatherSummedFromModel(_GatherFromModel):
+    """All-gather over "model" along ``dim`` forward, the reduce-scatter of
+    the grad backward."""
+
+    @staticmethod
+    def backward(ctx, grad):
+        parts = torch.stack(grad.split(ctx.size, ctx.dim))
+        return (ctx.mesh.inner._reduce_scatter(parts, ctx.mesh.model_pg,
+                                               axis=MODEL), None, None)
 
 
 def replica_group(group) -> Optional[ReplicaGroup]:

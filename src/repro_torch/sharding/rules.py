@@ -14,9 +14,9 @@ Axis conventions (launch/mesh.py):
   * ``data``  — FSDP / ZeRO-3 axis: weights sharded here are gathered
     just-in-time inside a replica.
   * ``model`` — tensor-parallel axis: the weights and state are held
-    sharded over it; the compute is split over it only by the
-    expert-parallel MoE dispatch (``models/moe.py``, a forward), not yet
-    by the Megatron products of ROADMAP.md queue 1 item 6a.
+    sharded over it; the training compute is split over it by the
+    Megatron split (``models/megatron.py``), and a forward's experts by
+    the expert-parallel MoE dispatch (``models/moe.py``).
 The Parle ``replica`` / ``pod`` axis is never assigned here — the
 planner prepends it to optimizer-state specs (Eq. 8d traffic rides it
 alone).

@@ -266,10 +266,13 @@ class ColumnLayout:
 
     * ``"col"``: split over "model" by the planner and by the compute on
       the same dim: the rank's column (the full leaf with that dim cut to
-      1/M); its grads are the rank's own;
+      1/M; of a packed leaf, the Mamba2 ``in_proj`` and ``conv_w``, the
+      planner's contiguous block, whose outputs the compute gathers over
+      "model" as activations); its grads are the rank's own;
     * ``"whole"``: held whole on every "model" rank (the planner does not
       split it); when the compute reads only the column's part of it
-      (``summed``: the 1-D biases, a K/V projection M does not divide),
+      (``summed``: the 1-D biases, a K/V projection M does not divide,
+      the Mamba2 per-head scalars, conv bias and gated-norm weight),
       its grads are partial and are summed over "model";
     * ``"gather"``: split over "model" by the planner, read whole by a
       module the split does not reach: its columns are gathered over

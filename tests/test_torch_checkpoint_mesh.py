@@ -4,19 +4,17 @@ train CLI's ``--checkpoint-dir`` / ``--resume`` under ``--mesh
 replica:R,data:D,model:M`` (``torch_ranks.spawn``: gloo ranks, spawned
 once a world for the module), on the CPU, ``--round-fused``, L = 2,
 checkpoints every 2 steps, at smoke width in two families
-(``runs`` is parametrized):
+(``runs`` is parametrized): Qwen2.5-3B (dense: heads, ff, embedding
+and head) and Mamba2-1.3B (ssm: the SSD heads of the Mamba2 mixer, its
+embedding and head).  Under "model" either replica is split
+(``models/megatron.py``), its sums in another order, so a run or a file
+under "model" is held to one process within the reference's
+composed-mesh bounds (rtol 2e-5 on losses, rtol 2e-5 / atol 2e-6 on the
+state), and a resume under the same split mesh to the uninterrupted
+split run bit for bit.
 
-* Qwen2.5-3B (dense): under "model" the replica is split
-  (``models/megatron.py``), its sums in another order, so a run or a
-  file under "model" is held to one process within the reference's
-  composed-mesh bounds (rtol 2e-5 on losses, rtol 2e-5 / atol 2e-6 on
-  the state), and a resume under the same split mesh to the
-  uninterrupted split run bit for bit;
-* Mamba2-1.3B (ssm): a family the split does not reach, every model
-  rank computing the whole replica, so under "model" alone the run and
-  the file are the one-process run's bit for bit.
-
-Where "bit for bit" stands below, the dense case takes those bounds.
+Where "bit for bit" stands below against one process, those bounds
+hold.
 
 1. The reference's contract: 3 steps under replica:2,data:2,model:2
    (eight ranks, crossing an L = 2 sync), saved, restored onto
@@ -92,18 +90,11 @@ def _argvs(arch):
             "sgd": f32 + ["--algo", "sgd"]}
 
 
-def _split(arch) -> bool:
-    """Whether the Megatron split cuts ``arch``'s replica over "model"."""
-    return megatron.splits_family(ARCHS[arch])
-
-
 def _same(arch, got, want, tol=COMPOSED_TOL, what="", show=True):
-    """``got`` = ``want``: bit for bit for a family the split does not
-    reach, within ``tol`` for one it splits (printing the error unless
-    not ``show``); the max abs err (0 where bit for bit)."""
-    if not _split(arch):
-        np.testing.assert_array_equal(got, want, err_msg=what)
-        return 0.0
+    """``got`` = ``want`` within ``tol`` (``arch``'s replica split over
+    "model": its sums in another order), printing the error unless not
+    ``show``; the max abs err."""
+    assert megatron.splits_family(ARCHS[arch])
     got, want = np.asarray(got), np.asarray(want)
     err = float(np.abs(got - want).max())
     if show:
@@ -213,9 +204,9 @@ def _whole(arch, ranks, mesh, f="x"):
 
 def _resumed(got_losses, got_eval, full_losses, full_eval, arch=None):
     """Steps 3-4 and the eval loss of a run resumed at step 2 = the
-    uninterrupted run's: bit for bit, or (``arch`` one the split cuts,
-    the two runs on different meshes) within the composed-mesh bound."""
-    if arch is None or not _split(arch):
+    uninterrupted run's: bit for bit, or (given ``arch``: the two runs
+    on different meshes, one split) within the composed-mesh bound."""
+    if arch is None:
         np.testing.assert_array_equal(got_losses, full_losses[2:])
         assert got_eval == full_eval
         return

@@ -3,9 +3,9 @@ counterpart of tests/test_dist_run.py.  The pure helpers, then the
 2-process smoke pod on the CPU against the single-process run (bit for
 bit, ~10 s on one worker, so it stays in tier-1), a failed worker: the
 launcher exits with its code and leaves no process behind, and composed
-specs: four ranks under ``replica:2,model:2`` (an ssm replica, which
-the Megatron split does not reach, bit for bit, the merged metrics
-keeping the bytes by axis) and ``replica:2,data:2`` (within ``--tol``),
+specs: four ranks under ``replica:2,model:2`` (an ssm replica split
+over "model", within ``--tol``, the merged metrics keeping the bytes by
+axis) and ``replica:2,data:2`` (within ``--tol``),
 a moe replica split over ``data:2,model:2`` (within ``--tol``), the
 train CLI's refusal of the async policy and a wrong ``--nproc`` naming
 its fix."""
@@ -137,20 +137,25 @@ DATA_TOL = 2e-5
 
 
 def test_composed_pod_under_model_is_bitwise(tmp_path):
-    """``--nproc 4 --mesh replica:2,model:2 --use-kernel`` on an ssm
-    replica (a family the Megatron split does not reach): every rank
-    computes its replica on the one-process row, so the launcher's
-    verdict is bit for bit; the merged metrics keep each collective's
-    bytes by axis, the sum over the four workers."""
+    """``--nproc 4 --mesh replica:2,model:2 --use-kernel --tol 2e-5`` on
+    an ssm replica: each rank computes its SSD heads (the Megatron split,
+    ``models/mamba2.py``), so the launcher's verdict holds the losses
+    within the composed-mesh bound of its one-process run (they were bit
+    for bit while every rank computed the whole replica); the merged
+    metrics keep each collective's bytes by axis, the sum over the four
+    workers."""
     from repro_torch.obs import read_events
     m = str(tmp_path / "m.jsonl")
     res = _launch(_free_port(), argv=(
         "--nproc", "4", "--mesh", "replica:2,model:2", "--use-kernel",
-        "--arch", "mamba2-1.3b", "--metrics-out", m))
+        "--arch", "mamba2-1.3b", "--metrics-out", m, "--tol",
+        str(DATA_TOL)))
     assert res.returncode == 0, res.stdout + res.stderr
     verdict = json.loads(res.stdout.strip().splitlines()[-1])
-    assert verdict["bitwise_equal"] is True, verdict
+    print(f"[dist_run] ssm replica:2,model:2: max rel diff "
+          f"{verdict['max_rel_diff']:.3e}")
     assert verdict["compared_steps"] == 6
+    assert verdict["max_rel_diff"] <= DATA_TOL, verdict
     mesh = json.loads([line for line in res.stdout.splitlines()
                        if '"in_replica_axes"' in line][0])
     assert mesh["in_replica_axes"] == ["model"]

@@ -69,6 +69,126 @@ def spawn(fn, world: int, store_path: str, *args, timeout=TIMEOUT_S):
     return [results[r] for r in range(world)]
 
 
+class ThreadColumns:
+    """M "model" ranks of one process, one thread each: the collectives
+    of ``sharding/partition.py::MeshGroups`` that
+    ``models/megatron.py::TensorParallel`` calls (the conjugate
+    copy / reduce pair, the gather, the max), exchanged through a
+    barrier and summed in rank order.  ``run(fn)`` runs ``fn(tp)`` on
+    each column's ``TensorParallel`` in its own thread (forward and
+    backward) and returns the M results."""
+
+    def __init__(self, M: int):
+        import threading
+        self.M = M
+        self._barrier = threading.Barrier(M, timeout=60)
+        self._slots = [None] * M
+
+    def exchange(self, m: int, t):
+        """Every column's ``t`` (no grad), in column order."""
+        self._slots[m] = t.detach()
+        self._barrier.wait()
+        out = list(self._slots)
+        self._barrier.wait()
+        return out
+
+    def run(self, fn):
+        import threading
+        from repro_torch.models import megatron
+        out, errs = [None] * self.M, []
+
+        def work(m):
+            try:
+                tp = megatron.TensorParallel(self.M, m, _Column(self, m))
+                out[m] = fn(tp)
+            except BaseException as e:       # re-raised by the caller
+                self._barrier.abort()
+                errs.append(e)
+
+        threads = [threading.Thread(target=work, args=(m,))
+                   for m in range(self.M)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=TIMEOUT_S)
+        if errs:
+            raise errs[0]
+        assert not any(t.is_alive() for t in threads), "columns timed out"
+        return out
+
+
+class _Column:
+    """Column ``m`` of a :class:`ThreadColumns`, as a ``MeshGroups``."""
+
+    def __init__(self, cols, m):
+        self.cols, self.m = cols, m
+
+    def sum(self, t):
+        parts = self.cols.exchange(self.m, t)
+        out = parts[0].clone()
+        for p in parts[1:]:
+            out += p
+        return out
+
+    def copy_to_model(self, x):
+        return _ThreadCopy.apply(x, self)
+
+    def reduce_from_model(self, x):
+        return _ThreadReduce.apply(x, self)
+
+    def gather_from_model(self, x, dim):
+        return _ThreadGather.apply(x, self, dim)
+
+    def gather_summed_from_model(self, x, dim):
+        return _ThreadGatherSummed.apply(x, self, dim)
+
+    def model_max_(self, t):
+        parts = self.cols.exchange(self.m, t)
+        return t.copy_(torch.stack(parts).amax(0))
+
+
+class _ThreadCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, col):
+        ctx.col = col
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.col.sum(g), None
+
+
+class _ThreadReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, col):
+        return col.sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ThreadGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, col, dim):
+        parts = col.cols.exchange(col.m, x)
+        ctx.col, ctx.dim = col, dim
+        ctx.lo = sum(p.shape[dim] for p in parts[:col.m])
+        ctx.size = x.shape[dim]
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.lo, ctx.size), None, None
+
+
+class _ThreadGatherSummed(_ThreadGather):
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.col.sum(g).narrow(ctx.dim, ctx.lo, ctx.size), None,
+                None)
+
+
 FIELDS = {"parle": ("x", "e", "c"), "entropy_sgd": ("x",),
           "elastic_sgd": ("x", "v", "ref"), "sgd": ("params", "v")}
 
@@ -190,6 +310,32 @@ def train_cli_jobs(rank, world, jobs):
 # axes inside a replica (tests/test_torch_fsdp_tp.py)
 # ------------------------------------------------------------------
 
+def family_batches(cfg, stream, step: int, n: int, rows=slice(None)):
+    """:func:`~repro_torch.data.synthetic.replica_batches` of ``stream``
+    with the conditioning the vlm and audio families read (which the
+    token stream does not draw): each replica's ``patch_embeds`` /
+    ``cond`` drawn with numpy from ``step``, the same on every rank."""
+    from repro_torch.data.synthetic import replica_batches
+    batch = replica_batches(stream, step, stream.batch_size, n, rows=rows)
+    for name, draw in conditioning(cfg, step, n, stream.batch_size).items():
+        batch[name] = torch.from_numpy(np.ascontiguousarray(draw[rows]))
+    return batch
+
+
+def conditioning(cfg, step: int, n: int, batch_size: int) -> dict:
+    """{key: (n, batch_size, length, d) float32} of the conditioning the
+    vlm (``patch_embeds``) and audio (``cond``) families read at
+    ``step``, drawn with numpy (either package's config); {} for the
+    other families."""
+    extra = {"vlm": ("patch_embeds", cfg.num_patches),
+             "audio": ("cond", cfg.cond_len)}.get(cfg.family)
+    if extra is None:
+        return {}
+    name, length = extra
+    return {name: np.random.default_rng(1000 + step).standard_normal(
+        (n, batch_size, length, cfg.d_model)).astype(np.float32)}
+
+
 def run_mesh_case(case: dict, group, cfg_fields: dict, np_params,
                   stream_kw: dict):
     """One case of the composed mesh on ``group`` (a ``MeshGroups``, or
@@ -200,21 +346,25 @@ def run_mesh_case(case: dict, group, cfg_fields: dict, np_params,
     counts by axis, the final state's model rows gathered into full
     FlatLayout rows (x of each local replica; SGD's params), the
     deployable tree as numpy, the layout's sizes, the local block of
-    ``blocks/attn/wq`` in the initial x (None without one), and the
-    elements of the rank's compute row beside the whole row's."""
+    ``blocks/attn/wq`` in the initial x (None without one), the
+    elements of the rank's compute row beside the whole row's, and
+    (Parle) the eval loss of the deployable (``parle.evaluate``, split as
+    training is).  Every family runs (:func:`family_batches`; steps
+    only for vlm and audio)."""
     from repro_torch.configs import ParleConfig
     from repro_torch.configs.base import ModelConfig
     from repro_torch.core import registry
+    from repro_torch.core import parle
     from repro_torch.core.parle import dealias_state
-    from repro_torch.data.synthetic import (TokenStream, make_round_batch_fn,
-                                            replica_batches)
+    from repro_torch.data.synthetic import TokenStream, make_round_batch_fn
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.models.model import build_model
     from repro_torch.sharding.partition import (collective_counts_by_axis,
                                                 in_replica)
     from repro_torch.utils.pytree import tree_leaves_with_paths
 
-    model = build_model(ModelConfig(**cfg_fields))
+    cfg = ModelConfig(**cfg_fields)
+    model = build_model(cfg)
     algo = registry.get(case["algo"])
     pcfg = algo.canonicalize_cfg(ParleConfig(
         n_replicas=case["n"], L=case["L"], lr=0.1, lr_inner=0.1,
@@ -228,7 +378,9 @@ def run_mesh_case(case: dict, group, cfg_fields: dict, np_params,
     wq = [i for i, p in enumerate(lay.paths)
           if p == ("blocks", "attn", "wq")]
     wq_block = lay.views(first)[wq[0]].numpy().copy() if wq else None
-    stream = TokenStream(**stream_kw)
+    stream = TokenStream(**{**stream_kw, "vocab_size": cfg.vocab_size,
+                            "num_codebooks": cfg.num_codebooks
+                            if cfg.family == "audio" else 0})
     rows = group.rows if group is not None else slice(None)
     n, L, kw = case["n"], case["L"], dict(use_kernel=case.get("use_kernel",
                                                                 False))
@@ -249,9 +401,7 @@ def run_mesh_case(case: dict, group, cfg_fields: dict, np_params,
         fn = (algo.make_step(model.loss, pcfg, **kw) if group is None
               else algo.make_sharded_step(model.loss, pcfg, group, **kw))
         for i in range(case["steps"]):
-            state, m = fn(state, replica_batches(stream, i,
-                                                 stream.batch_size, n,
-                                                 rows=rows))
+            state, m = fn(state, family_batches(cfg, stream, i, n, rows))
             losses.append(m["loss"].reshape(1).numpy())
             counts.append(collective_counts_by_axis(group.obs.registry)
                           if group is not None else {})
@@ -267,6 +417,13 @@ def run_mesh_case(case: dict, group, cfg_fields: dict, np_params,
             full.append(mesh.gather_blocks(r, f, lay).numpy().copy())
     deploy = {"/".join(p): t.numpy().copy() for p, t in
               tree_leaves_with_paths(algo.deployable(state, group))}
+    eval_loss = None
+    if case["algo"] == "parle":
+        held = {k: v[0] for k, v in
+                family_batches(cfg, stream, 10_000_019, 1).items()}
+        eval_loss = float(parle.evaluate(
+            model.loss, algo.deployable_row(state, group), lay, group,
+            held))
     # the rank's compute row under the Megatron split: its elements, and
     # those of the whole row
     column = (mesh.column_layout(lay, model.cfg).data_numel
@@ -274,7 +431,8 @@ def run_mesh_case(case: dict, group, cfg_fields: dict, np_params,
     return {"losses": np.concatenate(losses), "counts": counts,
             "full_rows": np.stack(full), "deploy": deploy,
             "numel": lay.numel, "wq_block": wq_block, "column": column,
-            "row": sum(lay.full.sizes) if mesh is not None else None}
+            "row": sum(lay.full.sizes) if mesh is not None else None,
+            "eval_loss": eval_loss}
 
 
 def fsdp_tp_cases(rank, world, cases, models, stream_kw):
@@ -539,12 +697,13 @@ def vocab_parallel_ce(rank, M, mesh, seed):
     return out
 
 
-def megatron_world(rank, world, moe_cases, dense_case, models, stream_kw):
+def megatron_world(rank, world, moe_cases, mesh_cases, models, stream_kw):
     """The rank side of tests/test_torch_megatron.py's world: each moe
     case ({name: (spec, cfg fields, numpy params, numpy batch)}) through
-    :func:`moe_grads`, the vocab-parallel CE on "model" pairs, and the
-    dense ``dense_case`` (a :func:`run_mesh_case` case) on a
-    ``MeshGroups`` of its spec."""
+    :func:`moe_grads`, the vocab-parallel CE on "model" pairs, and each
+    of ``mesh_cases`` ({name: a :func:`run_mesh_case` case on the model
+    its ``"model"`` key names in ``models``}) on a ``MeshGroups`` of its
+    spec."""
     from repro_torch.launch.mesh import parse_mesh_spec
     from repro_torch.obs import Obs
     from repro_torch.sharding.partition import MeshGroups
@@ -552,9 +711,10 @@ def megatron_world(rank, world, moe_cases, dense_case, models, stream_kw):
     mesh = MeshGroups(parse_mesh_spec("replica:1,data:2,model:2"), 1, rank,
                       obs=Obs())
     out["ce"] = vocab_parallel_ce(rank, 2, mesh, seed=3)
-    group = MeshGroups(parse_mesh_spec(dense_case["mesh"]), dense_case["n"],
-                       rank, obs=Obs())
-    out["dense"] = run_mesh_case(dense_case, group, *models["dense"],
-                                 stream_kw)
-    out["dense"]["coords"] = group.coords
+    for name, case in mesh_cases.items():
+        group = MeshGroups(parse_mesh_spec(case["mesh"]), case["n"], rank,
+                           obs=Obs())
+        out[name] = run_mesh_case(case, group, *models[case["model"]],
+                                  stream_kw)
+        out[name]["coords"] = group.coords
     return out
