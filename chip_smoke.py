@@ -72,18 +72,28 @@ itself and, in order:
    programs the reference compiles (decode + buckets dense, 2 paged),
    that K8 launched exactly num_layers x (decode steps + the warm-up's
    steps), counted through the replays (a prefill launches none), and
-   that the tokens equal the gather path's (no kernel), captured and
-   eager; then (5b) profiles that run, captured and eager (K8 named in
-   one of them); then (5j) holds the captured engine against the eager
+   that the tokens equal the gather path's (no kernel, captured); then
+   (5j) holds the captured engine against the eager
    one: the same tokens greedy and sampled (temperature 0.8, top-k 50,
    one seed), one replay of the decode graph and one of the prefill
    chunk graph with host synchronisation forbidden, ITL, prefill
    tokens/s, TTFT, capture seconds and the device's busy share of both
-   (whole runs and a two-step window); then (5k) one captured engine
-   serves the 8 requests twice, a cold pass (captures included, each
-   timed) and a warm pass (no capture), each with phase 5's tokens,
-   beside the eager engine: prefill tokens/s, TTFT, ITL, busy shares
-   (whole pass and two-step window) and peak memory of each; then
+   over a two-step window (K8 named by the profiler in the eager one);
+   then (5k) one captured engine serves the 8 requests twice, a cold
+   pass (captures included, each timed) and a warm pass (no capture),
+   each with phase 5's tokens, then once more under torch.profiler (the
+   warm pass's busy share and the kernels that take it), beside the
+   eager engine (5j's greedy eager run): prefill tokens/s, TTFT, ITL,
+   busy shares (two-step windows; the warm pass whole too) and peak
+   memory of each; then (5l) ``--naive``: the reference's oracle loop
+   (``launch/serve.py::naive_serve``: one request at a time, batch 1, a
+   dense cache, a warm-up pass then a device-synced pass) serves the 8
+   requests greedily on the same params — each request's 32 tokens equal
+   the K8 engine's, or first differ at a step whose top-2 logit margin
+   (a plain full forward over the prompt and the tokens before it) is
+   below 1e-4, which is printed; no kernel launched (K8 included); its
+   warm-up, wall, tokens/s and cache positions printed beside 5k's warm
+   tokens/s and the card; then
    prefills
    2 x 1024 tokens on the same params through
    ``launch/steps.py::make_prefill_step(use_flash=True)`` (K3 once per
@@ -116,7 +126,19 @@ itself and, in order:
    logits within 1e-3 and the same next tokens (moe: on every position
    whose routings all clear the margin and that no routing difference
    reaches; a routing difference whose margin clears it fails), with
-   each phase's wall time and peak memory;
+   each phase's wall time and peak memory; (5m, right after phase 5's
+   params are freed) the telemetry on the card: a span armed with
+   ``sp.block(out)`` around an 8192 x 8192 float32 product lasts at least
+   the product's CUDA-event time; unarmed, less than it; armed on a small
+   result while three products run on a side stream, it ends while they
+   run (the span waits for its value's stream, not the whole device);
+   then the reference's overhead guard at its size (dense, 2 layers,
+   d_model 64, Parle n = 2, L = 5): the port's fused round bare and with full
+   per-round telemetry (a span ending on ``sp.block``, counters, a
+   histogram), 40 pairs of trials of 3 rounds, the order alternating:
+   the geometric mean of the paired ratios instrumented / bare
+   (``obs_overhead_ratio``) within 1.02 + 300 us / the bare round, the
+   reference's bound, with the round's parts and waits printed beside it;
 6. trains through the port's train CLI functions, under deterministic
    algorithms: full-width Qwen2.5-3B (d_model 2048, 16 q / 2 KV heads,
    head_dim 128, d_ff 11008, vocab 151936) with its depth cut from 36
@@ -328,6 +350,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.configs import ParleConfig, get_config  # noqa: E402
+from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
 from repro_torch.core import parle, registry  # noqa: E402
 from repro_torch.data.synthetic import (TokenStream,  # noqa: E402
@@ -352,8 +375,8 @@ from repro_torch.models import megatron  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
-from repro_torch.obs import (Obs, Registry, read_events,  # noqa: E402
-                             snapshot_summaries)
+from repro_torch.obs import (Obs, Registry, Tracer,  # noqa: E402
+                             read_events, snapshot_summaries)
 from repro_torch.runtime import (AsyncElasticPolicy,  # noqa: E402
                                  consensus_digest, load_consensus)
 from repro_torch.runtime.coordinator import (_np_dequant,  # noqa: E402
@@ -5133,11 +5156,13 @@ def dryrun_phase(device, smi, trained, families, shard) -> dict:
     return out
 
 
-def main_path_phase(device) -> dict:
+def main_path_phase(device, smi) -> dict:
     """Serve the main path through K8, decoding through the engine's CUDA
     graph, then the gather path on the same params, captured and eager;
-    profile both K8 runs (5b) and hold the captured chunk against the
-    eager one (5j).  Returns the K8 launch count and the reports."""
+    hold the captured chunk against the eager one (5j), the prefill
+    graphs cold and warm (5k, with the warm pass's device rows), then
+    ``--naive`` on the same params (5l).  Returns the K8 launch count and
+    the reports."""
     phase("5. main path: full-width qwen2.5-3b, paged engine through K8, "
           "the decode chunk as a CUDA graph")
     args_k = serve.parse_args(SERVE_ARGV + ["--paged-kernel"])
@@ -5173,23 +5198,19 @@ def main_path_phase(device) -> dict:
     torch.cuda.empty_cache()
 
     # reference on the card: the gather path (no kernel), same params,
-    # through its own graph and eagerly
-    rep_g = {}
-    for graphs in (True, False):
-        res_g, engine, rep_g[graphs] = serve.engine_serve(
-            cfg, params, requests, serve.parse_args(SERVE_ARGV), Obs(),
-            device, graphs=graphs)
-        captured(engine, requests, graphs)
-        check(pa.launches == k8_launches, "the gather path launched K8")
-        for uid in res_k:
-            check(bool((res_k[uid] == res_g[uid]).all()),
-                  f"request {uid}: kernel tokens {res_k[uid].tolist()} != "
-                  f"gather-path tokens {res_g[uid].tolist()} (graphs "
-                  f"{graphs})")
-        del engine
-        torch.cuda.empty_cache()
-    print(f"gather path, captured and eager: same tokens for all "
-          f"{len(res_g)} requests", flush=True)
+    # through its own graph (5f-5i run it eagerly too)
+    res_g, engine, rep_g = serve.engine_serve(
+        cfg, params, requests, serve.parse_args(SERVE_ARGV), Obs(), device)
+    captured(engine, requests)
+    check(pa.launches == k8_launches, "the gather path launched K8")
+    for uid in res_k:
+        check(bool((res_k[uid] == res_g[uid]).all()),
+              f"request {uid}: kernel tokens {res_k[uid].tolist()} != "
+              f"gather-path tokens {res_g[uid].tolist()}")
+    del engine
+    torch.cuda.empty_cache()
+    print(f"gather path, captured: same tokens for all {len(res_g)} "
+          "requests", flush=True)
     # the first token of request 0 is the argmax of a plain full forward
     prompt = torch.as_tensor(requests[0]["tokens"], device=device)[None]
     logits, _ = tfm.forward(params, cfg, prompt)
@@ -5199,19 +5220,18 @@ def main_path_phase(device) -> dict:
           "request 0's first token is not the argmax of the forward logits")
     del logits
     torch.cuda.empty_cache()
-    profile = profile_phase(device, cfg, params, requests, args_k)
-    graph = graph_phase(device, cfg, params, requests, args_k, res_k, rep_k,
-                        profile)
+    graph = graph_phase(device, cfg, params, requests, args_k, res_k, rep_k)
     prefill = prefill_graph_phase(device, cfg, params, requests, args_k,
-                                  res_k, profile, graph)
+                                  res_k, graph)
+    naive = naive_phase(device, cfg, params, requests, res_k,
+                        prefill["warm"], smi)
     flash = flash_prefill_phase(device, cfg, params)
     del params
     torch.cuda.empty_cache()
     return {"launches": k8_launches, "decode_steps": steps,
             "peak_memory_gib": round(peak / 2 ** 30, 3),
-            "paged_kernel": rep_k, "gather": rep_g[False],
-            "gather_captured": rep_g[True], "profile": profile,
-            "graph": graph, "prefill_graphs": prefill,
+            "paged_kernel": rep_k, "gather_captured": rep_g,
+            "graph": graph, "prefill_graphs": prefill, "naive": naive,
             "flash_prefill": flash}
 
 
@@ -5308,69 +5328,26 @@ def busy_window(device, cfg, params, requests, args, graphs,
     chunks = engine.stats["chunks"] - chunks
     del engine
     _release()
-    busy = sum(us for us, _, _ in _device_rows(prof)) / 1e6
+    rows = _device_rows(prof)
+    busy = sum(us for us, _, _ in rows) / 1e6
     check(busy > 0 and chunks >= 1,
           f"busy window: {busy} s of device time, {chunks} decode chunks")
     return {"steps": BUSY_STEPS, "decode_chunks": chunks,
             "wall_s": round(wall, 4),
             "device_busy_s": round(busy, 4),
-            "busy_share": round(busy / wall, 4)}
+            "busy_share": round(busy / wall, 4),
+            "names_k8": any("paged_attention" in k for _, k, _ in rows)}
 
 
-def _profile_run(device, cfg, params, requests, args, graphs):
-    """One serve run under torch.profiler (device activity only: with
-    host-op events too, processing the trace of this run took minutes,
-    and busy time needs none of them)."""
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
-        _, engine, rep = serve.engine_serve(cfg, params, requests, args,
-                                            Obs(), device, graphs=graphs)
-        t1 = time.perf_counter()
-    t2 = time.perf_counter()
-    rows = _device_rows(prof)
-    busy_s = sum(us for us, _, _ in rows) / 1e6
-    return {"profiled_wall_s": rep["wall_s"], "device_busy_s": busy_s,
-            "profile_phase_s": round(time.perf_counter() - t0, 1),
-            "trace_stop_s": round(t2 - t1, 1),
-            "rows_s": round(time.perf_counter() - t2, 1),
-            "decode_steps": engine.stats["decode_steps"],
-            "names_k8": any("paged_attention" in k for _, k, _ in rows),
-            "top_kernels": [{"name": k[:90], "device_ms": us / 1e3,
-                             "calls": n} for us, k, n in rows[:8]]}
-
-
-def profile_phase(device, cfg, params, requests, args) -> dict:
-    """Where the time goes: the K8 main path once more under
-    torch.profiler, decoding through its CUDA graph, then eagerly —
-    device busy time against the wall clock, and the kernels that take
-    it.  The profiler slows the host side, so the idle share is also
-    given against an unprofiled run's wall."""
-    phase("5b. main path under torch.profiler, captured and eager")
-    out = {}
-    for name, graphs in (("captured", True), ("eager", False)):
-        out[name] = _profile_run(device, cfg, params, requests, args, graphs)
-        check(out[name]["device_busy_s"] > 0,
-              f"the profiler saw no device time in the {name} run")
-        print(json.dumps({"profile": name, **out[name]}), flush=True)
-    # K8 inside the graph: a replay's kernels are named where the
-    # profiler sees into the graph; the eager run names them in any case
-    check(out["eager"]["names_k8"], "the profiler saw no K8 launch in the "
-          "eager run")
-    print(f"K8 named by the profiler: captured run "
-          f"{out['captured']['names_k8']}, eager run "
-          f"{out['eager']['names_k8']}", flush=True)
-    return out
-
-
-def graph_phase(device, cfg, params, requests, args_k, res_k, rep_k,
-                profile) -> dict:
+def graph_phase(device, cfg, params, requests, args_k, res_k, rep_k) -> dict:
     """The decode chunk as a CUDA graph against the eager chunk on the
     main path (paged engine through K8): the same tokens greedy (phase
     5's captured run) and sampled (temperature 0.8, top-k 50, one seed);
     one replay with host synchronisation forbidden; one decode program a
     captured engine; K8 launches = layers x decode steps through the
-    replays (+ the warm-up's); ITL and device-busy share of both."""
+    replays (+ the warm-up's); ITL of both, and the device's busy share
+    over a two-step window of each (the eager window's profiler rows
+    naming K8)."""
     phase("5j. the decode chunk as a CUDA graph: captured against eager, "
           "greedy and sampled")
     sampled = serve.parse_args(SERVE_ARGV + ["--paged-kernel",
@@ -5381,8 +5358,10 @@ def graph_phase(device, cfg, params, requests, args_k, res_k, rep_k,
                                 ("sampled_captured", sampled, True),
                                 ("sampled_eager", sampled, False)):
         reset_launches()
+        torch.cuda.reset_peak_memory_stats(device)
         res, engine, rep = serve.engine_serve(cfg, params, requests, args,
                                               Obs(), device, graphs=graphs)
+        peak = torch.cuda.max_memory_allocated(device)
         steps = engine.stats["decode_steps"]
         k8 = launch_counts(paged_attention=cfg.num_layers * (
             steps + captured(engine, requests, graphs)))["paged_attention"]
@@ -5409,7 +5388,8 @@ def graph_phase(device, cfg, params, requests, args_k, res_k, rep_k,
             launch_counts()                    # a prefill launches no K8
         out[label] = {"tokens": res, "k8_launches": k8,
                       "decode_steps": steps, "report": rep,
-                      "compile_s": engine.stats["compile_s"]}
+                      "compile_s": engine.stats["compile_s"],
+                      "peak_memory_gib": round(peak / 2 ** 30, 3)}
         del engine
         torch.cuda.empty_cache()
     wall = {"captured": rep_k["wall_s"],
@@ -5425,9 +5405,6 @@ def graph_phase(device, cfg, params, requests, args_k, res_k, rep_k,
             "captured": rep_k["decode_tokens_per_s"],
             "eager": out["greedy_eager"]["report"]["decode_tokens_per_s"]},
         "wall_s": wall,
-        "device_busy_share": {
-            k: round(profile[k]["device_busy_s"] / wall[k], 4)
-            for k in wall},
         "busy_window": {
             name: busy_window(device, cfg, params, requests, args_k, graphs)
             for name, graphs in (("captured", True), ("eager", False))},
@@ -5439,7 +5416,16 @@ def graph_phase(device, cfg, params, requests, args_k, res_k, rep_k,
             "eager": out["greedy_eager"]["report"]["prefill_tokens_per_s"]},
         "ttft_ms": {"captured": rep_k["ttft_ms"],
                     "eager": out["greedy_eager"]["report"]["ttft_ms"]},
+        # 5k's eager engine: the greedy eager run's pass (it captured
+        # nothing: ``captured`` checked)
+        "eager_pass": {**{k: out["greedy_eager"]["report"][k]
+                          for k in PASS_KEYS if k != "compiles"},
+                       "compiles": 0,
+                       "peak_memory_gib": out["greedy_eager"][
+                           "peak_memory_gib"]},
         "replay_without_sync": True}
+    check(summary["busy_window"]["eager"]["names_k8"],
+          "the profiler saw no K8 launch in the eager busy window")
     print("captured == eager tokens for all "
           f"{len(res_k)} requests, greedy and sampled", flush=True)
     print(json.dumps(summary), flush=True)
@@ -5470,17 +5456,17 @@ PASS_KEYS = ("prefill_tokens_per_s", "ttft_ms", "itl_ms",
 
 
 def prefill_graph_phase(device, cfg, params, requests, args_k, res_k,
-                        profile, graph) -> dict:
+                        graph) -> dict:
     """The prefills as CUDA graphs on the main path (paged, through K8):
     one captured engine serves the 8 requests twice — a cold pass, which
     captures the prefill-chunk and the decode graph (each capture
     timed), and a warm pass, which captures nothing — both with phase
     5's tokens; then a third warm pass under torch.profiler (its device
-    time over the warm pass's wall: the busy share of the whole run) and
-    a two-step busy window on the same engine.  Beside them the eager
-    engine once (with its peak memory), its whole-run busy share from
-    5b's eager profile and its window from 5j; the cold pass's busy
-    share from 5b's captured profile (a cold engine too)."""
+    time over the warm pass's wall: the busy share of the whole run; the
+    kernels that take it, K8 among them) and a two-step busy window on
+    the same engine.  Beside them the eager engine: 5j's greedy eager run
+    (its pass and peak memory) and its busy window from 5j; the cold
+    pass's window is 5j's captured one (a new engine too)."""
     phase("5k. the prefills as CUDA graphs: one engine serves the main "
           "path's requests twice (cold: captures included; warm), beside "
           "the eager engine")
@@ -5515,36 +5501,277 @@ def prefill_graph_phase(device, cfg, params, requests, args_k, res_k,
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         toks, _ = _serve_pass(engine, requests, args_k, device)
-    warm_busy_s = sum(us for us, _, _ in _device_rows(prof)) / 1e6
+    rows = _device_rows(prof)
+    warm_busy_s = sum(us for us, _, _ in rows) / 1e6
     del prof
+    check(warm_busy_s > 0, "the profiler saw no device time in the warm "
+          "pass")
+    out["warm"]["top_kernels"] = [{"name": k[:90], "device_ms": us / 1e3,
+                                   "calls": n} for us, k, n in rows[:8]]
+    out["warm"]["names_k8"] = any("paged_attention" in k
+                                  for _, k, _ in rows)
     out["warm"]["device_busy_s"] = round(warm_busy_s, 4)
     out["warm"]["busy_share"] = round(warm_busy_s / out["warm"]["wall_s"], 4)
     out["warm"]["busy_window"] = busy_window(device, cfg, params, requests,
                                              args_k, True, engine)
-    out["cold"]["busy_share"] = round(profile["captured"]["device_busy_s"]
-                                      / out["cold"]["wall_s"], 4)
     out["cold"]["busy_window"] = graph["busy_window"]["captured"]
     del engine
     _release()
 
-    torch.cuda.reset_peak_memory_stats(device)
-    engine = serve.make_engine(cfg, params, requests, args_k, Obs(), device,
-                               False)
-    toks, rep = _serve_pass(engine, requests, args_k, device)
-    for i, t in enumerate(toks):
-        check(bool((t == res_k[i]).all()),
-              f"eager pass, request {i}: {t.tolist()} != phase 5's "
-              f"{res_k[i].tolist()}")
-    eager = {k: rep[k] for k in PASS_KEYS}
-    eager["peak_memory_gib"] = round(
-        torch.cuda.max_memory_allocated(device) / 2 ** 30, 3)
-    eager["busy_share"] = round(profile["eager"]["device_busy_s"]
-                                / eager["wall_s"], 4)
+    # the eager engine: 5j's greedy eager run (phase 5's tokens, checked
+    # there), not served again
+    eager = dict(graph["eager_pass"])
     eager["busy_window"] = graph["busy_window"]["eager"]
     out["eager"] = eager
-    del engine
-    _release()
     print(json.dumps({"prefill_graphs": out}), flush=True)
+    return out
+
+
+LOGIT_MARGIN = 1e-4        # top-2 logit margin under which greedy may flip
+
+
+def top2_margin(cfg, params, tokens, device) -> float:
+    """The top-2 margin of the next-token logits after ``tokens``, from
+    one plain full forward (no kernel)."""
+    seq = torch.as_tensor(np.asarray(tokens, np.int64), device=device)[None]
+    with torch.no_grad():
+        logits, _ = tfm.forward(params, cfg, seq)
+    top = torch.topk(logits[0, -1], 2).values
+    return float(top[0] - top[1])
+
+
+def naive_phase(device, cfg, params, requests, res_k, warm, smi) -> dict:
+    """Phase 5l: ``--naive`` at full width.  The reference's oracle loop
+    (``launch/serve.py::naive_serve``: one request at a time, batch 1, a
+    dense cache, a warm-up pass then a device-synced pass) serves phase
+    5's requests greedily on its params.  Each request's tokens equal the
+    K8 engine's (``res_k``) or first differ at a step where the naive
+    path's top-2 logit margin (a plain full forward over the prompt and
+    the tokens before it) is below LOGIT_MARGIN: a batch-1 GEMV and a
+    4-row GEMM may round float32 differently.  The loop reaches no
+    kernel, K8 included.  ``warm`` is 5k's warm pass, printed beside."""
+    phase("5l. --naive at full width: the reference's one-request loop on "
+          "phase 5's params and requests")
+    args = serve.parse_args(SERVE_ARGV + ["--naive"])
+    t0 = time.perf_counter()
+    reset_launches()
+    outs, rep = serve.naive_serve(cfg, params, requests, args, Obs(), device)
+    launch_counts()                        # no kernel, K8 included
+    check(len(outs) == len(requests), f"{len(outs)} naive results")
+    differences = {}
+    for i, toks in enumerate(outs):
+        want = np.asarray(res_k[i])
+        check(toks.shape == want.shape == (args.gen,),
+              f"request {i}: naive {toks.shape}, engine {want.shape}")
+        check(rep["cache_positions"][i] == len(requests[i]["tokens"])
+              + args.gen - 1, f"request {i}: cache at "
+              f"{rep['cache_positions'][i]}")
+        differ = np.flatnonzero(toks != want)
+        if differ.size == 0:
+            continue
+        j = int(differ[0])
+        margin = top2_margin(cfg, params, np.concatenate(
+            [requests[i]["tokens"], toks[:j]]), device)
+        differences[i] = {"step": j, "naive": int(toks[j]),
+                          "engine": int(want[j]), "top2_margin": margin}
+        check(margin < LOGIT_MARGIN,
+              f"request {i}: naive token {int(toks[j])} != engine token "
+              f"{int(want[j])} at step {j}, top-2 logit margin {margin} "
+              f">= {LOGIT_MARGIN}")
+    new_tokens = len(requests) * args.gen
+    out = {"naive": {k: rep[k] for k in (
+               "warmup_s", "wall_s", "tokens_per_s", "cache_positions")},
+           "engine_warm": {
+               "tokens_per_s": round(new_tokens / warm["wall_s"], 1),
+               "decode_tokens_per_s": warm["decode_tokens_per_s"],
+               "wall_s": warm["wall_s"]},
+           "equal_requests": len(outs) - len(differences),
+           "differences": differences,
+           "phase_wall_s": round(time.perf_counter() - t0, 2), "card": smi}
+    print(json.dumps({"naive_serve": out}), flush=True)
+    return out
+
+
+OBS_PRODUCT = 8192         # 5m(a): an 8192 x 8192 float32 product
+# 5m(b): the reference's overhead guard, at its size
+# (tests/test_obs.py::test_instrumented_round_within_noise_of_bare)
+OBS_MODEL = dict(name="obs-bench", family="dense", num_layers=2, d_model=64,
+                 num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=512,
+                 head_dim=16)
+OBS_PAIRS, OBS_ROUNDS = 40, 3
+OBS_RATIO, OBS_CUSHION_S = 1.02, 300e-6
+
+
+def span_block_check(device) -> dict:
+    """5m(a): a span armed with ``sp.block(out)`` around a float32
+    product lasts at least the product's CUDA-event time; unarmed, it
+    ends before the product does; armed on a small result while three
+    products run on a side stream, it ends while they still run (it
+    waits for its value's stream, not the whole device)."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    a, b = (torch.randn((OBS_PRODUCT, OBS_PRODUCT), device=device,
+                        generator=gen) for _ in range(2))
+    side = torch.cuda.Stream(device)
+    out = a @ b                            # cuBLAS, the allocator and the
+    with torch.cuda.stream(side):          # kernels warm on both streams
+        out = a @ b
+    small = a[0, :8] + 1.0
+    torch.cuda.synchronize(device)
+    tracer = Tracer(enabled=True, collect=True)
+    got = {}
+    for case in ("blocked", "unblocked", "side_stream"):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        with tracer.span("product", cat="compute") as sp:
+            if case == "side_stream":
+                with torch.cuda.stream(side):
+                    start.record()
+                    for _ in range(3):
+                        out = a @ b
+                    end.record()
+                small = a[0, :8] + 1.0
+                sp.block(small)
+            else:
+                start.record()
+                out = a @ b
+                end.record()
+                if case == "blocked":
+                    sp.block(out)
+        running = not end.query()
+        torch.cuda.synchronize(device)
+        got[case] = {"span_ms": round(sp.dur_s * 1e3, 4),
+                     "product_ms": round(start.elapsed_time(end), 4),
+                     "running_at_exit": running}
+    del a, b, out, small
+    for case, waits in (("blocked", True), ("unblocked", False),
+                        ("side_stream", False)):
+        span, product = got[case]["span_ms"], got[case]["product_ms"]
+        check((span >= product) == waits
+              and got[case]["running_at_exit"] != waits,
+              f"5m(a) {case}: a span of {span} ms around {product} ms of "
+              f"products {'ended before' if waits else 'waited for'} them")
+    return got
+
+
+def overhead_guard(device) -> dict:
+    """5m(b): the reference's overhead guard on the port's fused round on
+    the card — full per-round telemetry (a span ending on ``sp.block``,
+    counters, a histogram) against the bare round.  OBS_PAIRS pairs of
+    trials of OBS_ROUNDS rounds, bare and instrumented, the order
+    reversed every other pair so that drift hits both alike.  The gate
+    is the reference's bound on the round's wall, instrumented within
+    OBS_RATIO x bare + OBS_CUSHION_S, on the geometric mean of the paired
+    ratios instrumented / bare (``obs_overhead_ratio``): the round is
+    host-bound, +-10% from round to round on the card's host, and the
+    mean of the log ratios wanders less than their median does.
+    Printed beside it, not gated: the median paired ratio, the
+    reference's min-of-trials ratio, the work's parts (the round
+    function and the staging in a bare round, both in an instrumented
+    one), the span's wait (an event on the metrics' stream) and, for the
+    cause named in ``obs/trace.py``, the whole-device
+    ``torch.cuda.synchronize`` that ends each bare trial."""
+    mcfg = ModelConfig(**OBS_MODEL)
+    pcfg = ParleConfig(n_replicas=2, L=5, batches_per_epoch=5)
+    algo = registry.get("parle")
+    model = build_model(mcfg)
+    state = parle.dealias_state(algo.init(model.init(
+        torch.Generator(device=device).manual_seed(0)), pcfg))
+    stream = TokenStream(vocab_size=mcfg.vocab_size, seq_len=16,
+                         batch_size=1, seed=0, device=str(device))
+    stage = make_round_batch_fn(stream, pcfg.L, 1, pcfg.n_replicas)
+    round_fn = algo.make_round_fn(model.loss, pcfg)
+    reg, tracer = Registry(), Tracer(enabled=True, collect=True)
+    parts = {"round_fn": [], "stage": [], "work": [], "span_wait": [],
+             "telemetry": [], "device_synchronize": []}
+
+    def trial(rs, nxt, k, instrumented):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for r in range(k):
+            cur, nxt = nxt, None
+            if instrumented:
+                t1 = time.perf_counter()
+                with tracer.span("round", round=r) as sp:
+                    w0 = time.perf_counter()
+                    rs, m = round_fn(rs, cur)
+                    nxt = stage((r + 1) * pcfg.L)
+                    w1 = time.perf_counter()
+                    sp.block(m)
+                w2 = time.perf_counter()
+                reg.counter("train.steps").inc(pcfg.L)
+                reg.counter("train.rounds").inc()
+                reg.histogram("train.round_ms").observe(sp.dur_s * 1e3)
+                parts["work"].append(w1 - w0)
+                parts["span_wait"].append(w2 - w1)
+                parts["telemetry"].append(time.perf_counter() - t1
+                                          - (w1 - w0))
+            else:
+                t1 = time.perf_counter()
+                rs, m = round_fn(rs, cur)
+                t2 = time.perf_counter()
+                nxt = stage((r + 1) * pcfg.L)
+                parts["round_fn"].append(t2 - t1)
+                parts["stage"].append(time.perf_counter() - t2)
+        t3 = time.perf_counter()
+        torch.cuda.synchronize(device)
+        t4 = time.perf_counter()
+        if not instrumented:
+            parts["device_synchronize"].append(t4 - t3)
+        return rs, nxt, (t4 - t0) / k
+
+    nxt = stage(0)                         # each trial hands the next its
+    for instrumented in (False, True):     # staged batch; warm-up
+        state, nxt, _ = trial(state, nxt, 1, instrumented)
+    for v in parts.values():
+        del v[:]
+    bare, inst = [], []
+    for i in range(OBS_PAIRS):             # paired: drift hits both
+        for instrumented in ((False, True) if i % 2 == 0 else (True, False)):
+            state, nxt, dt = trial(state, nxt, OBS_ROUNDS, instrumented)
+            (inst if instrumented else bare).append(dt)
+    paired = np.array(inst) / np.array(bare)
+    ratio = float(np.exp(np.log(paired).mean()))
+    bound = OBS_RATIO + OBS_CUSHION_S / float(np.median(bare))
+    ms = lambda v: round(float(v) * 1e3, 4)   # noqa: E731
+    out = {"obs_overhead_ratio": round(ratio, 4), "bound": round(bound, 4),
+           "median_ratio": round(float(np.median(paired)), 4),
+           "min_of_trials_ratio": round(min(inst) / min(bare), 4),
+           "paired_ratios": np.round(paired, 4).tolist(),
+           "round_ms": {name: {"median": ms(np.median(t)), "min": ms(min(t))}
+                        for name, t in (("bare", bare),
+                                        ("instrumented", inst))},
+           "bare_round_ms": ms(np.median(bare)),
+           "instrumented_round_ms": ms(np.median(inst)),
+           "parts_ms": {name: ms(np.median(t)) for name, t in parts.items()},
+           "telemetry_us": {"median": round(float(np.median(
+               parts["telemetry"])) * 1e6, 2),
+               "max": round(max(parts["telemetry"]) * 1e6, 2)},
+           "pairs": OBS_PAIRS, "rounds": OBS_ROUNDS}
+    print(json.dumps({"overhead_guard": out}), flush=True)
+    check(ratio <= bound,
+          f"the instrumented round takes {ratio:.4f} x the bare round "
+          f"(geometric mean of {OBS_PAIRS} paired trials; bound "
+          f"{bound:.4f})")
+    check(reg.histogram("train.round_ms").count
+          == reg.counter("train.rounds").total
+          == 1 + OBS_PAIRS * OBS_ROUNDS,
+          "the guard's telemetry missed a round")
+    return out
+
+
+def obs_phase(device, smi) -> dict:
+    """Phase 5m: the telemetry on the card (``obs/trace.py``'s wait and
+    the instrumentation's cost); launches no kernel."""
+    phase("5m. telemetry on the card: Span.block around a product, the "
+          "overhead guard on the fused round")
+    t0 = time.perf_counter()
+    reset_launches()
+    out = {"span_block": span_block_check(device),
+           **overhead_guard(device)}
+    launch_counts()
+    _release()
+    out.update(phase_wall_s=round(time.perf_counter() - t0, 2), card=smi)
+    print(json.dumps({"obs_phase": out}), flush=True)
     return out
 
 
@@ -5572,7 +5799,8 @@ def main() -> int:
     flash_timing = flash_timing_phase(device)
     ssd_timing = ssd_timing_phase(device)
     geometry_timing = geometry_timing_phase(device, smi)
-    run = main_path_phase(device)
+    run = main_path_phase(device, smi)
+    telemetry = obs_phase(device, smi)
     mamba = mamba2_phase(device)
     families = families_phase(device)
     trained = train_phase(device)
@@ -5592,14 +5820,18 @@ def main() -> int:
     prof = trained["profile"]
     print(json.dumps({
         "throughput": {mode: {k: run[mode][k] for k in keys}
-                       for mode in ("paged_kernel", "gather",
-                                    "gather_captured")},
+                       for mode in ("paged_kernel", "gather_captured")},
         "peak_memory_gib": run["peak_memory_gib"],
         "decode_steps": run["decode_steps"],
-        "device_busy_share": run["graph"]["device_busy_share"],
         "graph": {k: run["graph"][k] for k in (
             "itl_ms", "capture_s", "busy_window")},
         "prefill_graphs": run["prefill_graphs"],
+        "naive": {k: run["naive"][k] for k in (
+            "naive", "engine_warm", "equal_requests", "differences")},
+        "obs": {k: telemetry[k] for k in (
+            "obs_overhead_ratio", "bound", "median_ratio",
+            "min_of_trials_ratio", "bare_round_ms", "instrumented_round_ms",
+            "parts_ms", "telemetry_us", "span_block")},
         "train": {"step_wall_s": trained["step_wall_s"],
                   "tokens_per_s": trained["tokens_per_s"],
                   "peak_memory_gib": trained["peak_memory_gib"],

@@ -1,6 +1,7 @@
 """Unified telemetry: metrics registry, CUDA-aware tracing, JSONL events.
 
-A copy of ``repro/obs`` (spans end on ``torch.cuda.synchronize``).  The
+A copy of ``repro/obs`` (spans end on a wait for the value's CUDA
+stream).  The
 entry points (``launch/serve.py`` in the port so far) construct one
 :class:`Obs` bundle from their ``--metrics-out`` / ``--trace-out`` flags
 and talk only to it:
@@ -9,7 +10,7 @@ and talk only to it:
   Counters are ALWAYS maintained (they are a few dict ops and feed the
   checkpoint resume stamp); histograms/gauges/spans only when a flag
   enabled them.
-* ``obs.tracer`` — spans ending on ``torch.cuda.synchronize`` when armed
+* ``obs.tracer`` — spans ending on a wait for the value's stream when armed
   (obs/trace.py); Chrome-trace JSON at ``--trace-out``.
 * ``obs.emit(kind, **fields)`` — schema-validated events, one JSON line
   per event at ``--metrics-out`` (obs/events.py).

@@ -4,10 +4,14 @@ Chrome-trace JSON (open in Perfetto / chrome://tracing).
 CUDA launches are asynchronous: the wall clock at the end of a ``with``
 block measures enqueue time, not execution.  A :class:`Span` therefore
 carries an optional *block target* — ``sp.block(x)`` arms the span so
-its ``__exit__`` runs ``torch.cuda.synchronize()`` on the device of every
-CUDA tensor in ``x`` BEFORE taking the end timestamp.  The span's
-duration then covers launch + device execution.  Kernel builds are their
-own span (``cat="compile"``) so steady-state spans stay clean.
+its ``__exit__`` waits, BEFORE taking the end timestamp, for an event
+recorded on the current stream of every CUDA device that holds a tensor
+of ``x``: the stream that produced the value, as ``jax.block_until_ready``
+waits for the value alone.  Work on other streams (a collective in
+flight, a side stream) is not waited for.  The span's duration then
+covers launch + device execution.  The serving engine's
+CUDA-graph captures are their own spans (``cat="compile"``) so
+steady-state spans stay clean.
 
 A disabled tracer hands out a shared no-op span — zero allocations,
 no timestamps, no synchronisation — so un-instrumented runs are
@@ -27,21 +31,30 @@ import time
 from typing import Any, List, Optional
 
 
-def _synchronize(x) -> None:
-    """``torch.cuda.synchronize`` every CUDA device that holds a tensor
-    of ``x``; CPU tensors are already complete."""
+def _cuda_devices(x, devices: set) -> set:
+    """The CUDA devices of the tensors in ``x`` (a tensor, or a nested
+    list / tuple / dict of them), added to ``devices``."""
     import torch
     if isinstance(x, dict):
         x = list(x.values())
-    items = x if isinstance(x, (list, tuple)) else [x]
-    devices = set()
-    for t in items:
+    for t in x if isinstance(x, (list, tuple)) else [x]:
         if isinstance(t, (list, tuple, dict)):
-            _synchronize(t)
+            _cuda_devices(t, devices)
         elif isinstance(t, torch.Tensor) and t.is_cuda:
             devices.add(t.device)
-    for d in devices:
-        torch.cuda.synchronize(d)
+    return devices
+
+
+def _synchronize(x) -> None:
+    """Wait until the CUDA tensors of ``x`` are computed: one event
+    recorded on the current stream of each device that holds one, then
+    waited for — never the whole device.  CPU tensors are already
+    complete."""
+    import torch
+    for d in _cuda_devices(x, set()):
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(d))
+        done.synchronize()
 
 
 class _NullSpan:
@@ -80,9 +93,9 @@ class Span:
         self._block: Any = None
 
     def block(self, x) -> None:
-        """Arm the span: ``__exit__`` waits for the devices holding ``x``
-        (a tensor, or a list/tuple/dict of them) before recording the
-        end timestamp."""
+        """Arm the span: ``__exit__`` waits for the streams that computed
+        ``x`` (a tensor, or a list/tuple/dict of them) before recording
+        the end timestamp."""
         self._block = x
 
     def set(self, **attrs) -> None:

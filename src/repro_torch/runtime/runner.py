@@ -14,7 +14,7 @@ file rank 0 writes.  Under a ``MeshGroups`` (axes inside a replica) only
 the world's rank 0 prints, and a checkpoint gathers each leaf's blocks
 inside the replicas, then the replicas' rows, into that same file.
 
-Spans end on ``torch.cuda.synchronize`` (``Span.block``), the
+Spans end on a wait for the metrics' CUDA stream (``Span.block``), the
 counterpart of the reference's ``block_until_ready``.  There is no AOT
 compile and no HLO to count bytes in: eager PyTorch compiles nothing,
 and the CUDA kernels are built at their first launch.
